@@ -1,0 +1,276 @@
+"""CLIP ViT-B/16 image and text towers in PyTorch.
+
+Counterpart of ``team_tpu/backbone/clip.py``. Parameters are the same nested
+dict as the JAX pytree (:mod:`team_tpu_torch.bridge` carries it across), with
+weights in ``[in, out]`` layout; every forward is a plain function of
+``(params, inputs, cfg)``. The blocks' attention runs through the packed
+Hopper kernel (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed`) under
+``attn_impl="auto"``; the large GEMMs are ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from team_tpu_torch.ops.attention import multi_head_attention
+from team_tpu_torch.ops.mha_short import fused_mha_packed
+from team_tpu_torch.ops.preprocess import patch_norm_consts
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    embed_dim: int = 512
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TextConfig:
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    embed_dim: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
+    text: TextConfig = dataclasses.field(default_factory=TextConfig)
+    embed_dim: int = 512
+
+    @staticmethod
+    def vit_b16() -> "CLIPConfig":
+        return CLIPConfig()
+
+    @staticmethod
+    def tiny(embed_dim: int = 32) -> "CLIPConfig":
+        """Small config for tests: 2-layer towers, 32-d embeddings."""
+        return CLIPConfig(
+            vision=VisionConfig(image_size=32, patch_size=16, width=64, layers=2, heads=2, embed_dim=embed_dim),
+            text=TextConfig(context_length=77, vocab_size=49408, width=64, layers=2, heads=2, embed_dim=embed_dim),
+            embed_dim=embed_dim,
+        )
+
+
+Params = Dict[str, Any]
+
+# leaves the JAX forward casts to the compute dtype at every use; layer-norm
+# affines and logit_scale stay float32 there, and so they do here
+_CAST_LEAVES = frozenset({
+    "qkv_w", "qkv_b", "out_w", "out_b", "fc_w", "fc_b", "proj_w", "proj_b",
+    "patch_w", "cls", "pos", "proj", "token_embedding"})
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen) * std
+
+
+def _ln(width: int) -> Params:
+    return {"scale": torch.ones(width), "bias": torch.zeros(width)}
+
+
+def _init_block(gen: torch.Generator, width: int) -> Params:
+    proj_std = (width ** -0.5) * ((2 * 12) ** -0.5)
+    attn_std = width ** -0.5
+    fc_std = (2 * width) ** -0.5
+    mlp_width = width * 4
+    return {
+        "ln_1": _ln(width),
+        "attn": {
+            "qkv_w": _normal(gen, (width, 3 * width), attn_std),
+            "qkv_b": torch.zeros(3 * width),
+            "out_w": _normal(gen, (width, width), proj_std),
+            "out_b": torch.zeros(width),
+        },
+        "ln_2": _ln(width),
+        "mlp": {
+            "fc_w": _normal(gen, (width, mlp_width), fc_std),
+            "fc_b": torch.zeros(mlp_width),
+            "proj_w": _normal(gen, (mlp_width, width), proj_std),
+            "proj_b": torch.zeros(width),
+        },
+    }
+
+
+def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
+    """Random float32 parameters on the CPU, with the distributions of the JAX
+    init (``team_tpu/backbone/clip.py:init_clip_params``); the bits differ,
+    since torch and JAX draw differently."""
+    v, t = cfg.vision, cfg.text
+    patch_dim = 3 * v.patch_size * v.patch_size
+    vision = {
+        "patch_w": _normal(gen, (patch_dim, v.width), v.width ** -0.5),
+        "cls": _normal(gen, (v.width,), v.width ** -0.5),
+        "pos": _normal(gen, (v.seq_len, v.width), v.width ** -0.5),
+        "ln_pre": _ln(v.width),
+        "blocks": [_init_block(gen, v.width) for _ in range(v.layers)],
+        "ln_post": _ln(v.width),
+        "proj": _normal(gen, (v.width, cfg.embed_dim), v.width ** -0.5),
+    }
+    text = {
+        "token_embedding": _normal(gen, (t.vocab_size, t.width), 0.02),
+        "pos": _normal(gen, (t.context_length, t.width), 0.01),
+        "blocks": [_init_block(gen, t.width) for _ in range(t.layers)],
+        "ln_final": _ln(t.width),
+        "proj": _normal(gen, (t.width, cfg.embed_dim), t.width ** -0.5),
+    }
+    return {"vision": vision, "text": text,
+            "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)}
+
+
+def cast_frozen_params(params: Params, compute_dtype: torch.dtype, device: torch.device) -> Params:
+    """Move the tree to ``device`` and cast, once, the leaves the forward
+    casts at every use. The towers are frozen, so this gives the values of
+    the JAX forward's per-use ``.astype``."""
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
+        dtype = compute_dtype if key in _CAST_LEAVES else tree.dtype
+        return tree.to(device=device, dtype=dtype)
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _layer_norm(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Layer norm in float32 (population variance, eps 1e-5), back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype) + b.to(x.dtype)
+
+
+def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+                   impl: str) -> torch.Tensor:
+    b, s, d = x.shape
+    dh = d // heads
+    if impl in ("attn_block", "mha_packed_proj", "mha_packed_tp"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r}: its kernel is not ported yet (ROADMAP queue 2 "
+            "items 6-7; the head split is ROADMAP queue 1 item 10)")
+    h = _layer_norm(p["ln_1"], x)
+    qkv = _linear(h, p["attn"]["qkv_w"], p["attn"]["qkv_b"])
+    if impl == "auto" and s < 512:
+        impl = "mha_packed"
+    if impl == "mha_packed":
+        o = fused_mha_packed(qkv, heads, causal=causal,
+                             kv_len=kv_len if (kv_len is not None and kv_len < s) else None)
+    else:
+        q, k, v = qkv.split(d, dim=-1)
+
+        def split_heads(t):
+            return t.reshape(b, s, heads, dh).permute(0, 2, 1, 3)
+
+        o = multi_head_attention(split_heads(q), split_heads(k), split_heads(v),
+                                 kv_len, causal=causal, impl=impl)
+        o = o.permute(0, 2, 1, 3).reshape(b, s, d)
+    x = x + _linear(o, p["attn"]["out_w"], p["attn"]["out_b"])
+    h = _layer_norm(p["ln_2"], x)
+    h = F.gelu(_linear(h, p["mlp"]["fc_w"], p["mlp"]["fc_b"]), approximate="none")
+    return x + _linear(h, p["mlp"]["proj_w"], p["mlp"]["proj_b"])
+
+
+def patch_pixels(images: torch.Tensor, cfg: CLIPConfig, *,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """``[B, H, W, 3]`` -> the patch-pixel matrix ``[B, g*g, 3*ps*ps]``
+    (channel-major inside a patch, the torch conv weight order)."""
+    v = cfg.vision
+    b = images.shape[0]
+    g, ps = v.grid, v.patch_size
+    x = images.to(compute_dtype).reshape(b, g, ps, g, ps, 3)
+    x = x.permute(0, 1, 3, 5, 2, 4)  # B, gh, gw, C, ph, pw
+    return x.reshape(b, g * g, 3 * ps * ps)
+
+
+def embed_patches(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
+                  compute_dtype=torch.float32) -> torch.Tensor:
+    """Patch embedding: ``[B, H, W, 3]`` -> ``[B, g*g, width]`` (one GEMM)."""
+    x = patch_pixels(images, cfg, compute_dtype=compute_dtype)
+    return x @ params["vision"]["patch_w"].to(compute_dtype)
+
+
+def encode_from_patches(params: Params, patch_tokens: torch.Tensor, cfg: CLIPConfig, *,
+                        compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
+    """Transformer stage over patch tokens -> ``[B, embed_dim]`` float32."""
+    v = cfg.vision
+    p = params["vision"]
+    b = patch_tokens.shape[0]
+    cls = p["cls"].to(compute_dtype).expand(b, 1, v.width)
+    x = torch.cat([cls, patch_tokens.to(compute_dtype)], dim=1)
+    x = x + p["pos"].to(compute_dtype)
+    x = _layer_norm(p["ln_pre"], x)
+    for blk in p["blocks"]:
+        x = _block_forward(blk, x, v.heads, causal=False, kv_len=v.seq_len, impl=attn_impl)
+    x = _layer_norm(p["ln_post"], x[:, 0])
+    return (x @ p["proj"].to(compute_dtype)).float()
+
+
+def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
+                 compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
+    """Image tower: ``[B, H, W, 3]`` float (normalized) -> ``[B, embed_dim]``."""
+    tokens = embed_patches(params, images, cfg, compute_dtype=compute_dtype)
+    return encode_from_patches(params, tokens, cfg, compute_dtype=compute_dtype,
+                               attn_impl=attn_impl)
+
+
+def encode_image_patches_u8(params: Params, patches_u8: torch.Tensor, cfg: CLIPConfig, *,
+                            compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
+    """Image tower over patch-major uint8 input ``[B, g*g, 3*ps*ps]`` (the
+    order of :func:`patch_pixels`); /255 and the CLIP normalize are a
+    per-column scale and bias before the patch GEMM."""
+    if patches_u8.dtype != torch.uint8:
+        raise TypeError(f"patch-major input must be uint8, got {patches_u8.dtype}")
+    scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
+    px = (patches_u8.float() * scale + bias).to(compute_dtype)
+    tokens = px @ params["vision"]["patch_w"].to(compute_dtype)
+    return encode_from_patches(params, tokens, cfg, compute_dtype=compute_dtype,
+                               attn_impl=attn_impl)
+
+
+def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig, *,
+                compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
+    """Text tower: ``[B, 77]`` int tokens -> ``[B, embed_dim]`` float32,
+    pooled at the end-of-text token (the largest id)."""
+    t = cfg.text
+    p = params["text"]
+    tokens = tokens.long()
+    x = p["token_embedding"][tokens].to(compute_dtype)
+    x = x + p["pos"].to(compute_dtype)
+    for blk in p["blocks"]:
+        x = _block_forward(blk, x, t.heads, causal=True, kv_len=t.context_length, impl=attn_impl)
+    x = _layer_norm(p["ln_final"], x)
+    eot = tokens.argmax(dim=-1)
+    x = x[torch.arange(x.shape[0], device=x.device), eot]
+    return (x @ p["proj"].to(compute_dtype)).float()

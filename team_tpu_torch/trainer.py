@@ -1,0 +1,144 @@
+"""Task-loop trainer.
+
+Counterpart of ``team_tpu/trainer.py``: seed loop, logging, DataManager,
+then per task ``incremental_train`` -> ``eval_task`` -> ``after_task``, the
+top-1 and top-"5" curves, the running average and ``metrics.jsonl``. The
+``topk=4`` metric is reported as "top5", as the reference does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import logging
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from team_tpu_torch.backbone.clip import Params
+from team_tpu_torch.config import Config
+from team_tpu_torch.data import DataManager
+from team_tpu_torch.learners.factory import get_model
+from team_tpu_torch.utils.phase_timer import phase
+from team_tpu_torch.utils.toolkit import describe_devices, resolve_device, set_random, setup_logging
+
+
+def _check_supported(cfg: Config) -> None:
+    if cfg.checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoint_dir: per-task checkpoints are not ported yet (ROADMAP queue 1 item 11)")
+    if cfg.mesh_shape:
+        raise NotImplementedError(
+            "mesh_shape: data and tensor parallelism are not ported yet (ROADMAP queue 1 item 10)")
+
+
+@contextlib.contextmanager
+def trace(profile_dir: Optional[str], name: str):
+    """``torch.profiler`` trace of the block, written to ``profile_dir``
+    (a no-op when it is unset)."""
+    if not profile_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir, worker_name=name)):
+        with torch.profiler.record_function(name):
+            yield
+
+
+def train(cfg: Config, clip_params: Optional[Params] = None) -> Dict[str, List[float]]:
+    """Run the protocol once per seed. Returns the last seed's curves, plus
+    ``"per_seed"`` with every seed's result when there are several.
+    ``clip_params``: the towers' float32 parameters (random init when absent)."""
+    seed_list = copy.deepcopy(cfg.seed)
+    if not isinstance(seed_list, (list, tuple)):
+        seed_list = [seed_list]
+    result: Dict = {}
+    per_seed: Dict = {}
+    for seed in seed_list:
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg.seed = [seed]
+        result = _train(run_cfg, clip_params)
+        per_seed[int(seed)] = result
+    if len(per_seed) > 1:
+        result = dict(result)
+        result["per_seed"] = per_seed
+    return result
+
+
+def _train(cfg: Config, clip_params: Optional[Params]) -> Dict[str, List[float]]:
+    _check_supported(cfg)
+    logs_name = setup_logging(cfg)
+    set_random(cfg.seed[0])
+    describe_devices(resolve_device(cfg.device))
+    for key, value in cfg.to_dict().items():
+        logging.info("%s: %s", key, value)
+
+    data_manager = DataManager(
+        cfg.dataset, cfg.shuffle, cfg.seed[0], cfg.init_cls, cfg.increment,
+        data_root=cfg.data_root, **cfg.get("dataset_kwargs", {}) or {},
+    )
+    logging.info("dataset: %s", cfg.dataset)
+    logging.info("total classes: %d", data_manager.get_total_classnum())
+    logging.info("tasks: %d", data_manager.nb_tasks)
+
+    model = get_model(cfg.model_name, cfg, clip_params)
+    model.save_dir = logs_name
+
+    cnn_curve: Dict[str, List[float]] = {"top1": [], "top5": []}
+    nme_curve: Dict[str, List[float]] = {"top1": [], "top5": []}
+    avg_acc = 0.0
+    for task in range(data_manager.nb_tasks):
+        logging.info("=" * 50)
+        logging.info("task %d/%d", task + 1, data_manager.nb_tasks)
+        start_time = time.time()
+
+        with trace(cfg.profile_dir, name=f"task_{task}"):
+            with phase("incremental_train"):
+                model.incremental_train(data_manager)
+        with phase("eval_task"):
+            cnn_accy, nme_accy, zs_seen, zs_unseen, zs_harmonic, zs_total = model.eval_task()
+        with phase("after_task"):
+            model.after_task()
+
+        elapsed = time.time() - start_time
+        logging.info("task %d took %.2fs", task + 1, elapsed)
+        logging.info("CNN grouped: %s", cnn_accy["grouped"])
+        logging.info("zero-shot seen/unseen/harmonic/total: %s/%s/%s/%s",
+                     zs_seen, zs_unseen, zs_harmonic, zs_total)
+
+        cnn_curve["top1"].append(cnn_accy["top1"])
+        cnn_curve["top5"].append(cnn_accy["top4"])  # top4 reported as top5
+        if nme_accy is not None:
+            nme_curve["top1"].append(nme_accy["top1"])
+            nme_curve["top5"].append(nme_accy["top4"])
+
+        logging.info("CNN top1 curve: %s", cnn_curve["top1"])
+        logging.info("CNN top5 curve: %s", cnn_curve["top5"])
+        avg_acc = sum(cnn_curve["top1"]) / len(cnn_curve["top1"])
+        logging.info("average accuracy: %.4f", avg_acc)
+
+        # machine-readable metrics stream (one JSON object per task)
+        with open(f"{logs_name}/metrics.jsonl", "a", encoding="utf-8") as f:
+            f.write(json.dumps({
+                "task": task,
+                "seconds": round(elapsed, 2),
+                "top1": float(cnn_accy["top1"]),
+                "top4_as_top5": float(cnn_accy["top4"]),
+                "grouped": {k: float(v) for k, v in cnn_accy["grouped"].items()},
+                "nme_top1": float(nme_accy["top1"]) if nme_accy else None,
+                "zs_seen": float(zs_seen), "zs_unseen": float(zs_unseen),
+                "zs_harmonic": float(zs_harmonic), "zs_total": float(zs_total),
+                "avg_acc": float(avg_acc),
+            }) + "\n")
+
+    logging.info("=" * 50)
+    logging.info("final CNN top1 curve: %s", cnn_curve["top1"])
+    logging.info("final average accuracy: %.4f", avg_acc)
+    return {"cnn_top1": cnn_curve["top1"], "cnn_top5": cnn_curve["top5"],
+            "avg_acc": [avg_acc], "nme_top1": nme_curve["top1"]}

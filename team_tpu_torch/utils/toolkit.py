@@ -1,0 +1,126 @@
+"""Metric and utility helpers.
+
+Counterpart of ``team_tpu/utils/toolkit.py`` (which imports jax, so the
+numpy metrics are repeated here unchanged), plus the device helpers that
+replace ``team_tpu/parallel/mesh.py:describe_devices``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import random
+import sys
+from datetime import datetime
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def accuracy(y_pred: np.ndarray, y_true: np.ndarray, nb_old: int, increment: int = 10) -> Dict[str, float]:
+    """Grouped CIL accuracy: total, per ``increment``-class group, old, new and
+    harmonic, in percent rounded to 2 decimals."""
+    y_pred = np.asarray(y_pred)
+    y_true = np.asarray(y_true)
+    if len(y_pred) != len(y_true):
+        raise ValueError("Data length error.")
+    all_acc: Dict[str, float] = {}
+    all_acc["total"] = np.around((y_pred == y_true).sum() * 100 / len(y_true), decimals=2)
+
+    for class_id in range(0, int(np.max(y_true)), increment):
+        idxes = np.where(np.logical_and(y_true >= class_id, y_true < class_id + increment))[0]
+        label = "{}-{}".format(str(class_id).rjust(2, "0"), str(class_id + increment - 1).rjust(2, "0"))
+        all_acc[label] = np.around((y_pred[idxes] == y_true[idxes]).sum() * 100 / len(idxes), decimals=2)
+
+    idxes = np.where(y_true < nb_old)[0]
+    all_acc["old"] = (
+        0 if len(idxes) == 0
+        else np.around((y_pred[idxes] == y_true[idxes]).sum() * 100 / len(idxes), decimals=2)
+    )
+    idxes = np.where(y_true >= nb_old)[0]
+    all_acc["new"] = (
+        0 if len(idxes) == 0
+        else np.around((y_pred[idxes] == y_true[idxes]).sum() * 100 / len(idxes), decimals=2)
+    )
+    denom = all_acc["old"] + all_acc["new"]
+    all_acc["harmonic"] = (
+        0.0 if denom == 0 else np.around(2 * all_acc["old"] * all_acc["new"] / denom, decimals=2)
+    )
+    return all_acc
+
+
+def topk_accuracy(topk_pred: np.ndarray, y_true: np.ndarray) -> float:
+    """Top-k accuracy from a ``[N, k]`` prediction matrix."""
+    correct = sum(1 for i in range(len(y_true)) if y_true[i] in topk_pred[i])
+    return float(np.around(correct * 100.0 / len(y_true), decimals=2))
+
+
+def count_parameters(params: Any) -> int:
+    """Number of elements in a tree (dicts, lists) of tensors or an ``nn.Module``."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_parameters(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_parameters(v) for v in params)
+    return int(params.numel())
+
+
+def set_random(seed: int = 1) -> None:
+    """Seed numpy, python and torch's default generators."""
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def setup_logging(cfg) -> str:
+    """Timestamped file+stdout logging; returns the run's log directory."""
+    init_cls = 0 if cfg.init_cls == cfg.increment else cfg.init_cls
+    logs_name = os.path.join(cfg.log_dir, cfg.model_name, cfg.dataset, str(init_cls), str(cfg.increment))
+    os.makedirs(logs_name, exist_ok=True)
+    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    seed = cfg.seed[0] if isinstance(cfg.seed, (list, tuple)) else cfg.seed
+    logfilename = os.path.join(
+        logs_name, "{}_{}_{}_{}".format(cfg.prefix, seed, cfg.convnet_type, timestamp)
+    )
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s [%(filename)s] => %(message)s",
+        handlers=[
+            logging.FileHandler(filename=logfilename + ".log"),
+            logging.StreamHandler(sys.stdout),
+        ],
+    )
+    return logs_name
+
+
+def resolve_device(device: Any) -> torch.device:
+    """The config's ``device`` (``[0]``, ``0``, ``"cuda:1"``, ``["cpu"]``) as a
+    ``torch.device``. A CUDA device raises when CUDA is absent: the CPU is
+    used only when asked for by name."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise NotImplementedError(
+                f"device={list(device)}: more than one device is the parallel port "
+                "(ROADMAP queue 1 item 10)")
+        device = device[0]
+    dev = torch.device("cuda", int(device)) if isinstance(device, int) or str(device).isdigit() \
+        else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available; "
+                           "pass device 'cpu' to run on the CPU")
+    return dev
+
+
+def describe_devices(device: torch.device) -> str:
+    if device.type == "cuda":
+        txt = (f"{torch.cuda.device_count()} device(s): cuda, running on {device} "
+               f"({torch.cuda.get_device_name(device)})")
+    else:
+        txt = f"running on {device}"
+    logging.info(txt)
+    return txt

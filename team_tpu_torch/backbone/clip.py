@@ -172,30 +172,38 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype) + b.to(x.dtype)
 
 
-def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
                    impl: str) -> torch.Tensor:
-    b, s, d = x.shape
+    """Attention over the packed qkv projection ``[B, S, 3D]`` -> ``[B, S, D]``:
+    ``auto`` (S < 512) and ``mha_packed`` take the packed kernel, the rest go
+    through :func:`multi_head_attention`."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
     dh = d // heads
     if impl in ("attn_block", "mha_packed_proj", "mha_packed_tp"):
         raise NotImplementedError(
             f"attn_impl={impl!r}: its kernel is not ported yet (ROADMAP queue 2 "
             "items 6-7; the head split is ROADMAP queue 1 item 10)")
-    h = _layer_norm(p["ln_1"], x)
-    qkv = _linear(h, p["attn"]["qkv_w"], p["attn"]["qkv_b"])
     if impl == "auto" and s < 512:
         impl = "mha_packed"
     if impl == "mha_packed":
-        o = fused_mha_packed(qkv, heads, causal=causal,
-                             kv_len=kv_len if (kv_len is not None and kv_len < s) else None)
-    else:
-        q, k, v = qkv.split(d, dim=-1)
+        return fused_mha_packed(qkv, heads, causal=causal,
+                                kv_len=kv_len if (kv_len is not None and kv_len < s) else None)
+    q, k, v = qkv.split(d, dim=-1)
 
-        def split_heads(t):
-            return t.reshape(b, s, heads, dh).permute(0, 2, 1, 3)
+    def split_heads(t):
+        return t.reshape(b, s, heads, dh).permute(0, 2, 1, 3)
 
-        o = multi_head_attention(split_heads(q), split_heads(k), split_heads(v),
-                                 kv_len, causal=causal, impl=impl)
-        o = o.permute(0, 2, 1, 3).reshape(b, s, d)
+    o = multi_head_attention(split_heads(q), split_heads(k), split_heads(v),
+                             kv_len, causal=causal, impl=impl)
+    return o.permute(0, 2, 1, 3).reshape(b, s, d)
+
+
+def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+                   impl: str) -> torch.Tensor:
+    h = _layer_norm(p["ln_1"], x)
+    qkv = _linear(h, p["attn"]["qkv_w"], p["attn"]["qkv_b"])
+    o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
     x = x + _linear(o, p["attn"]["out_w"], p["attn"]["out_b"])
     h = _layer_norm(p["ln_2"], x)
     h = F.gelu(_linear(h, p["mlp"]["fc_w"], p["mlp"]["fc_b"]), approximate="none")

@@ -1,0 +1,396 @@
+"""The int8 static-W8A8 image tower (``encoder_quant="int8_static"``).
+
+Counterpart of ``team_tpu/backbone/quant.py``, default route only:
+``gemm_impl="static3d_qi"`` with the CLS-last block ``"kq"`` (or ``"0"``, the
+full last block). Activation scales are calibrated once, per input channel,
+on a batch (:func:`calibrate_vision_tower`) and folded into the int8 weights
+(:func:`quantize_vision_tower_static`), so every quantize is elementwise:
+
+- ``_ln_quant3``: one-pass layer norm (E[x²]−E[x]²) straight to int8;
+- ``_static_linear3``: int8 x int8 -> int32 GEMM (``torch._int_mm`` on the
+  card), then an f32 dequant and bias, tanh GELU, and a static requantize to
+  int8 or a cast to bf16;
+- attention: the integer-QKᵀ kernels
+  (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i` and its CLS
+  variant), q and k quantized with one scale per head.
+
+Payloads are the JAX package's trees, key for key, and are saved with
+``torch.save`` in place of orbax. The other GEMM tiers and CLS modes, the
+``pv_int8``/``defer_norm`` modes and the text tower are not ported yet
+(ROADMAP queue 1 item 9, queue 2 items 2 and 12-13); they raise.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, attention_core,
+                                          embed_patches, patch_pixels)
+from team_tpu_torch.bridge import tree_to
+from team_tpu_torch.ops.int8_matmul import INV127, int8_matmul, quantize_weight
+from team_tpu_torch.ops.mha_short import fused_mha_packed_q3i, fused_mha_packed_q3i_cls
+from team_tpu_torch.ops.preprocess import patch_norm_consts
+
+BF16 = torch.bfloat16
+_LOG2E = 1.4426950408889634
+PAYLOAD_FILE = "quantized_tower.pt"
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(BF16)
+
+
+# ---------------------------------------------------------------------------
+# calibration: the bf16 tower, recording per-channel abs-max activations
+# ---------------------------------------------------------------------------
+
+def _block_calib_forward(blk: Params, x: torch.Tensor, heads: int, kv_len, *,
+                         attn_impl: str, causal: bool = False):
+    """bf16 block forward (``clip._block_forward``'s numerics) that also
+    returns the per-channel abs-max of the four GEMM inputs, of the qkv
+    output, and the signed per-head max attention logit ``qk_lmax``."""
+    b, s, d = x.shape
+    dh = d // heads
+    h = _layer_norm(blk["ln_1"], x).reshape(b * s, d)
+    a_ln1 = h.float().abs().amax(dim=0)
+    qkv = (h @ _bf16(blk["attn"]["qkv_w"]) + _bf16(blk["attn"]["qkv_b"])).reshape(b, s, 3 * d)
+    a_qkv = qkv.float().abs().amax(dim=(0, 1))
+    qh = qkv[..., :d].reshape(b, s, heads, dh).permute(0, 2, 1, 3).float()
+    kh = qkv[..., d:2 * d].reshape(b, s, heads, dh).permute(0, 2, 1, 3).float()
+    a_lmax = torch.matmul(qh, kh.transpose(-1, -2)).amax(dim=(0, 2, 3)) * dh ** -0.5
+    o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=attn_impl).reshape(b * s, d)
+    a_o = o.float().abs().amax(dim=0)
+    x = x + (o @ _bf16(blk["attn"]["out_w"]) + _bf16(blk["attn"]["out_b"])).reshape(b, s, d)
+    h = _layer_norm(blk["ln_2"], x).reshape(b * s, d)
+    a_ln2 = h.float().abs().amax(dim=0)
+    g = F.gelu(h @ _bf16(blk["mlp"]["fc_w"]) + _bf16(blk["mlp"]["fc_b"]), approximate="none")
+    a_g = g.float().abs().amax(dim=0)
+    x = x + (g @ _bf16(blk["mlp"]["proj_w"]) + _bf16(blk["mlp"]["proj_b"])).reshape(b, s, d)
+    return x, {"ln1": a_ln1, "attn_o": a_o, "ln2": a_ln2, "gelu": a_g,
+               "qkv_out": a_qkv, "qk_lmax": a_lmax}
+
+
+def calibrate_vision_tower(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
+                           attn_impl: str = "auto", return_features: bool = False):
+    """Per-block, per-channel activation abs-max over a calibration batch of
+    ``[B, H, W, 3]`` normalized images; with ``return_features`` also the
+    bf16 tower's features of that batch (this forward is the bf16 tower)."""
+    px = patch_pixels(images, cfg, compute_dtype=BF16)
+    return _calibrate_from_px(params, px, cfg, attn_impl=attn_impl,
+                              return_features=return_features)
+
+
+def calibrate_vision_tower_patches(params: Params, patches_u8: torch.Tensor, cfg: CLIPConfig, *,
+                                   attn_impl: str = "auto", return_features: bool = False):
+    """:func:`calibrate_vision_tower` over patch-major uint8 ``[B, g*g, 3*ps*ps]``."""
+    if patches_u8.dtype != torch.uint8:
+        raise TypeError(f"patch-major input must be uint8, got {patches_u8.dtype}")
+    scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
+    px = _bf16(patches_u8.float() * scale + bias)
+    return _calibrate_from_px(params, px, cfg, attn_impl=attn_impl,
+                              return_features=return_features)
+
+
+def _calibrate_from_px(params: Params, px: torch.Tensor, cfg: CLIPConfig, *,
+                       attn_impl: str, return_features: bool):
+    v = cfg.vision
+    vis = params["vision"]
+    a_patch = px.float().abs().amax(dim=(0, 1))
+    tokens = px @ _bf16(vis["patch_w"])
+    cls = _bf16(vis["cls"]).expand(tokens.shape[0], 1, v.width)
+    x = torch.cat([cls, tokens], dim=1) + _bf16(vis["pos"])
+    x = _layer_norm(vis["ln_pre"], x)
+    stats = []
+    for blk in vis["blocks"]:
+        x, st = _block_calib_forward(blk, x, v.heads, v.seq_len, attn_impl=attn_impl)
+        stats.append(st)
+    out = {"blocks": stats, "patch_in": a_patch}
+    if not return_features:
+        return out
+    feats = _layer_norm(vis["ln_post"], x[:, 0])
+    return out, (feats @ _bf16(vis["proj"])).float()
+
+
+# ---------------------------------------------------------------------------
+# quantization: fold the static activation scales into int8 weights
+# ---------------------------------------------------------------------------
+
+def _scale_of(amax: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """where(amax·margin > 0, amax·margin/127, 1) as XLA compiles it in the
+    jitted quantization: the two constants fold into one float32 factor."""
+    amax = amax.float()
+    factor = torch.tensor(margin, dtype=torch.float32) * INV127
+    return torch.where(amax * margin > 0, amax * factor.to(amax.device), torch.ones_like(amax))
+
+
+def _fold_site(w: torch.Tensor, bias: torch.Tensor, amax: torch.Tensor,
+               margin: float) -> Dict[str, torch.Tensor]:
+    s_a = _scale_of(amax, margin)  # [K]
+    w_q, w_s = quantize_weight(w.float() * s_a[:, None])
+    return {"w_q": w_q, "scale": w_s, "b": bias.float(), "inv_a": (1.0 / s_a)[None, :]}
+
+
+def quantize_block_static(blk: Params, stats: Dict[str, torch.Tensor], *, margin: float = 1.5,
+                          heads: Optional[int] = None) -> Dict[str, Any]:
+    """One block's payload; ``heads`` adds the integer-QKᵀ attention's
+    per-head-uniform q/k scales (``deq_i``, ``out_inv_a_i``, ``qk_scale``) and,
+    from ``qk_lmax``, the static softmax constant ``qk_m2``."""
+    qkv_site = _fold_site(blk["attn"]["qkv_w"], blk["attn"]["qkv_b"], stats["ln1"], margin)
+    if "qkv_out" in stats:
+        a = stats["qkv_out"].float() * margin
+        s_qkv = _scale_of(stats["qkv_out"], margin)
+        qkv_site["out_inv_a"] = (1.0 / s_qkv)[None, :]
+        qkv_site["deq"] = s_qkv[None, :]
+        if heads is not None:
+            d = a.shape[0] // 3
+            dh = d // heads
+            aq = a[:d].reshape(heads, dh).amax(dim=1).repeat_interleave(dh)
+            ak = a[d:2 * d].reshape(heads, dh).amax(dim=1).repeat_interleave(dh)
+            s_u = _scale_of(torch.cat([aq, ak, a[2 * d:]]))
+            qkv_site["deq_i"] = s_u[None, :]
+            qkv_site["out_inv_a_i"] = (1.0 / s_u)[None, :]
+            sq_h = s_u[:d].reshape(heads, dh)[:, 0]
+            sk_h = s_u[d:2 * d].reshape(heads, dh)[:, 0]
+            qkv_site["qk_scale"] = (sq_h * sk_h * dh ** -0.5)[None, :]
+            if "qk_lmax" in stats:
+                # calibrated max logit in exp2 units, with 2 nats of headroom
+                qkv_site["qk_m2"] = ((stats["qk_lmax"].float() + 2.0) * _LOG2E)[None, :]
+    return {
+        "ln_1": blk["ln_1"], "ln_2": blk["ln_2"],
+        "qkv": qkv_site,
+        "out": _fold_site(blk["attn"]["out_w"], blk["attn"]["out_b"], stats["attn_o"], margin),
+        "fc": _fold_site(blk["mlp"]["fc_w"], blk["mlp"]["fc_b"], stats["ln2"], margin),
+        "proj": _fold_site(blk["mlp"]["proj_w"], blk["mlp"]["proj_b"], stats["gelu"], margin),
+    }
+
+
+def quantize_vision_tower_static(params: Params, calib_stats, *, margin: float = 1.5,
+                                 heads: Optional[int] = None) -> Dict[str, Any]:
+    """Static-W8A8 payload of the image tower from float32 ``params`` and the
+    stats of :func:`calibrate_vision_tower` (or a bare per-block list)."""
+    v = params["vision"]
+    block_stats = calib_stats if isinstance(calib_stats, (list, tuple)) else calib_stats["blocks"]
+    return {
+        "patch_w": v["patch_w"], "cls": v["cls"], "pos": v["pos"], "ln_pre": v["ln_pre"],
+        "blocks": [quantize_block_static(b, st, margin=margin, heads=heads)
+                   for b, st in zip(v["blocks"], block_stats)],
+        "ln_post": v["ln_post"], "proj": v["proj"],
+        "patch_q": _quantize_patch_dot(v["patch_w"]),
+    }
+
+
+def _quantize_patch_dot(patch_w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """u8-exact int8 patch embedding for patch-major uint8 input:
+    ``(u8*scale + bias) @ W == (u8-128) @ (scale⊙W) + [128·colsum(scale⊙W) + bias@W]``,
+    and the centred input is exact in int8."""
+    ps = int(round((patch_w.shape[0] // 3) ** 0.5))
+    scale, bias = patch_norm_consts(ps, device=patch_w.device)
+    w32 = patch_w.float()
+    a = w32 * scale[:, None]
+    w_q, w_s = quantize_weight(a)
+    const = 128.0 * a.sum(dim=0) + bias @ w32
+    return {"w_q": w_q, "scale": w_s, "const": const[None, :]}
+
+
+# ---------------------------------------------------------------------------
+# the int8 forward
+# ---------------------------------------------------------------------------
+
+def _quant(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
+    """Static quantize: clip(round(x·inv_a), ±127) to int8 (round half to even)."""
+    return torch.clamp(torch.round(x * inv_a.reshape(-1)), -127, 127).to(torch.int8)
+
+
+def _static_quant3(x3: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
+    return _quant(x3.float(), inv_a)
+
+
+def _static_linear3(q3: torch.Tensor, site: Dict[str, torch.Tensor], activation: Optional[str] = None,
+                    quant_inv_a: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[B, S, K] int8 @ [K, N] int8`` -> int32, then f32 dequant and bias,
+    optional tanh GELU, and a static requantize to int8 (``quant_inv_a``) or
+    a cast to bf16."""
+    acc = int8_matmul(q3, site["w_q"])
+    out = acc.float() * site["scale"].reshape(-1) + site["b"].reshape(-1)
+    if activation == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    if quant_inv_a is not None:
+        return _quant(out, quant_inv_a)
+    return _bf16(out)
+
+
+def _ln_quant3(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
+    """Layer norm -> static int8 in one pass over ``[B, S, D]``: the variance
+    is max(E[x²]−E[x]², 0) (the JAX tier's one-pass form, not
+    ``torch.var``), and the LN affine folds into the quantize constants."""
+    x32 = x3.float()
+    n = x3.shape[-1]
+    mean = x32.sum(dim=-1, keepdim=True) / n
+    var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / n - mean * mean, min=0.0)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    inv = inv_a.reshape(-1)
+    return torch.clamp(torch.round(y * (ln["scale"].float() * inv) + ln["bias"].float() * inv),
+                       -127, 127).to(torch.int8)
+
+
+def _qkv_int8(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    site = qb["qkv"]
+    return _static_linear3(_ln_quant3(x, qb["ln_1"], site["inv_a"]), site,
+                           quant_inv_a=site["out_inv_a_i"])
+
+
+def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    g = _static_linear3(_ln_quant3(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
+                        activation="gelu", quant_inv_a=qb["proj"]["inv_a"])
+    return x + _static_linear3(g, qb["proj"])
+
+
+def _qblock_forward_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                                causal: bool = False) -> torch.Tensor:
+    """Static-W8A8 block with integer-QKᵀ attention: one-pass LN -> int8 ->
+    qkv GEMM requantized with per-head-uniform q/k scales ->
+    :func:`fused_mha_packed_q3i` -> out-projection -> residual; then the MLP."""
+    s = x.shape[1]
+    site = qb["qkv"]
+    oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
+                              qb["out"]["inv_a"], heads, causal=causal,
+                              kv_len=kv_len if (kv_len is not None and kv_len < s) else None,
+                              qk_m2=site.get("qk_m2"))
+    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
+
+
+def _qblock_forward_static3d_qi_cls(qb: Dict[str, Any], x: torch.Tensor,
+                                    heads: int) -> torch.Tensor:
+    """The last block in CLS-only form (``TEAM_CLS_LAST="kq"``,
+    ``quant.py:_qblock_forward_static3d_qi_clsmlp``): the pooled feature is
+    row 0, so attention computes the CLS query only
+    (:func:`fused_mha_packed_q3i_cls`) and the out-projection, LN2 and MLP run
+    on ``[B, 1, D]``. The qkv GEMM stays full: K and V need every token."""
+    site = qb["qkv"]
+    oq = fused_mha_packed_q3i_cls(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
+                                  qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
+    return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
+
+
+_GEMM_IMPLS = ("xla", "hybrid", "static", "static_qa", "static3d", "static3d_qa", "static3d_qaf",
+               "static3d_qi", "static3d_qis", "static3d_qib", "static3d_qi2", "pallas")
+
+
+def check_route(gemm_impl: str) -> None:
+    """Raise on an int8 route or probe knob that the port does not have."""
+    if gemm_impl not in _GEMM_IMPLS:
+        raise ValueError(f"unknown int8 gemm_impl {gemm_impl!r}")
+    if gemm_impl != "static3d_qi":
+        raise NotImplementedError(
+            f"int8 gemm_impl={gemm_impl!r}: only 'static3d_qi' is ported (ROADMAP queue 1 "
+            "item 9; its GEMM and attention kernels are queue 2 items 2 and 8-13)")
+    for knob, default in (("TEAM_LN_MODE", "1pass"), ("TEAM_GELU", "tanh")):
+        value = os.environ.get(knob, default)
+        if value != default:
+            raise NotImplementedError(f"{knob}={value!r}: only {default!r} is ported "
+                                      "(ROADMAP queue 1 item 9)")
+
+
+def _cls_mode(cls_last) -> str:
+    if cls_last is True:
+        mode = "attn"
+    elif cls_last is False:
+        mode = "0"
+    elif cls_last is None:
+        mode = os.environ.get("TEAM_CLS_LAST", "kq")
+    else:
+        mode = cls_last
+    if mode not in ("kq", "0"):
+        raise NotImplementedError(f"CLS-last mode {mode!r}: only 'kq' and '0' are ported "
+                                  "(ROADMAP queue 1 item 9; 'kqs' is queue 2 item 10)")
+    return mode
+
+
+def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig, *,
+                        gemm_impl: str, cls_last) -> torch.Tensor:
+    """The quantized tower over patch tokens ``[B, g*g, width]`` ->
+    ``[B, embed_dim]`` float32. ``cls_last`` (default env ``TEAM_CLS_LAST``,
+    ``"kq"``): the last block in CLS-only form; ``"0"``/False: in full."""
+    check_route(gemm_impl)
+    use_cls = _cls_mode(cls_last) == "kq"
+    v = cfg.vision
+    cls = _bf16(qvision["cls"]).expand(tokens.shape[0], 1, v.width)
+    x = torch.cat([cls, _bf16(tokens)], dim=1) + _bf16(qvision["pos"])
+    x = _layer_norm(qvision["ln_pre"], x)
+    blocks = qvision["blocks"]
+    for qb in (blocks[:-1] if use_cls else blocks):
+        x = _qblock_forward_static3d_qi(qb, x, v.heads, v.seq_len)
+    x = _qblock_forward_static3d_qi_cls(blocks[-1], x, v.heads)[:, 0] if use_cls else x[:, 0]
+    x = _layer_norm(qvision["ln_post"], x)
+    return (x @ _bf16(qvision["proj"])).float()
+
+
+def encode_image_int8(qvision: Dict[str, Any], images: torch.Tensor, cfg: CLIPConfig, *,
+                      gemm_impl: str = "static3d_qi", cls_last=None) -> torch.Tensor:
+    """Quantized image tower: ``[B, H, W, 3]`` normalized images ->
+    ``[B, embed_dim]`` float32. The patch embedding stays bf16."""
+    fake = {"vision": {"patch_w": qvision["patch_w"]}}
+    tokens = embed_patches(fake, images, cfg, compute_dtype=BF16)
+    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+
+
+def encode_image_int8_u8(qvision: Dict[str, Any], images_u8: torch.Tensor, cfg: CLIPConfig, *,
+                         gemm_impl: str = "static3d_qi", cls_last=None) -> torch.Tensor:
+    """uint8 ``[B, S, S, 3]`` images at the model size: the patch reorder
+    runs on the uint8 tensor, and /255 and the CLIP normalize are a
+    per-column scale and bias before the bf16 patch GEMM."""
+    v = cfg.vision
+    if images_u8.dtype != torch.uint8 or tuple(images_u8.shape[1:3]) != (v.image_size,) * 2:
+        raise ValueError(f"needs uint8 images of {v.image_size}x{v.image_size}, got "
+                         f"{images_u8.dtype} {tuple(images_u8.shape)}")
+    px_u8 = patch_pixels(images_u8, cfg, compute_dtype=torch.uint8)
+    scale, bias = patch_norm_consts(v.patch_size, device=images_u8.device)
+    tokens = _bf16(px_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
+    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+
+
+def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor, cfg: CLIPConfig,
+                              *, gemm_impl: str = "static3d_qi", patch_dot: Optional[str] = None,
+                              cls_last=None) -> torch.Tensor:
+    """Patch-major uint8 ``[B, g*g, 3*ps*ps]`` -> ``[B, embed_dim]`` float32.
+
+    ``patch_dot`` (default env ``TEAM_PATCH_DOT``, ``"int8"``): the u8-exact
+    int8 patch GEMM of :func:`_quantize_patch_dot`; ``"bf16"`` (or a payload
+    without ``patch_q``): the bf16 patch GEMM."""
+    if patches_u8.dtype != torch.uint8:
+        raise TypeError(f"patch-major input must be uint8, got {patches_u8.dtype}")
+    if patch_dot is None:
+        patch_dot = os.environ.get("TEAM_PATCH_DOT", "int8")
+    if patch_dot not in ("int8", "bf16"):
+        raise ValueError(f"patch_dot must be 'int8' or 'bf16', got {patch_dot!r}")
+    if patch_dot == "int8" and "patch_q" in qvision:
+        pq = qvision["patch_q"]
+        x_i8 = (patches_u8.int() - 128).to(torch.int8)
+        acc = int8_matmul(x_i8, pq["w_q"])
+        tokens = _bf16(acc.float() * pq["scale"].reshape(-1) + pq["const"].reshape(-1))
+    else:
+        scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
+        tokens = _bf16(patches_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
+    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+
+
+# ---------------------------------------------------------------------------
+# persistence: a payload that passed its cosine gate, reused by later runs
+# ---------------------------------------------------------------------------
+
+def save_quantized_tower(path: str, qvision: Dict[str, Any]) -> None:
+    """Save a payload into the directory ``path`` (created if needed). Save
+    only payloads that passed the cosine gate: the loader trusts them."""
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, PAYLOAD_FILE + ".tmp")
+    torch.save(tree_to(qvision, torch.device("cpu")), tmp)
+    os.replace(tmp, os.path.join(path, PAYLOAD_FILE))
+
+
+def load_quantized_tower(path: str, device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Load a payload saved by :func:`save_quantized_tower` onto ``device``."""
+    return torch.load(os.path.join(path, PAYLOAD_FILE), map_location=device, weights_only=True)

@@ -14,7 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-_DTYPES = (np.float32, np.float64, np.int32, np.int64, np.uint8, np.bool_)
+_DTYPES = (np.float32, np.float64, np.int32, np.int64, np.int8, np.uint8, np.bool_)
 
 
 def params_from_numpy(tree: Any, device: Optional[torch.device] = None) -> Any:
@@ -36,3 +36,12 @@ def params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().cpu().numpy()
+
+
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """The same tree of tensors, moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)

@@ -4,26 +4,38 @@ Counterpart of ``team_tpu/learners/backbone_runtime.py``: builds the ViT-B/16
 towers and the tokenizer, and exposes ``encode_image`` (float, uint8 and
 patch-major uint8 routes) and ``encode_texts`` with a text-feature cache
 keyed by the prompt string (exact, since the towers are frozen).
+
+With ``encoder_quant="int8_static"`` the image tower is the static-W8A8
+int8 tower (:mod:`team_tpu_torch.backbone.quant`): the first batch
+calibrates it and gets the bf16 tower's features; the next, held-out batch
+runs the cosine gate (min cosine >= 0.999 against the bf16 tower); a pass
+commits the quantized tower (and saves it under ``int8_cache_dir`` when
+set, for later runs to load), a failure logs a warning and serves bf16 from
+then on. The text tower stays in the compute dtype.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Sequence
+import pickle
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from team_tpu_torch.backbone import quant
 from team_tpu_torch.backbone.clip import (
     CLIPConfig, Params, cast_frozen_params, encode_image, encode_image_patches_u8,
     encode_text, init_clip_params)
 from team_tpu_torch.backbone.tokenizer import Tokenizer
+from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.config import Config
 from team_tpu_torch.ops.preprocess import preprocess_batch
 from team_tpu_torch.utils.toolkit import resolve_device
 
 _KNOWN_TYPES = ("clip", "clip_laion2b", "openai_clip")
+GATE_MIN_COSINE = 0.999
 
 
 def clip_config_for(cfg: Config) -> CLIPConfig:
@@ -45,11 +57,13 @@ class BackboneRuntime:
             raise NotImplementedError(
                 "TEAM_CLIP_CHECKPOINT: the open_clip checkpoint loader is not ported "
                 "yet (ROADMAP queue 1 item 2)")
-        encoder_quant = cfg.get("encoder_quant", "bf16")
-        if encoder_quant != "bf16":
-            raise NotImplementedError(
-                f"encoder_quant={encoder_quant!r}: the int8 static tier is not "
-                "ported yet (ROADMAP queue 1 item 9)")
+        self.encoder_quant = cfg.get("encoder_quant", "bf16")
+        if self.encoder_quant not in ("bf16", "int8_static"):
+            raise NotImplementedError(f"encoder_quant={self.encoder_quant!r}: the port has "
+                                      "'bf16' and 'int8_static'")
+        self.int8_impl = cfg.get("int8_gemm_impl", "static3d_qi")
+        if self.encoder_quant == "int8_static":
+            quant.check_route(self.int8_impl)
         self.cfg = cfg
         self.clip_cfg = clip_config_for(cfg)
         self.device = resolve_device(cfg.device)
@@ -62,22 +76,116 @@ class BackboneRuntime:
         self.out_dim = self.clip_cfg.embed_dim
         self.attn_impl = cfg.attention_impl
         self._text_cache: Dict[str, np.ndarray] = {}
+        # int8 tier state: the float32 image tower is quantized after calibration
+        self._vision_f32: Optional[Params] = (params["vision"] if self.encoder_quant == "int8_static"
+                                              else None)
+        self._qvision: Optional[Dict[str, Any]] = None
+        self._qvision_pending: Optional[Dict[str, Any]] = None
+        self.gate_cosine: Optional[float] = None  # min held-out cosine of the last gate
 
     def to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    @staticmethod
+    def _is_patch_major(images: torch.Tensor) -> bool:
+        return images.dtype == torch.uint8 and images.dim() == 3
 
     # -- frozen-backbone encodes ---------------------------------------
     @torch.no_grad()
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """``[B, H, W, 3]`` float or uint8, or patch-major uint8
         ``[B, g*g, 3*ps*ps]`` -> ``[B, embed_dim]`` float32."""
+        if self.encoder_quant == "int8_static":
+            if self._qvision is None and self._qvision_pending is None:
+                self._try_load_int8_cache()
+            if self._qvision is not None:
+                return self._encode_int8(self._qvision, images)
+            if self._qvision_pending is None:
+                return self._calibrate_int8(images)
+            return self._gate_int8(images)
         kw = dict(compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
-        if images.dtype == torch.uint8 and images.dim() == 3:
+        if self._is_patch_major(images):
             return encode_image_patches_u8(self.params, images, self.clip_cfg, **kw)
         if images.dtype == torch.uint8:
             images = preprocess_batch(images, self.clip_cfg.vision.image_size)
         return encode_image(self.params, images, self.clip_cfg, **kw)
 
+    # -- int8 static tier ------------------------------------------------
+    @property
+    def int8_committed(self) -> bool:
+        return self._qvision is not None
+
+    def _encode_int8(self, qv: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
+        if self._is_patch_major(images):
+            return quant.encode_image_int8_patches(qv, images, self.clip_cfg,
+                                                   gemm_impl=self.int8_impl)
+        if images.dtype == torch.uint8:
+            images = preprocess_batch(images, self.clip_cfg.vision.image_size)
+        return quant.encode_image_int8(qv, images, self.clip_cfg, gemm_impl=self.int8_impl)
+
+    def _calib_forward(self, images: torch.Tensor):
+        """The calibration forward, which is the bf16 tower: (stats, features)."""
+        kw = dict(attn_impl=self.attn_impl, return_features=True)
+        if self._is_patch_major(images):
+            return quant.calibrate_vision_tower_patches(self.params, images, self.clip_cfg, **kw)
+        if images.dtype == torch.uint8:
+            images = preprocess_batch(images, self.clip_cfg.vision.image_size)
+        return quant.calibrate_vision_tower(self.params, images, self.clip_cfg, **kw)
+
+    def _calibrate_int8(self, images: torch.Tensor) -> torch.Tensor:
+        """Calibrate on this batch and return its bf16 features; the gate
+        waits for the next batch, so that it runs on held-out data."""
+        calib, ref = self._calib_forward(images)
+        params32 = {"vision": tree_to(self._vision_f32, self.device)}
+        self._qvision_pending = quant.quantize_vision_tower_static(
+            params32, calib, heads=self.clip_cfg.vision.heads)
+        logging.info("int8_static calibrated; cosine gate pending on the next (held-out) batch")
+        return ref
+
+    def _gate_int8(self, images: torch.Tensor) -> torch.Tensor:
+        """Held-out cosine gate of the pending quantized tower against the
+        bf16 tower on this batch: commit it, or fall back to bf16."""
+        qv, self._qvision_pending = self._qvision_pending, None
+        _, ref = self._calib_forward(images)
+        feats = self._encode_int8(qv, images)
+        a, b = ref.double(), feats.double()
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-30)
+        self.gate_cosine = float(cos.min())
+        if self.gate_cosine >= GATE_MIN_COSINE:
+            self._commit(qv)
+            logging.info("int8_static encoder enabled (held-out cosine min %.6f)",
+                         self.gate_cosine)
+            cache = self.cfg.get("int8_cache_dir")
+            if cache:
+                quant.save_quantized_tower(cache, qv)
+                logging.info("validated quantized tower saved to %s", cache)
+            return feats
+        self.encoder_quant = "bf16"
+        self._vision_f32 = None
+        logging.warning("int8_static held-out cosine gate FAILED (min %.6f) -- falling back "
+                        "to bf16 encode", self.gate_cosine)
+        return ref
+
+    def _commit(self, qv: Dict[str, Any]) -> None:
+        self._qvision = qv
+        self._vision_f32 = None  # quantized; the float32 copy is not needed any more
+
+    def _try_load_int8_cache(self) -> bool:
+        """Load a payload that passed its gate in an earlier run (skips
+        calibration and the gate)."""
+        cache = self.cfg.get("int8_cache_dir")
+        if not cache or not os.path.isfile(os.path.join(cache, quant.PAYLOAD_FILE)):
+            return False
+        try:
+            qv = quant.load_quantized_tower(cache, self.device)
+        except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+            logging.warning("int8 cache load failed (%s); recalibrating", e)
+            return False
+        self._commit(qv)
+        logging.info("loaded validated quantized tower from %s (calibration skipped)", cache)
+        return True
+
+    # -- text ------------------------------------------------------------
     @torch.no_grad()
     def encode_text_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return encode_text(self.params, tokens, self.clip_cfg,

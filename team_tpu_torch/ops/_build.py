@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "team_tpu_torch"
@@ -40,29 +40,59 @@ def nvcc_path() -> str:
     return found
 
 
+def _target(source: str) -> Path:
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def _compile(sources: Iterable[str]) -> None:
+    """Compile the sources whose library is not built yet, one ``nvcc`` each,
+    all started together; wait for every one of them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for source in dict.fromkeys(sources):
+            out = _target(source)
+            if source in _LIBS or out.exists():
+                continue
+            # build beside the target and rename: a concurrent process never loads a torn file
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((source, out, tmp, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for source, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source}:\n{log}")
+                continue
+            BUILD_LOGS[source] = log
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` for sm_90a (once per process and source hash)
     and return the loaded library."""
-    if source in _LIBS:
-        return _LIBS[source]
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if not out.exists():
-        # build beside the target and rename: a concurrent process never loads a torn file
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-            BUILD_LOGS[source] = proc.stdout + proc.stderr
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(out))
-    _LIBS[source] = lib
-    return lib
+    if source not in _LIBS:
+        _compile([source])
+        _LIBS[source] = ctypes.CDLL(str(_target(source)))
+    return _LIBS[source]
+
+
+def build_all(sources: Iterable[str]) -> None:
+    """Compile several sources in parallel and load them (set-up)."""
+    sources = list(sources)
+    _compile(sources)
+    for source in sources:
+        load_library(source)

@@ -1,25 +1,32 @@
-"""Packed multi-head attention: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Packed multi-head attention: the hand-written Hopper kernels and their
+plain PyTorch versions.
 
-Counterpart of ``team_tpu/ops/mha_short.py:fused_mha_packed`` (TPU kernel
-``_mha_packed_kernel``). Attention runs straight from the packed qkv
-projection ``[B, S, 3*D]`` to ``[B, S, D]``, without head-split copies. The
-CUDA kernel is ``team_tpu_torch/csrc/mha_packed.cu``; it is compiled with
-``nvcc`` on first use and bound with ``ctypes``. Forward only: the towers that
-call it are frozen.
+Counterparts of ``team_tpu/ops/mha_short.py``:
+- ``fused_mha_packed`` (TPU kernel ``_mha_packed_kernel``): attention
+  straight from the packed qkv projection ``[B, S, 3*D]`` to ``[B, S, D]``,
+  without head-split copies; CUDA kernel ``csrc/mha_packed.cu``.
+- ``fused_mha_packed_q3i`` and ``fused_mha_packed_q3i_cls`` (TPU kernels
+  ``_mha_packed_q3i_kernel`` and ``_mha_packed_q3i_cls_kernel``): the int8
+  static-W8A8 tier's integer-QKᵀ attention, int8 ``[B, S, 3*D]`` to int8
+  ``[B, S, D]`` (or the CLS row only, ``[B, 1, D]``); CUDA kernels
+  ``csrc/mha_packed_q3i.cu``.
 
-On a CPU tensor the wrapper computes :func:`mha_packed_reference`; on a CUDA
-tensor it launches the kernel or raises.
+The kernels are compiled with ``nvcc`` on first use and bound with
+``ctypes``. Forward only: the towers that call them are frozen. On a CPU
+tensor each wrapper computes its plain version; on a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)  # the kernel's compiled head widths
@@ -74,8 +81,13 @@ def _library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Compile and load the kernel now (set-up), instead of at its first call."""
+    """Compile and load every kernel of this module now (set-up), instead of
+    at its first call: one ``nvcc`` for each source, started together."""
+    from team_tpu_torch.ops._build import build_all
+
+    build_all([_SOURCE, _Q3I_SOURCE])
     _library()
+    _q3i_library()
 
 
 def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
@@ -129,6 +141,188 @@ fused_mha_packed.launches = 0
 fused_mha_packed.causal_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# integer-QKᵀ attention of the int8 static-W8A8 tier
+# ---------------------------------------------------------------------------
+
+_Q3I_SOURCE = "mha_packed_q3i.cu"
+_Q3I_HEAD_DIMS = (32, 64, 128)
+
+
+def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                             o_inv: torch.Tensor, heads: int, causal: bool = False,
+                             kv_len: Optional[int] = None, qk_m2: Optional[torch.Tensor] = None,
+                             rows: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel's default route
+    (``rowsum="mxu"``, ``mha_short.py:516-571``).
+
+    q·kᵀ is an exact integer sum (in float64 here, which holds it exactly
+    and runs on both devices); ``qk_m2`` given, p = exp2(acc·(qks·log2e) −
+    m2), else the f32 row-max softmax over the masked logits. p is rounded to
+    bf16; the numerator p·v (raw int8 v) and the denominator Σp accumulate in
+    f32; out = num·(deq_v·o_inv)/den, rounded half to even and clipped to
+    ±127. ``rows`` computes only the first query rows (1: the CLS kernel)."""
+    b, s, d3 = qkv_q.shape
+    d = d3 // 3
+    dh = d // heads
+    q, k, v = (_split_heads(t, heads) for t in qkv_q.split(d, dim=-1))
+    if rows is not None:
+        q = q[:, :, :rows]
+    r = q.shape[2]
+    acc = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
+    qks = qk_scale.reshape(1, heads, 1, 1).float()
+    if qk_m2 is not None:
+        p = torch.exp2(acc * (qks * LOG2E) - qk_m2.reshape(1, heads, 1, 1).float())
+    else:
+        logits = acc * qks
+        rows_i = torch.arange(r, device=qkv_q.device)[:, None]
+        cols = torch.arange(s, device=qkv_q.device)[None, :]
+        mask = cols < (s if kv_len is None else kv_len)
+        if causal:
+            mask = mask & (cols <= rows_i)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    pb = p.to(torch.bfloat16).float()
+    num = torch.matmul(pb, v.float())
+    den = pb.sum(dim=-1, keepdim=True)
+    pv_scale = (deq.reshape(-1)[2 * d:].float() * o_inv.reshape(-1).float()).reshape(1, heads, 1, dh)
+    out = torch.clamp(torch.round(num * pv_scale / den), -127, 127).to(torch.int8)
+    return out.permute(0, 2, 1, 3).reshape(b, r, d)
+
+
+def _q3i_library() -> ctypes.CDLL:
+    from team_tpu_torch.ops._build import load_library
+
+    lib = load_library(_Q3I_SOURCE)
+    ptrs = [ctypes.c_void_p] * 6  # qkv, deq, qk_scale, o_inv, qk_m2 (or NULL), out
+    ints = [ctypes.c_int] * 4     # batch, seq, heads, dh
+    lib.team_mha_packed_q3i_fwd.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_int,
+                                                          ctypes.c_void_p]
+    lib.team_mha_packed_q3i_cls_fwd.argtypes = ptrs + ints + [ctypes.c_void_p]
+    lib.team_mha_packed_q3i_fwd.restype = ctypes.c_int
+    lib.team_mha_packed_q3i_cls_fwd.restype = ctypes.c_int
+    lib.team_mha_packed_q3i_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.team_mha_packed_q3i_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _q3i_softmax_is_static(qk_m2, masked: bool) -> bool:
+    """The TPU wrapper's choice (``mha_short.py:627-631``): the calibrated
+    static-max softmax when ``TEAM_QI_SOFTMAX`` is ``static`` (the default),
+    ``qk_m2`` is given and nothing is masked; the f32 row-max form otherwise."""
+    mode = os.environ.get("TEAM_QI_SOFTMAX", "static")
+    if mode not in ("static", "f32"):
+        raise NotImplementedError(f"TEAM_QI_SOFTMAX={mode!r}: only 'static' and 'f32' are "
+                                  "ported (ROADMAP queue 2 item 2)")
+    rowsum = os.environ.get("TEAM_QI_ROWSUM", "mxu")
+    if rowsum != "mxu":
+        raise NotImplementedError(f"TEAM_QI_ROWSUM={rowsum!r}: only the ones-column row sum "
+                                  "('mxu') is ported (ROADMAP queue 2 item 2)")
+    return mode == "static" and qk_m2 is not None and not masked
+
+
+def _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2, heads: int):
+    """Check the q3i inputs; returns the per-head vectors as flat float32."""
+    if qkv_q.dim() != 3 or qkv_q.shape[-1] % 3:
+        raise ValueError(f"qkv_q must be [B, S, 3*D], got {tuple(qkv_q.shape)}")
+    if qkv_q.dtype != torch.int8:
+        raise TypeError(f"qkv_q must be int8, got {qkv_q.dtype}")
+    d3 = qkv_q.shape[-1]
+    d = d3 // 3
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    vecs = []
+    for name, t, n in (("deq", deq, d3), ("qk_scale", qk_scale, heads), ("o_inv", o_inv, d),
+                       ("qk_m2", qk_m2, heads)):
+        if t is None:
+            vecs.append(None)
+            continue
+        if t.numel() != n:
+            raise ValueError(f"{name} must hold {n} values, got shape {tuple(t.shape)}")
+        if t.device != qkv_q.device:
+            raise ValueError(f"{name} lies on {t.device}, qkv_q on {qkv_q.device}")
+        vecs.append(t.reshape(-1).float().contiguous())
+    return vecs
+
+
+def _q3i_launch(entry: str, qkv_q, vecs, out, heads: int, *extra) -> None:
+    b, s, d3 = qkv_q.shape
+    dh = d3 // 3 // heads
+    if qkv_q.device.type != "cuda":
+        raise ValueError(f"the q3i kernels run on CPU or CUDA tensors, got {qkv_q.device}")
+    if not qkv_q.is_contiguous() or qkv_q.data_ptr() % 16:
+        raise ValueError("qkv_q must be contiguous and 16-byte aligned")
+    if dh not in _Q3I_HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {_Q3I_HEAD_DIMS})")
+    lib = _q3i_library()
+    smem = lib.team_mha_packed_q3i_smem_bytes(s, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V (limit {_SMEM_LIMIT})")
+    deq, qks, o_inv, m2 = vecs
+    with torch.cuda.device(qkv_q.device):
+        err = getattr(lib, entry)(
+            qkv_q.data_ptr(), deq.data_ptr(), qks.data_ptr(), o_inv.data_ptr(),
+            None if m2 is None else m2.data_ptr(), out.data_ptr(), b, s, heads, dh, *extra,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def fused_mha_packed_q3i(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                         o_inv: torch.Tensor, heads: int, *, causal: bool = False,
+                         kv_len: Optional[int] = None, qk_m2: Optional[torch.Tensor] = None,
+                         pv_int8: bool = False, defer_norm: bool = False) -> torch.Tensor:
+    """Integer-QKᵀ static-W8A8 attention: ``[B, S, 3D]`` int8 qkv (q and k
+    quantized with per-head-uniform scales) -> ``[B, S, D]`` int8.
+
+    ``deq: [1, 3D]`` dequant scales, ``qk_scale: [1, H]`` the per-head logit
+    scale s_q·s_k·dh^-0.5, ``o_inv: [1, D]`` the out-projection's static
+    quantize scales, ``qk_m2: [1, H]`` the calibrated max logit in exp2 units.
+    Each kernel launch adds one to ``fused_mha_packed_q3i.launches``."""
+    if pv_int8 or defer_norm:
+        raise NotImplementedError("pv_int8 and defer_norm (gemm_impl static3d_qi2, "
+                                  "TEAM_QI_DEFER=1) are not ported (ROADMAP queue 2 item 2)")
+    s = qkv_q.shape[1] if qkv_q.dim() == 3 else 0
+    if kv_len is not None and not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
+    if kv_len == s:
+        kv_len = None
+    static = _q3i_softmax_is_static(qk_m2, causal or kv_len is not None)
+    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if static else None, heads)
+    if qkv_q.device.type == "cpu":
+        return mha_packed_q3i_reference(qkv_q, *vecs[:3], heads, causal, kv_len, vecs[3])
+    b, s, d3 = qkv_q.shape
+    out = torch.empty((b, s, d3 // 3), dtype=torch.int8, device=qkv_q.device)
+    _q3i_launch("team_mha_packed_q3i_fwd", qkv_q, vecs, out, heads,
+                s if kv_len is None else kv_len, int(causal))
+    fused_mha_packed_q3i.launches += 1
+    return out
+
+
+def fused_mha_packed_q3i_cls(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                             o_inv: torch.Tensor, heads: int, *,
+                             qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Integer-QKᵀ attention for the CLS query only: ``[B, S, 3D]`` int8 ->
+    ``[B, 1, D]`` int8, row 0 of what :func:`fused_mha_packed_q3i` returns
+    (non-causal, every key). Each kernel launch adds one to
+    ``fused_mha_packed_q3i_cls.launches``."""
+    static = _q3i_softmax_is_static(qk_m2, False)
+    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if static else None, heads)
+    if qkv_q.device.type == "cpu":
+        return mha_packed_q3i_reference(qkv_q, *vecs[:3], heads, qk_m2=vecs[3], rows=1)
+    b, _, d3 = qkv_q.shape
+    out = torch.empty((b, 1, d3 // 3), dtype=torch.int8, device=qkv_q.device)
+    _q3i_launch("team_mha_packed_q3i_cls_fwd", qkv_q, vecs, out, heads)
+    fused_mha_packed_q3i_cls.launches += 1
+    return out
+
+
+fused_mha_packed_q3i.launches = 0
+fused_mha_packed_q3i_cls.launches = 0
+
+
 def reset_launch_counts() -> None:
     fused_mha_packed.launches = 0
     fused_mha_packed.causal_launches = 0
+    fused_mha_packed_q3i.launches = 0
+    fused_mha_packed_q3i_cls.launches = 0

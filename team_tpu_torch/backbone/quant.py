@@ -1,23 +1,40 @@
 """The int8 static-W8A8 image tower (``encoder_quant="int8_static"``).
 
-Counterpart of ``team_tpu/backbone/quant.py``, default route only:
-``gemm_impl="static3d_qi"`` with the CLS-last block ``"kq"`` (or ``"0"``, the
-full last block). Activation scales are calibrated once, per input channel,
-on a batch (:func:`calibrate_vision_tower`) and folded into the int8 weights
+Counterpart of ``team_tpu/backbone/quant.py``, static routes. Activation
+scales are calibrated once, per input channel, on a batch
+(:func:`calibrate_vision_tower`) and folded into the int8 weights
 (:func:`quantize_vision_tower_static`), so every quantize is elementwise:
 
-- ``_ln_quant3``: one-pass layer norm (E[x²]−E[x]²) straight to int8;
 - ``_static_linear3``: int8 x int8 -> int32 GEMM (``torch._int_mm`` on the
   card), then an f32 dequant and bias, tanh GELU, and a static requantize to
   int8 or a cast to bf16;
-- attention: the integer-QKᵀ kernels
-  (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i` and its CLS
-  variant), q and k quantized with one scale per head.
+- the layer norm before the qkv and fc GEMMs reaches int8 by one of three
+  producers: ``_ln_quant3`` (one pass, E[x²]−E[x]², affine folded),
+  :func:`team_tpu_torch.ops.int8_matmul.ln_quantize_static` (two passes; a
+  kernel), or the bf16 layer norm then ``_static_quant3``.
+
+The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
+
+- ``static3d_qi`` (default): ``_ln_quant3``, integer-QKᵀ attention
+  (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i`, q and k
+  quantized with one scale per head), the last block in CLS-only form
+  (``"kq"``, or ``"0"``: in full);
+- ``static``: ``ln_quantize_static``, bf16 qkv, bf16 attention
+  (:func:`team_tpu_torch.backbone.clip.attention_core`), then
+  :func:`team_tpu_torch.ops.int8_matmul.row_quant_static`;
+- ``static3d``: as ``static`` with the bf16 layer norm and ``_static_quant3``;
+- ``static_qa``: ``ln_quantize_static``, int8 qkv, int8-I/O attention with
+  an f32 dequant (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q`);
+- ``static3d_qa``: the bf16 layer norm, int8-I/O attention with a bf16
+  dequant (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3`);
+- ``static3d_qaf``: as ``static3d_qa`` with ``_ln_quant3``.
 
 Payloads are the JAX package's trees, key for key, and are saved with
-``torch.save`` in place of orbax. The other GEMM tiers and CLS modes, the
-``pv_int8``/``defer_norm`` modes and the text tower are not ported yet
-(ROADMAP queue 1 item 9, queue 2 items 2 and 12-13); they raise.
+``torch.save`` in place of orbax; one payload serves every route. The
+dynamic GEMM tiers (``xla``, ``hybrid``, ``pallas``), the probe routes
+(``static3d_qis``, ``static3d_qib``, ``static3d_qi2``), the other CLS modes,
+the ``pv_int8``/``defer_norm`` modes and the text tower are not ported yet
+(ROADMAP queue 1 item 9, queue 2 items 2 and 10-13); they raise.
 """
 
 from __future__ import annotations
@@ -31,8 +48,10 @@ import torch.nn.functional as F
 from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, attention_core,
                                           embed_patches, patch_pixels)
 from team_tpu_torch.bridge import tree_to
-from team_tpu_torch.ops.int8_matmul import INV127, int8_matmul, quantize_weight
-from team_tpu_torch.ops.mha_short import fused_mha_packed_q3i, fused_mha_packed_q3i_cls
+from team_tpu_torch.ops.int8_matmul import (INV127, int8_matmul, ln_quantize_static,
+                                            quantize_weight, row_quant_static)
+from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q3,
+                                          fused_mha_packed_q3i, fused_mha_packed_q3i_cls)
 from team_tpu_torch.ops.preprocess import patch_norm_consts
 
 BF16 = torch.bfloat16
@@ -211,9 +230,11 @@ def _static_quant3(x3: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
 
 def _static_linear3(q3: torch.Tensor, site: Dict[str, torch.Tensor], activation: Optional[str] = None,
                     quant_inv_a: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``[B, S, K] int8 @ [K, N] int8`` -> int32, then f32 dequant and bias,
+    """``[..., K] int8 @ [K, N] int8`` -> int32, then f32 dequant and bias,
     optional tanh GELU, and a static requantize to int8 (``quant_inv_a``) or
-    a cast to bf16."""
+    a cast to bf16. Both of team_tpu's forms, the 2-D ``_static_linear`` of
+    the ``static``/``static_qa`` routes and the 3-D ``_static_linear3``: the
+    arithmetic is the same, and ``int8_matmul`` takes any leading dims."""
     acc = int8_matmul(q3, site["w_q"])
     out = acc.float() * site["scale"].reshape(-1) + site["b"].reshape(-1)
     if activation == "gelu":
@@ -221,6 +242,7 @@ def _static_linear3(q3: torch.Tensor, site: Dict[str, torch.Tensor], activation:
     if quant_inv_a is not None:
         return _quant(out, quant_inv_a)
     return _bf16(out)
+
 
 
 def _ln_quant3(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
@@ -237,30 +259,123 @@ def _ln_quant3(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tenso
                        -127, 127).to(torch.int8)
 
 
+def _ln_quant_kernel(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
+    """The two-pass layer norm -> static int8 producer over ``[B, S, D]``
+    (:func:`ln_quantize_static`, a kernel on the card)."""
+    b, s, d = x3.shape
+    return ln_quantize_static(x3.reshape(b * s, d), ln["scale"], ln["bias"],
+                              inv_a).reshape(b, s, d)
+
+
+def _ln_then_quant(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
+    """The bf16 layer norm, then the elementwise static quantize."""
+    return _static_quant3(_layer_norm(ln, x3), inv_a)
+
+
+def _row_quant_kernel(o3: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
+    """:func:`row_quant_static` over ``[B, S, D]`` (a kernel on the card)."""
+    b, s, d = o3.shape
+    return row_quant_static(o3.reshape(b * s, d), inv_a).reshape(b, s, d)
+
+
 def _qkv_int8(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     site = qb["qkv"]
     return _static_linear3(_ln_quant3(x, qb["ln_1"], site["inv_a"]), site,
                            quant_inv_a=site["out_inv_a_i"])
 
 
-def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    g = _static_linear3(_ln_quant3(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
+def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor, produce=_ln_quant3) -> torch.Tensor:
+    """LN2 -> int8 (``produce``) -> fc GEMM with tanh GELU, requantized ->
+    proj GEMM -> residual."""
+    g = _static_linear3(produce(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
                         activation="gelu", quant_inv_a=qb["proj"]["inv_a"])
     return x + _static_linear3(g, qb["proj"])
 
 
+def _masked_kv_len(kv_len, s: int):
+    return kv_len if (kv_len is not None and kv_len < s) else None
+
+
 def _qblock_forward_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                                causal: bool = False) -> torch.Tensor:
+                                attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
     """Static-W8A8 block with integer-QKᵀ attention: one-pass LN -> int8 ->
     qkv GEMM requantized with per-head-uniform q/k scales ->
-    :func:`fused_mha_packed_q3i` -> out-projection -> residual; then the MLP."""
-    s = x.shape[1]
+    :func:`fused_mha_packed_q3i` -> out-projection -> residual; then the MLP.
+    ``attn_impl`` is ignored: the kernel is the attention."""
     site = qb["qkv"]
     oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                               qb["out"]["inv_a"], heads, causal=causal,
-                              kv_len=kv_len if (kv_len is not None and kv_len < s) else None,
+                              kv_len=_masked_kv_len(kv_len, x.shape[1]),
                               qk_m2=site.get("qk_m2"))
     return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
+
+
+def _bf16_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                          attn_impl: str, causal: bool, produce, requant) -> torch.Tensor:
+    """The static and static3d blocks: LN -> int8 (``produce``) -> qkv GEMM to
+    bf16 -> bf16 attention (:func:`attention_core`) -> int8 (``requant``) ->
+    out-projection -> residual; then the MLP with the same producer."""
+    site = qb["qkv"]
+    qkv = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site)
+    o = attention_core(qkv, heads, causal=causal, kv_len=_masked_kv_len(kv_len, x.shape[1]),
+                       impl=attn_impl)
+    x = x + _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"])
+    return _mlp_residual(qb, x, produce)
+
+
+def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                          causal: bool, produce, two_d: bool) -> torch.Tensor:
+    """The quantized-attention-I/O blocks: LN -> int8 (``produce``) -> qkv GEMM
+    requantized with the per-channel ``out_inv_a`` -> int8-in, int8-out
+    attention (:func:`fused_mha_packed_q` over ``[B*S, 3D]`` when ``two_d``,
+    else :func:`fused_mha_packed_q3`) -> out-projection -> residual; then the MLP."""
+    b, s, d = x.shape
+    site = qb["qkv"]
+    qkvq = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site,
+                           quant_inv_a=site["out_inv_a"])
+    kw = dict(causal=causal, kv_len=_masked_kv_len(kv_len, s))
+    if two_d:
+        oq = fused_mha_packed_q(qkvq.reshape(b * s, 3 * d), site["deq"], qb["out"]["inv_a"],
+                                heads, seq=s, **kw).reshape(b, s, d)
+    else:
+        oq = fused_mha_packed_q3(qkvq, site["deq"], qb["out"]["inv_a"], heads, **kw)
+    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]), produce)
+
+
+def _qblock_forward_static(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``quant.py:_qblock_forward_static``: the two-pass LN -> int8 kernel,
+    bf16 attention, and the static quantize kernel before the out-projection."""
+    return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
+                                 produce=_ln_quant_kernel, requant=_row_quant_kernel)
+
+
+def _qblock_forward_static3d(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``quant.py:_qblock_forward_static3d``: bf16 LN then elementwise
+    quantize, bf16 attention; no kernel of its own."""
+    return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
+                                 produce=_ln_then_quant, requant=_static_quant3)
+
+
+def _qblock_forward_static_qa(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``quant.py:_qblock_forward_static_qa``: the two-pass LN -> int8 kernel
+    and the 2-D int8-I/O attention (f32 dequant); ``attn_impl`` is ignored."""
+    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
+                                 produce=_ln_quant_kernel, two_d=True)
+
+
+def _qblock_forward_static3d_qa(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``quant.py:_qblock_forward_static3d_qa``: bf16 LN then elementwise
+    quantize, and the 3-D int8-I/O attention (bf16 dequant); ``attn_impl``
+    is ignored."""
+    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
+                                 produce=_ln_then_quant, two_d=False)
+
+
+def _qblock_forward_static3d_qaf(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``quant.py:_qblock_forward_static3d_qaf``: :func:`_qblock_forward_static3d_qa`
+    with the one-pass ``_ln_quant3`` producer."""
+    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
+                                 produce=_ln_quant3, two_d=False)
 
 
 def _qblock_forward_static3d_qi_cls(qb: Dict[str, Any], x: torch.Tensor,
@@ -278,16 +393,20 @@ def _qblock_forward_static3d_qi_cls(qb: Dict[str, Any], x: torch.Tensor,
 
 _GEMM_IMPLS = ("xla", "hybrid", "static", "static_qa", "static3d", "static3d_qa", "static3d_qaf",
                "static3d_qi", "static3d_qis", "static3d_qib", "static3d_qi2", "pallas")
+# the block of each ported route (``quant.py:1179-1190``)
+_BLOCKS = {"static": _qblock_forward_static, "static_qa": _qblock_forward_static_qa,
+           "static3d": _qblock_forward_static3d, "static3d_qa": _qblock_forward_static3d_qa,
+           "static3d_qaf": _qblock_forward_static3d_qaf, "static3d_qi": _qblock_forward_static3d_qi}
 
 
 def check_route(gemm_impl: str) -> None:
     """Raise on an int8 route or probe knob that the port does not have."""
     if gemm_impl not in _GEMM_IMPLS:
         raise ValueError(f"unknown int8 gemm_impl {gemm_impl!r}")
-    if gemm_impl != "static3d_qi":
+    if gemm_impl not in _BLOCKS:
         raise NotImplementedError(
-            f"int8 gemm_impl={gemm_impl!r}: only 'static3d_qi' is ported (ROADMAP queue 1 "
-            "item 9; its GEMM and attention kernels are queue 2 items 2 and 8-13)")
+            f"int8 gemm_impl={gemm_impl!r}: the port has {sorted(_BLOCKS)} (ROADMAP queue 1 "
+            "item 9; the dynamic tiers' GEMM and quantize kernels are queue 2 items 12-13)")
     for knob, default in (("TEAM_LN_MODE", "1pass"), ("TEAM_GELU", "tanh")):
         value = os.environ.get(knob, default)
         if value != default:
@@ -311,35 +430,43 @@ def _cls_mode(cls_last) -> str:
 
 
 def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig, *,
-                        gemm_impl: str, cls_last) -> torch.Tensor:
+                        attn_impl: str, gemm_impl: str, cls_last) -> torch.Tensor:
     """The quantized tower over patch tokens ``[B, g*g, width]`` ->
     ``[B, embed_dim]`` float32. ``cls_last`` (default env ``TEAM_CLS_LAST``,
-    ``"kq"``): the last block in CLS-only form; ``"0"``/False: in full."""
+    ``"kq"``): on ``static3d_qi``, the last block in CLS-only form; ``"0"``/False:
+    in full. The other routes run every block in full and ignore it, as in
+    team_tpu. ``attn_impl`` reaches the routes with bf16 attention
+    (``static``, ``static3d``). The sequence is never padded: the TPU-only
+    ``_maybe_pad_seq`` is not ported (off on the CPU in team_tpu too)."""
     check_route(gemm_impl)
-    use_cls = _cls_mode(cls_last) == "kq"
+    block = _BLOCKS[gemm_impl]
+    use_cls = gemm_impl == "static3d_qi" and _cls_mode(cls_last) == "kq"
     v = cfg.vision
     cls = _bf16(qvision["cls"]).expand(tokens.shape[0], 1, v.width)
     x = torch.cat([cls, _bf16(tokens)], dim=1) + _bf16(qvision["pos"])
     x = _layer_norm(qvision["ln_pre"], x)
     blocks = qvision["blocks"]
     for qb in (blocks[:-1] if use_cls else blocks):
-        x = _qblock_forward_static3d_qi(qb, x, v.heads, v.seq_len)
+        x = block(qb, x, v.heads, v.seq_len, attn_impl=attn_impl)
     x = _qblock_forward_static3d_qi_cls(blocks[-1], x, v.heads)[:, 0] if use_cls else x[:, 0]
     x = _layer_norm(qvision["ln_post"], x)
     return (x @ _bf16(qvision["proj"])).float()
 
 
 def encode_image_int8(qvision: Dict[str, Any], images: torch.Tensor, cfg: CLIPConfig, *,
-                      gemm_impl: str = "static3d_qi", cls_last=None) -> torch.Tensor:
+                      attn_impl: str = "auto", gemm_impl: str = "static3d_qi",
+                      cls_last=None) -> torch.Tensor:
     """Quantized image tower: ``[B, H, W, 3]`` normalized images ->
     ``[B, embed_dim]`` float32. The patch embedding stays bf16."""
     fake = {"vision": {"patch_w": qvision["patch_w"]}}
     tokens = embed_patches(fake, images, cfg, compute_dtype=BF16)
-    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
+                               cls_last=cls_last)
 
 
 def encode_image_int8_u8(qvision: Dict[str, Any], images_u8: torch.Tensor, cfg: CLIPConfig, *,
-                         gemm_impl: str = "static3d_qi", cls_last=None) -> torch.Tensor:
+                         attn_impl: str = "auto", gemm_impl: str = "static3d_qi",
+                         cls_last=None) -> torch.Tensor:
     """uint8 ``[B, S, S, 3]`` images at the model size: the patch reorder
     runs on the uint8 tensor, and /255 and the CLIP normalize are a
     per-column scale and bias before the bf16 patch GEMM."""
@@ -350,12 +477,13 @@ def encode_image_int8_u8(qvision: Dict[str, Any], images_u8: torch.Tensor, cfg: 
     px_u8 = patch_pixels(images_u8, cfg, compute_dtype=torch.uint8)
     scale, bias = patch_norm_consts(v.patch_size, device=images_u8.device)
     tokens = _bf16(px_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
-    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
+                               cls_last=cls_last)
 
 
 def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor, cfg: CLIPConfig,
-                              *, gemm_impl: str = "static3d_qi", patch_dot: Optional[str] = None,
-                              cls_last=None) -> torch.Tensor:
+                              *, attn_impl: str = "auto", gemm_impl: str = "static3d_qi",
+                              patch_dot: Optional[str] = None, cls_last=None) -> torch.Tensor:
     """Patch-major uint8 ``[B, g*g, 3*ps*ps]`` -> ``[B, embed_dim]`` float32.
 
     ``patch_dot`` (default env ``TEAM_PATCH_DOT``, ``"int8"``): the u8-exact
@@ -375,7 +503,8 @@ def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor,
     else:
         scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
         tokens = _bf16(patches_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
-    return _encode_tokens_int8(qvision, tokens, cfg, gemm_impl=gemm_impl, cls_last=cls_last)
+    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
+                               cls_last=cls_last)
 
 
 # ---------------------------------------------------------------------------

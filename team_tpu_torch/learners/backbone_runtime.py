@@ -6,7 +6,8 @@ patch-major uint8 routes) and ``encode_texts`` with a text-feature cache
 keyed by the prompt string (exact, since the towers are frozen).
 
 With ``encoder_quant="int8_static"`` the image tower is the static-W8A8
-int8 tower (:mod:`team_tpu_torch.backbone.quant`): the first batch
+int8 tower (:mod:`team_tpu_torch.backbone.quant`) on the route that
+``int8_gemm_impl`` names (default ``static3d_qi``): the first batch
 calibrates it and gets the bf16 tower's features; the next, held-out batch
 runs the cosine gate (min cosine >= 0.999 against the bf16 tower); a pass
 commits the quantized tower (and saves it under ``int8_cache_dir`` when
@@ -116,12 +117,12 @@ class BackboneRuntime:
         return self._qvision is not None
 
     def _encode_int8(self, qv: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
+        kw = dict(attn_impl=self.attn_impl, gemm_impl=self.int8_impl)
         if self._is_patch_major(images):
-            return quant.encode_image_int8_patches(qv, images, self.clip_cfg,
-                                                   gemm_impl=self.int8_impl)
+            return quant.encode_image_int8_patches(qv, images, self.clip_cfg, **kw)
         if images.dtype == torch.uint8:
             images = preprocess_batch(images, self.clip_cfg.vision.image_size)
-        return quant.encode_image_int8(qv, images, self.clip_cfg, gemm_impl=self.int8_impl)
+        return quant.encode_image_int8(qv, images, self.clip_cfg, **kw)
 
     def _calib_forward(self, images: torch.Tensor):
         """The calibration forward, which is the bf16 tower: (stats, features)."""

@@ -10,6 +10,11 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   static-W8A8 tier's integer-QKᵀ attention, int8 ``[B, S, 3*D]`` to int8
   ``[B, S, D]`` (or the CLS row only, ``[B, 1, D]``); CUDA kernels
   ``csrc/mha_packed_q3i.cu``.
+- ``fused_mha_packed_q`` and ``fused_mha_packed_q3`` (TPU kernels
+  ``_mha_packed_q_kernel`` and ``_mha_packed_q3_kernel``): the same tier's
+  int8-in, int8-out attention with per-channel dequant (in float32 and in
+  bfloat16 respectively) and bf16 products, ``[B*S, 3*D]`` to ``[B*S, D]``
+  and ``[B, S, 3*D]`` to ``[B, S, D]``; CUDA kernels ``csrc/mha_packed_q.cu``.
 
 The kernels are compiled with ``nvcc`` on first use and bound with
 ``ctypes``. Forward only: the towers that call them are frozen. On a CPU
@@ -50,20 +55,29 @@ def mha_packed_reference(qkv: torch.Tensor, heads: int, causal: bool = False,
     dtype = qkv.dtype
     q, k, v = (_split_heads(t, heads) for t in qkv.split(d, dim=-1))
     q = (q.float() * dh ** -0.5).to(dtype)
+    out = _softmax_pv(q, k, v, causal, kv_len, dtype).to(dtype)
+    return out.permute(0, 2, 1, 3).reshape(b, s, d)
+
+
+def _softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                kv_len: Optional[int], p_dtype: torch.dtype) -> torch.Tensor:
+    """The packed kernels' attention over head-split ``[B, H, S, dh]``: QKᵀ
+    accumulated in f32, masked logits set to -1e30, the f32 row-max softmax
+    normalised before PV, p rounded to ``p_dtype``, PV accumulated in f32."""
+    s = q.shape[2]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     mask = None
     if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
     if kv_len is not None and kv_len < s:
-        kv_mask = (torch.arange(s, device=qkv.device) < kv_len)[None, :].expand(s, s)
+        kv_mask = (torch.arange(s, device=q.device) < kv_len)[None, :].expand(s, s)
         mask = kv_mask if mask is None else mask & kv_mask
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     p = p / p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(dtype).float(), v.float()).to(dtype)
-    return out.permute(0, 2, 1, 3).reshape(b, s, d)
+    return torch.matmul(p.to(p_dtype).float(), v.float())
 
 
 def _library() -> ctypes.CDLL:
@@ -85,9 +99,10 @@ def build() -> None:
     at its first call: one ``nvcc`` for each source, started together."""
     from team_tpu_torch.ops._build import build_all
 
-    build_all([_SOURCE, _Q3I_SOURCE])
+    build_all([_SOURCE, _Q3I_SOURCE, _Q_SOURCE])
     _library()
     _q3i_library()
+    _q_library()
 
 
 def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
@@ -321,8 +336,136 @@ fused_mha_packed_q3i.launches = 0
 fused_mha_packed_q3i_cls.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# int8-in, int8-out attention with per-channel dequant (static_qa, static3d_qa/qaf)
+# ---------------------------------------------------------------------------
+
+_Q_SOURCE = "mha_packed_q.cu"
+_Q_HEAD_DIM = 64  # the kernel's compiled head width (ViT-B/16)
+
+
+def mha_packed_q_reference(qkv_q: torch.Tensor, deq: torch.Tensor, o_inv: torch.Tensor,
+                           heads: int, causal: bool = False, kv_len: Optional[int] = None,
+                           bf16_deq: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of both TPU kernels, ``[B, S, 3D]`` int8 ->
+    ``[B, S, D]`` int8.
+
+    ``bf16_deq=False`` (``_mha_packed_q_kernel``, ``mha_short.py:308``): q, k
+    and v dequantize in f32 (``x8·deq``), q is then scaled by dh^-0.5 in f32,
+    and all three are rounded to bf16. ``bf16_deq=True``
+    (``_mha_packed_q3_kernel``, ``:395``): the scales are rounded to bf16
+    first (q's as ``bf16(deq·dh^-0.5)``) and each bf16 product is rounded to
+    bf16. Then the packed kernels' attention (:func:`_softmax_pv`) and
+    ``out·o_inv``, rounded half to even and clipped to ±127."""
+    b, s, d3 = qkv_q.shape
+    d = d3 // 3
+    dh = d // heads
+    deq = deq.reshape(-1).float()
+    x = qkv_q.float()
+    if bf16_deq:
+        q = (x[..., :d] * (deq[:d] * dh ** -0.5).to(torch.bfloat16).float()).to(torch.bfloat16)
+        kv = (x[..., d:] * deq[d:].to(torch.bfloat16).float()).to(torch.bfloat16)
+    else:
+        q = (x[..., :d] * deq[:d] * dh ** -0.5).to(torch.bfloat16)
+        kv = (x[..., d:] * deq[d:]).to(torch.bfloat16)
+    k, v = (_split_heads(t, heads) for t in kv.split(d, dim=-1))
+    out = _softmax_pv(_split_heads(q, heads), k, v, causal, kv_len, torch.bfloat16)
+    out = out.permute(0, 2, 1, 3).reshape(b, s, d) * o_inv.reshape(-1).float()
+    return torch.clamp(torch.round(out), -127, 127).to(torch.int8)
+
+
+def _q_library() -> ctypes.CDLL:
+    from team_tpu_torch.ops._build import load_library
+
+    lib = load_library(_Q_SOURCE)
+    for entry in ("team_mha_packed_q_fwd", "team_mha_packed_q3_fwd"):
+        fn = getattr(lib, entry)
+        # qkv, deq, o_inv, out; batch, seq, heads, dh, row stride, kv_len, causal; stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.team_mha_packed_q_smem_bytes.argtypes = [ctypes.c_int]
+    lib.team_mha_packed_q_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _packed_q(wrapper, qkv_q: torch.Tensor, deq: torch.Tensor, o_inv: torch.Tensor, heads: int,
+              causal: bool, kv_len: Optional[int], bf16_deq: bool) -> torch.Tensor:
+    """Check the inputs of either wrapper over ``[B, S, 3D]`` and run its
+    plain version (CPU) or its kernel (CUDA; one more ``wrapper.launches``)."""
+    if qkv_q.dtype != torch.int8:
+        raise TypeError(f"qkv_q must be int8, got {qkv_q.dtype}")
+    b, s, d3 = qkv_q.shape
+    if d3 % 3 or (d3 // 3) % heads:
+        raise ValueError(f"qkv_q's last dim {d3} is not 3*D with D divisible by heads={heads}")
+    d = d3 // 3
+    if kv_len is not None and not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
+    vecs = []
+    for name, t, n in (("deq", deq, d3), ("o_inv", o_inv, d)):
+        if t.numel() != n:
+            raise ValueError(f"{name} must hold {n} values, got shape {tuple(t.shape)}")
+        if t.device != qkv_q.device:
+            raise ValueError(f"{name} lies on {t.device}, qkv_q on {qkv_q.device}")
+        vecs.append(t.reshape(-1).float().contiguous())
+    if qkv_q.device.type == "cpu":
+        return mha_packed_q_reference(qkv_q, *vecs, heads, causal, kv_len, bf16_deq)
+    if qkv_q.device.type != "cuda":
+        raise ValueError(f"the packed int8 kernels run on CPU or CUDA tensors, got {qkv_q.device}")
+    if not qkv_q.is_contiguous() or qkv_q.data_ptr() % 16:
+        raise ValueError("qkv_q must be contiguous and 16-byte aligned")
+    dh = d // heads
+    if dh != _Q_HEAD_DIM:
+        raise ValueError(f"head width {dh} not compiled (the kernel takes {_Q_HEAD_DIM})")
+    lib = _q_library()
+    smem = lib.team_mha_packed_q_smem_bytes(s)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V (limit {_SMEM_LIMIT})")
+    out = torch.empty((b, s, d), dtype=torch.int8, device=qkv_q.device)
+    entry = "team_mha_packed_q3_fwd" if bf16_deq else "team_mha_packed_q_fwd"
+    with torch.cuda.device(qkv_q.device):
+        err = getattr(lib, entry)(qkv_q.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                                  out.data_ptr(), b, s, heads, dh, d3,
+                                  s if kv_len is None else kv_len, int(causal),
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return out
+
+
+def fused_mha_packed_q(qkv_q: torch.Tensor, deq: torch.Tensor, o_inv: torch.Tensor, heads: int,
+                       *, seq: int, causal: bool = False,
+                       kv_len: Optional[int] = None) -> torch.Tensor:
+    """Static-W8A8 attention, 2-D: ``[B*S, 3D]`` int8 qkv -> ``[B*S, D]`` int8,
+    q/k/v dequantized in float32. ``deq: [1, 3D]`` the qkv GEMM output's
+    dequant scales, ``o_inv: [1, D]`` the out-projection's static quantize
+    scales. Each kernel launch adds one to ``fused_mha_packed_q.launches``."""
+    if qkv_q.dim() != 2 or seq < 1 or qkv_q.shape[0] % seq:
+        raise ValueError(f"qkv_q must be [B*S, 3*D] with S={seq}, got {tuple(qkv_q.shape)}")
+    m, d3 = qkv_q.shape
+    out = _packed_q(fused_mha_packed_q, qkv_q.reshape(m // seq, seq, d3), deq, o_inv, heads,
+                    causal, kv_len, bf16_deq=False)
+    return out.reshape(m, d3 // 3)
+
+
+def fused_mha_packed_q3(qkv_q: torch.Tensor, deq: torch.Tensor, o_inv: torch.Tensor, heads: int,
+                        *, causal: bool = False, kv_len: Optional[int] = None) -> torch.Tensor:
+    """Static-W8A8 attention, 3-D: ``[B, S, 3D]`` int8 qkv -> ``[B, S, D]``
+    int8, as :func:`fused_mha_packed_q` with the dequant in bfloat16. Each
+    kernel launch adds one to ``fused_mha_packed_q3.launches``."""
+    if qkv_q.dim() != 3:
+        raise ValueError(f"qkv_q must be [B, S, 3*D], got {tuple(qkv_q.shape)}")
+    return _packed_q(fused_mha_packed_q3, qkv_q, deq, o_inv, heads, causal, kv_len, bf16_deq=True)
+
+
+fused_mha_packed_q.launches = 0
+fused_mha_packed_q3.launches = 0
+
+
 def reset_launch_counts() -> None:
     fused_mha_packed.launches = 0
     fused_mha_packed.causal_launches = 0
     fused_mha_packed_q3i.launches = 0
     fused_mha_packed_q3i_cls.launches = 0
+    fused_mha_packed_q.launches = 0
+    fused_mha_packed_q3.launches = 0

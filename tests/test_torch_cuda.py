@@ -11,7 +11,12 @@ bfloat16 2e-2 (one bf16 step of the output, as in tests/test_torch_mha_packed.py
 the int8 integer-QKᵀ kernels at most one int8 step with under 1 % of the
 outputs differing (as in tests/test_torch_mha_q3i.py); the int8 tower
 through them cosine >= 0.9999 and max |Δ| <= 5e-3·rms against the CPU; the
-flash kernel as the packed one (f32 1e-5, bf16 2e-2)."""
+flash kernel as the packed one (f32 1e-5, bf16 2e-2); the int8-I/O attention
+kernels and the layer norm -> int8 kernel at most one int8 step with under
+1 % of the outputs differing (as in tests/test_torch_int8_static.py), the
+static quantize kernel bit for bit; the tower on each static route through
+its kernels against the same tower with the plain versions, cosine >= 0.9999
+and max |Δ| <= 5e-3·rms."""
 
 import pytest
 import torch
@@ -19,6 +24,8 @@ import torch
 from team_tpu_torch.backbone import clip as tclip
 from team_tpu_torch.backbone import quant as tquant
 from team_tpu_torch.bridge import tree_to
+from team_tpu_torch.ops import int8_matmul as tim
+from team_tpu_torch.ops import mha_short as tms
 from team_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from team_tpu_torch.ops.mha_short import (fused_mha_packed, fused_mha_packed_q3i,
                                           fused_mha_packed_q3i_cls, mha_packed_q3i_reference,
@@ -220,3 +227,131 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
 
+
+
+# -- the int8 tier's other static routes: int8-I/O attention and the producers --
+
+def packed_q_inputs(b, s, heads, device, seed=0, dh=64):
+    """int8 qkv and per-channel scales in the ranges of tests/test_torch_int8_static.py."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = heads * dh
+    qkv = torch.randint(-127, 128, (b, s, 3 * d), generator=g, device=device, dtype=torch.int8)
+    deq = torch.rand((1, 3 * d), generator=g, device=device) * 0.02 + 0.01
+    return qkv, deq, torch.rand((1, d), generator=g, device=device) * 40 + 20
+
+
+@pytest.mark.parametrize("form", ["q", "q3"])
+@pytest.mark.parametrize("b,s,h,causal,kv_len", [
+    (128, 197, 12, False, None), (4, 197, 12, False, 150), (32, 77, 8, True, None),
+    (4, 77, 8, True, 60), (3, 37, 4, False, None)])
+def test_packed_q_kernels_match_plain_version(cuda_device, form, b, s, h, causal, kv_len):
+    qkv, deq, oinv = packed_q_inputs(b, s, h, cuda_device)
+    want = tms.mha_packed_q_reference(qkv, deq, oinv, h, causal, kv_len, bf16_deq=form == "q3")
+    wrapper = tms.fused_mha_packed_q if form == "q" else tms.fused_mha_packed_q3
+    launches = wrapper.launches
+    if form == "q":
+        out = wrapper(qkv.reshape(b * s, -1), deq, oinv, h, seq=s, causal=causal,
+                      kv_len=kv_len).reshape(b, s, -1)
+    else:
+        out = wrapper(qkv, deq, oinv, h, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1
+    assert_within_one_int8_step(out, want)
+
+
+def producer_inputs(m, d, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((m, d), generator=g, device=device)
+         * (torch.rand((m, 1), generator=g, device=device) * 3.5 + 0.5)).to(torch.bfloat16)
+    gamma = torch.rand(d, generator=g, device=device) + 0.5
+    beta = torch.rand(d, generator=g, device=device) * 0.4 - 0.2
+    return x, gamma, beta, torch.rand((1, d), generator=g, device=device) * 50 + 10
+
+
+@pytest.mark.parametrize("m,d", [(128 * 197, 768), (16 * 197 + 5, 768), (37, 64), (9, 1024)])
+def test_quantize_producer_kernels_match_plain_versions(cuda_device, m, d):
+    x, gamma, beta, inv_a = producer_inputs(m, d, cuda_device)
+    launches = (tim.ln_quantize_static.launches, tim.row_quant_static.launches)
+    ln = tim.ln_quantize_static(x, gamma, beta, inv_a)
+    row = tim.row_quant_static(x, inv_a)
+    torch.cuda.synchronize()
+    assert (tim.ln_quantize_static.launches, tim.row_quant_static.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert_within_one_int8_step(ln, tim.ln_quantize_static_reference(x, gamma, beta, inv_a))
+    torch.testing.assert_close(row, tim.row_quant_static_reference(x, inv_a), rtol=0, atol=0)
+
+
+def test_int8_io_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    qkv, deq, oinv = packed_q_inputs(2, 8, 4, cuda_device, dh=32)
+    with pytest.raises(ValueError, match="head width"):
+        tms.fused_mha_packed_q3(qkv, deq, oinv, 4)
+    qkv, deq, oinv = packed_q_inputs(2, 8, 2, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.fused_mha_packed_q3(qkv.transpose(0, 1), deq, oinv, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.fused_mha_packed_q(qkv.reshape(16, -1)[::2], deq, oinv, 2, seq=8)
+    with pytest.raises(TypeError):
+        tms.fused_mha_packed_q3(qkv.float(), deq, oinv, 2)
+    x, gamma, beta, inv_a = producer_inputs(8, 64, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tim.ln_quantize_static(x.float(), gamma, beta, inv_a)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tim.row_quant_static(x.float(), inv_a)
+    with pytest.raises(ValueError, match="contiguous"):
+        tim.row_quant_static(x.t(), inv_a[:, :8])
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tim.row_quant_static(x[:, :60].contiguous(), inv_a[:, :60])
+    x, gamma, beta, inv_a = producer_inputs(8, 2048, cuda_device)
+    with pytest.raises(ValueError, match="wider"):
+        tim.ln_quantize_static(x, gamma, beta, inv_a)
+
+
+STATIC_ROUTES = ("static", "static_qa", "static3d", "static3d_qa", "static3d_qaf")
+
+
+def plain_int8_kernels(monkeypatch):
+    """Send the int8 tower's kernels to their plain versions (same card)."""
+    monkeypatch.setattr(tquant, "ln_quantize_static", tim.ln_quantize_static_reference)
+    monkeypatch.setattr(tquant, "row_quant_static", tim.row_quant_static_reference)
+    monkeypatch.setattr(tquant, "attention_core", lambda qkv, heads, *, causal, kv_len, impl:
+                        mha_packed_reference(qkv, heads, causal, kv_len))
+    monkeypatch.setattr(tquant, "fused_mha_packed_q",
+                        lambda qkv, deq, oinv, h, *, seq, causal=False, kv_len=None:
+                        tms.mha_packed_q_reference(qkv.reshape(-1, seq, qkv.shape[-1]), deq, oinv,
+                                                   h, causal, kv_len).reshape(qkv.shape[0], -1))
+    monkeypatch.setattr(tquant, "fused_mha_packed_q3",
+                        lambda qkv, deq, oinv, h, *, causal=False, kv_len=None:
+                        tms.mha_packed_q_reference(qkv, deq, oinv, h, causal, kv_len,
+                                                   bf16_deq=True))
+
+
+def test_static_routes_through_the_kernels_match_plain_versions(cuda_device, monkeypatch):
+    """A two-layer tower of head width 64 (one head of 64) on the card, each
+    static route through its kernels, against the same route with the plain
+    versions; and the launches of each kernel per block."""
+    cfg = tclip.CLIPConfig(vision=tclip.VisionConfig(image_size=32, patch_size=16, width=64,
+                                                     layers=2, heads=1, embed_dim=32),
+                           text=tclip.CLIPConfig.tiny().text, embed_dim=32)
+    params = tree_to(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg), cuda_device)
+    images = torch.randn((4, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    stats = tquant.calibrate_vision_tower(params, images, cfg)
+    qv = tquant.quantize_vision_tower_static(params, stats, heads=cfg.vision.heads)
+    counters = (tim.ln_quantize_static, tim.row_quant_static, tms.fused_mha_packed_q,
+                tms.fused_mha_packed_q3, fused_mha_packed)
+    per_block = {"static": (2, 1, 0, 0, 1), "static_qa": (2, 0, 1, 0, 0),
+                 "static3d": (0, 0, 0, 0, 1), "static3d_qa": (0, 0, 0, 1, 0),
+                 "static3d_qaf": (0, 0, 0, 1, 0)}
+    got = {}
+    for route in STATIC_ROUTES:
+        before = [c.launches for c in counters]
+        got[route] = tquant.encode_image_int8(qv, images, cfg, gemm_impl=route).double()
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counters, before)] == [
+            cfg.vision.layers * k for k in per_block[route]], route
+    plain_int8_kernels(monkeypatch)
+    for route in STATIC_ROUTES:
+        want = tquant.encode_image_int8(qv, images, cfg, gemm_impl=route).double()
+        cos = torch.nn.functional.cosine_similarity(got[route], want, dim=-1).min().item()
+        err = (got[route] - want).abs().max().item()
+        rms = want.pow(2).mean().sqrt().item()
+        assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (route, cos, err, rms)

@@ -14,9 +14,14 @@ Phases, one line or more each:
      causal/kv_len shapes and the layer norm -> int8 producer, to the same
      limit, and the static quantize bit for bit; the flash attention at the
      vision shape (bf16, f32), the text shape (causal, kv_len) and S=577,
-     where the auto route takes it
+     where the auto route takes it; the fused out-projection
+     (mha_packed_proj) and attention sub-block (attn_block) at the vision and
+     text shapes and the pre-split attention (mha_short, kv_len = S and < S)
+     at the vision shape, bf16 and f32, with non-zero biases and layer-norm
+     affines
   4. kernels, plain versions (plain, kernel, kernel, plain) and
-     scaled_dot_product_attention as the library yardstick, timed with CUDA
+     scaled_dot_product_attention as the library yardstick (for the fused
+     kernels a composition of PyTorch calls), timed with CUDA
      events over calls queued behind a device spin (device time, not the
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
      peak of their type) computed from the same inputs
@@ -36,17 +41,25 @@ Phases, one line or more each:
      must be non-zero in both towers; then PROOF's loss on a batch of its
      own features on the card against the CPU, a profiled train step, and in
      a fresh process the cost of importing torch._dynamo (what the first
-     torch.optim construction pays)
+     torch.optim construction pays); PROOF (bf16) on attention_impl
+     "attn_block", SimpleCIL (bf16) on "mha_packed_proj" and ZS-CLIP (f32) on
+     "attn_block", whose fused launches must equal the layers times the
+     image-tower (non-causal) and text-tower (causal) calls, with no packed
+     or flash launch
   6. features against the plain-attention towers (packed and flash routes)
      and against the bf16 tower on a small batch, each int8 route against
      itself with the plain versions of its kernels (same payload, same card),
      every int8 kernel call also held against its plain version on the
      tower's own inputs;
      static3d and static3d_qa served from the payloads saved on static and
-     static_qa; the image-encode rates at the eval batch (bf16, f32, int8 on
-     each route, bf16 through flash)
+     static_qa; both towers on attn_block and mha_packed_proj and the image
+     tower on mha_short against the same towers through the plain versions
+     of their kernels; the image-encode rates at the eval batch (bf16, f32,
+     int8 on each route, bf16 through flash, bf16 and f32 on attn_block,
+     mha_packed_proj and mha_short)
   7. a torch.profiler split of one B=128 encode: int8 (static3d_qi and
-     static_qa), bf16, bf16 through flash
+     static_qa), bf16, bf16 through flash, bf16 on attn_block and on
+     mha_packed_proj
 Then one JSON line of kernel results, and last the JSON status line.
 Any failure raises, and the script exits non-zero without the status line.
 """
@@ -70,15 +83,21 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
     "text": (32, 77, 8, True),
 }
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
-SOURCES = ("mha_packed.cu", "mha_packed_q3i.cu", "flash_attention.cu", "mha_packed_q.cu",
-           "int8_quant.cu")
+SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
+           "mha_packed_q.cu", "int8_quant.cu")
 # flash attention: (batch, heads, seq, causal, kv_len); vision and text are
 # the towers' shapes on the main path, S=577 a shape the auto route sends to it
 FLASH_SHAPES = {"vision": (128, 12, 197, False, None), "text": (32, 8, 77, True, 77),
                 "s577": (8, 12, 577, False, None)}
-# the H100 SXM's published peaks (NVIDIA's data sheet, dense rates); they assume 700 W
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense rates; "f32" is the
+# float32 rate outside the tensor cores, which is what a float32 product with
+# TF32 off gets); they assume 700 W
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the block-level fused routes; a residual makes their outputs up to ~5, where
+# one bf16 step is 0.03, so bf16 is held to TOL plus one step (2^-7) of |ref|
+FUSED_ROUTES = ("attn_block", "mha_packed_proj")
+BF16_STEP = 2.0 ** -7
 INT8_MAX_FRAC = 0.01  # int8 kernels: at most one int8 step, and under 1 % of outputs differing
 # the int8 routes besides static3d_qi that phase 5 runs, and each kernel's
 # launches per block of the tower on it (per int8 batch of ViT-B/16's 12
@@ -190,6 +209,156 @@ def time_kernel(ms, dev) -> dict:
         print(f"  packed {tower} B={b} S={s} H={h} causal={causal} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
               f"bound {times[tower]['bound_ms']:.4f} ms ({times[tower]['bound_by']})")
+    return times
+
+
+def fused_inputs(b, s, h, dtype, dev, seed=0, dh=64):
+    """x, a layer norm's affine, the attention's weights and biases (biases and
+    affine non-zero: the random init makes them 0 and 1), and a packed qkv."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = h * dh
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    return {"x": randn(b, s, d).to(dtype), "ln": (randn(d, std=0.3, mean=1.0), randn(d, std=0.2)),
+            "attn": (randn(d, 3 * d, std=d ** -0.5).to(dtype), randn(3 * d, std=0.5),
+                     randn(d, d, std=d ** -0.5).to(dtype), randn(d, std=0.5)),
+            "qkv": randn(b, s, 3 * d).to(dtype)}
+
+
+def _fused_calls(ms, inp, h, causal):
+    """(kernel, plain) of the two fused kernels on ``fused_inputs``."""
+    x, ln, attn, qkv = inp["x"], inp["ln"], inp["attn"], inp["qkv"]
+    return {
+        "fused_mha_packed_proj": (
+            lambda: ms.fused_mha_packed_proj(qkv, attn[2], attn[3], x, h, causal=causal),
+            lambda: ms.mha_packed_proj_reference(qkv, attn[2], attn[3], x, h, causal)),
+        "fused_attn_block": (
+            lambda: ms.fused_attn_block(x, *ln, *attn, h, causal=causal),
+            lambda: ms.attn_block_reference(x, *ln, *attn, h, causal)),
+    }
+
+
+def _check_close(name: str, out, ref, dtype) -> float:
+    """max |out - ref|; raises past TOL (bf16: plus one bf16 step of |ref|)."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    tol = TOL[str(dtype)]
+    limit = tol + (BF16_STEP * ref.float().abs() if dtype == torch.bfloat16 else 0.0)
+    worst = err.max().item()
+    rule = f"{tol:g}" + (" + 2^-7 |ref|" if dtype == torch.bfloat16 else "")
+    print(f"  {name} {dtype}: max_abs_err={worst:.3e} (tol {rule})")
+    if out.shape != ref.shape or not math.isfinite(worst) or bool((err > limit).any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def compare_fused(ms, dev) -> dict:
+    """The fused out-projection and attention sub-block kernels at the vision
+    and text shapes, and the pre-split kernel at the vision shape (kv_len = S
+    and < S), bf16 and f32, against their plain versions."""
+    import torch
+
+    worst = dict.fromkeys(("fused_mha_packed_proj", "fused_attn_block", "fused_mha_short"), 0.0)
+    for tower, (b, s, h, causal) in MAIN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            inp = fused_inputs(b, s, h, dtype, dev)
+            for name, (kernel, plain) in _fused_calls(ms, inp, h, causal).items():
+                out = kernel()
+                ref = plain()
+                torch_sync()
+                worst[name] = max(worst[name], _check_close(
+                    f"{name} {tower} B={b} S={s} H={h} causal={causal}", out, ref, dtype))
+    b, s, h, _ = MAIN_SHAPES["vision"]
+    for kv_len in (s, s * 3 // 4):  # every key, and keys >= kv_len masked (147 at S=197)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs((b, h, s, False, kv_len), dtype, dev, seed=3)
+            out = ms.fused_mha_short(q, k, v, kv_len)
+            ref = ms.mha_short_reference(q, k, v, kv_len)
+            torch_sync()
+            worst["fused_mha_short"] = max(worst["fused_mha_short"], _check_close(
+                f"fused_mha_short B={b} H={h} S={s} kv_len={kv_len}", out, ref, dtype))
+    return worst
+
+
+def _composition_ms(inp, h, causal, with_ln: bool) -> float:
+    """One chain of PyTorch calls that computes what a fused kernel computes
+    (layer_norm + addmm for qkv when ``with_ln``, then
+    scaled_dot_product_attention, addmm for the out-projection, and the
+    residual add): no single call does it. The port never calls these."""
+    import torch
+    import torch.nn.functional as F
+
+    x = inp["x"]
+    b, s, d = x.shape
+    dt = x.dtype
+    g, beta = (t.to(dt) for t in inp["ln"])
+    w_qkv, b_qkv, w_out, b_out = (t.to(dt) for t in inp["attn"])
+
+    def heads(t):
+        return t.reshape(b, s, h, d // h).transpose(1, 2)
+
+    def run():
+        if with_ln:
+            qkv = torch.addmm(b_qkv, F.layer_norm(x, (d,), g, beta).reshape(b * s, d), w_qkv)
+        else:
+            qkv = inp["qkv"].reshape(b * s, 3 * d)
+        q, k, v = (heads(t) for t in qkv.reshape(b, s, 3 * d).split(d, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return x + torch.addmm(b_out, o.transpose(1, 2).reshape(b * s, d), w_out).reshape(b, s, d)
+
+    return _time_ms(run)
+
+
+def time_fused(ms, dev) -> dict:
+    """The two fused kernels at the vision shape (bf16 and f32) and the text
+    shape (bf16), the pre-split kernel at the vision shape (bf16): plain,
+    kernel, kernel, plain; each bound from the same inputs (f32 products at
+    the float32 peak, bf16 at the tensor cores')."""
+    import torch
+
+    times = {}
+    cases = [("vision", torch.bfloat16), ("vision", torch.float32), ("text", torch.bfloat16)]
+    for tower, dtype in cases:
+        b, s, h, causal = MAIN_SHAPES[tower]
+        d, dh = h * 64, 64
+        inp = fused_inputs(b, s, h, dtype, dev, seed=4)
+        size = 2 if dtype == torch.bfloat16 else 4
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        act = b * s * d * size  # one [B, S, D] activation
+        attn_ops = attention_ops(b, h, s, dh, causal)
+        proj_ops = 2 * b * s * d * d
+        bounds = {  # inputs read once, the output written once
+            "fused_mha_packed_proj": bound(3 * act + d * d * size + d * 4 + 2 * act,
+                                           {kind: attn_ops + proj_ops}),
+            "fused_attn_block": bound(2 * act + 4 * d * d * size + 6 * d * 4,
+                                      {kind: 2 * b * s * d * 3 * d + attn_ops + proj_ops}),
+        }
+        for name, (kernel, plain) in _fused_calls(ms, inp, h, causal).items():
+            p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+            lib = _composition_ms(inp, h, causal, with_ln=name == "fused_attn_block")
+            t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                 **bounds[name]}
+            times[f"{name} {tower} {kind}"] = t
+            print(f"  {name} {tower} B={b} S={s} H={h} causal={causal} {kind}: kernel "
+                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library composition "
+                  f"{lib:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    b, s, h, _ = MAIN_SHAPES["vision"]
+    q, k, v = flash_inputs((b, h, s, False, None), torch.bfloat16, dev, seed=5)
+    kernel = lambda: ms.fused_mha_short(q, k, v)  # noqa: E731
+    plain = lambda: ms.mha_short_reference(q, k, v)  # noqa: E731
+    p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+    lib = sdpa_ms(q, k, v, False)
+    t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+         **bound(4 * q.numel() * 2, {"bf16": attention_ops(b, h, s, 64, False)})}
+    times["fused_mha_short vision bf16"] = t
+    print(f"  fused_mha_short vision B={b} H={h} S={s} bf16: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return times
 
 
@@ -488,6 +657,74 @@ def run_main_path(ms, log_dir: str) -> dict:
         counts["launches"] += launches
         counts["causal"] += causal
     return counts
+
+
+# the fused routes' phase-5 runs: (model, dtype, attention_impl, extra config)
+FUSED_RUNS = (("proof", "bfloat16", "attn_block", {"batch_size": FLAGSHIP_BATCH, "tuned_epoch": 2}),
+              ("simplecil", "bfloat16", "mha_packed_proj", {}),
+              ("zs_clip", "float32", "attn_block", {}))
+
+
+def run_fused_paths(ms, fa, log_dir: str) -> dict:
+    """PROOF (bf16) on attn_block, SimpleCIL (bf16) on mha_packed_proj and
+    ZS-CLIP (f32) on attn_block through the trainer. Every block of every
+    tower call goes through the route's kernel: its launches must equal the
+    layers times the image-tower calls (non-causal) and times the text-tower
+    calls (causal), both non-zero; attn_block's second kernel launches once
+    with each first; the packed and flash kernels launch no time."""
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+    from team_tpu_torch.trainer import train
+    from team_tpu_torch.utils import phase_timer
+
+    results = {}
+    for model_name, dtype, impl, kw in FUSED_RUNS:
+        calls = {"image": 0, "text": 0}
+
+        def count_towers(rt):
+            for key, attr in (("image", "encode_image"), ("text", "encode_text_tokens")):
+                setattr(rt, attr, _counted(getattr(rt, attr), calls, key))
+
+        cfg = smoke_config(model_name, dtype, os.path.join(log_dir, f"{model_name}_{impl}"),
+                           attention_impl=impl, **kw)
+        phase_timer.reset()
+        with recording(BackboneRuntime, count_towers) as made:
+            ms.reset_launch_counts()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train(cfg)
+            wall = time.perf_counter() - t0
+            block, proj = ms.fused_attn_block, ms.fused_mha_packed_proj
+            got = {"attn_block": block.launches, "attn_block_causal": block.causal_launches,
+                   "attn_block_proj": block.proj_launches, "mha_packed_proj": proj.launches,
+                   "mha_packed_proj_causal": proj.causal_launches,
+                   "fused_mha_packed": ms.fused_mha_packed.launches,
+                   "flash_attention": fa.flash_attention.launches,
+                   "fused_mha_short": ms.fused_mha_short.launches}
+        layers = made[0].clip_cfg.vision.layers if made else 0
+        n = layers * (calls["image"] + calls["text"])
+        causal = layers * calls["text"]
+        want = dict.fromkeys(got, 0)
+        if impl == "attn_block":
+            want.update(attn_block=n, attn_block_causal=causal, attn_block_proj=n)
+        else:
+            want.update(mha_packed_proj=n, mha_packed_proj_causal=causal)
+        print(f"  {model_name} ({dtype}, attention_impl {impl}"
+              f"{', batch %d' % kw['batch_size'] if 'batch_size' in kw else ''}): {wall:.2f} s, "
+              f"top1 per task {[float(a) for a in res['cnn_top1']]}, top4 "
+              f"{[float(a) for a in res['cnn_top5']]}; {calls['image']} image-tower and "
+              f"{calls['text']} text-tower calls of {layers} layers; launches {got}")
+        for line in phase_timer.format_report().splitlines():
+            print("    " + line)
+        if len(made) != 1 or got != want or calls["image"] == 0 or calls["text"] == 0:
+            raise AssertionError(f"{model_name} on {impl}: launches {got}, want {want} (each "
+                                 "block of each tower call through the route's kernel, causal "
+                                 "and non-causal non-zero, no packed or flash launch)")
+        accs = list(res["cnn_top1"]) + list(res["cnn_top5"])
+        if len(res["cnn_top1"]) != 2 or not all(0.0 <= float(a) <= 100.0 for a in accs):
+            raise AssertionError(f"{model_name} on {impl}: bad accuracy curve {res}")
+        results[f"{model_name}_{impl}"] = {"launches": got, "image_calls": calls["image"],
+                                           "text_calls": calls["text"], "wall_s": wall}
+    return results
 
 
 def run_int8_path(ms, log_dir: str, cache_dir: str) -> dict:
@@ -816,6 +1053,7 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
                 rates[key] = _encode_rate(rt, images)
                 print(f"  encode {dtype} through the {kernel}: {rates[key]:.1f} img/s "
                       f"(B={EVAL_B}, 224x224 uint8 in, ViT-B/16 image tower)")
+    short_launches = _fused_route_features(params, images, prompts, rates)
     runtimes = {}
     caches = {"static3d_qi": cache_dir, **{r: os.path.join(cache_root, r) for r in INT8_ROUTES},
               **{r: os.path.join(cache_root, src) for r, src in SERVED_FROM.items()}}
@@ -851,7 +1089,77 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
         rates[key] = _encode_rate(rt, images)
         print(f"  encode int8_static ({route}): {rates[key]:.1f} img/s (B={EVAL_B}, 224x224 uint8 "
               f"in, ViT-B/16 image tower)")
-    return rates, runtimes
+    return rates, runtimes, short_launches
+
+
+@contextlib.contextmanager
+def plain_fused_kernels():
+    """The towers' fused and pre-split kernels replaced by their plain
+    versions (same card), under the names the towers call them by."""
+    from team_tpu_torch.backbone import clip
+    from team_tpu_torch.ops import attention
+    from team_tpu_torch.ops import mha_short as ms
+
+    swaps = [(clip, "fused_attn_block", ms.attn_block_reference),
+             (clip, "fused_mha_packed_proj", ms.mha_packed_proj_reference),
+             (attention, "fused_mha_short", ms.mha_short_reference)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _fused_route_features(params, images, prompts, rates: dict) -> int:
+    """Features of the fused routes (both towers) and of the image tower on
+    mha_short, each against the same tower through the plain versions of its
+    kernels, to the limits of the packed route; their encode rates. Returns
+    the pre-split kernel's launches in the checked encodes (counted from 0
+    just before each, layers per encode)."""
+    import torch
+
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+    from team_tpu_torch.ops import mha_short as ms
+
+    short_launches = 0
+    for dtype, min_cos in (("float32", 0.99999), ("bfloat16", 0.99)):
+        for route in (*FUSED_ROUTES, "mha_short"):
+            rt = BackboneRuntime(smoke_config("simplecil", dtype, "", attention_impl=route),
+                                 params=params)
+            batch = rt.to_device(images)
+            ms.reset_launch_counts()
+            got = {"image": rt.encode_image(batch)}
+            launches = ms.fused_mha_short.launches
+            if route == "mha_short":
+                if launches != rt.clip_cfg.vision.layers:
+                    raise AssertionError(f"mha_short: {launches} launches for one image encode")
+                short_launches += launches
+            else:  # the pre-split kernel is non-causal: the image tower only
+                got["text"] = rt.encode_texts(prompts, cache=False)
+            with plain_fused_kernels():
+                want = {"image": rt.encode_image(batch)}
+                if "text" in got:
+                    want["text"] = rt.encode_texts(prompts, cache=False)
+            for name, a in got.items():
+                b = want[name]
+                if a.shape != (len(b), rt.out_dim) or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{route} {dtype} {name} features: shape "
+                                         f"{tuple(a.shape)} or not finite")
+                cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+                err = (a - b).abs().max().item()
+                print(f"  {dtype} {name} features on {route} through its kernels vs its plain "
+                      f"versions: min cosine {cos:.7f} (limit {min_cos}), max abs diff {err:.3e}")
+                if cos < min_cos:
+                    raise AssertionError(f"{route} {dtype} {name} features disagree with the "
+                                         "plain versions")
+            key = f"{dtype}_{route}"
+            rates[key] = _encode_rate(rt, images)
+            print(f"  encode {dtype} on {route}: {rates[key]:.1f} img/s (B={EVAL_B}, 224x224 "
+                  "uint8 in, ViT-B/16 image tower)")
+    return short_launches
 
 
 def _plain_int8_fns() -> dict:
@@ -924,6 +1232,8 @@ def _int8_kernels_on_tower_inputs(rt, images, route: str):
 
 
 def _kernel_group(name: str) -> str:
+    if "ln_qkv_kernel" in name or "mha_packed_proj_kernel" in name:
+        return "fused attention kernels (layer norm + qkv GEMM; attention + out-projection)"
     if ("q3i_kernel" in name or "mha_packed_kernel" in name or "flash_kernel" in name
             or "mha_q_kernel" in name):
         return "attention kernels"
@@ -938,7 +1248,7 @@ def _kernel_group(name: str) -> str:
 def profile_encodes(int8_runtimes, dev) -> None:
     """torch.profiler device time of one B=128 encode, by kernel: int8 on
     static3d_qi and static_qa, bf16 through the packed kernel, bf16 through
-    the flash kernel."""
+    the flash kernel, bf16 on attn_block and on mha_packed_proj."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -946,12 +1256,16 @@ def profile_encodes(int8_runtimes, dev) -> None:
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
 
     rt_bf16 = BackboneRuntime(smoke_config("simplecil", "bfloat16", ""))
-    rt_flash = BackboneRuntime(smoke_config("simplecil", "bfloat16", "", attention_impl="pallas"))
+    bf16_routes = {route: BackboneRuntime(smoke_config("simplecil", "bfloat16", "",
+                                                       attention_impl=route))
+                   for route in ("pallas", *FUSED_ROUTES)}
     size = rt_bf16.clip_cfg.vision.image_size
     u8 = np.random.default_rng(0).integers(0, 256, (EVAL_B, size, size, 3), dtype=np.uint8)
     for name, rt in (("int8_static", int8_runtimes["static3d_qi"]),
                      ("int8_static static_qa", int8_runtimes["static_qa"]),
-                     ("bfloat16", rt_bf16), ("bfloat16 through the flash kernel", rt_flash)):
+                     ("bfloat16", rt_bf16),
+                     ("bfloat16 through the flash kernel", bf16_routes["pallas"]),
+                     *((f"bfloat16 on {r}", bf16_routes[r]) for r in FUSED_ROUTES)):
         batch = rt.to_device(u8)
         rt.encode_image(batch)
         torch.cuda.synchronize()
@@ -1017,6 +1331,7 @@ def main() -> int:
     q3i_err = compare_q3i(ms, dev)
     int8_io_err = compare_int8_io(ms, im, dev)
     flash_err = compare_flash(fa, dev)
+    fused_err = compare_fused(ms, dev)
 
     print("phase 4: timing (CUDA events over 20 calls queued behind a device spin, after 3 "
           "warm-up; plain, kernel, kernel, plain)")
@@ -1024,6 +1339,7 @@ def main() -> int:
     times.update(time_q3i(ms, dev))
     times.update(time_int8_io(ms, im, dev))
     flash_times = time_flash(fa, dev)
+    times.update(time_fused(ms, dev))
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1032,9 +1348,10 @@ def main() -> int:
         routes = run_int8_routes(ms, im, log_dir, os.path.join(log_dir, "int8_route_caches"))
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
+        fused = run_fused_paths(ms, fa, log_dir)
         print("phase 6: features and encode rates")
-        rates, int8_runtimes = check_features(dev, os.path.join(log_dir, "int8_cache"),
-                                              os.path.join(log_dir, "int8_route_caches"))
+        rates, int8_runtimes, short_launches = check_features(
+            dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
     print("phase 7: profile of one encode")
     profile_encodes(int8_runtimes, dev)
 
@@ -1050,6 +1367,12 @@ def main() -> int:
 
     def route_cosines(*names):
         return {n: routes[n]["gate_cosine"] for n in names}
+
+    def fused_launches(key):
+        return sum(r["launches"][key] for r in fused.values())
+
+    def fused_rates(route):
+        return {k: v for k, v in rates.items() if k.endswith(route)}
     print(json.dumps({"kernels": [{
         "name": "fused_mha_packed", "route": "cuda",
         "source": "team_tpu_torch/csrc/mha_packed.cu",
@@ -1097,6 +1420,34 @@ def main() -> int:
         "text": timing(flash_times["text"]), "proof_wall_s": proof["wall_s"],
         "proof_step_ms": proof["step_ms"], "proof_step_device_ms": proof["step_device_ms"],
         "proof_loss_rel_diff": proof["loss_rel_diff"], "import_dynamo_s": proof["import_dynamo_s"],
+    }, {
+        "name": "fused_mha_short", "route": "cuda", "source": "team_tpu_torch/csrc/mha_packed.cu",
+        "replaces": "team_tpu/ops/mha_short.py:35",
+        "launches": short_launches, "launches_from": "phase 6 image-tower encodes on mha_short",
+        "max_abs_err": fused_err["fused_mha_short"], **timing(times["fused_mha_short vision bf16"]),
+        "encode_img_per_s": fused_rates("mha_short"),
+    }, {
+        "name": "fused_mha_packed_proj", "route": "cuda",
+        "source": "team_tpu_torch/csrc/attn_block.cu", "replaces": "team_tpu/ops/mha_short.py:985",
+        "launches": fused_launches("mha_packed_proj"),
+        "causal_launches": fused_launches("mha_packed_proj_causal"),
+        "max_abs_err": fused_err["fused_mha_packed_proj"],
+        **timing(times["fused_mha_packed_proj vision bf16"]),
+        "library": "composition: scaled_dot_product_attention + addmm + add",
+        "f32": timing(times["fused_mha_packed_proj vision f32"]),
+        "text": timing(times["fused_mha_packed_proj text bf16"]),
+        "encode_img_per_s": fused_rates("mha_packed_proj"),
+    }, {
+        "name": "fused_attn_block", "route": "cuda", "source": "team_tpu_torch/csrc/attn_block.cu",
+        "replaces": "team_tpu/ops/mha_short.py:935",
+        "launches": fused_launches("attn_block"), "causal_launches": fused_launches("attn_block_causal"),
+        "kernel_launches": fused_launches("attn_block") + fused_launches("attn_block_proj"),
+        "max_abs_err": fused_err["fused_attn_block"], **timing(times["fused_attn_block vision bf16"]),
+        "library": "composition: layer_norm + addmm + scaled_dot_product_attention + addmm + add",
+        "f32": timing(times["fused_attn_block vision f32"]),
+        "text": timing(times["fused_attn_block text bf16"]),
+        "encode_img_per_s": fused_rates("attn_block"),
+        "runs_wall_s": {k: r["wall_s"] for k, r in fused.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

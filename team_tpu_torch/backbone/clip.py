@@ -5,9 +5,14 @@ dict as the JAX pytree (:mod:`team_tpu_torch.bridge` carries it across), with
 weights in ``[in, out]`` layout; every forward is a plain function of
 ``(params, inputs, cfg)``. The blocks' attention runs through the packed
 Hopper kernel (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed`) under
-``attn_impl="auto"`` and through the flash kernel
+``attn_impl="auto"``, through the flash kernel
 (:func:`team_tpu_torch.ops.flash_attention.flash_attention`) under
-``"pallas"``; the large GEMMs are ``torch.matmul``.
+``"pallas"`` and through the pre-split kernel under ``"mha_short"`` (image
+tower only). ``"mha_packed_proj"`` fuses the out-projection and residual
+into the attention kernel, ``"attn_block"`` the whole attention sub-block
+(:func:`~team_tpu_torch.ops.mha_short.fused_mha_packed_proj`,
+:func:`~team_tpu_torch.ops.mha_short.fused_attn_block`); the other large
+GEMMs are ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from team_tpu_torch.ops.attention import multi_head_attention
-from team_tpu_torch.ops.mha_short import fused_mha_packed
+from team_tpu_torch.ops.mha_short import fused_attn_block, fused_mha_packed, fused_mha_packed_proj
 from team_tpu_torch.ops.preprocess import patch_norm_consts
 
 
@@ -79,6 +84,10 @@ Params = Dict[str, Any]
 _CAST_LEAVES = frozenset({
     "qkv_w", "qkv_b", "out_w", "out_b", "fc_w", "fc_b", "proj_w", "proj_b",
     "patch_w", "cls", "pos", "proj", "token_embedding"})
+# the block-level routes whose kernels take the attention biases in float32
+# (``mha_short.py:1056``, ``:1145-1148``): their towers keep those two leaves
+FUSED_ROUTES = ("attn_block", "mha_packed_proj")
+_F32_ON_FUSED_ROUTES = frozenset({"qkv_b", "out_b"})
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +151,21 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
             "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)}
 
 
-def cast_frozen_params(params: Params, compute_dtype: torch.dtype, device: torch.device) -> Params:
+def cast_frozen_params(params: Params, compute_dtype: torch.dtype, device: torch.device,
+                       attn_impl: str = "auto") -> Params:
     """Move the tree to ``device`` and cast, once, the leaves the forward
     casts at every use. The towers are frozen, so this gives the values of
-    the JAX forward's per-use ``.astype``."""
+    the JAX forward's per-use ``.astype``. On the fused routes
+    (``FUSED_ROUTES``) ``qkv_b`` and ``out_b`` stay as they are: the kernels
+    add them in float32, and the plain GEMMs cast them at each use."""
+    cast = _CAST_LEAVES - _F32_ON_FUSED_ROUTES if attn_impl in FUSED_ROUTES else _CAST_LEAVES
+
     def walk(tree, key=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, key) for v in tree]
-        dtype = compute_dtype if key in _CAST_LEAVES else tree.dtype
+        dtype = compute_dtype if key in cast else tree.dtype
         return tree.to(device=device, dtype=dtype)
 
     return walk(params)
@@ -179,14 +193,17 @@ def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
     """Attention over the packed qkv projection ``[B, S, 3D]`` -> ``[B, S, D]``:
     ``auto`` (S < 512) and ``mha_packed`` take the packed kernel, the rest go
     through :func:`multi_head_attention` (``pallas``: the flash kernel, which
-    takes the head-split views without copying them)."""
+    takes the head-split views without copying them; ``mha_short``: the
+    pre-split kernel; the block-level ``attn_block`` and ``mha_packed_proj``,
+    which the int8 tier passes here as team_tpu's ``_attn_core`` does: the
+    plain route)."""
     b, s, d3 = qkv.shape
     d = d3 // 3
     dh = d // heads
-    if impl in ("attn_block", "mha_packed_proj", "mha_packed_tp"):
+    if impl == "mha_packed_tp":
         raise NotImplementedError(
-            f"attn_impl={impl!r}: its kernel is not ported yet (ROADMAP queue 2 "
-            "items 6-7; the head split is ROADMAP queue 1 item 10)")
+            "attn_impl='mha_packed_tp': the head split over a mesh is not ported yet "
+            "(ROADMAP queue 1 item 10)")
     if impl == "auto" and s < 512:
         impl = "mha_packed"
     if impl == "mha_packed":
@@ -202,15 +219,33 @@ def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
     return o.permute(0, 2, 1, 3).reshape(b, s, d)
 
 
+def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x + h @ w + b`` in team_tpu's order: the product joins the residual
+    before the bias (two roundings in bf16)."""
+    return x + h @ w.to(x.dtype) + b.to(x.dtype)
+
+
 def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
                    impl: str) -> torch.Tensor:
-    h = _layer_norm(p["ln_1"], x)
-    qkv = _linear(h, p["attn"]["qkv_w"], p["attn"]["qkv_b"])
-    o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
-    x = x + _linear(o, p["attn"]["out_w"], p["attn"]["out_b"])
+    """One transformer block (``team_tpu/backbone/clip.py:_block_forward``).
+    ``attn_block`` runs the attention sub-block in :func:`fused_attn_block`,
+    ``mha_packed_proj`` the attention, out-projection and residual in
+    :func:`fused_mha_packed_proj` after a ``torch.matmul`` qkv GEMM; the MLP
+    half is ``torch.matmul`` on every route, as team_tpu leaves it to XLA."""
+    a = p["attn"]
+    if impl == "attn_block":
+        x = fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
+                             a["out_w"], a["out_b"], heads, causal=causal)
+    else:
+        qkv = _linear(_layer_norm(p["ln_1"], x), a["qkv_w"], a["qkv_b"])
+        if impl == "mha_packed_proj":
+            x = fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal)
+        else:
+            o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
+            x = _residual(x, o, a["out_w"], a["out_b"])
     h = _layer_norm(p["ln_2"], x)
     h = F.gelu(_linear(h, p["mlp"]["fc_w"], p["mlp"]["fc_b"]), approximate="none")
-    return x + _linear(h, p["mlp"]["proj_w"], p["mlp"]["proj_b"])
+    return _residual(x, h, p["mlp"]["proj_w"], p["mlp"]["proj_b"])
 
 
 def patch_pixels(images: torch.Tensor, cfg: CLIPConfig, *,

@@ -72,10 +72,11 @@ class BackboneRuntime:
             logging.info("no CLIP checkpoint; random init from seed %d", seed)
             params = init_clip_params(torch.Generator().manual_seed(seed), self.clip_cfg)
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        self.params = cast_frozen_params(params, self.compute_dtype, self.device)
+        self.attn_impl = cfg.attention_impl
+        # on the fused routes the attention biases stay float32, as their kernels add them
+        self.params = cast_frozen_params(params, self.compute_dtype, self.device, self.attn_impl)
         self.tokenizer = Tokenizer(require_bpe=False)
         self.out_dim = self.clip_cfg.embed_dim
-        self.attn_impl = cfg.attention_impl
         self._text_cache: Dict[str, np.ndarray] = {}
         # int8 tier state: the float32 image tower is quantized after calibration
         self._vision_f32: Optional[Params] = (params["vision"] if self.encoder_quant == "int8_static"

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on first
 use into a shared library under ``build/team_tpu_torch/`` at the repository
 root (listed in ``.gitignore``). The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt rather than reused.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+is rebuilt rather than reused.
 Only the machine with the card has ``nvcc``; the CPU paths never call this.
 """
 
@@ -42,7 +43,9 @@ def nvcc_path() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers count too: a source that includes an edited one is rebuilt
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``team_tpu/ops/attention.py:multi_head_attention`` and
 ``team_tpu/ops/flash_attention.py:xla_attention``: the plain route
-(``impl="xla"``) and the flash kernel (``impl="pallas"``,
-:mod:`team_tpu_torch.ops.flash_attention`). The towers reach the packed
-kernel at the block level (``team_tpu_torch.backbone.clip.attention_core``).
+(``impl="xla"``), the flash kernel (``impl="pallas"``,
+:mod:`team_tpu_torch.ops.flash_attention`) and the pre-split kernel
+(``impl="mha_short"``, :func:`team_tpu_torch.ops.mha_short.fused_mha_short`).
+The towers reach the packed and fused kernels at the block level
+(``team_tpu_torch.backbone.clip``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 import torch
 
 from team_tpu_torch.ops.flash_attention import flash_attention
+from team_tpu_torch.ops.mha_short import fused_mha_short
 
 NEG_INF = -1e30
 
@@ -42,14 +45,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``pallas`` takes the flash kernel on the card and its plain version on the
     CPU; ``auto`` takes the flash kernel on the card from S >= 512 on, as on
-    the TPU, and the plain route otherwise; ``mha_short`` raises."""
+    the TPU, and the plain route otherwise; ``mha_short`` takes the pre-split
+    kernel (its plain version on the CPU), non-causal only; every other name
+    takes the plain route, as in team_tpu (the block-level routes
+    ``attn_block`` and ``mha_packed_proj`` reach here from the int8 tier)."""
     if impl == "auto":
         impl = "pallas" if (q.device.type == "cuda" and q.shape[2] >= 512) else "xla"
     if impl == "pallas":
         return flash_attention(q, k, v, kv_len, causal=causal)
     if impl == "mha_short":
-        raise NotImplementedError(
-            "the fused_mha_short kernel is not ported yet: ROADMAP queue 2 item 5")
-    if impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r}")
+        if causal:
+            raise ValueError("the mha_short kernel is non-causal (the image tower only)")
+        return fused_mha_short(q, k, v, kv_len)
     return xla_attention(q, k, v, kv_len, causal=causal)

@@ -5,6 +5,15 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
 - ``fused_mha_packed`` (TPU kernel ``_mha_packed_kernel``): attention
   straight from the packed qkv projection ``[B, S, 3*D]`` to ``[B, S, D]``,
   without head-split copies; CUDA kernel ``csrc/mha_packed.cu``.
+- ``fused_mha_short`` (TPU kernel ``_mha_kernel``): non-causal attention over
+  pre-split ``[B, H, S, Dh]`` with a key mask; the same CUDA kernel over the
+  tensors' own strides.
+- ``fused_mha_packed_proj`` and ``fused_attn_block`` (TPU kernels
+  ``_mha_packed_proj_kernel`` and ``_attn_block_kernel``): packed attention
+  with the out-projection GEMM, its bias and the residual fused in, and the
+  whole attention sub-block (layer norm, qkv GEMM, attention, out-projection,
+  residual); CUDA kernels ``csrc/attn_block.cu`` (the sub-block in two
+  launches, through a ``[B, S, 3*D]`` workspace).
 - ``fused_mha_packed_q3i`` and ``fused_mha_packed_q3i_cls`` (TPU kernels
   ``_mha_packed_q3i_kernel`` and ``_mha_packed_q3i_cls_kernel``): the int8
   static-W8A8 tier's integer-QKᵀ attention, int8 ``[B, S, 3*D]`` to int8
@@ -89,6 +98,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p]
     lib.team_mha_packed_fwd.restype = ctypes.c_int
+    # q, k, v, out; dtype, batch, heads, seq, dh; strides of q/k/v; kv_len, scale; stream
+    lib.team_mha_short_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.team_mha_short_fwd.restype = ctypes.c_int
     lib.team_mha_packed_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.team_mha_packed_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -99,8 +113,9 @@ def build() -> None:
     at its first call: one ``nvcc`` for each source, started together."""
     from team_tpu_torch.ops._build import build_all
 
-    build_all([_SOURCE, _Q3I_SOURCE, _Q_SOURCE])
+    build_all([_SOURCE, _BLOCK_SOURCE, _Q3I_SOURCE, _Q_SOURCE])
     _library()
+    _block_library()
     _q3i_library()
     _q_library()
 
@@ -154,6 +169,242 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
 
 fused_mha_packed.launches = 0
 fused_mha_packed.causal_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# pre-split attention, and the fused attention sub-block
+# ---------------------------------------------------------------------------
+
+_BLOCK_SOURCE = "attn_block.cu"
+_BLOCK_HEAD_DIMS = (32, 64)  # the fused kernels' compiled head widths
+
+
+def mha_short_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_kernel`` over ``[B, H, S, Dh]``: the
+    packed kernels' casts (:func:`mha_packed_reference`), non-causal, keys
+    ``>= kv_len`` masked; every query row is returned."""
+    dtype = q.dtype
+    qs = (q.float() * q.shape[-1] ** -0.5).to(dtype)
+    return _softmax_pv(qs, k, v, False, kv_len, dtype).to(dtype)
+
+
+def mha_packed_proj_reference(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
+                              x_resid: torch.Tensor, heads: int,
+                              causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_packed_proj_kernel``: each head's
+    attention output rounded to the input dtype (:func:`mha_packed_reference`),
+    then ``round(x + (o @ W_out + b_out))`` with the product accumulated in
+    f32 (an f32 matmul of the input-dtype operands), the float32 bias added
+    to it, and one rounding after the f32 residual."""
+    dtype = qkv.dtype
+    o = mha_packed_reference(qkv, heads, causal)
+    proj = torch.matmul(o.float(), out_w.to(dtype).float()) + out_b.float().reshape(-1)
+    return (x_resid.float() + proj).to(dtype)
+
+
+def attn_block_reference(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                         qkv_w: torch.Tensor, qkv_b: torch.Tensor, out_w: torch.Tensor,
+                         out_b: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``_attn_block_kernel``: the f32 layer norm
+    (population variance, eps 1e-5) rounded to the input dtype, then
+    ``qkv = round(h @ W_qkv + b_qkv)`` accumulated in f32 with the float32
+    bias (one rounding), then :func:`mha_packed_proj_reference` with ``x`` as
+    the residual."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    h = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    h = (h * ln_scale.float().reshape(-1) + ln_bias.float().reshape(-1)).to(dtype)
+    qkv = (torch.matmul(h.float(), qkv_w.to(dtype).float()) + qkv_b.float().reshape(-1)).to(dtype)
+    return mha_packed_proj_reference(qkv, out_w, out_b, x, heads, causal)
+
+
+def _block_library() -> ctypes.CDLL:
+    from team_tpu_torch.ops._build import load_library
+
+    lib = load_library(_BLOCK_SOURCE)
+    # qkv, w_out, b_out, x, out; dtype, batch, seq, heads, dh, causal; scale; stream
+    lib.team_mha_packed_proj_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    lib.team_mha_packed_proj_fwd.restype = ctypes.c_int
+    # x, ln_g, ln_b, w_qkv, b_qkv, qkv; dtype, rows, d_model; stream
+    lib.team_ln_qkv_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.team_ln_qkv_fwd.restype = ctypes.c_int
+    lib.team_attn_block_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.team_attn_block_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _on_card(name: str, main: torch.Tensor, others: dict) -> None:
+    """Raise unless ``main`` lies on the CPU or a CUDA card with every tensor
+    of ``others`` (name -> tensor) beside it."""
+    if main.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {main.device}")
+    for other, t in others.items():
+        if t.device != main.device:
+            raise ValueError(f"{other} lies on {t.device}, the input on {main.device}")
+
+
+def fused_mha_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Non-causal attention over pre-split ``[B, H, S, Dh]`` (float32 or
+    bfloat16) with keys ``>= kv_len`` masked; returns ``[B, H, S, Dh]``
+    contiguous, every query row. Any strides with a unit stride along Dh
+    (shared by q, k and v) go to the kernel as they are. Each kernel launch
+    adds one to ``fused_mha_short.launches``."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one [B, H, S, Dh] shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, dh = q.shape
+    if kv_len is not None and not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    _on_card("fused_mha_short", q, {"k": k, "v": v})
+    if q.device.type == "cpu":
+        return mha_short_reference(q, k, v, kv_len)
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = _library()
+    code = _DTYPE_CODES[q.dtype]
+    smem = lib.team_mha_packed_smem_bytes(code, s, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V (limit {_SMEM_LIMIT})")
+    out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
+    sb, sh, sr, _ = q.stride()
+    with torch.cuda.device(q.device):
+        err = lib.team_mha_short_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, b, h, s, dh,
+            sb, sh, sr, s if kv_len is None else kv_len, dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mha_short kernel launch failed: cudaError {err}")
+    fused_mha_short.launches += 1
+    return out
+
+
+def _launch_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
+                        x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """Launch the attention + out-projection kernel on checked CUDA inputs."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    if dh not in _BLOCK_HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {_BLOCK_HEAD_DIMS})")
+    if not (qkv.is_contiguous() and x.is_contiguous()):
+        raise ValueError("qkv and x_resid must be contiguous")
+    lib = _block_library()
+    code = _DTYPE_CODES[qkv.dtype]
+    smem = lib.team_attn_block_smem_bytes(0, code, s, d, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s}, D={d} need {smem} bytes of shared memory (limit {_SMEM_LIMIT})")
+    w = out_w.to(qkv.dtype).contiguous()
+    bias = out_b.reshape(-1).float().contiguous()
+    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = lib.team_mha_packed_proj_fwd(
+            qkv.data_ptr(), w.data_ptr(), bias.data_ptr(), x.data_ptr(), out.data_ptr(), code, b,
+            s, heads, dh, int(causal), dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mha_packed_proj kernel launch failed: cudaError {err}")
+    return out
+
+
+def fused_mha_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
+                          x_resid: torch.Tensor, heads: int, *,
+                          causal: bool = False) -> torch.Tensor:
+    """``x_resid + attention(qkv) @ out_w + out_b`` in one kernel.
+
+    ``qkv: [B, S, 3*D]`` packed, ``x_resid: [B, S, D]`` (both float32 or
+    bfloat16), ``out_w: [D, D]`` (cast to that dtype), ``out_b: [D]`` (added
+    in float32). Returns ``[B, S, D]``. Each kernel launch adds one to
+    ``fused_mha_packed_proj.launches`` (and to ``causal_launches`` when
+    causal)."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be [B, S, 3*D], got {tuple(qkv.shape)}")
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    if tuple(x_resid.shape) != (b, s, d) or tuple(out_w.shape) != (d, d) or out_b.numel() != d:
+        raise ValueError(f"x_resid {tuple(x_resid.shape)}, out_w {tuple(out_w.shape)} and out_b "
+                         f"{tuple(out_b.shape)} do not fit qkv {tuple(qkv.shape)}")
+    if qkv.dtype not in _DTYPE_CODES or x_resid.dtype != qkv.dtype:
+        raise TypeError(f"qkv and x_resid must share float32 or bfloat16, got {qkv.dtype}, "
+                        f"{x_resid.dtype}")
+    _on_card("fused_mha_packed_proj", qkv, {"out_w": out_w, "out_b": out_b, "x_resid": x_resid})
+    if qkv.device.type == "cpu":
+        return mha_packed_proj_reference(qkv, out_w, out_b, x_resid, heads, causal)
+    out = _launch_packed_proj(qkv, out_w, out_b, x_resid, heads, causal)
+    fused_mha_packed_proj.launches += 1
+    if causal:
+        fused_mha_packed_proj.causal_launches += 1
+    return out
+
+
+def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                     qkv_w: torch.Tensor, qkv_b: torch.Tensor, out_w: torch.Tensor,
+                     out_b: torch.Tensor, heads: int, *, causal: bool = False) -> torch.Tensor:
+    """``x + out_proj(attention(qkv(LN(x))))`` over ``[B, S, D]`` (float32 or
+    bfloat16). ``ln_scale``, ``ln_bias``, ``qkv_b`` and ``out_b`` are used in
+    float32, ``qkv_w: [D, 3D]`` and ``out_w: [D, D]`` in x's dtype.
+
+    On the card two kernels run: the layer norm and the qkv GEMM into a
+    ``[B, S, 3*D]`` workspace (each launch adds one to
+    ``fused_attn_block.launches``, and to ``causal_launches`` when causal),
+    then the attention + out-projection kernel of
+    :func:`fused_mha_packed_proj` (one to ``fused_attn_block.proj_launches``)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
+    b, s, d = x.shape
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    if (tuple(qkv_w.shape) != (d, 3 * d) or tuple(out_w.shape) != (d, d) or ln_scale.numel() != d
+            or ln_bias.numel() != d or qkv_b.numel() != 3 * d or out_b.numel() != d):
+        raise ValueError(f"the weights ({tuple(qkv_w.shape)}, {tuple(out_w.shape)}), biases or "
+                         f"layer-norm affine do not fit x {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
+    _on_card("fused_attn_block", x, {"ln_scale": ln_scale, "ln_bias": ln_bias, "qkv_w": qkv_w,
+                                     "qkv_b": qkv_b, "out_w": out_w, "out_b": out_b})
+    if x.device.type == "cpu":
+        return attn_block_reference(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, heads,
+                                    causal)
+    dh = d // heads
+    if dh not in _BLOCK_HEAD_DIMS:  # which also makes D a multiple of the 32-deep k-slice
+        raise ValueError(f"head width {dh} not compiled (supported: {_BLOCK_HEAD_DIMS})")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
+    lib = _block_library()
+    code = _DTYPE_CODES[x.dtype]
+    w = qkv_w.to(x.dtype).contiguous()
+    vecs = [t.reshape(-1).float().contiguous() for t in (ln_scale, ln_bias, qkv_b)]
+    with torch.cuda.device(x.device):
+        err = lib.team_ln_qkv_fwd(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                                  w.data_ptr(), vecs[2].data_ptr(), qkv.data_ptr(), code, b * s, d,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ln_qkv kernel launch failed: cudaError {err}")
+    fused_attn_block.launches += 1
+    if causal:
+        fused_attn_block.causal_launches += 1
+    out = _launch_packed_proj(qkv, out_w, out_b, x, heads, causal)
+    fused_attn_block.proj_launches += 1
+    return out
+
+
+fused_mha_short.launches = 0
+fused_mha_packed_proj.launches = 0
+fused_mha_packed_proj.causal_launches = 0
+fused_attn_block.launches = 0
+fused_attn_block.causal_launches = 0
+fused_attn_block.proj_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +716,12 @@ fused_mha_packed_q3.launches = 0
 def reset_launch_counts() -> None:
     fused_mha_packed.launches = 0
     fused_mha_packed.causal_launches = 0
+    fused_mha_short.launches = 0
+    fused_mha_packed_proj.launches = 0
+    fused_mha_packed_proj.causal_launches = 0
+    fused_attn_block.launches = 0
+    fused_attn_block.causal_launches = 0
+    fused_attn_block.proj_launches = 0
     fused_mha_packed_q3i.launches = 0
     fused_mha_packed_q3i_cls.launches = 0
     fused_mha_packed_q.launches = 0

@@ -16,7 +16,10 @@ kernels and the layer norm -> int8 kernel at most one int8 step with under
 1 % of the outputs differing (as in tests/test_torch_int8_static.py), the
 static quantize kernel bit for bit; the tower on each static route through
 its kernels against the same tower with the plain versions, cosine >= 0.9999
-and max |Δ| <= 5e-3·rms."""
+and max |Δ| <= 5e-3·rms; the pre-split kernel as the packed one; the fused
+out-projection and attention sub-block kernels float32 1e-5 and bfloat16
+2e-2 plus one bf16 step (2^-7) of the output's magnitude (the residual
+makes outputs up to ~5, where one step is 0.03)."""
 
 import pytest
 import torch
@@ -355,3 +358,129 @@ def test_static_routes_through_the_kernels_match_plain_versions(cuda_device, mon
         err = (got[route] - want).abs().max().item()
         rms = want.pow(2).mean().sqrt().item()
         assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (route, cos, err, rms)
+
+
+# -- the pre-split attention, and the fused out-projection and attention sub-block --
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,s,dh,kv_len", [
+    (128, 12, 197, 64, None), (4, 12, 197, 64, 150), (3, 4, 37, 32, 20), (2, 2, 130, 128, None)])
+def test_mha_short_kernel_matches_plain_version(cuda_device, dtype, atol, b, h, s, dh, kv_len):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((b, h, s, dh), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    launches = tms.fused_mha_short.launches
+    out = tms.fused_mha_short(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_short.launches == launches + 1
+    assert out.dtype == dtype and out.shape == (b, h, s, dh)
+    torch.testing.assert_close(out.float(), tms.mha_short_reference(q, k, v, kv_len).float(),
+                               rtol=0, atol=atol)
+
+
+def test_mha_short_kernel_takes_head_split_views(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, s, h, dh = 4, 197, 12, 64
+    qkv = torch.randn((b, s, 3 * h * dh), generator=g, device=cuda_device)
+    q, k, v = (t.reshape(b, s, h, dh).permute(0, 2, 1, 3) for t in qkv.split(h * dh, dim=-1))
+    torch.testing.assert_close(tms.fused_mha_short(q, k, v, 150),
+                               tms.mha_short_reference(q, k, v, 150), rtol=0, atol=1e-5)
+    # and the packed kernel on the same rows, which is the same kernel on other strides
+    torch.testing.assert_close(tms.fused_mha_short(q, k, v).permute(0, 2, 1, 3).reshape(b, s, -1),
+                               fused_mha_packed(qkv, h), rtol=0, atol=0)
+
+
+def fused_block_inputs(b, s, h, dh, dtype, device, seed=0):
+    """x, a layer norm's affine, and the attention's weights and biases, the
+    biases and affine non-zero; the packed qkv for the out-projection kernel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = h * dh
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=device) * std + mean
+
+    x = randn(b, s, d).to(dtype)
+    ln = (randn(d, std=0.3, mean=1.0), randn(d, std=0.2))
+    attn = (randn(d, 3 * d, std=d ** -0.5).to(dtype), randn(3 * d, std=0.5),
+            randn(d, d, std=d ** -0.5).to(dtype), randn(d, std=0.5))
+    return x, ln, attn, randn(b, s, 3 * d).to(dtype)
+
+
+FUSED_SHAPES = [(128, 197, 12, 64, False), (32, 77, 8, 64, True), (3, 37, 4, 32, False),
+                (2, 21, 2, 64, True)]
+
+
+def assert_fused_close(out, ref, dtype):
+    assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh,causal", FUSED_SHAPES)
+def test_mha_packed_proj_kernel_matches_plain_version(cuda_device, dtype, b, s, h, dh, causal):
+    x, _, (_, _, out_w, out_b), qkv = fused_block_inputs(b, s, h, dh, dtype, cuda_device)
+    before = (tms.fused_mha_packed_proj.launches, tms.fused_mha_packed_proj.causal_launches)
+    out = tms.fused_mha_packed_proj(qkv, out_w, out_b, x, h, causal=causal)
+    torch.cuda.synchronize()
+    assert (tms.fused_mha_packed_proj.launches, tms.fused_mha_packed_proj.causal_launches) == (
+        before[0] + 1, before[1] + int(causal))
+    assert_fused_close(out, tms.mha_packed_proj_reference(qkv, out_w, out_b, x, h, causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh,causal", FUSED_SHAPES)
+def test_attn_block_kernels_match_plain_version(cuda_device, dtype, b, s, h, dh, causal):
+    x, ln, attn, _ = fused_block_inputs(b, s, h, dh, dtype, cuda_device, seed=1)
+    counts = lambda: (tms.fused_attn_block.launches, tms.fused_attn_block.causal_launches,  # noqa: E731
+                      tms.fused_attn_block.proj_launches, tms.fused_mha_packed_proj.launches)
+    before = counts()
+    out = tms.fused_attn_block(x, *ln, *attn, h, causal=causal)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + int(causal), before[2] + 1, before[3])
+    assert_fused_close(out, tms.attn_block_reference(x, *ln, *attn, h, causal), dtype)
+
+
+@pytest.mark.parametrize("impl", ["attn_block", "mha_packed_proj"])
+def test_towers_through_the_fused_kernels_match_plain_attention(cuda_device, impl):
+    cfg = tclip.CLIPConfig.tiny()  # head width 32
+    params = tclip.init_clip_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(3)
+    for blk in params["vision"]["blocks"] + params["text"]["blocks"]:
+        for key in ("qkv_b", "out_b"):
+            blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g) * 0.5
+    params = tclip.cast_frozen_params(params, torch.float32, cuda_device, impl)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    images = torch.randn((4, 32, 32, 3), generator=g, device=cuda_device)
+    tokens = torch.randint(1, 1000, (4, 77), generator=g, device=cuda_device)
+    counter = tms.fused_attn_block if impl == "attn_block" else tms.fused_mha_packed_proj
+    launches, causal = counter.launches, counter.causal_launches
+    img = tclip.encode_image(params, images, cfg, attn_impl=impl)
+    txt = tclip.encode_text(params, tokens, cfg, attn_impl=impl)
+    assert (counter.launches - launches, counter.causal_launches - causal) == (
+        cfg.vision.layers + cfg.text.layers, cfg.text.layers)
+    torch.testing.assert_close(img, tclip.encode_image(params, images, cfg, attn_impl="xla"),
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(txt, tclip.encode_text(params, tokens, cfg, attn_impl="xla"),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    x, ln, attn, qkv = fused_block_inputs(2, 8, 4, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        tms.fused_attn_block(x, *ln, *attn, 4)
+    with pytest.raises(ValueError, match="head width"):
+        tms.fused_mha_packed_proj(qkv, attn[2], attn[3], x, 4)
+    x, ln, attn, qkv = fused_block_inputs(2, 8, 1, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.fused_mha_packed_proj(qkv.transpose(0, 1).contiguous().transpose(0, 1), attn[2],
+                                  attn[3], x, 1)
+    with pytest.raises(ValueError, match="lies on"):
+        tms.fused_attn_block(x, ln[0].cpu(), ln[1], *attn, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tms.fused_mha_packed_proj(torch.zeros((1, 2048, 3 * 64), device=cuda_device),
+                                  attn[2], attn[3], torch.zeros((1, 2048, 64), device=cuda_device), 1)
+    with pytest.raises(ValueError, match="head width"):
+        tms.fused_mha_short(*(torch.zeros((1, 2, 8, 48), device=cuda_device) for _ in range(3)))

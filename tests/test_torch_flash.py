@@ -120,8 +120,17 @@ def test_front_end_routes(monkeypatch):
     assert len(calls) == 1
     torch.testing.assert_close(tattn.multi_head_attention(q, k, v, impl="auto"),
                                tattn.xla_attention(q, k, v))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tattn.multi_head_attention(q, k, v, impl="mha_short")
+    # the pre-split kernel (its plain version here) is non-causal, as team_tpu asserts
+    short = []
+    monkeypatch.setattr(tattn, "fused_mha_short", lambda *a: short.append(a[3]) or a[0])
+    tattn.multi_head_attention(q, k, v, 20, impl="mha_short")
+    assert short == [20]
+    with pytest.raises(ValueError, match="non-causal"):
+        tattn.multi_head_attention(q, k, v, impl="mha_short", causal=True)
+    # any other name takes the plain route, as team_tpu's front end does
+    torch.testing.assert_close(tattn.multi_head_attention(q, k, v, 20, impl="attn_block"),
+                               tattn.xla_attention(q, k, v, 20))
+    assert len(calls) == 1 and len(short) == 1
 
 
 def test_plain_flash_matches_xla_attention_in_float32():

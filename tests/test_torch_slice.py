@@ -145,6 +145,86 @@ def test_int8_slice_curves_match_team_tpu(model_name, clip_params, tmp_path, mon
         assert abs(a["zs_total"] - b["zs_total"]) <= one_image[-1] + 1e-9, (a, b)
 
 
+FUSED_ROUTES = ["attn_block", "mha_packed_proj"]
+
+
+@pytest.fixture
+def jax_fused_interpret(monkeypatch):
+    """team_tpu's fused attention kernels, and the int8 producers of its
+    ``static`` route, in interpret mode (the CPU takes no compiled Pallas),
+    patched in as tests/test_backbone.py does."""
+    import functools
+
+    import team_tpu.backbone.quant as jquant
+    import team_tpu.ops.mha_short as jms
+
+    for name in ("fused_attn_block", "fused_mha_packed_proj"):
+        monkeypatch.setattr(jms, name, functools.partial(getattr(jms, name), interpret=True))
+    for name in ("ln_quantize_static", "row_quant_static"):
+        fn = getattr(jquant, name)
+        monkeypatch.setattr(jquant, name, lambda *a, _fn=fn, interpret=False, **k:
+                            _fn(*a, interpret=True, **k))
+
+
+@pytest.mark.parametrize("impl", FUSED_ROUTES)
+@pytest.mark.parametrize("model_name", MODELS)
+def test_fused_route_curves_and_features_match_team_tpu(model_name, impl, clip_params, tmp_path,
+                                                        monkeypatch, jax_fused_interpret):
+    """The same protocol on ``attention_impl`` attn_block or mha_packed_proj
+    (both towers through the fused kernels' plain versions here): curves
+    within 0.1 pp, and the trained learners' test features within 1e-5."""
+    import team_tpu.trainer as jtrainer
+    import team_tpu_torch.trainer as ttrainer
+
+    learners = {}  # the learner each trainer builds
+    for key, mod in (("jax", jtrainer), ("torch", ttrainer)):
+        monkeypatch.setattr(mod, "get_model", lambda *a, _make=mod.get_model, _key=key, **k:
+                            learners.setdefault(_key, _make(*a, **k)))
+    want = jax_train(tiny_cfg(model_name, tmp_path / "jax", attention_impl=impl))
+    got = torch_train(torch_cfg(model_name, tmp_path / "torch", attention_impl=impl), clip_params)
+    assert len(got["cnn_top1"]) == 3
+    for key in ("cnn_top1", "cnn_top5", "avg_acc"):
+        np.testing.assert_allclose(got[key], want[key], atol=0.1, err_msg=key)
+    for a, b in zip(_metrics(tmp_path / "jax", model_name), _metrics(tmp_path / "torch", model_name)):
+        for key in ("top1", "top4_as_top5", "zs_total"):
+            assert abs(a[key] - b[key]) <= 0.1, (key, a, b)
+    jm, tm = learners["jax"], learners["torch"]
+    assert tm.backbone.attn_impl == impl
+    jv, jy = jm._extract_vectors(jm.test_loader)
+    tv, ty = tm._extract_vectors(tm.test_loader)
+    np.testing.assert_array_equal(ty, jy)
+    np.testing.assert_allclose(tv, np.asarray(jv), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tm._zero_shot_text_features().numpy(),
+                               np.asarray(jm._zero_shot_text_features()), rtol=1e-4, atol=1e-5)
+
+
+def test_int8_static_route_on_attn_block_matches_team_tpu(clip_params, tmp_path, monkeypatch,
+                                                          jax_fused_interpret):
+    """SimpleCIL on ``encoder_quant="int8_static"``, ``int8_gemm_impl="static"``
+    with ``attention_impl="attn_block"``: team_tpu's int8 blocks (and their
+    calibration forward) send that name to plain attention and its text tower
+    through the fused kernel; the port does the same instead of raising. Both
+    commit the quantized tower; curves within one test image per task, as
+    test_int8_slice_curves_match_team_tpu."""
+    from team_tpu.learners.backbone_runtime import BackboneRuntime as JaxRuntime
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime as TorchRuntime
+
+    jax_rts = _capture_instances(monkeypatch, JaxRuntime)
+    torch_rts = _capture_instances(monkeypatch, TorchRuntime)
+    kw = dict(encoder_quant="int8_static", attention_impl="attn_block",
+              extras={"int8_gemm_impl": "static"})
+    want = jax_train(tiny_cfg("simplecil", tmp_path / "jax", **kw))
+    got = torch_train(torch_cfg("simplecil", tmp_path / "torch", **kw), clip_params)
+    assert jax_rts[0]._qvision is not None and jax_rts[0].encoder_quant == "int8_static"
+    assert torch_rts[0].int8_committed and torch_rts[0].int8_impl == "static"
+    assert torch_rts[0].attn_impl == "attn_block" and torch_rts[0].gate_cosine >= 0.999
+    one_image = [100 / n + 0.01 for n in (12, 24, 36)]
+    for key in ("cnn_top1", "cnn_top5"):
+        assert len(got[key]) == 3
+        assert all(abs(g - w) <= tol + 1e-9 for g, w, tol in zip(got[key], want[key], one_image)), (
+            key, got[key], want[key])
+
+
 def _run_cli_and_list_reference_modules(tmp_path, model_name: str, **extra) -> list:
     """Run the port's CLI in a fresh process on the CPU; returns the names of
     the loaded modules that are jax or team_tpu (or below either)."""
@@ -202,8 +282,9 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
 
 
 @pytest.mark.parametrize("kw,env,exc", [
-    # PROOF runs; the towers' mha_short route is still to port (ROADMAP queue 2 item 5)
-    pytest.param({"model_name": "proof", "attention_impl": "mha_short"}, {}, NotImplementedError,
+    # the mha_short kernel is non-causal: the port refuses the causal text tower on
+    # it, as team_tpu's front end asserts (team_tpu/ops/attention.py:55)
+    pytest.param({"model_name": "proof", "attention_impl": "mha_short"}, {}, ValueError,
                  id="proof"),
     pytest.param({"encoder_quant": "int8_static", "extras": {"int8_gemm_impl": "hybrid"}}, {},
                  NotImplementedError, id="int8_hybrid"),

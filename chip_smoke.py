@@ -9,7 +9,13 @@ Phases, one line or more each:
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
-     most one int8 step apart with under 1 % of the outputs differing; the
+     most one int8 step apart with under 1 % of the outputs differing, the
+     integer-QK^T kernel's other modes (exp2i, reduce, reduce with the
+     deferred divide, the int8 PV with and without it; the int8 PV also
+     allowed what one p8 flipped at a rounding edge moves an output by) at
+     the vision shape and masked shapes, the split CLS-query kernel equal to
+     the CLS kernel bit for bit and the sequence-major kernel equal to the
+     packed one on the transposed rows bit for bit; the
      int8-I/O attention (f32 and bf16 dequant) at the vision shape and
      causal/kv_len shapes and the layer norm -> int8 producer, to the same
      limit, and the static quantize bit for bit; the flash attention at the
@@ -32,11 +38,13 @@ Phases, one line or more each:
      (vision) calls; SimpleCIL on the int8 static tier, which must commit
      the quantized tower (a fallback to bf16 fails) with 11 q3i and one
      q3i_cls launch per int8 batch; the same on int8_gemm_impl static_qa,
-     static and static3d_qaf, each with its own payload cache, whose kernel
+     static, static3d_qaf, static3d_qis and static3d_qi with
+     TEAM_CLS_LAST=kqs, each with its own payload cache, whose kernel
      launches must equal their counts per int8 batch (24 layer norm -> int8
      and 12 int8-I/O attention on static_qa; 24 layer norm -> int8, 12
      static quantize and 12 packed on static; 12 int8-I/O attention with
-     the bf16 dequant on static3d_qaf); PROOF (bf16) with attention_impl
+     the bf16 dequant on static3d_qaf; 12 sequence-major on static3d_qis;
+     11 q3i and 1 split CLS on kqs, no CLS); PROOF (bf16) with attention_impl
      "pallas", two tasks of tuned_epoch 2 at batch 16, whose flash launches
      must be non-zero in both towers; then PROOF's loss on a batch of its
      own features on the card against the CPU, a profiled train step, and in
@@ -52,14 +60,19 @@ Phases, one line or more each:
      every int8 kernel call also held against its plain version on the
      tower's own inputs;
      static3d and static3d_qa served from the payloads saved on static and
-     static_qa; both towers on attn_block and mha_packed_proj and the image
+     static_qa, and static3d_qib, static3d_qi2 (also with TEAM_QI_DEFER=1),
+     the CLS modes mlp and attn and static3d_qi under TEAM_QI_SOFTMAX=exp2i,
+     TEAM_QI_ROWSUM=reduce and reduce with TEAM_QI_DEFER=1 from the one
+     saved on static3d_qi, with the q3i kernels' launches in one encode
+     exact; the dynamic xla tier on its own payload (library API) against
+     its plain attention; both towers on attn_block and mha_packed_proj and the image
      tower on mha_short against the same towers through the plain versions
      of their kernels; the image-encode rates at the eval batch (bf16, f32,
      int8 on each route, bf16 through flash, bf16 and f32 on attn_block,
      mha_packed_proj and mha_short)
-  7. a torch.profiler split of one B=128 encode: int8 (static3d_qi and
-     static_qa), bf16, bf16 through flash, bf16 on attn_block and on
-     mha_packed_proj
+  7. a torch.profiler split of one B=128 encode: int8 (static3d_qi,
+     static_qa and static3d_qis), bf16, bf16 through flash, bf16 on
+     attn_block and on mha_packed_proj
 Then one JSON line of kernel results, and last the JSON status line.
 Any failure raises, and the script exits non-zero without the status line.
 """
@@ -99,17 +112,58 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 FUSED_ROUTES = ("attn_block", "mha_packed_proj")
 BF16_STEP = 2.0 ** -7
 INT8_MAX_FRAC = 0.01  # int8 kernels: at most one int8 step, and under 1 % of outputs differing
-# the int8 routes besides static3d_qi that phase 5 runs, and each kernel's
-# launches per block of the tower on it (per int8 batch of ViT-B/16's 12
-# blocks: 24 and 12 on static_qa; 24, 12 and 12 on static; 12 on static3d_qaf)
+# the int8 runs besides static3d_qi that phase 5 makes: name -> (int8_gemm_impl,
+# knobs, each kernel's launches per int8 batch of an L-layer tower: 24 and 12
+# on static_qa; 24, 12 and 12 on static; 12 on static3d_qaf; 12 sequence-major
+# on static3d_qis; 11 q3i and one split CLS kernel on static3d_qi with
+# TEAM_CLS_LAST=kqs)
 INT8_ROUTES = {
-    "static_qa": {"ln_quantize_static": 2, "fused_mha_packed_q": 1},
-    "static": {"ln_quantize_static": 2, "row_quant_static": 1, "fused_mha_packed": 1},
-    "static3d_qaf": {"fused_mha_packed_q3": 1},
+    "static_qa": ("static_qa", {}, lambda n: {"ln_quantize_static": 2 * n,
+                                              "fused_mha_packed_q": n}),
+    "static": ("static", {}, lambda n: {"ln_quantize_static": 2 * n, "row_quant_static": n,
+                                        "fused_mha_packed": n}),
+    "static3d_qaf": ("static3d_qaf", {}, lambda n: {"fused_mha_packed_q3": n}),
+    "static3d_qis": ("static3d_qis", {}, lambda n: {"fused_mha_packed_q3i_sb": n}),
+    "kqs": ("static3d_qi", {"TEAM_CLS_LAST": "kqs"},
+            lambda n: {"fused_mha_packed_q3i": n - 1, "fused_mha_packed_q3i_cls_split": 1}),
 }
-# the two other ported routes, which phase 6 serves from the payload that
-# phase 5 saved on another route (a payload holds every static route's keys)
-SERVED_FROM = {"static3d": "static", "static3d_qa": "static_qa"}
+# the configurations phase 6 serves from the payload that phase 5 saved on
+# another run (a payload holds every static route's keys): name -> (the run
+# whose cache it loads, int8_gemm_impl, knobs, each q3i kernel's launches per
+# encode of an L-layer tower, or None where phase 5 counted them)
+SERVED = {
+    "static3d": ("static", "static3d", {}, None),
+    "static3d_qa": ("static_qa", "static3d_qa", {}, None),
+    "static3d_qib": ("static3d_qi", "static3d_qib", {},
+                     lambda n: {"fused_mha_packed_q3i": n - 1, "fused_mha_packed_q3i_cls": 1}),
+    "static3d_qi2": ("static3d_qi", "static3d_qi2", {}, lambda n: {"fused_mha_packed_q3i": n}),
+    "static3d_qi2_defer": ("static3d_qi", "static3d_qi2", {"TEAM_QI_DEFER": "1"},
+                           lambda n: {"fused_mha_packed_q3i": n}),
+    "mlp": ("static3d_qi", "static3d_qi", {"TEAM_CLS_LAST": "mlp"},
+            lambda n: {"fused_mha_packed_q3i": n}),
+    "attn": ("static3d_qi", "static3d_qi", {"TEAM_CLS_LAST": "attn"},
+             lambda n: {"fused_mha_packed_q3i": n - 1}),
+    "exp2i": ("static3d_qi", "static3d_qi", {"TEAM_QI_SOFTMAX": "exp2i"},
+              lambda n: {"fused_mha_packed_q3i": n - 1, "fused_mha_packed_q3i_cls": 1}),
+    "reduce": ("static3d_qi", "static3d_qi", {"TEAM_QI_ROWSUM": "reduce"},
+               lambda n: {"fused_mha_packed_q3i": n - 1, "fused_mha_packed_q3i_cls": 1}),
+    "reduce_defer": ("static3d_qi", "static3d_qi", {"TEAM_QI_ROWSUM": "reduce",
+                                                    "TEAM_QI_DEFER": "1"},
+                     lambda n: {"fused_mha_packed_q3i": n - 1, "fused_mha_packed_q3i_cls": 1}),
+}
+Q3I_COUNTERS = ("fused_mha_packed_q3i", "fused_mha_packed_q3i_cls",
+                "fused_mha_packed_q3i_cls_split", "fused_mha_packed_q3i_sb")
+# the q3i kernel's modes besides the default: name -> (knobs, wrapper arguments)
+Q3I_MODES = {
+    "exp2i": ({"TEAM_QI_SOFTMAX": "exp2i"}, {}),
+    "reduce": ({"TEAM_QI_ROWSUM": "reduce"}, {}),
+    "reduce_defer": ({"TEAM_QI_ROWSUM": "reduce"}, {"defer_norm": True}),
+    "pv_int8": ({}, {"pv_int8": True}),
+    "pv_int8_defer": ({}, {"pv_int8": True, "defer_norm": True}),
+}
+# the phase-6 configuration whose encodes count each mode's launches
+MODE_SERVED = {"exp2i": "exp2i", "reduce": "reduce", "reduce_defer": "reduce_defer",
+               "pv_int8": "static3d_qi2", "pv_int8_defer": "static3d_qi2_defer"}
 DATASET = {"num_classes": 4, "img_size": 224, "train_per_stage": 64, "test_per_stage": 32}
 EVAL_B = 128  # the learners' eval batch
 # the learner batch of exps/IIMinsects202.json: the int8 run calibrates on its
@@ -124,6 +178,22 @@ def _card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def knobs(env: dict):
+    """The environment variables of ``env`` set for the block, then restored
+    (the port reads its knobs at each call)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -426,14 +496,22 @@ def q3i_inputs(b, s, heads, dev, seed=0, dh=64):
             uniform((1, d), 20, 60), uniform((1, heads), 3, 6))
 
 
-def _int8_disagreement(name: str, out, ref) -> int:
+def _int8_disagreement(name: str, out, ref, limit: int = 1) -> int:
     diff = (out.int() - ref.int()).abs()
     worst, frac = int(diff.max().item()), (diff > 0).float().mean().item()
     print(f"  {name}: max |diff| {worst} int8 steps, {100 * frac:.4f} % of outputs differ "
-          f"(limits 1, {100 * INT8_MAX_FRAC:g} %)")
-    if out.shape != ref.shape or worst > 1 or frac >= INT8_MAX_FRAC:
+          f"(limits {limit}, {100 * INT8_MAX_FRAC:g} %)")
+    if out.shape != ref.shape or worst > limit or frac >= INT8_MAX_FRAC:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return worst
+
+
+def pv_int8_limit(deq, oinv) -> int:
+    """The int8 PV's limit in int8 steps: one, plus what one p8 = rint(p*127)
+    on the other side of a rounding edge (p's sum taken in another order)
+    moves an output by: |v8| * deq_v * o_inv / 127 <= deq_v * o_inv."""
+    d = oinv.numel()
+    return 1 + math.ceil((deq.reshape(-1)[2 * d:] * oinv.reshape(-1)).max().item())
 
 
 def compare_q3i(ms, dev) -> dict:
@@ -465,36 +543,112 @@ def compare_q3i(ms, dev) -> dict:
     return worst
 
 
-def time_q3i(ms, dev) -> dict:
-    """Both integer-QK^T kernels at the vision shape, static softmax (the main path's form)."""
+def compare_q3i_modes(ms, dev) -> dict:
+    """The q3i kernel's other modes (Q3I_MODES) against the wrapper's plain
+    version under the same knobs: the vision shape with the static constant
+    given, and the masked shapes (causal text, kv_len), where exp2i and the
+    static form fall to the f32 row max. The int8 PV is held to one step
+    plus what one p8 flipped at a rounding edge moves an output by."""
+    worst = dict.fromkeys(Q3I_MODES, 0)
+    cases = [(*MAIN_SHAPES["vision"], None), (*MAIN_SHAPES["text"], None),
+             (32, 197, 12, False, 150)]
+    for mode, (env, kw) in Q3I_MODES.items():
+        for b, s, h, causal, kv_len in cases:
+            qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=5)
+            args = (qkv, deq, qks, oinv, h)
+            call = dict(causal=causal, kv_len=kv_len, qk_m2=m2, **kw)
+            with knobs(env):
+                out = ms.fused_mha_packed_q3i(*args, **call)
+                ref = ms.mha_packed_q3i_plain(*args, **call)
+            torch_sync()
+            limit = pv_int8_limit(deq, oinv) if kw.get("pv_int8") else 1
+            worst[mode] = max(worst[mode], _int8_disagreement(
+                f"q3i[{mode}] B={b} S={s} H={h} causal={causal} kv_len={kv_len}", out, ref, limit))
+    return worst
+
+
+def compare_q3i_split_sb(ms, dev) -> dict:
+    """The split CLS kernel against the CLS kernel on the packed tensor that
+    its q and kv make (tolerance 0: bit for bit) and against its plain
+    version; the sequence-major kernel against its plain version and, bit for
+    bit, against the packed entry on the transposed rows with its arithmetic
+    (f32 row max, reduce)."""
+    import torch
+
+    worst = {"q3i_cls_split": 0, "q3i_sb": 0}
     b, s, h, _ = MAIN_SHAPES["vision"]
-    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=2)
-    pairs = {
-        "q3i": (lambda: ms.fused_mha_packed_q3i(qkv, deq, qks, oinv, h, qk_m2=m2),
-                lambda: ms.mha_packed_q3i_reference(qkv, deq, qks, oinv, h, qk_m2=m2)),
-        "q3i_cls": (lambda: ms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, h, qk_m2=m2),
-                    lambda: ms.mha_packed_q3i_reference(qkv, deq, qks, oinv, h, qk_m2=m2, rows=1)),
-    }
+    d = h * 64
+    for static in (True, False):
+        qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=6)
+        m2 = m2 if static else None
+        q, kv = qkv[:, :1, :d].contiguous(), qkv[:, :, d:].contiguous()
+        out = ms.fused_mha_packed_q3i_cls_split(q, kv, deq, qks, oinv, h, qk_m2=m2)
+        packed = ms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, h, qk_m2=m2)
+        ref = ms.mha_packed_q3i_cls_split_plain(q, kv, deq, qks, oinv, h, qk_m2=m2)
+        torch_sync()
+        name = f"q3i_cls_split B={b} S={s} H={h} static={static}"
+        equal = torch.equal(out, packed)
+        print(f"  {name} vs q3i_cls on the packed tensor: bit for bit {equal} (tolerance 0)")
+        if not equal:
+            raise AssertionError("q3i_cls_split differs from q3i_cls on the same q, k and v")
+        worst["q3i_cls_split"] = max(worst["q3i_cls_split"],
+                                     _int8_disagreement(name + " vs plain", out, ref))
+    qkv, deq, qks, oinv, _ = q3i_inputs(s, b, h, dev, seed=7)  # [S, B, 3D]
+    out = ms.fused_mha_packed_q3i_sb(qkv, deq, qks, oinv, h)
+    ref = ms.mha_packed_q3i_sb_reference(qkv, deq, qks, oinv, h)
+    with knobs({"TEAM_QI_SOFTMAX": "f32", "TEAM_QI_ROWSUM": "reduce"}):
+        packed = ms.fused_mha_packed_q3i(qkv.transpose(0, 1).contiguous(), deq, qks, oinv, h)
+    torch_sync()
+    name = f"q3i_sb S={s} B={b} H={h}"
+    equal = torch.equal(out, packed.transpose(0, 1))
+    print(f"  {name} vs q3i (f32, reduce) on the transposed rows: bit for bit {equal} (tolerance 0)")
+    if not equal:
+        raise AssertionError("q3i_sb differs from the packed entry with the same arithmetic")
+    worst["q3i_sb"] = _int8_disagreement(name + " vs plain", out, ref)
+    return worst
+
+
+def time_q3i(ms, dev) -> dict:
+    """The integer-QK^T kernels at the vision shape: the full and CLS kernels
+    with the static softmax (the main path's form), the full kernel's other
+    modes (under their knobs), the split CLS kernel and the sequence-major one."""
+    b, s, h, _ = MAIN_SHAPES["vision"]
     d, dh = h * 64, 64
+    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=2)
+    q, kv = qkv[:, :1, :d].contiguous(), qkv[:, :, d:].contiguous()
+    qkv_sb = qkv.transpose(0, 1).contiguous()
+    args = (qkv, deq, qks, oinv, h)
+    pairs = {  # name: (knobs, kernel, plain)
+        "q3i": ({}, lambda: ms.fused_mha_packed_q3i(*args, qk_m2=m2),
+                lambda: ms.mha_packed_q3i_reference(*args, qk_m2=m2)),
+        "q3i_cls": ({}, lambda: ms.fused_mha_packed_q3i_cls(*args, qk_m2=m2),
+                    lambda: ms.mha_packed_q3i_reference(*args, qk_m2=m2, rows=1)),
+        **{f"q3i[{mode}]": (env, lambda kw=kw: ms.fused_mha_packed_q3i(*args, qk_m2=m2, **kw),
+                            lambda kw=kw: ms.mha_packed_q3i_plain(*args, qk_m2=m2, **kw))
+           for mode, (env, kw) in Q3I_MODES.items()},
+        "q3i_cls_split": ({}, lambda: ms.fused_mha_packed_q3i_cls_split(q, kv, *args[1:], qk_m2=m2),
+                          lambda: ms.mha_packed_q3i_cls_split_plain(q, kv, *args[1:], qk_m2=m2)),
+        "q3i_sb": ({}, lambda: ms.fused_mha_packed_q3i_sb(qkv_sb, *args[1:]),
+                   lambda: ms.mha_packed_q3i_sb_reference(qkv_sb, *args[1:])),
+    }
     vec_bytes = sum(t.numel() * 4 for t in (deq, qks, oinv, m2))
     # what each function needs: all of qkv and its [B, S, D] output; the CLS
-    # form reads q's row 0 and all of k and v, and writes one row
-    bounds = {
-        "q3i": bound(qkv.numel() + b * s * d + vec_bytes,
-                     {"int8": attention_ops(b, h, s, dh, False) // 2,
-                      "bf16": attention_ops(b, h, s, dh, False) // 2}),
-        "q3i_cls": bound(b * d + 2 * b * s * d + b * d + vec_bytes,
-                         {"int8": attention_ops(b, h, s, dh, False, rows=1) // 2,
-                          "bf16": attention_ops(b, h, s, dh, False, rows=1) // 2}),
-    }
+    # forms read q's row 0 and all of k and v, and write one row
+    full = bound(qkv.numel() + b * s * d + vec_bytes,
+                 {"int8": attention_ops(b, h, s, dh, False) // 2,
+                  "bf16": attention_ops(b, h, s, dh, False) // 2})
+    cls = bound(b * d + 2 * b * s * d + b * d + vec_bytes,
+                {"int8": attention_ops(b, h, s, dh, False, rows=1) // 2,
+                 "bf16": attention_ops(b, h, s, dh, False, rows=1) // 2})
     times = {}
-    for name, (kernel, plain) in pairs.items():
-        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
-        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
-                       **bounds[name]}
-        print(f"  {name} B={b} S={s} H={h} int8, static softmax: kernel {k1:.4f}/{k2:.4f} ms, "
-              f"plain {p1:.4f}/{p2:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
-              f"({bounds[name]['bound_by']}); no single PyTorch call computes it")
+    for name, (env, kernel, plain) in pairs.items():
+        bnd = cls if "cls" in name else full
+        with knobs(env):
+            p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None, **bnd}
+        print(f"  {name} B={b} S={s} H={h} int8: kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); no single PyTorch call computes it")
     return times
 
 
@@ -776,10 +930,10 @@ def _counted(fn, calls: dict, key: str):
 
 
 def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
-    """SimpleCIL (bf16) through the trainer on each route of INT8_ROUTES, each
-    with its own payload cache: it must commit the quantized tower, and each
-    kernel of the route must launch exactly its count per block in every
-    block of every int8 batch (the packed kernel also once per block of each
+    """SimpleCIL (bf16) through the trainer on each run of INT8_ROUTES (its
+    route under its knobs), each with its own payload cache: it must commit
+    the quantized tower, and each kernel of the route must launch exactly its
+    count in every int8 batch (the packed kernel also once per block of each
     calibration forward, which is the bf16 tower), and no other int8 kernel
     may launch."""
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
@@ -789,22 +943,21 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
     counters = {"ln_quantize_static": im.ln_quantize_static, "row_quant_static": im.row_quant_static,
                 "fused_mha_packed_q": ms.fused_mha_packed_q,
                 "fused_mha_packed_q3": ms.fused_mha_packed_q3,
-                "fused_mha_packed_q3i": ms.fused_mha_packed_q3i,
-                "fused_mha_packed_q3i_cls": ms.fused_mha_packed_q3i_cls}
+                **{name: getattr(ms, name) for name in Q3I_COUNTERS}}
     results = {}
-    for route, per_block in INT8_ROUTES.items():
+    for run, (route, env, per_batch_of) in INT8_ROUTES.items():
         calls = {"int8": 0, "calib": 0}
 
         def count_encodes(rt):
             for key, attr in (("int8", "_encode_int8"), ("calib", "_calib_forward")):
                 setattr(rt, attr, _counted(getattr(rt, attr), calls, key))
 
-        cfg = smoke_config("simplecil", "bfloat16", os.path.join(log_dir, f"simplecil_{route}"),
+        cfg = smoke_config("simplecil", "bfloat16", os.path.join(log_dir, f"simplecil_{run}"),
                            batch_size=FLAGSHIP_BATCH, encoder_quant="int8_static",
-                           extras={"int8_cache_dir": os.path.join(cache_root, route),
+                           extras={"int8_cache_dir": os.path.join(cache_root, run),
                                    "int8_gemm_impl": route})
         phase_timer.reset()
-        with recording(BackboneRuntime, count_encodes) as made:
+        with recording(BackboneRuntime, count_encodes) as made, knobs(env):
             ms.reset_launch_counts()
             im.reset_launch_counts()
             t0 = time.perf_counter()
@@ -813,27 +966,28 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
             got = {name: fn.launches for name, fn in counters.items()}
             got["fused_mha_packed"] = ms.fused_mha_packed.launches - ms.fused_mha_packed.causal_launches
         rt = made[0]
-        print(f"  simplecil (int8_static, int8_gemm_impl {route}, batch {FLAGSHIP_BATCH}): "
+        print(f"  simplecil (int8_static, int8_gemm_impl {route}{''.join(f', {k}={v}' for k, v in env.items())}, "
+              f"batch {FLAGSHIP_BATCH}): "
               f"{wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}; held-out gate "
               f"min cosine {rt.gate_cosine} (limit 0.999), committed {rt.int8_committed}; "
               f"{calls['int8']} int8 batches, {calls['calib']} calibration forwards; launches {got}")
         for line in phase_timer.format_report().splitlines():
             print("    " + line)
         if len(made) != 1 or not rt.int8_committed or rt.encoder_quant != "int8_static":
-            raise AssertionError(f"{route}: the int8 path fell back to bf16: the quantized tower "
+            raise AssertionError(f"{run}: the int8 path fell back to bf16: the quantized tower "
                                  "was not committed")
         layers = rt.clip_cfg.vision.layers
-        per_batch = {name: layers * n for name, n in per_block.items()}
+        per_batch = per_batch_of(layers)
         want = {name: calls["int8"] * per_batch.get(name, 0) for name in got}
         want["fused_mha_packed"] += layers * calls["calib"]
         print(f"    per int8 batch: {per_batch}")
-        if calls["int8"] == 0 or got != want or not all(got[n] for n in per_block):
-            raise AssertionError(f"{route}: launches {got}, want {want} ({per_batch} per int8 "
+        if calls["int8"] == 0 or got != want or not all(got[n] for n in per_batch):
+            raise AssertionError(f"{run}: launches {got}, want {want} ({per_batch} per int8 "
                                  "batch), each of the route's kernels non-zero")
         accs = list(res["cnn_top1"]) + list(res["cnn_top5"])
         if len(res["cnn_top1"]) != 2 or not all(0.0 <= float(a) <= 100.0 for a in accs):
-            raise AssertionError(f"simplecil {route}: bad accuracy curve {res}")
-        results[route] = {"launches": got, "per_int8_batch": per_batch,
+            raise AssertionError(f"simplecil {run}: bad accuracy curve {res}")
+        results[run] = {"launches": got, "per_int8_batch": per_batch,
                           "int8_batches": calls["int8"], "gate_cosine": rt.gate_cosine,
                           "wall_s": wall}
     return results
@@ -1009,8 +1163,9 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
     """The kernel-path towers against the plain-attention towers (same random
     weights) on a small batch of the smoke dataset; the int8 tower, loaded
     from the main path's cache, against itself with the plain kernels and
-    against the bf16 tower; each route of INT8_ROUTES, loaded from its own
-    cache, and each of SERVED_FROM, loaded from another route's cache,
+    against the bf16 tower; each run of INT8_ROUTES, loaded from its own
+    cache, and each configuration of SERVED, loaded from another run's cache
+    (under its knobs, with the q3i kernels' launches per encode counted),
     against itself with the plain kernels; and the encode rates."""
     import numpy as np
     import torch
@@ -1018,6 +1173,7 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
     from team_tpu_torch.backbone.clip import CLIPConfig, init_clip_params
     from team_tpu_torch.data import DataManager
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+    from team_tpu_torch.ops import mha_short as ms
 
     dm = DataManager("synthetic_insects", True, 1, 2, 2, **DATASET)
     images = np.stack(dm.get_dataset(np.arange(4), source="test", mode="test").images[:8])
@@ -1054,42 +1210,129 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
                 print(f"  encode {dtype} through the {kernel}: {rates[key]:.1f} img/s "
                       f"(B={EVAL_B}, 224x224 uint8 in, ViT-B/16 image tower)")
     short_launches = _fused_route_features(params, images, prompts, rates)
-    runtimes = {}
-    caches = {"static3d_qi": cache_dir, **{r: os.path.join(cache_root, r) for r in INT8_ROUTES},
-              **{r: os.path.join(cache_root, src) for r, src in SERVED_FROM.items()}}
-    for route, cache in caches.items():
-        cfg = smoke_config("simplecil", "bfloat16", "", encoder_quant="int8_static",
-                           extras={"int8_cache_dir": cache, "int8_gemm_impl": route})
-        rt = runtimes[route] = BackboneRuntime(cfg)
-        img = rt.encode_image(rt.to_device(images))
-        if not rt.int8_committed or rt.gate_cosine is not None:
-            raise AssertionError(f"the int8 runtime ({route}) did not load the main path's "
-                                 "validated payload")
-        checked = _int8_kernels_on_tower_inputs(rt, images, route)
-        plain = _encode_with(rt, images, _plain_int8_fns())
-        cos = torch.nn.functional.cosine_similarity(img, plain, dim=-1).min().item()
-        err, rms = (img - plain).abs().max().item(), plain.pow(2).mean().sqrt().item()
-        # static3d_qi keeps its earlier bound; on the other routes the producers and
-        # the int8-I/O kernels flip an int8 step on about one output in 1e6
-        # (checked just above on the tower's own inputs), and a flipped step is
-        # requantized through every later block, so the features are held to
-        # cosine >= 0.9999 and their largest element difference to 5e-2 rms
-        max_rel = 5e-3 if route == "static3d_qi" else 5e-2
-        print(f"  int8 {route} image features (payload loaded from the cache) vs the same route "
-              f"with the plain versions of its kernels: min cosine {cos:.7f} (limit 0.9999), max "
-              f"abs diff {err:.3e} (limit {max_rel * rms:.3e} = {max_rel:g} rms)")
-        if img.shape != bf16_img.shape or not bool(torch.isfinite(img).all()) or cos < 0.9999 \
-                or err > max_rel * rms or not torch.equal(checked, img):
-            raise AssertionError(f"int8 {route} features through the kernels disagree with the "
-                                 "plain versions")
-        cos_bf16 = torch.nn.functional.cosine_similarity(img, bf16_img, dim=-1).min().item()
-        print(f"  int8 {route} vs bf16 tower on these test images (other colours than the "
-              f"calibration batch): min cosine {cos_bf16:.7f}")
-        key = "int8_static" if route == "static3d_qi" else f"int8_static_{route}"
-        rates[key] = _encode_rate(rt, images)
-        print(f"  encode int8_static ({route}): {rates[key]:.1f} img/s (B={EVAL_B}, 224x224 uint8 "
-              f"in, ViT-B/16 image tower)")
-    return rates, runtimes, short_launches
+    runtimes, served_launches = {}, {}
+
+    def cache_of(run):
+        return cache_dir if run == "static3d_qi" else os.path.join(cache_root, run)
+
+    configs = {"static3d_qi": ("static3d_qi", {}, cache_dir, None),
+               **{run: (route, env, cache_of(run), None)
+                  for run, (route, env, _) in INT8_ROUTES.items()},
+               **{name: (route, env, cache_of(src), per_encode)
+                  for name, (src, route, env, per_encode) in SERVED.items()}}
+    for name, (route, env, cache, per_encode) in configs.items():
+        with knobs(env):
+            rates.update(_check_int8_config(ms, name, route, cache, per_encode, images, bf16_img,
+                                            runtimes, served_launches))
+    rates["int8_xla"] = _xla_tier(ms, params, images, bf16_img)
+    return rates, runtimes, short_launches, served_launches
+
+
+def _xla_tier(ms, params, images, bf16_img) -> float:
+    """The dynamic xla tier through the library API, on the dynamic payload
+    of quantize_vision_tower (the runtime gates only the static payload,
+    which fails there as in team_tpu): its packed-kernel launches in one
+    encode (one a block), its features against the same tier with the
+    packed kernel's plain version and against the bf16 tower, and its encode
+    rate at the eval batch."""
+    import torch
+
+    from team_tpu_torch.backbone import quant
+    from team_tpu_torch.backbone.clip import CLIPConfig
+    from team_tpu_torch.bridge import tree_to
+    from team_tpu_torch.ops.preprocess import preprocess_batch
+
+    cfg = CLIPConfig.vit_b16()
+    dev = torch.device("cuda", 0)
+    qv = quant.quantize_vision_tower(tree_to(params, dev))
+
+    def encode(u8):  # uint8 images already on the card, as _encode_rate's
+        x = preprocess_batch(u8, cfg.vision.image_size)
+        return quant.encode_image_int8(qv, x, cfg, gemm_impl="xla")
+
+    small = torch.from_numpy(images).to(dev)
+    ms.reset_launch_counts()
+    img = encode(small)
+    launches = ms.fused_mha_packed.launches
+    saved = quant.attention_core
+    quant.attention_core = lambda qkv, heads, *, causal, kv_len, impl: \
+        ms.mha_packed_reference(qkv, heads, causal, kv_len)
+    try:
+        plain = encode(small)
+    finally:
+        quant.attention_core = saved
+    cos = torch.nn.functional.cosine_similarity(img, plain, dim=-1).min().item()
+    cos_bf16 = torch.nn.functional.cosine_similarity(img, bf16_img, dim=-1).min().item()
+    print(f"  int8 xla (dynamic payload): {launches} packed-kernel launches in one encode (want "
+          f"{cfg.vision.layers}); features vs the packed kernel's plain version: min cosine "
+          f"{cos:.7f} (limit 0.9999); vs the bf16 tower: min cosine {cos_bf16:.7f}")
+    if launches != cfg.vision.layers or cos < 0.9999 or not bool(torch.isfinite(img).all()):
+        raise AssertionError("the xla tier through the packed kernel disagrees with its plain "
+                             "version or missed the kernel")
+    batch = torch.from_numpy(_eval_batch(images)).to(dev)
+    encode(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        encode(batch)
+    torch.cuda.synchronize()
+    rate = 10 * EVAL_B / (time.perf_counter() - t0)
+    print(f"  encode int8 xla: {rate:.1f} img/s (B={EVAL_B}, 224x224 uint8 in, ViT-B/16 image tower)")
+    return rate
+
+
+def _check_int8_config(ms, name, route, cache, per_encode, images, bf16_img, runtimes,
+                       served_launches) -> dict:
+    """One int8 configuration of phase 6 (its knobs set by the caller): load
+    the payload from ``cache``, hold every int8 kernel call against its plain
+    version on the tower's inputs (counting the q3i kernels' launches in that
+    encode against ``per_encode``), the features against the same route with
+    the plain versions and against the bf16 tower; returns its encode rate."""
+    import torch
+
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+
+    cfg = smoke_config("simplecil", "bfloat16", "", encoder_quant="int8_static",
+                       extras={"int8_cache_dir": cache, "int8_gemm_impl": route})
+    rt = runtimes[name] = BackboneRuntime(cfg)
+    img = rt.encode_image(rt.to_device(images))
+    if not rt.int8_committed or rt.gate_cosine is not None:
+        raise AssertionError(f"the int8 runtime ({name}) did not load the main path's "
+                             "validated payload")
+    ms.reset_launch_counts()
+    checked = _int8_kernels_on_tower_inputs(rt, images, name)
+    if per_encode is not None:
+        got = {c: getattr(ms, c).launches for c in Q3I_COUNTERS}
+        want = dict.fromkeys(Q3I_COUNTERS, 0)
+        want.update(per_encode(rt.clip_cfg.vision.layers))
+        served_launches[name] = got
+        print(f"    {name}: q3i kernel launches in one encode {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got} in one encode, want {want}")
+    plain = _encode_with(rt, images, _plain_int8_fns())
+    cos = torch.nn.functional.cosine_similarity(img, plain, dim=-1).min().item()
+    err, rms = (img - plain).abs().max().item(), plain.pow(2).mean().sqrt().item()
+    # static3d_qi keeps its earlier bound; on the other routes the producers and
+    # the int8-I/O kernels flip an int8 step on about one output in 1e6
+    # (checked just above on the tower's own inputs), and a flipped step is
+    # requantized through every later block, so the features are held to
+    # cosine >= 0.9999 and their largest element difference to 5e-2 rms
+    max_rel = 5e-3 if name == "static3d_qi" else 5e-2
+    print(f"  int8 {name} image features (payload loaded from the cache) vs the same route "
+          f"with the plain versions of its kernels: min cosine {cos:.7f} (limit 0.9999), max "
+          f"abs diff {err:.3e} (limit {max_rel * rms:.3e} = {max_rel:g} rms)")
+    if img.shape != bf16_img.shape or not bool(torch.isfinite(img).all()) or cos < 0.9999 \
+            or err > max_rel * rms or not torch.equal(checked, img):
+        raise AssertionError(f"int8 {name} features through the kernels disagree with the "
+                             "plain versions")
+    cos_bf16 = torch.nn.functional.cosine_similarity(img, bf16_img, dim=-1).min().item()
+    print(f"  int8 {name} vs bf16 tower on these test images (other colours than the "
+          f"calibration batch): min cosine {cos_bf16:.7f}")
+    key = "int8_static" if name == "static3d_qi" else f"int8_static_{name}"
+    rate = _encode_rate(rt, images)
+    print(f"  encode int8_static ({name}): {rate:.1f} img/s (B={EVAL_B}, 224x224 uint8 "
+          f"in, ViT-B/16 image tower)")
+    return {key: rate}
 
 
 @contextlib.contextmanager
@@ -1169,10 +1412,10 @@ def _plain_int8_fns() -> dict:
     from team_tpu_torch.ops import mha_short as ms
 
     return {
-        "fused_mha_packed_q3i": lambda qkv, deq, qks, oinv, h, qk_m2=None, **kw:
-            ms.mha_packed_q3i_reference(qkv, deq, qks, oinv, h, qk_m2=qk_m2),
-        "fused_mha_packed_q3i_cls": lambda qkv, deq, qks, oinv, h, qk_m2=None:
-            ms.mha_packed_q3i_reference(qkv, deq, qks, oinv, h, qk_m2=qk_m2, rows=1),
+        "fused_mha_packed_q3i": ms.mha_packed_q3i_plain,
+        "fused_mha_packed_q3i_cls": ms.mha_packed_q3i_cls_plain,
+        "fused_mha_packed_q3i_cls_split": ms.mha_packed_q3i_cls_split_plain,
+        "fused_mha_packed_q3i_sb": ms.mha_packed_q3i_sb_reference,
         "fused_mha_packed_q": lambda qkv, deq, oinv, h, *, seq, causal=False, kv_len=None:
             ms.mha_packed_q_reference(qkv.reshape(-1, seq, qkv.shape[-1]), deq, oinv, h, causal,
                                       kv_len).reshape(qkv.shape[0], -1),
@@ -1214,18 +1457,21 @@ def _int8_kernels_on_tower_inputs(rt, images, route: str):
         def call(*args, **kwargs):
             out = kernel(*args, **kwargs)
             diff = (out.int() - plain[name](*args, **kwargs).int()).abs()
-            worst, n_diff, n = stats.get(name, (0, 0, 0))
+            # the int8 PV's limit (pv_int8_limit) from this call's scales, else one step
+            limit = pv_int8_limit(args[1], args[3]) if kwargs.get("pv_int8") else 1
+            worst, n_diff, n, lim = stats.get(name, (0, 0, 0, limit))
             stats[name] = (max(worst, int(diff.max().item())), n_diff + int((diff > 0).sum()),
-                           n + diff.numel())
+                           n + diff.numel(), min(lim, limit))
             return out
         return call
 
     names = [n for n in plain if n != "attention_core"]  # the int8-output kernels
     feats = _encode_with(rt, images, {n: checked(n, getattr(quant, n)) for n in names})
-    for name, (worst, n_diff, n) in stats.items():
+    for name, (worst, n_diff, n, limit) in stats.items():
         print(f"    {route}, {name} on the tower's own inputs: max |diff| {worst} int8 steps, "
-              f"{100 * n_diff / n:.5f} % of {n} outputs differ (limits 1, {100 * INT8_MAX_FRAC:g} %)")
-        if worst > 1 or n_diff >= INT8_MAX_FRAC * n:
+              f"{100 * n_diff / n:.5f} % of {n} outputs differ (limits {limit}, "
+              f"{100 * INT8_MAX_FRAC:g} %)")
+        if worst > limit or n_diff >= INT8_MAX_FRAC * n:
             raise AssertionError(f"{route}: {name} disagrees with its plain version on the "
                                  "tower's inputs")
     return feats
@@ -1247,8 +1493,8 @@ def _kernel_group(name: str) -> str:
 
 def profile_encodes(int8_runtimes, dev) -> None:
     """torch.profiler device time of one B=128 encode, by kernel: int8 on
-    static3d_qi and static_qa, bf16 through the packed kernel, bf16 through
-    the flash kernel, bf16 on attn_block and on mha_packed_proj."""
+    static3d_qi, static_qa and static3d_qis, bf16 through the packed kernel,
+    bf16 through the flash kernel, bf16 on attn_block and on mha_packed_proj."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1263,6 +1509,7 @@ def profile_encodes(int8_runtimes, dev) -> None:
     u8 = np.random.default_rng(0).integers(0, 256, (EVAL_B, size, size, 3), dtype=np.uint8)
     for name, rt in (("int8_static", int8_runtimes["static3d_qi"]),
                      ("int8_static static_qa", int8_runtimes["static_qa"]),
+                     ("int8_static static3d_qis", int8_runtimes["static3d_qis"]),
                      ("bfloat16", rt_bf16),
                      ("bfloat16 through the flash kernel", bf16_routes["pallas"]),
                      *((f"bfloat16 on {r}", bf16_routes[r]) for r in FUSED_ROUTES)):
@@ -1329,6 +1576,8 @@ def main() -> int:
     print("phase 3: kernels vs plain versions")
     max_err = compare_kernel(ms, dev)
     q3i_err = compare_q3i(ms, dev)
+    q3i_err.update(compare_q3i_modes(ms, dev))
+    q3i_err.update(compare_q3i_split_sb(ms, dev))
     int8_io_err = compare_int8_io(ms, im, dev)
     flash_err = compare_flash(fa, dev)
     fused_err = compare_fused(ms, dev)
@@ -1350,7 +1599,7 @@ def main() -> int:
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
         print("phase 6: features and encode rates")
-        rates, int8_runtimes, short_launches = check_features(
+        rates, int8_runtimes, short_launches, served = check_features(
             dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
     print("phase 7: profile of one encode")
     profile_encodes(int8_runtimes, dev)
@@ -1390,6 +1639,24 @@ def main() -> int:
         "replaces": "team_tpu/ops/mha_short.py:663",
         "launches": int8["q3i_cls"], "max_abs_err": q3i_err["q3i_cls"], **timing(times["q3i_cls"]),
     }, {
+        "name": "fused_mha_packed_q3i_cls_split", **q3i_common,
+        "replaces": "team_tpu/ops/mha_short.py:763",
+        "launches": route_launches("fused_mha_packed_q3i_cls_split"),
+        "max_abs_err": q3i_err["q3i_cls_split"], "equals_q3i_cls": True,
+        **timing(times["q3i_cls_split"]), "gate_cosine": route_cosines("kqs"),
+    }, {
+        "name": "fused_mha_packed_q3i_sb", **q3i_common,
+        "replaces": "team_tpu/ops/mha_short.py:862",
+        "launches": route_launches("fused_mha_packed_q3i_sb"),
+        "max_abs_err": q3i_err["q3i_sb"], **timing(times["q3i_sb"]),
+        "gate_cosine": route_cosines("static3d_qis"),
+    }, *({
+        "name": f"fused_mha_packed_q3i[{mode}]", **q3i_common,
+        "replaces": "team_tpu/ops/mha_short.py:477",
+        "launches": served[MODE_SERVED[mode]]["fused_mha_packed_q3i"],
+        "launches_from": f"phase 6 encode on {MODE_SERVED[mode]}",
+        "max_abs_err": q3i_err[mode], **timing(times[f"q3i[{mode}]"]),
+    } for mode in Q3I_MODES), {
         "name": "fused_mha_packed_q", **q_common, "replaces": "team_tpu/ops/mha_short.py:308",
         "launches": route_launches("fused_mha_packed_q"),
         "max_abs_err": int8_io_err["fused_mha_packed_q"], **timing(times["fused_mha_packed_q"]),

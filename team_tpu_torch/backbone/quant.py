@@ -17,8 +17,18 @@ The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
 
 - ``static3d_qi`` (default): ``_ln_quant3``, integer-QKᵀ attention
   (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i`, q and k
-  quantized with one scale per head), the last block in CLS-only form
-  (``"kq"``, or ``"0"``: in full);
+  quantized with one scale per head), the last block in a CLS-only form
+  (``TEAM_CLS_LAST``: ``"kq"``, the CLS-query kernel; ``"kqs"``, a split qkv
+  GEMM and the split CLS-query kernel; ``"mlp"``, the full kernel and a
+  CLS-only tail; ``"attn"``, the CLS attention in plain torch; ``"0"``: in
+  full);
+- ``static3d_qi2``: ``static3d_qi`` with the int8 PV (``pv_int8``), every
+  block in full;
+- ``static3d_qis``: ``static3d_qi`` sequence-major (``[S, B, D]``) through
+  :func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i_sb`;
+- ``static3d_qib``: ``static3d_qi`` with the GEMMs and producers over
+  ``[BF, (B/BF)*S, D]`` (``TEAM_FLAT_B``, a reshape) and the last block
+  ``"kq"``;
 - ``static``: ``ln_quantize_static``, bf16 qkv, bf16 attention
   (:func:`team_tpu_torch.backbone.clip.attention_core`), then
   :func:`team_tpu_torch.ops.int8_matmul.row_quant_static`;
@@ -29,18 +39,25 @@ The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
   dequant (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3`);
 - ``static3d_qaf``: as ``static3d_qa`` with ``_ln_quant3``.
 
+The dynamic ``xla`` tier (:func:`quantize_vision_tower`, per-row dynamic
+activation scales, ``_qblock_forward_xla``) runs on plain PyTorch. The knobs
+that team_tpu reads are read here at each call: ``TEAM_QI_SOFTMAX``,
+``TEAM_QI_ROWSUM`` and ``TEAM_QI_DEFER`` (the attention's modes),
+``TEAM_LN_MODE`` (``1pass``, else the two-pass layer norm of ``_ln_quant3``),
+``TEAM_GELU`` (``tanh``; ``sigmoid``; ``none``), ``TEAM_CLS_LAST`` and
+``TEAM_FLAT_B``.
+
 Payloads are the JAX package's trees, key for key, and are saved with
-``torch.save`` in place of orbax; one payload serves every route. The
-dynamic GEMM tiers (``xla``, ``hybrid``, ``pallas``), the probe routes
-(``static3d_qis``, ``static3d_qib``, ``static3d_qi2``), the other CLS modes,
-the ``pv_int8``/``defer_norm`` modes and the text tower are not ported yet
-(ROADMAP queue 1 item 9, queue 2 items 2 and 10-13); they raise.
+``torch.save`` in place of orbax, with the route family they were gated on;
+one payload serves every static route. The ``hybrid`` and ``pallas`` tiers
+(their GEMM and quantize kernels are ROADMAP queue 2 items 12-13) and the
+text tower (queue 1 item 9) are not ported yet; the tiers raise.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,10 +65,12 @@ import torch.nn.functional as F
 from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, attention_core,
                                           embed_patches, patch_pixels)
 from team_tpu_torch.bridge import tree_to
-from team_tpu_torch.ops.int8_matmul import (INV127, int8_matmul, ln_quantize_static,
-                                            quantize_weight, row_quant_static)
+from team_tpu_torch.ops.int8_matmul import (INV127, int8_linear_xla, int8_matmul,
+                                            ln_quantize_static, quantize_rows, quantize_weight,
+                                            row_quant_static)
 from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q3,
-                                          fused_mha_packed_q3i, fused_mha_packed_q3i_cls)
+                                          fused_mha_packed_q3i, fused_mha_packed_q3i_cls,
+                                          fused_mha_packed_q3i_cls_split, fused_mha_packed_q3i_sb)
 from team_tpu_torch.ops.preprocess import patch_norm_consts
 
 BF16 = torch.bfloat16
@@ -202,6 +221,29 @@ def quantize_vision_tower_static(params: Params, calib_stats, *, margin: float =
     }
 
 
+def quantize_block(blk: Params) -> Dict[str, Any]:
+    """One block's dynamic-tier payload: the four GEMM weights per output
+    channel (``quant.py:quantize_block``); the activations are quantized per
+    row at run time."""
+    out = {"ln_1": blk["ln_1"], "ln_2": blk["ln_2"]}
+    for name, w, b in (("qkv", blk["attn"]["qkv_w"], blk["attn"]["qkv_b"]),
+                       ("out", blk["attn"]["out_w"], blk["attn"]["out_b"]),
+                       ("fc", blk["mlp"]["fc_w"], blk["mlp"]["fc_b"]),
+                       ("proj", blk["mlp"]["proj_w"], blk["mlp"]["proj_b"])):
+        w_q, w_s = quantize_weight(w)
+        out[name] = {"w_q": w_q, "scale": w_s, "b": b.float()}
+    return out
+
+
+def quantize_vision_tower(params: Params) -> Dict[str, Any]:
+    """The dynamic tier's payload of the image tower (``quant.py:
+    quantize_vision_tower``): int8 GEMM weights; the rest passes through."""
+    v = params["vision"]
+    return {"patch_w": v["patch_w"], "cls": v["cls"], "pos": v["pos"], "ln_pre": v["ln_pre"],
+            "blocks": [quantize_block(b) for b in v["blocks"]],
+            "ln_post": v["ln_post"], "proj": v["proj"]}
+
+
 def _quantize_patch_dot(patch_w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """u8-exact int8 patch embedding for patch-major uint8 input:
     ``(u8*scale + bias) @ W == (u8-128) @ (scale⊙W) + [128·colsum(scale⊙W) + bias@W]``,
@@ -234,25 +276,37 @@ def _static_linear3(q3: torch.Tensor, site: Dict[str, torch.Tensor], activation:
     optional tanh GELU, and a static requantize to int8 (``quant_inv_a``) or
     a cast to bf16. Both of team_tpu's forms, the 2-D ``_static_linear`` of
     the ``static``/``static_qa`` routes and the 3-D ``_static_linear3``: the
-    arithmetic is the same, and ``int8_matmul`` takes any leading dims."""
+    arithmetic is the same, and ``int8_matmul`` takes any leading dims; only
+    the 3-D form reads ``TEAM_GELU`` (``activation="gelu"``), the 2-D one
+    always takes tanh (``activation="gelu_tanh"``)."""
     acc = int8_matmul(q3, site["w_q"])
     out = acc.float() * site["scale"].reshape(-1) + site["b"].reshape(-1)
-    if activation == "gelu":
-        out = F.gelu(out, approximate="tanh")
+    if activation in ("gelu", "gelu_tanh"):
+        # TEAM_GELU: "tanh" (the default), "sigmoid" (x·σ(1.702x)), "none"
+        # (no activation: a diagnostic of team_tpu's, with wrong numerics)
+        mode = os.environ.get("TEAM_GELU", "tanh") if activation == "gelu" else "tanh"
+        if mode == "sigmoid":
+            out = out * torch.sigmoid(1.702 * out)
+        elif mode != "none":
+            out = F.gelu(out, approximate="tanh")
     if quant_inv_a is not None:
         return _quant(out, quant_inv_a)
     return _bf16(out)
 
 
-
 def _ln_quant3(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
-    """Layer norm -> static int8 in one pass over ``[B, S, D]``: the variance
-    is max(E[x²]−E[x]², 0) (the JAX tier's one-pass form, not
-    ``torch.var``), and the LN affine folds into the quantize constants."""
+    """Layer norm -> static int8 over ``[..., D]``, the LN affine folded into
+    the quantize constants. ``TEAM_LN_MODE`` ``1pass`` (the default): the
+    variance is max(E[x²]−E[x]², 0) in one pass (the JAX tier's form, not
+    ``torch.var``); any other value: the two-pass mean and variance."""
     x32 = x3.float()
     n = x3.shape[-1]
-    mean = x32.sum(dim=-1, keepdim=True) / n
-    var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / n - mean * mean, min=0.0)
+    if os.environ.get("TEAM_LN_MODE", "1pass") == "1pass":
+        mean = x32.sum(dim=-1, keepdim=True) / n
+        var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / n - mean * mean, min=0.0)
+    else:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
     y = (x32 - mean) * torch.rsqrt(var + 1e-5)
     inv = inv_a.reshape(-1)
     return torch.clamp(torch.round(y * (ln["scale"].float() * inv) + ln["bias"].float() * inv),
@@ -284,11 +338,12 @@ def _qkv_int8(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
                            quant_inv_a=site["out_inv_a_i"])
 
 
-def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor, produce=_ln_quant3) -> torch.Tensor:
-    """LN2 -> int8 (``produce``) -> fc GEMM with tanh GELU, requantized ->
-    proj GEMM -> residual."""
+def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor, produce=_ln_quant3,
+                  gelu: str = "gelu") -> torch.Tensor:
+    """LN2 -> int8 (``produce``) -> fc GEMM with the GELU (``gelu``, see
+    :func:`_static_linear3`), requantized -> proj GEMM -> residual."""
     g = _static_linear3(produce(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
-                        activation="gelu", quant_inv_a=qb["proj"]["inv_a"])
+                        activation=gelu, quant_inv_a=qb["proj"]["inv_a"])
     return x + _static_linear3(g, qb["proj"])
 
 
@@ -296,31 +351,48 @@ def _masked_kv_len(kv_len, s: int):
     return kv_len if (kv_len is not None and kv_len < s) else None
 
 
+def _qi_defer() -> bool:
+    """``TEAM_QI_DEFER=1``: the q3i blocks divide the attention output by the
+    softmax denominator instead of p (it changes results only off the
+    default ones-column row sum)."""
+    return os.environ.get("TEAM_QI_DEFER", "0") == "1"
+
+
 def _qblock_forward_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                                attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+                                attn_impl: str = "auto", causal: bool = False,
+                                pv_int8: bool = False) -> torch.Tensor:
     """Static-W8A8 block with integer-QKᵀ attention: one-pass LN -> int8 ->
     qkv GEMM requantized with per-head-uniform q/k scales ->
-    :func:`fused_mha_packed_q3i` -> out-projection -> residual; then the MLP.
-    ``attn_impl`` is ignored: the kernel is the attention."""
+    :func:`fused_mha_packed_q3i` (``pv_int8``: the int8 PV) -> out-projection
+    -> residual; then the MLP. ``attn_impl`` is ignored: the kernel is the
+    attention."""
     site = qb["qkv"]
     oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                               qb["out"]["inv_a"], heads, causal=causal,
                               kv_len=_masked_kv_len(kv_len, x.shape[1]),
-                              qk_m2=site.get("qk_m2"))
+                              qk_m2=site.get("qk_m2"), pv_int8=pv_int8, defer_norm=_qi_defer())
     return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
 
 
+def _qblock_forward_static3d_qi2(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
+    """``static3d_qi2``: :func:`_qblock_forward_static3d_qi` with ``pv_int8``."""
+    return _qblock_forward_static3d_qi(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
+                                       pv_int8=True)
+
+
 def _bf16_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                          attn_impl: str, causal: bool, produce, requant) -> torch.Tensor:
+                          attn_impl: str, causal: bool, produce, requant,
+                          two_d: bool) -> torch.Tensor:
     """The static and static3d blocks: LN -> int8 (``produce``) -> qkv GEMM to
     bf16 -> bf16 attention (:func:`attention_core`) -> int8 (``requant``) ->
-    out-projection -> residual; then the MLP with the same producer."""
+    out-projection -> residual; then the MLP with the same producer (the 2-D
+    ``static`` form's GELU ignores ``TEAM_GELU``)."""
     site = qb["qkv"]
     qkv = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site)
     o = attention_core(qkv, heads, causal=causal, kv_len=_masked_kv_len(kv_len, x.shape[1]),
                        impl=attn_impl)
     x = x + _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"])
-    return _mlp_residual(qb, x, produce)
+    return _mlp_residual(qb, x, produce, "gelu_tanh" if two_d else "gelu")
 
 
 def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
@@ -328,7 +400,8 @@ def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_le
     """The quantized-attention-I/O blocks: LN -> int8 (``produce``) -> qkv GEMM
     requantized with the per-channel ``out_inv_a`` -> int8-in, int8-out
     attention (:func:`fused_mha_packed_q` over ``[B*S, 3D]`` when ``two_d``,
-    else :func:`fused_mha_packed_q3`) -> out-projection -> residual; then the MLP."""
+    else :func:`fused_mha_packed_q3`) -> out-projection -> residual; then the
+    MLP (the 2-D form's GELU ignores ``TEAM_GELU``)."""
     b, s, d = x.shape
     site = qb["qkv"]
     qkvq = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site,
@@ -339,21 +412,22 @@ def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_le
                                 heads, seq=s, **kw).reshape(b, s, d)
     else:
         oq = fused_mha_packed_q3(qkvq, site["deq"], qb["out"]["inv_a"], heads, **kw)
-    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]), produce)
+    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]), produce,
+                         "gelu_tanh" if two_d else "gelu")
 
 
 def _qblock_forward_static(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
     """``quant.py:_qblock_forward_static``: the two-pass LN -> int8 kernel,
     bf16 attention, and the static quantize kernel before the out-projection."""
     return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
-                                 produce=_ln_quant_kernel, requant=_row_quant_kernel)
+                                 produce=_ln_quant_kernel, requant=_row_quant_kernel, two_d=True)
 
 
 def _qblock_forward_static3d(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
     """``quant.py:_qblock_forward_static3d``: bf16 LN then elementwise
     quantize, bf16 attention; no kernel of its own."""
     return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
-                                 produce=_ln_then_quant, requant=_static_quant3)
+                                 produce=_ln_then_quant, requant=_static_quant3, two_d=False)
 
 
 def _qblock_forward_static_qa(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
@@ -378,77 +452,223 @@ def _qblock_forward_static3d_qaf(qb, x, heads, kv_len, *, attn_impl="auto", caus
                                  produce=_ln_quant3, two_d=False)
 
 
+def _qblock_forward_static3d_qi_clsmlp(qb: Dict[str, Any], x: torch.Tensor, heads: int,
+                                       attn_cls) -> torch.Tensor:
+    """The last block with the out-projection, LN2 and MLP on the CLS row only
+    (``quant.py:_qblock_forward_static3d_qi_clsmlp``): the pooled feature is
+    row 0. ``attn_cls`` picks the attention: ``"kq"``, the CLS-query kernel on
+    the full qkv GEMM (:func:`fused_mha_packed_q3i_cls`); ``"kqs"``, k and v
+    projected for every row with ``w_q[:, D:]`` and q for row 0 only with
+    ``w_q[:, :D]``, each requantized with its slice of ``out_inv_a_i``, then
+    :func:`fused_mha_packed_q3i_cls_split`; anything else (``"mlp"``), the full
+    kernel (``TEAM_QI_DEFER`` read as in every block) and its row 0."""
+    site = qb["qkv"]
+    if attn_cls == "kqs":
+        d = x.shape[-1]
+        x8 = _ln_quant3(x, qb["ln_1"], site["inv_a"])
+        kv_site = {"w_q": site["w_q"][:, d:], "scale": site["scale"][..., d:],
+                   "b": site["b"][..., d:]}
+        q_site = {"w_q": site["w_q"][:, :d], "scale": site["scale"][..., :d],
+                  "b": site["b"][..., :d]}
+        kvq = _static_linear3(x8, kv_site, quant_inv_a=site["out_inv_a_i"][..., d:])
+        qq = _static_linear3(x8[:, :1], q_site, quant_inv_a=site["out_inv_a_i"][..., :d])
+        oq = fused_mha_packed_q3i_cls_split(qq, kvq, site["deq_i"], site["qk_scale"],
+                                            qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
+    elif attn_cls == "kq":
+        oq = fused_mha_packed_q3i_cls(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
+                                      qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
+    else:
+        oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
+                                  qb["out"]["inv_a"], heads, defer_norm=_qi_defer(),
+                                  qk_m2=site.get("qk_m2"))[:, :1]
+    return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
+
+
+def _cls_attn_q3i(qkvq: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                  o_inv: torch.Tensor, heads: int,
+                  qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CLS query's integer attention in plain torch (``quant.py:
+    _cls_attn_q3i``), on the CPU and on the card alike: ``[B, S, 3D]`` int8
+    -> ``[B, 1, D]`` int8, the arithmetic of the CLS kernel. The products
+    run in float64, which holds the int8 and bf16 operands' products and sums
+    exactly and takes no TF32; ``qk_m2`` is used only under
+    ``TEAM_QI_SOFTMAX=static``."""
+    b, s, d3 = qkvq.shape
+    d = d3 // 3
+    dh = d // heads
+    q8 = qkvq[:, 0, :d].reshape(b, heads, 1, dh)
+    k8 = qkvq[:, :, d:2 * d].reshape(b, s, heads, dh).permute(0, 2, 1, 3)
+    v8 = qkvq[:, :, 2 * d:].reshape(b, s, heads, dh).permute(0, 2, 1, 3)
+    acc = torch.matmul(q8.double(), k8.double().transpose(-1, -2)).float()  # [B, H, 1, S]
+    qks = qk_scale.reshape(1, heads, 1, 1).float()
+    if os.environ.get("TEAM_QI_SOFTMAX", "static") != "static":
+        qk_m2 = None
+    if qk_m2 is not None:
+        p = torch.exp2(acc * (qks * _LOG2E) - qk_m2.reshape(1, heads, 1, 1).float())
+    else:
+        logits = acc * qks
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    pb = p.to(BF16)
+    num = torch.matmul(pb.double(), v8.double()).float()  # [B, H, 1, dh]
+    den = pb.float().sum(dim=-1, keepdim=True)
+    pv_scale = (deq.reshape(-1)[2 * d:].float() * o_inv.reshape(-1).float()).reshape(1, heads, 1, dh)
+    out = (num * pv_scale / den).permute(0, 2, 1, 3).reshape(b, 1, d)
+    return torch.clamp(torch.round(out), -127, 127).to(torch.int8)
+
+
 def _qblock_forward_static3d_qi_cls(qb: Dict[str, Any], x: torch.Tensor,
                                     heads: int) -> torch.Tensor:
-    """The last block in CLS-only form (``TEAM_CLS_LAST="kq"``,
-    ``quant.py:_qblock_forward_static3d_qi_clsmlp``): the pooled feature is
-    row 0, so attention computes the CLS query only
-    (:func:`fused_mha_packed_q3i_cls`) and the out-projection, LN2 and MLP run
-    on ``[B, 1, D]``. The qkv GEMM stays full: K and V need every token."""
+    """The last block in CLS-only form with the CLS attention in plain torch
+    (``TEAM_CLS_LAST="attn"`` or ``cls_last=True``; ``quant.py:
+    _qblock_forward_static3d_qi_cls``): the full qkv GEMM, then
+    :func:`_cls_attn_q3i`, the out-projection, LN2 and MLP on ``[B, 1, D]``."""
     site = qb["qkv"]
-    oq = fused_mha_packed_q3i_cls(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
-                                  qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
+    oq = _cls_attn_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"], qb["out"]["inv_a"],
+                       heads, qk_m2=site.get("qk_m2"))
     return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
+
+
+def _qblock_forward_static3d_qis(qb: Dict[str, Any], x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The sequence-major block (``quant.py:_qblock_forward_static3d_qis``):
+    ``x [S, B, D]``, the arithmetic of :func:`_qblock_forward_static3d_qi`
+    around :func:`fused_mha_packed_q3i_sb`. Non-causal, every key."""
+    site = qb["qkv"]
+    oq = fused_mha_packed_q3i_sb(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
+                                 qb["out"]["inv_a"], heads)
+    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
+
+
+def _qblock_forward_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: int, b_real: int,
+                                 s_real: int) -> torch.Tensor:
+    """The flat-batch block (``quant.py:_qblock_forward_static3d_qib``): the
+    GEMMs and producers over ``xf [BF, (B/BF)*S, D]``, the same rows as
+    ``[B, S, D]`` (every reshape is a view: the producers and the residual
+    work by row), and :func:`fused_mha_packed_q3i` at the real
+    ``[B, S, 3D]``. Non-causal, every key."""
+    bf, m, d = xf.shape
+    site = qb["qkv"]
+    oq = fused_mha_packed_q3i(_qkv_int8(qb, xf).reshape(b_real, s_real, 3 * d), site["deq_i"],
+                              site["qk_scale"], qb["out"]["inv_a"], heads,
+                              defer_norm=_qi_defer(), qk_m2=site.get("qk_m2"))
+    return _mlp_residual(qb, xf + _static_linear3(oq.reshape(bf, m, d), qb["out"]))
+
+
+def _ln_quant_rows(x2d: torch.Tensor, ln: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 layer norm (two-pass mean and variance), then the per-row
+    dynamic int8 quantize (``quant.py:_ln_quant_jnp``)."""
+    x32 = x2d.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    return quantize_rows(y * ln["scale"].float() + ln["bias"].float())
+
+
+def _qblock_forward_xla(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                        attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The dynamic tier's block (``quant.py:_qblock_forward_xla``): every GEMM
+    input quantized per row at run time (:func:`quantize_rows`), the GEMMs
+    :func:`int8_linear_xla` with the exact GELU, the bf16 attention
+    (:func:`attention_core`, with ``attn_impl``) between them."""
+    b, s, d = x.shape
+    hq, hs = _ln_quant_rows(x.reshape(b * s, d), qb["ln_1"])
+    qkv = int8_linear_xla(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
+    o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
+                       kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
+    oq, osc = quantize_rows(o.reshape(b * s, d))
+    x = x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
+                            qb["out"]["b"]).reshape(b, s, d)
+    hq, hs = _ln_quant_rows(x.reshape(b * s, d), qb["ln_2"])
+    h = int8_linear_xla(hq, qb["fc"]["w_q"], hs, qb["fc"]["scale"], qb["fc"]["b"],
+                        activation="gelu")
+    gq, gs = quantize_rows(h)
+    proj = int8_linear_xla(gq, qb["proj"]["w_q"], gs, qb["proj"]["scale"], qb["proj"]["b"])
+    return x + proj.reshape(b, s, d)
 
 
 _GEMM_IMPLS = ("xla", "hybrid", "static", "static_qa", "static3d", "static3d_qa", "static3d_qaf",
                "static3d_qi", "static3d_qis", "static3d_qib", "static3d_qi2", "pallas")
-# the block of each ported route (``quant.py:1179-1190``)
-_BLOCKS = {"static": _qblock_forward_static, "static_qa": _qblock_forward_static_qa,
-           "static3d": _qblock_forward_static3d, "static3d_qa": _qblock_forward_static3d_qa,
-           "static3d_qaf": _qblock_forward_static3d_qaf, "static3d_qi": _qblock_forward_static3d_qi}
+_DYNAMIC_TIERS = ("xla", "hybrid", "pallas")
+# the block of each route that runs one block function in every layer
+# (``quant.py:1179-1190``); static3d_qis and static3d_qib have their own loops
+_BLOCKS = {"xla": _qblock_forward_xla, "static": _qblock_forward_static,
+           "static_qa": _qblock_forward_static_qa, "static3d": _qblock_forward_static3d,
+           "static3d_qa": _qblock_forward_static3d_qa, "static3d_qaf": _qblock_forward_static3d_qaf,
+           "static3d_qi": _qblock_forward_static3d_qi, "static3d_qi2": _qblock_forward_static3d_qi2}
+_CLS_MODES = ("attn", "mlp", "kq", "kqs")
+
+
+def route_family(gemm_impl: str) -> str:
+    """``"dynamic"`` for the tiers with per-row activation scales, else
+    ``"static"``: a payload gated on one family is not trusted on the other."""
+    return "dynamic" if gemm_impl in _DYNAMIC_TIERS else "static"
 
 
 def check_route(gemm_impl: str) -> None:
-    """Raise on an int8 route or probe knob that the port does not have."""
+    """Raise on an int8 route that the port does not have."""
     if gemm_impl not in _GEMM_IMPLS:
         raise ValueError(f"unknown int8 gemm_impl {gemm_impl!r}")
-    if gemm_impl not in _BLOCKS:
+    if gemm_impl in ("hybrid", "pallas"):
         raise NotImplementedError(
-            f"int8 gemm_impl={gemm_impl!r}: the port has {sorted(_BLOCKS)} (ROADMAP queue 1 "
-            "item 9; the dynamic tiers' GEMM and quantize kernels are queue 2 items 12-13)")
-    for knob, default in (("TEAM_LN_MODE", "1pass"), ("TEAM_GELU", "tanh")):
-        value = os.environ.get(knob, default)
-        if value != default:
-            raise NotImplementedError(f"{knob}={value!r}: only {default!r} is ported "
-                                      "(ROADMAP queue 1 item 9)")
+            f"int8 gemm_impl={gemm_impl!r}: its GEMM and quantize kernels are not ported yet "
+            "(ROADMAP queue 2 items 12-13)")
 
 
 def _cls_mode(cls_last) -> str:
+    """``cls_last`` as team_tpu reads it: True is ``"attn"``, False ``"0"``,
+    None the env ``TEAM_CLS_LAST`` (default ``"kq"``); a name outside
+    ``_CLS_MODES`` runs the last block in full."""
     if cls_last is True:
-        mode = "attn"
-    elif cls_last is False:
-        mode = "0"
-    elif cls_last is None:
-        mode = os.environ.get("TEAM_CLS_LAST", "kq")
-    else:
-        mode = cls_last
-    if mode not in ("kq", "0"):
-        raise NotImplementedError(f"CLS-last mode {mode!r}: only 'kq' and '0' are ported "
-                                  "(ROADMAP queue 1 item 9; 'kqs' is queue 2 item 10)")
-    return mode
+        return "attn"
+    if cls_last is False:
+        return "0"
+    if cls_last is None:
+        return os.environ.get("TEAM_CLS_LAST", "kq")
+    return cls_last
 
 
 def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig, *,
                         attn_impl: str, gemm_impl: str, cls_last) -> torch.Tensor:
     """The quantized tower over patch tokens ``[B, g*g, width]`` ->
-    ``[B, embed_dim]`` float32. ``cls_last`` (default env ``TEAM_CLS_LAST``,
-    ``"kq"``): on ``static3d_qi``, the last block in CLS-only form; ``"0"``/False:
-    in full. The other routes run every block in full and ignore it, as in
-    team_tpu. ``attn_impl`` reaches the routes with bf16 attention
-    (``static``, ``static3d``). The sequence is never padded: the TPU-only
+    ``[B, embed_dim]`` float32 (``quant.py:_encode_tokens_int8``).
+    ``cls_last`` (:func:`_cls_mode`) picks the last block's CLS-only form on
+    ``static3d_qi``; ``static3d_qib``'s last block is always ``"kq"``; the other
+    routes run every block in full and ignore it, as in team_tpu.
+    ``attn_impl`` reaches the routes with bf16 attention (``static``,
+    ``static3d``, ``xla``). The sequence is never padded: the TPU-only
     ``_maybe_pad_seq`` is not ported (off on the CPU in team_tpu too)."""
     check_route(gemm_impl)
-    block = _BLOCKS[gemm_impl]
-    use_cls = gemm_impl == "static3d_qi" and _cls_mode(cls_last) == "kq"
     v = cfg.vision
     cls = _bf16(qvision["cls"]).expand(tokens.shape[0], 1, v.width)
     x = torch.cat([cls, _bf16(tokens)], dim=1) + _bf16(qvision["pos"])
     x = _layer_norm(qvision["ln_pre"], x)
     blocks = qvision["blocks"]
-    for qb in (blocks[:-1] if use_cls else blocks):
-        x = block(qb, x, v.heads, v.seq_len, attn_impl=attn_impl)
-    x = _qblock_forward_static3d_qi_cls(blocks[-1], x, v.heads)[:, 0] if use_cls else x[:, 0]
+    if gemm_impl == "static3d_qis":
+        x = x.transpose(0, 1).contiguous()  # [S, B, D], one transpose in
+        for qb in blocks:
+            x = _qblock_forward_static3d_qis(qb, x, v.heads)
+        x = x[0]
+    elif gemm_impl == "static3d_qib":
+        b_real, s_real = x.shape[:2]
+        bf = int(os.environ.get("TEAM_FLAT_B", "8"))
+        if b_real % bf:
+            bf = 1
+        xf = x.reshape(bf, (b_real // bf) * s_real, v.width)
+        for qb in blocks[:-1]:
+            xf = _qblock_forward_static3d_qib(qb, xf, v.heads, b_real, s_real)
+        x = _qblock_forward_static3d_qi_clsmlp(blocks[-1], xf.reshape(b_real, s_real, v.width),
+                                               v.heads, "kq")[:, 0]
+    else:
+        block = _BLOCKS[gemm_impl]
+        mode = _cls_mode(cls_last)
+        use_cls = gemm_impl == "static3d_qi" and mode in _CLS_MODES
+        for qb in (blocks[:-1] if use_cls else blocks):
+            x = block(qb, x, v.heads, v.seq_len, attn_impl=attn_impl)
+        if not use_cls:
+            x = x[:, 0]
+        elif mode == "attn":
+            x = _qblock_forward_static3d_qi_cls(blocks[-1], x, v.heads)[:, 0]
+        else:
+            x = _qblock_forward_static3d_qi_clsmlp(blocks[-1], x, v.heads, mode)[:, 0]
     x = _layer_norm(qvision["ln_post"], x)
     return (x @ _bf16(qvision["proj"])).float()
 
@@ -511,15 +731,20 @@ def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor,
 # persistence: a payload that passed its cosine gate, reused by later runs
 # ---------------------------------------------------------------------------
 
-def save_quantized_tower(path: str, qvision: Dict[str, Any]) -> None:
-    """Save a payload into the directory ``path`` (created if needed). Save
-    only payloads that passed the cosine gate: the loader trusts them."""
+def save_quantized_tower(path: str, qvision: Dict[str, Any], family: str = "static") -> None:
+    """Save a payload into the directory ``path`` (created if needed), with
+    the route family (:func:`route_family`) it passed its cosine gate on.
+    Save only payloads that passed the gate: the loader trusts them on the
+    same family."""
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, PAYLOAD_FILE + ".tmp")
-    torch.save(tree_to(qvision, torch.device("cpu")), tmp)
+    torch.save({"tower": tree_to(qvision, torch.device("cpu")), "route_family": family}, tmp)
     os.replace(tmp, os.path.join(path, PAYLOAD_FILE))
 
 
-def load_quantized_tower(path: str, device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """Load a payload saved by :func:`save_quantized_tower` onto ``device``."""
-    return torch.load(os.path.join(path, PAYLOAD_FILE), map_location=device, weights_only=True)
+def load_quantized_tower(path: str, device: Optional[torch.device] = None
+                         ) -> Tuple[Dict[str, Any], str]:
+    """Load a payload saved by :func:`save_quantized_tower` onto ``device``:
+    ``(payload, route family)``."""
+    saved = torch.load(os.path.join(path, PAYLOAD_FILE), map_location=device, weights_only=True)
+    return saved["tower"], saved["route_family"]

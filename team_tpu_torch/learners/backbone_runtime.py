@@ -12,7 +12,12 @@ calibrates it and gets the bf16 tower's features; the next, held-out batch
 runs the cosine gate (min cosine >= 0.999 against the bf16 tower); a pass
 commits the quantized tower (and saves it under ``int8_cache_dir`` when
 set, for later runs to load), a failure logs a warning and serves bf16 from
-then on. The text tower stays in the compute dtype.
+then on. As in team_tpu the runtime always builds the static payload, so a
+dynamic tier (``xla``) encodes it through its own blocks and its gate
+decides. A payload loaded from ``int8_cache_dir`` commits without a gate
+only on the route family (static or dynamic) it was gated on; on the other
+family it goes through the held-out gate like a fresh one (team_tpu trusts
+it on every route). The text tower stays in the compute dtype.
 """
 
 from __future__ import annotations
@@ -54,9 +59,10 @@ class BackboneRuntime:
         """``params``: a float32 tree of tensors (e.g. the JAX init carried
         across by :mod:`team_tpu_torch.bridge`); random init from ``seed``
         when absent."""
-        if os.environ.get("TEAM_CLIP_CHECKPOINT"):
+        ckpt = os.environ.get("TEAM_CLIP_CHECKPOINT")
+        if ckpt and os.path.isfile(ckpt):
             raise NotImplementedError(
-                "TEAM_CLIP_CHECKPOINT: the open_clip checkpoint loader is not ported "
+                f"TEAM_CLIP_CHECKPOINT={ckpt!r}: the open_clip checkpoint loader is not ported "
                 "yet (ROADMAP queue 1 item 2)")
         self.encoder_quant = cfg.get("encoder_quant", "bf16")
         if self.encoder_quant not in ("bf16", "int8_static"):
@@ -69,7 +75,8 @@ class BackboneRuntime:
         self.clip_cfg = clip_config_for(cfg)
         self.device = resolve_device(cfg.device)
         if params is None:
-            logging.info("no CLIP checkpoint; random init from seed %d", seed)
+            # as team_tpu: a checkpoint path that names no file means the random init
+            logging.info("no CLIP checkpoint available; random init from seed %d", seed)
             params = init_clip_params(torch.Generator().manual_seed(seed), self.clip_cfg)
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.attn_impl = cfg.attention_impl
@@ -159,7 +166,7 @@ class BackboneRuntime:
                          self.gate_cosine)
             cache = self.cfg.get("int8_cache_dir")
             if cache:
-                quant.save_quantized_tower(cache, qv)
+                quant.save_quantized_tower(cache, qv, quant.route_family(self.int8_impl))
                 logging.info("validated quantized tower saved to %s", cache)
             return feats
         self.encoder_quant = "bf16"
@@ -173,16 +180,22 @@ class BackboneRuntime:
         self._vision_f32 = None  # quantized; the float32 copy is not needed any more
 
     def _try_load_int8_cache(self) -> bool:
-        """Load a payload that passed its gate in an earlier run (skips
-        calibration and the gate)."""
+        """Load a payload that passed its gate in an earlier run: it skips
+        calibration, and the gate too when it was gated on this route's
+        family; otherwise it waits for the gate on the next batch."""
         cache = self.cfg.get("int8_cache_dir")
         if not cache or not os.path.isfile(os.path.join(cache, quant.PAYLOAD_FILE)):
             return False
         try:
-            qv = quant.load_quantized_tower(cache, self.device)
-        except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+            qv, family = quant.load_quantized_tower(cache, self.device)
+        except (OSError, RuntimeError, KeyError, pickle.UnpicklingError) as e:
             logging.warning("int8 cache load failed (%s); recalibrating", e)
             return False
+        if family != quant.route_family(self.int8_impl):
+            self._qvision_pending = qv
+            logging.info("loaded a quantized tower gated on the %s routes from %s; the held-out "
+                         "gate runs on this batch for %s", family, cache, self.int8_impl)
+            return True
         self._commit(qv)
         logging.info("loaded validated quantized tower from %s (calibration skipped)", cache)
         return True

@@ -5,6 +5,8 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
 - ``quantize_weight`` and the XLA ``dot_general`` (int8 x int8 -> int32) that
   the static-W8A8 tower's GEMMs ride (``team_tpu/backbone/quant.py:
   _static_linear3``);
+- ``quantize_rows`` and ``int8_linear_xla``, the dynamic ``xla`` tier's
+  per-row quantize and GEMM (plain PyTorch, as XLA ops in team_tpu);
 - ``ln_quantize_static`` (TPU kernel ``_ln_quant_static_kernel``) and
   ``row_quant_static`` (``_row_quant_static_kernel``): bf16 ``[M, D]`` to
   int8 ``[M, D]`` with a calibrated per-channel scale, in one read and one
@@ -12,16 +14,17 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   first use and bound with ``ctypes``. On a CPU tensor each wrapper computes
   its plain version; on a CUDA tensor it launches its kernel or raises.
 
-The Pallas GEMMs and the dynamic ``ln_quantize`` serve the dynamic tiers and
-are not ported yet (ROADMAP queue 2 items 12-13).
+The Pallas GEMMs and the dynamic ``ln_quantize`` serve the ``hybrid`` and
+``pallas`` tiers and are not ported yet (ROADMAP queue 2 items 12-13).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
 # 1/127 as a float32: XLA compiles ``x / 127.0`` in a jitted graph to a
@@ -40,6 +43,34 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.where(amax > 0, amax * INV127.to(amax.device), torch.ones_like(amax))
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return _column_major(q), scale
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 for ``x [M, K]``: ``(q int8 [M, K], scale
+    float32 [M, 1])``, ``x ≈ q·scale`` with scale = amax·f32(1/127) (the
+    jitted JAX function's arithmetic); zero rows get scale 1."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax * INV127.to(amax.device), torch.ones_like(amax))
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def int8_linear_xla(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                    w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                    activation: Optional[str] = None,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The dynamic tier's GEMM (``int8_matmul.py:int8_linear_xla``):
+    ``[M, K] int8 @ [K, N] int8`` -> int32 (:func:`int8_matmul`), times the
+    per-row ``x_scale`` and the per-column ``w_scale`` in float32, plus
+    ``bias``, then the exact (erf) GELU when ``activation="gelu"``, cast to
+    ``out_dtype``."""
+    out = int8_matmul(x_q, w_q).float() * x_scale.reshape(-1, 1).float() \
+        * w_scale.reshape(1, -1).float()
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    if activation == "gelu":
+        out = F.gelu(out, approximate="none")
+    return out.to(out_dtype)
 
 
 def _column_major(w: torch.Tensor) -> torch.Tensor:

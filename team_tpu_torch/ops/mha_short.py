@@ -14,10 +14,15 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   whole attention sub-block (layer norm, qkv GEMM, attention, out-projection,
   residual); CUDA kernels ``csrc/attn_block.cu`` (the sub-block in two
   launches, through a ``[B, S, 3*D]`` workspace).
-- ``fused_mha_packed_q3i`` and ``fused_mha_packed_q3i_cls`` (TPU kernels
-  ``_mha_packed_q3i_kernel`` and ``_mha_packed_q3i_cls_kernel``): the int8
-  static-W8A8 tier's integer-QKᵀ attention, int8 ``[B, S, 3*D]`` to int8
-  ``[B, S, D]`` (or the CLS row only, ``[B, 1, D]``); CUDA kernels
+- ``fused_mha_packed_q3i``, ``fused_mha_packed_q3i_cls``,
+  ``fused_mha_packed_q3i_cls_split`` and ``fused_mha_packed_q3i_sb`` (TPU
+  kernels ``_mha_packed_q3i_kernel``, ``_mha_packed_q3i_cls_kernel``,
+  ``_mha_packed_q3i_cls_split_kernel`` and ``_mha_packed_q3i_sb_kernel``):
+  the int8 static-W8A8 tier's integer-QKᵀ attention, int8 ``[B, S, 3*D]``
+  to int8 ``[B, S, D]`` with the TPU kernel's softmax and normalisation
+  modes, the CLS row only (``[B, 1, D]``, from the packed tensor or from a
+  split q ``[B, 1, D]`` and kv ``[B, S, 2*D]``), and sequence-major
+  ``[S, B, 3*D]`` to ``[S, B, D]``; one CUDA kernel over strides,
   ``csrc/mha_packed_q3i.cu``.
 - ``fused_mha_packed_q`` and ``fused_mha_packed_q3`` (TPU kernels
   ``_mha_packed_q_kernel`` and ``_mha_packed_q3_kernel``): the same tier's
@@ -38,6 +43,8 @@ import os
 from typing import Optional
 
 import torch
+
+from team_tpu_torch.ops.int8_matmul import INV127
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -413,21 +420,31 @@ fused_attn_block.proj_launches = 0
 
 _Q3I_SOURCE = "mha_packed_q3i.cu"
 _Q3I_HEAD_DIMS = (32, 64, 128)
+# the kernel's normalisations (``csrc/mha_packed_q3i.cu``, enum Norm)
+_NORM_MXU, _NORM_REDUCE, _NORM_PV8 = 0, 1, 3
 
 
 def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
                              o_inv: torch.Tensor, heads: int, causal: bool = False,
                              kv_len: Optional[int] = None, qk_m2: Optional[torch.Tensor] = None,
-                             rows: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of the TPU kernel's default route
-    (``rowsum="mxu"``, ``mha_short.py:516-571``).
+                             rows: Optional[int] = None, *, exp2i: bool = False,
+                             rowsum: str = "mxu", pv_int8: bool = False,
+                             defer_norm: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel (``mha_short.py:493-592``).
 
     q·kᵀ is an exact integer sum (in float64 here, which holds it exactly
-    and runs on both devices); ``qk_m2`` given, p = exp2(acc·(qks·log2e) −
-    m2), else the f32 row-max softmax over the masked logits. p is rounded to
-    bf16; the numerator p·v (raw int8 v) and the denominator Σp accumulate in
-    f32; out = num·(deq_v·o_inv)/den, rounded half to even and clipped to
-    ±127. ``rows`` computes only the first query rows (1: the CLS kernel)."""
+    and runs on both devices). The softmax: ``qk_m2`` given, p =
+    exp2(acc·(qks·log2e) − m2); ``exp2i`` (unmasked only), p =
+    exp2((acc − max acc)·(qks·log2e)); else the f32 row-max softmax over the
+    masked logits. Then, with ``rowsum="mxu"`` and no ``pv_int8`` (the
+    default route), p is rounded to bf16, the numerator p·v (raw int8 v) and
+    the denominator Σp accumulate in f32, and out = num·(deq_v·o_inv)/den.
+    Otherwise den = Σp over the unrounded f32 p, p /= den unless
+    ``defer_norm``, and the PV is bf16(p)·v in f32 times deq_v·o_inv, or with
+    ``pv_int8`` the exact integer sum of clip(rint(p·127), 0, 127)·v times
+    (deq_v·o_inv)·f32(1/127); ``defer_norm`` then divides by den. out is
+    rounded half to even and clipped to ±127. ``rows`` computes only the
+    first query rows (1: the CLS kernels)."""
     b, s, d3 = qkv_q.shape
     d = d3 // 3
     dh = d // heads
@@ -439,6 +456,8 @@ def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: t
     qks = qk_scale.reshape(1, heads, 1, 1).float()
     if qk_m2 is not None:
         p = torch.exp2(acc * (qks * LOG2E) - qk_m2.reshape(1, heads, 1, 1).float())
+    elif exp2i:
+        p = torch.exp2((acc - acc.amax(dim=-1, keepdim=True)) * (qks * LOG2E))
     else:
         logits = acc * qks
         rows_i = torch.arange(r, device=qkv_q.device)[:, None]
@@ -448,88 +467,179 @@ def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: t
             mask = mask & (cols <= rows_i)
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
         p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    pb = p.to(torch.bfloat16).float()
-    num = torch.matmul(pb, v.float())
-    den = pb.sum(dim=-1, keepdim=True)
     pv_scale = (deq.reshape(-1)[2 * d:].float() * o_inv.reshape(-1).float()).reshape(1, heads, 1, dh)
-    out = torch.clamp(torch.round(num * pv_scale / den), -127, 127).to(torch.int8)
+    if rowsum == "mxu" and not pv_int8:
+        pb = p.to(torch.bfloat16).float()
+        out = torch.matmul(pb, v.float()) * pv_scale / pb.sum(dim=-1, keepdim=True)
+    else:
+        den = p.sum(dim=-1, keepdim=True)
+        if not defer_norm:
+            p = p / den
+        if pv_int8:
+            p8 = torch.clamp(torch.round(p * 127.0), 0, 127)
+            out = torch.matmul(p8.double(), v.double()).float() * (pv_scale * INV127)
+        else:
+            out = torch.matmul(p.to(torch.bfloat16).float(), v.float()) * pv_scale
+        if defer_norm:
+            out = out / den
+    out = torch.clamp(torch.round(out), -127, 127).to(torch.int8)
     return out.permute(0, 2, 1, 3).reshape(b, r, d)
+
+
+def mha_packed_q3i_cls_split_reference(q_q: torch.Tensor, kv_q: torch.Tensor, deq: torch.Tensor,
+                                       qk_scale: torch.Tensor, o_inv: torch.Tensor, heads: int,
+                                       qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_packed_q3i_cls_split_kernel``: the CLS
+    plain version on the packed tensor that q ``[B, 1, D]`` and kv
+    ``[B, S, 2D]`` make (q's row 0 is all the CLS query reads)."""
+    b, s, _ = kv_q.shape
+    qkv = torch.cat([q_q.expand(b, s, q_q.shape[-1]), kv_q], dim=-1)
+    return mha_packed_q3i_reference(qkv, deq, qk_scale, o_inv, heads, qk_m2=qk_m2, rows=1)
+
+
+def mha_packed_q3i_sb_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                                o_inv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_packed_q3i_sb_kernel`` over
+    sequence-major ``[S, B, 3D]``: the f32 row-max softmax, p normalised in
+    f32, then a bf16 PV with no ones column (``rowsum="reduce"``)."""
+    out = mha_packed_q3i_reference(qkv_q.transpose(0, 1), deq, qk_scale, o_inv, heads,
+                                   rowsum="reduce")
+    return out.transpose(0, 1).contiguous()
 
 
 def _q3i_library() -> ctypes.CDLL:
     from team_tpu_torch.ops._build import load_library
 
     lib = load_library(_Q3I_SOURCE)
-    ptrs = [ctypes.c_void_p] * 6  # qkv, deq, qk_scale, o_inv, qk_m2 (or NULL), out
+    vecs = [ctypes.c_void_p] * 4  # deq, qk_scale, o_inv, qk_m2 (or NULL)
     ints = [ctypes.c_int] * 4     # batch, seq, heads, dh
-    lib.team_mha_packed_q3i_fwd.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_int,
-                                                          ctypes.c_void_p]
-    lib.team_mha_packed_q3i_cls_fwd.argtypes = ptrs + ints + [ctypes.c_void_p]
-    lib.team_mha_packed_q3i_fwd.restype = ctypes.c_int
-    lib.team_mha_packed_q3i_cls_fwd.restype = ctypes.c_int
+    # qkv, vecs, out; ints; kv_len, causal, exp2i, norm; stream
+    lib.team_mha_packed_q3i_fwd.argtypes = ([ctypes.c_void_p] + vecs + [ctypes.c_void_p] + ints
+                                            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.team_mha_packed_q3i_cls_fwd.argtypes = ([ctypes.c_void_p] + vecs + [ctypes.c_void_p]
+                                                + ints + [ctypes.c_void_p])
+    # q, kv, vecs, out; ints; stream
+    lib.team_mha_packed_q3i_cls_split_fwd.argtypes = ([ctypes.c_void_p] * 2 + vecs
+                                                      + [ctypes.c_void_p] + ints + [ctypes.c_void_p])
+    # qkv, deq, qk_scale, o_inv, out; ints; stream
+    lib.team_mha_packed_q3i_sb_fwd.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
+    for entry in ("team_mha_packed_q3i_fwd", "team_mha_packed_q3i_cls_fwd",
+                  "team_mha_packed_q3i_cls_split_fwd", "team_mha_packed_q3i_sb_fwd"):
+        getattr(lib, entry).restype = ctypes.c_int
     lib.team_mha_packed_q3i_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.team_mha_packed_q3i_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def _q3i_softmax_is_static(qk_m2, masked: bool) -> bool:
-    """The TPU wrapper's choice (``mha_short.py:627-631``): the calibrated
-    static-max softmax when ``TEAM_QI_SOFTMAX`` is ``static`` (the default),
-    ``qk_m2`` is given and nothing is masked; the f32 row-max form otherwise."""
+def _q3i_softmax(qk_m2, masked: bool) -> str:
+    """The TPU wrapper's softmax choice (``mha_short.py:623-636``), read from
+    ``TEAM_QI_SOFTMAX`` at each call: ``"static"`` (the default) when
+    ``qk_m2`` is given and nothing is masked, ``"exp2i"`` when asked for and
+    nothing is masked, the f32 row-max form (``"f32"``) otherwise."""
     mode = os.environ.get("TEAM_QI_SOFTMAX", "static")
-    if mode not in ("static", "f32"):
-        raise NotImplementedError(f"TEAM_QI_SOFTMAX={mode!r}: only 'static' and 'f32' are "
-                                  "ported (ROADMAP queue 2 item 2)")
-    rowsum = os.environ.get("TEAM_QI_ROWSUM", "mxu")
-    if rowsum != "mxu":
-        raise NotImplementedError(f"TEAM_QI_ROWSUM={rowsum!r}: only the ones-column row sum "
-                                  "('mxu') is ported (ROADMAP queue 2 item 2)")
-    return mode == "static" and qk_m2 is not None and not masked
+    if mode == "static" and qk_m2 is not None and not masked:
+        return "static"
+    if mode == "exp2i" and not masked:
+        return "exp2i"
+    return "f32"
 
 
-def _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2, heads: int):
-    """Check the q3i inputs; returns the per-head vectors as flat float32."""
-    if qkv_q.dim() != 3 or qkv_q.shape[-1] % 3:
-        raise ValueError(f"qkv_q must be [B, S, 3*D], got {tuple(qkv_q.shape)}")
-    if qkv_q.dtype != torch.int8:
-        raise TypeError(f"qkv_q must be int8, got {qkv_q.dtype}")
-    d3 = qkv_q.shape[-1]
-    d = d3 // 3
-    if d % heads:
-        raise ValueError(f"D={d} is not divisible by heads={heads}")
+def _q3i_rowsum() -> str:
+    """``TEAM_QI_ROWSUM`` as the TPU wrapper reads it: ``mxu``, else ``reduce``."""
+    return "mxu" if os.environ.get("TEAM_QI_ROWSUM", "mxu") == "mxu" else "reduce"
+
+
+def _q3i_cls_static(qk_m2) -> bool:
+    """The CLS kernels' softmax (``mha_short.py:731-733``): static only under
+    ``TEAM_QI_SOFTMAX=static`` with ``qk_m2``; every other value takes the f32
+    row-max form. They always use the ones-column row sum."""
+    return os.environ.get("TEAM_QI_SOFTMAX", "static") == "static" and qk_m2 is not None
+
+
+def mha_packed_q3i_plain(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                         o_inv: torch.Tensor, heads: int, *, causal: bool = False,
+                         kv_len: Optional[int] = None, qk_m2: Optional[torch.Tensor] = None,
+                         pv_int8: bool = False, defer_norm: bool = False) -> torch.Tensor:
+    """What :func:`fused_mha_packed_q3i` computes, in plain PyTorch on the
+    inputs' device: the knobs read and the mode chosen as the wrapper does,
+    then :func:`mha_packed_q3i_reference`."""
+    s = qkv_q.shape[1]
+    if kv_len == s:
+        kv_len = None
+    softmax = _q3i_softmax(qk_m2, causal or kv_len is not None)
+    return mha_packed_q3i_reference(qkv_q, deq, qk_scale, o_inv, heads, causal, kv_len,
+                                    qk_m2 if softmax == "static" else None,
+                                    exp2i=softmax == "exp2i", rowsum=_q3i_rowsum(),
+                                    pv_int8=pv_int8, defer_norm=defer_norm)
+
+
+def mha_packed_q3i_cls_plain(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                             o_inv: torch.Tensor, heads: int, *,
+                             qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What :func:`fused_mha_packed_q3i_cls` computes, in plain PyTorch on the
+    inputs' device (the CLS kernels' softmax choice, then the reference's row 0)."""
+    return mha_packed_q3i_reference(qkv_q, deq, qk_scale, o_inv, heads,
+                                    qk_m2=qk_m2 if _q3i_cls_static(qk_m2) else None, rows=1)
+
+
+def mha_packed_q3i_cls_split_plain(q_q: torch.Tensor, kv_q: torch.Tensor, deq: torch.Tensor,
+                                   qk_scale: torch.Tensor, o_inv: torch.Tensor, heads: int, *,
+                                   qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What :func:`fused_mha_packed_q3i_cls_split` computes, in plain PyTorch
+    on the inputs' device."""
+    return mha_packed_q3i_cls_split_reference(q_q, kv_q, deq, qk_scale, o_inv, heads,
+                                              qk_m2=qk_m2 if _q3i_cls_static(qk_m2) else None)
+
+
+def _q3i_vectors(device, d: int, heads: int, deq, qk_scale, o_inv, qk_m2):
+    """Check the per-channel and per-head vectors; returns them as flat float32."""
     vecs = []
-    for name, t, n in (("deq", deq, d3), ("qk_scale", qk_scale, heads), ("o_inv", o_inv, d),
+    for name, t, n in (("deq", deq, 3 * d), ("qk_scale", qk_scale, heads), ("o_inv", o_inv, d),
                        ("qk_m2", qk_m2, heads)):
         if t is None:
             vecs.append(None)
             continue
         if t.numel() != n:
             raise ValueError(f"{name} must hold {n} values, got shape {tuple(t.shape)}")
-        if t.device != qkv_q.device:
-            raise ValueError(f"{name} lies on {t.device}, qkv_q on {qkv_q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} lies on {t.device}, the int8 input on {device}")
         vecs.append(t.reshape(-1).float().contiguous())
     return vecs
 
 
-def _q3i_launch(entry: str, qkv_q, vecs, out, heads: int, *extra) -> None:
-    b, s, d3 = qkv_q.shape
-    dh = d3 // 3 // heads
-    if qkv_q.device.type != "cuda":
-        raise ValueError(f"the q3i kernels run on CPU or CUDA tensors, got {qkv_q.device}")
-    if not qkv_q.is_contiguous() or qkv_q.data_ptr() % 16:
-        raise ValueError("qkv_q must be contiguous and 16-byte aligned")
+def _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2, heads: int):
+    """Check packed q3i inputs ``[., ., 3D]``; returns the vectors as flat float32."""
+    if qkv_q.dim() != 3 or qkv_q.shape[-1] % 3:
+        raise ValueError(f"qkv_q must be [B, S, 3*D], got {tuple(qkv_q.shape)}")
+    if qkv_q.dtype != torch.int8:
+        raise TypeError(f"qkv_q must be int8, got {qkv_q.dtype}")
+    d = qkv_q.shape[-1] // 3
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    return _q3i_vectors(qkv_q.device, d, heads, deq, qk_scale, o_inv, qk_m2)
+
+
+def _q3i_launch(entry: str, inputs, vecs, out, batch: int, seq: int, heads: int,
+                *extra) -> None:
+    """Launch ``entry`` on the int8 ``inputs`` (checked CUDA tensors), the
+    vectors (``qk_m2`` dropped when the entry takes none) and ``out``."""
+    dh = out.shape[-1] // heads
+    for t in inputs:
+        if t.device.type != "cuda":
+            raise ValueError(f"the q3i kernels run on CPU or CUDA tensors, got {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the int8 inputs must be contiguous and 16-byte aligned")
     if dh not in _Q3I_HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_Q3I_HEAD_DIMS})")
     lib = _q3i_library()
-    smem = lib.team_mha_packed_q3i_smem_bytes(s, dh)
+    smem = lib.team_mha_packed_q3i_smem_bytes(seq, dh)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V (limit {_SMEM_LIMIT})")
-    deq, qks, o_inv, m2 = vecs
-    with torch.cuda.device(qkv_q.device):
-        err = getattr(lib, entry)(
-            qkv_q.data_ptr(), deq.data_ptr(), qks.data_ptr(), o_inv.data_ptr(),
-            None if m2 is None else m2.data_ptr(), out.data_ptr(), b, s, heads, dh, *extra,
-            torch.cuda.current_stream().cuda_stream)
+        raise ValueError(f"S={seq} needs {smem} bytes of shared memory for K/V "
+                         f"(limit {_SMEM_LIMIT})")
+    ptrs = [None if t is None else t.data_ptr() for t in vecs]
+    with torch.cuda.device(out.device):
+        err = getattr(lib, entry)(*(t.data_ptr() for t in inputs), *ptrs, out.data_ptr(), batch,
+                                  seq, heads, dh, *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
@@ -544,23 +654,31 @@ def fused_mha_packed_q3i(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch
     ``deq: [1, 3D]`` dequant scales, ``qk_scale: [1, H]`` the per-head logit
     scale s_q·s_k·dh^-0.5, ``o_inv: [1, D]`` the out-projection's static
     quantize scales, ``qk_m2: [1, H]`` the calibrated max logit in exp2 units.
-    Each kernel launch adds one to ``fused_mha_packed_q3i.launches``."""
-    if pv_int8 or defer_norm:
-        raise NotImplementedError("pv_int8 and defer_norm (gemm_impl static3d_qi2, "
-                                  "TEAM_QI_DEFER=1) are not ported (ROADMAP queue 2 item 2)")
+    ``pv_int8`` runs PV as an int8 product of p requantized to rint(p·127);
+    ``defer_norm`` divides the output by the softmax denominator instead of
+    p. The knobs ``TEAM_QI_SOFTMAX`` (``static``, ``exp2i``, else ``f32``)
+    and ``TEAM_QI_ROWSUM`` (``mxu``, else ``reduce``; ``pv_int8`` forces
+    ``reduce``) are read at each call. Each kernel launch adds one to
+    ``fused_mha_packed_q3i.launches``."""
     s = qkv_q.shape[1] if qkv_q.dim() == 3 else 0
     if kv_len is not None and not 1 <= kv_len <= s:
         raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
     if kv_len == s:
         kv_len = None
-    static = _q3i_softmax_is_static(qk_m2, causal or kv_len is not None)
-    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if static else None, heads)
+    softmax = _q3i_softmax(qk_m2, causal or kv_len is not None)
+    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if softmax == "static" else None,
+                         heads)
     if qkv_q.device.type == "cpu":
-        return mha_packed_q3i_reference(qkv_q, *vecs[:3], heads, causal, kv_len, vecs[3])
+        return mha_packed_q3i_plain(qkv_q, *vecs[:3], heads, causal=causal, kv_len=kv_len,
+                                    qk_m2=vecs[3], pv_int8=pv_int8, defer_norm=defer_norm)
+    if _q3i_rowsum() == "mxu" and not pv_int8:
+        norm = _NORM_MXU
+    else:
+        norm = (_NORM_PV8 if pv_int8 else _NORM_REDUCE) + int(defer_norm)
     b, s, d3 = qkv_q.shape
     out = torch.empty((b, s, d3 // 3), dtype=torch.int8, device=qkv_q.device)
-    _q3i_launch("team_mha_packed_q3i_fwd", qkv_q, vecs, out, heads,
-                s if kv_len is None else kv_len, int(causal))
+    _q3i_launch("team_mha_packed_q3i_fwd", [qkv_q], vecs, out, b, s, heads,
+                s if kv_len is None else kv_len, int(causal), int(softmax == "exp2i"), norm)
     fused_mha_packed_q3i.launches += 1
     return out
 
@@ -570,21 +688,69 @@ def fused_mha_packed_q3i_cls(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: t
                              qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Integer-QKᵀ attention for the CLS query only: ``[B, S, 3D]`` int8 ->
     ``[B, 1, D]`` int8, row 0 of what :func:`fused_mha_packed_q3i` returns
-    (non-causal, every key). Each kernel launch adds one to
-    ``fused_mha_packed_q3i_cls.launches``."""
-    static = _q3i_softmax_is_static(qk_m2, False)
+    with the ones-column row sum (non-causal, every key). Each kernel launch
+    adds one to ``fused_mha_packed_q3i_cls.launches``."""
+    static = _q3i_cls_static(qk_m2)
     vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if static else None, heads)
     if qkv_q.device.type == "cpu":
-        return mha_packed_q3i_reference(qkv_q, *vecs[:3], heads, qk_m2=vecs[3], rows=1)
-    b, _, d3 = qkv_q.shape
+        return mha_packed_q3i_cls_plain(qkv_q, *vecs[:3], heads, qk_m2=vecs[3])
+    b, s, d3 = qkv_q.shape
     out = torch.empty((b, 1, d3 // 3), dtype=torch.int8, device=qkv_q.device)
-    _q3i_launch("team_mha_packed_q3i_cls_fwd", qkv_q, vecs, out, heads)
+    _q3i_launch("team_mha_packed_q3i_cls_fwd", [qkv_q], vecs, out, b, s, heads)
     fused_mha_packed_q3i_cls.launches += 1
+    return out
+
+
+def fused_mha_packed_q3i_cls_split(q_q: torch.Tensor, kv_q: torch.Tensor, deq: torch.Tensor,
+                                   qk_scale: torch.Tensor, o_inv: torch.Tensor, heads: int, *,
+                                   qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`fused_mha_packed_q3i_cls` over split inputs: the CLS row's q
+    ``[B, 1, D]`` int8 and k, v ``[B, S, 2D]`` int8 -> ``[B, 1, D]`` int8;
+    ``deq`` keeps its ``[1, 3D]`` layout. Equal to the CLS kernel on the
+    packed tensor they make. Each kernel launch adds one to
+    ``fused_mha_packed_q3i_cls_split.launches``."""
+    if q_q.dim() != 3 or kv_q.dim() != 3 or q_q.shape[1] != 1 or kv_q.shape[0] != q_q.shape[0] \
+            or kv_q.shape[-1] != 2 * q_q.shape[-1]:
+        raise ValueError(f"q_q must be [B, 1, D] and kv_q [B, S, 2*D], got {tuple(q_q.shape)} "
+                         f"and {tuple(kv_q.shape)}")
+    if q_q.dtype != torch.int8 or kv_q.dtype != torch.int8:
+        raise TypeError(f"q_q and kv_q must be int8, got {q_q.dtype} and {kv_q.dtype}")
+    if kv_q.device != q_q.device:
+        raise ValueError(f"kv_q lies on {kv_q.device}, q_q on {q_q.device}")
+    b, s, d2 = kv_q.shape
+    d = d2 // 2
+    if d % heads:
+        raise ValueError(f"D={d} is not divisible by heads={heads}")
+    static = _q3i_cls_static(qk_m2)
+    vecs = _q3i_vectors(kv_q.device, d, heads, deq, qk_scale, o_inv, qk_m2 if static else None)
+    if kv_q.device.type == "cpu":
+        return mha_packed_q3i_cls_split_plain(q_q, kv_q, *vecs[:3], heads, qk_m2=vecs[3])
+    out = torch.empty((b, 1, d), dtype=torch.int8, device=kv_q.device)
+    _q3i_launch("team_mha_packed_q3i_cls_split_fwd", [q_q, kv_q], vecs, out, b, s, heads)
+    fused_mha_packed_q3i_cls_split.launches += 1
+    return out
+
+
+def fused_mha_packed_q3i_sb(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                            o_inv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Sequence-major integer-QKᵀ attention: ``[S, B, 3D]`` int8 ->
+    ``[S, B, D]`` int8, non-causal over every key, the f32 row-max softmax
+    normalised before a bf16 PV (no ``qk_m2``, no knobs, as on the TPU).
+    Each kernel launch adds one to ``fused_mha_packed_q3i_sb.launches``."""
+    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, None, heads)
+    if qkv_q.device.type == "cpu":
+        return mha_packed_q3i_sb_reference(qkv_q, *vecs[:3], heads)
+    s, b, d3 = qkv_q.shape
+    out = torch.empty((s, b, d3 // 3), dtype=torch.int8, device=qkv_q.device)
+    _q3i_launch("team_mha_packed_q3i_sb_fwd", [qkv_q], vecs[:3], out, b, s, heads)
+    fused_mha_packed_q3i_sb.launches += 1
     return out
 
 
 fused_mha_packed_q3i.launches = 0
 fused_mha_packed_q3i_cls.launches = 0
+fused_mha_packed_q3i_cls_split.launches = 0
+fused_mha_packed_q3i_sb.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -724,5 +890,7 @@ def reset_launch_counts() -> None:
     fused_attn_block.proj_launches = 0
     fused_mha_packed_q3i.launches = 0
     fused_mha_packed_q3i_cls.launches = 0
+    fused_mha_packed_q3i_cls_split.launches = 0
+    fused_mha_packed_q3i_sb.launches = 0
     fused_mha_packed_q.launches = 0
     fused_mha_packed_q3.launches = 0

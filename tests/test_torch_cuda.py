@@ -19,7 +19,15 @@ its kernels against the same tower with the plain versions, cosine >= 0.9999
 and max |Δ| <= 5e-3·rms; the pre-split kernel as the packed one; the fused
 out-projection and attention sub-block kernels float32 1e-5 and bfloat16
 2e-2 plus one bf16 step (2^-7) of the output's magnitude (the residual
-makes outputs up to ~5, where one step is 0.03)."""
+makes outputs up to ~5, where one step is 0.03); the integer-QKᵀ kernel's
+other modes (``exp2i``, ``reduce``, ``defer_norm``, ``pv_int8``) and its
+sequence-major entry as its default one (``pv_int8``: plus what one
+p8 = rint(p·127) across a rounding edge moves an output by, up to
+deq_v·o_inv steps), the split CLS entry equal to the packed CLS entry bit for
+bit; the tower on the sequence-major, flat-batch,
+int8-PV, CLS-mode, knob and ``xla`` routes as on the static routes."""
+
+import math
 
 import pytest
 import torch
@@ -102,10 +110,10 @@ def q3i_inputs(b, s, heads, device, seed=0, dh=64):
             uniform((1, d), 20, 60), uniform((1, heads), 3, 6))
 
 
-def assert_within_one_int8_step(got, want):
+def assert_within_one_int8_step(got, want, limit: int = 1):
     assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
     diff = (got.int() - want.int()).abs()
-    assert diff.max().item() <= 1, diff.max().item()
+    assert diff.max().item() <= limit, diff.max().item()
     assert (diff > 0).float().mean().item() < 0.01
 
 
@@ -484,3 +492,151 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                   attn[2], attn[3], torch.zeros((1, 2048, 64), device=cuda_device), 1)
     with pytest.raises(ValueError, match="head width"):
         tms.fused_mha_short(*(torch.zeros((1, 2, 8, 48), device=cuda_device) for _ in range(3)))
+
+
+# -- the integer-QKᵀ kernel's other modes and entries, and the routes that use them --
+
+# (TEAM_QI_SOFTMAX, TEAM_QI_ROWSUM, pv_int8, defer_norm, b, s, h, dh, causal, kv_len)
+Q3I_MODES = [
+    ("exp2i", "mxu", False, False, 128, 197, 12, 64, False, None),
+    ("exp2i", "mxu", False, False, 4, 77, 8, 64, True, None),  # masked: the f32 form
+    ("f32", "reduce", False, False, 128, 197, 12, 64, False, None),
+    ("static", "reduce", False, True, 128, 197, 12, 64, False, None),
+    ("exp2i", "reduce", False, True, 4, 197, 12, 64, False, 150),
+    ("exp2i", "reduce", False, True, 3, 37, 4, 32, False, None),
+    ("static", "mxu", True, False, 128, 197, 12, 64, False, None),
+    ("f32", "mxu", True, True, 3, 37, 4, 64, False, None),
+    ("exp2i", "reduce", True, True, 4, 77, 8, 64, True, 60),
+]
+
+
+@pytest.mark.parametrize("softmax,rowsum,pv_int8,defer,b,s,h,dh,causal,kv_len", Q3I_MODES)
+def test_q3i_kernel_modes_match_plain_version(cuda_device, monkeypatch, softmax, rowsum, pv_int8,
+                                              defer, b, s, h, dh, causal, kv_len):
+    monkeypatch.setenv("TEAM_QI_SOFTMAX", softmax)
+    monkeypatch.setenv("TEAM_QI_ROWSUM", rowsum)
+    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, cuda_device, seed=2, dh=dh)
+    kw = dict(causal=causal, kv_len=kv_len, qk_m2=m2, pv_int8=pv_int8, defer_norm=defer)
+    launches = fused_mha_packed_q3i.launches
+    out = fused_mha_packed_q3i(qkv, deq, qks, oinv, h, **kw)
+    torch.cuda.synchronize()
+    assert fused_mha_packed_q3i.launches == launches + 1
+    assert_within_one_int8_step(out, tms.mha_packed_q3i_plain(qkv, deq, qks, oinv, h, **kw),
+                                pv_int8_limit(deq, oinv) if pv_int8 else 1)
+
+
+def pv_int8_limit(deq, oinv) -> int:
+    """The int8 PV's bound in int8 steps: one step, plus what one p8 = rint(p·127)
+    that lands on the other side of a rounding edge (p's sum taken in another
+    order) moves an output by, |v8|·(deq_v·o_inv)/127 <= deq_v·o_inv."""
+    d = oinv.numel()
+    return 1 + math.ceil((deq.reshape(-1)[2 * d:] * oinv.reshape(-1)).max().item())
+
+
+@pytest.mark.parametrize("b,s,h,dh", [(128, 197, 12, 64), (3, 37, 4, 32)])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("softmax", ["static", "exp2i"])
+def test_q3i_cls_split_kernel_equals_the_cls_kernel(cuda_device, monkeypatch, b, s, h, dh, static,
+                                                    softmax):
+    """The split entry reads q, k and v through other strides and must give
+    what the CLS entry gives on the packed tensor they make, bit for bit."""
+    monkeypatch.setenv("TEAM_QI_SOFTMAX", softmax)
+    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, cuda_device, seed=3, dh=dh)
+    m2 = m2 if static else None
+    d = h * dh
+    q, kv = qkv[:, :1, :d].contiguous(), qkv[:, :, d:].contiguous()
+    before = (fused_mha_packed_q3i_cls.launches, tms.fused_mha_packed_q3i_cls_split.launches)
+    out = tms.fused_mha_packed_q3i_cls_split(q, kv, deq, qks, oinv, h, qk_m2=m2)
+    packed = fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, h, qk_m2=m2)
+    torch.cuda.synchronize()
+    assert (fused_mha_packed_q3i_cls.launches, tms.fused_mha_packed_q3i_cls_split.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == (b, 1, d) and torch.equal(out, packed)
+    assert_within_one_int8_step(out, tms.mha_packed_q3i_cls_split_plain(q, kv, deq, qks, oinv, h,
+                                                                        qk_m2=m2))
+
+
+@pytest.mark.parametrize("s,b,h,dh", [(197, 128, 12, 64), (37, 3, 4, 32), (77, 5, 8, 64)])
+def test_q3i_sb_kernel_matches_plain_version_and_the_packed_entry(cuda_device, monkeypatch, s, b,
+                                                                  h, dh):
+    """Sequence-major [S, B, 3D]: within one step of its plain version, and
+    bit for bit what the packed entry gives on the transposed rows with the
+    same arithmetic (f32 row max, reduce)."""
+    qkv, deq, qks, oinv, _ = q3i_inputs(s, b, h, cuda_device, seed=4, dh=dh)
+    launches = tms.fused_mha_packed_q3i_sb.launches
+    out = tms.fused_mha_packed_q3i_sb(qkv, deq, qks, oinv, h)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_packed_q3i_sb.launches == launches + 1
+    assert out.shape == (s, b, h * dh) and out.is_contiguous()
+    assert_within_one_int8_step(out, tms.mha_packed_q3i_sb_reference(qkv, deq, qks, oinv, h))
+    monkeypatch.setenv("TEAM_QI_SOFTMAX", "f32")
+    monkeypatch.setenv("TEAM_QI_ROWSUM", "reduce")
+    packed = fused_mha_packed_q3i(qkv.transpose(0, 1).contiguous(), deq, qks, oinv, h)
+    assert torch.equal(out, packed.transpose(0, 1))
+
+
+def test_new_q3i_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
+    qkv, deq, qks, oinv, m2 = q3i_inputs(2, 8, 4, cuda_device, dh=16)
+    with pytest.raises(ValueError, match="head width"):
+        tms.fused_mha_packed_q3i_sb(qkv, deq, qks, oinv, 4)
+    qkv, deq, qks, oinv, m2 = q3i_inputs(2, 8, 2, cuda_device)
+    q, kv = qkv[:, :1, :128], qkv[:, :, 128:]
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.fused_mha_packed_q3i_cls_split(q, kv.contiguous(), deq, qks, oinv, 2)
+    with pytest.raises(ValueError, match="lies on"):
+        tms.fused_mha_packed_q3i_cls_split(q.contiguous(), kv.contiguous(), deq, qks.cpu(), oinv, 2)
+
+
+# (gemm_impl, cls_last, env, launches per encode of an L-layer tower as
+#  (q3i, q3i_cls, q3i_cls_split, q3i_sb, packed bf16))
+NEW_ROUTES = [
+    pytest.param("static3d_qis", None, {}, lambda n: (0, 0, 0, n, 0), id="qis"),
+    pytest.param("static3d_qib", None, {"TEAM_FLAT_B": "2"}, lambda n: (n - 1, 1, 0, 0, 0),
+                 id="qib"),
+    pytest.param("static3d_qi2", None, {}, lambda n: (n, 0, 0, 0, 0), id="qi2"),
+    pytest.param("static3d_qi", "kqs", {}, lambda n: (n - 1, 0, 1, 0, 0), id="kqs"),
+    pytest.param("static3d_qi", "mlp", {}, lambda n: (n, 0, 0, 0, 0), id="mlp"),
+    pytest.param("static3d_qi", "attn", {}, lambda n: (n - 1, 0, 0, 0, 0), id="attn"),
+    pytest.param("static3d_qi", None, {"TEAM_QI_SOFTMAX": "exp2i"},
+                 lambda n: (n - 1, 1, 0, 0, 0), id="exp2i"),
+    pytest.param("static3d_qi", None, {"TEAM_QI_ROWSUM": "reduce", "TEAM_QI_DEFER": "1"},
+                 lambda n: (n - 1, 1, 0, 0, 0), id="reduce-defer"),
+    pytest.param("xla", None, {}, lambda n: (0, 0, 0, 0, n), id="xla"),
+]
+
+
+@pytest.mark.parametrize("route,cls_last,env,per_encode", NEW_ROUTES)
+def test_new_routes_through_the_kernels_match_plain_versions(cuda_device, monkeypatch, route,
+                                                             cls_last, env, per_encode):
+    """The tiny tower (head width 32) on the card on each route, CLS mode and
+    knob of this group through its kernels, against the same route with the
+    plain versions (same card, same payload); and each kernel's launches."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = tclip.CLIPConfig.tiny()
+    params = tree_to(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg), cuda_device)
+    images = torch.randn((8, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    if route == "xla":
+        qv = tquant.quantize_vision_tower(params)
+    else:
+        qv = tquant.quantize_vision_tower_static(params, tquant.calibrate_vision_tower(
+            params, images, cfg), heads=cfg.vision.heads)
+    counters = (fused_mha_packed_q3i, fused_mha_packed_q3i_cls,
+                tms.fused_mha_packed_q3i_cls_split, tms.fused_mha_packed_q3i_sb, fused_mha_packed)
+    before = [c.launches for c in counters]
+    got = tquant.encode_image_int8(qv, images, cfg, gemm_impl=route, cls_last=cls_last).double()
+    torch.cuda.synchronize()
+    assert tuple(c.launches - n for c, n in zip(counters, before)) == per_encode(cfg.vision.layers)
+    for name, plain in (("fused_mha_packed_q3i", tms.mha_packed_q3i_plain),
+                        ("fused_mha_packed_q3i_cls", tms.mha_packed_q3i_cls_plain),
+                        ("fused_mha_packed_q3i_cls_split", tms.mha_packed_q3i_cls_split_plain),
+                        ("fused_mha_packed_q3i_sb", tms.mha_packed_q3i_sb_reference),
+                        ("attention_core", lambda qkv, heads, *, causal, kv_len, impl:
+                         mha_packed_reference(qkv, heads, causal, kv_len))):
+        monkeypatch.setattr(tquant, name, plain)
+    want = tquant.encode_image_int8(qv, images, cfg, gemm_impl=route, cls_last=cls_last).double()
+    assert got.shape == (8, cfg.embed_dim) and bool(torch.isfinite(got).all())
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    err = (got - want).abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (route, cos, err, rms)

@@ -247,11 +247,27 @@ def test_tower_launches_q3i_per_block(setup):
     pytest.param({}, {"TEAM_GELU": "sigmoid"}, id="env-gelu-sigmoid"),
 ])
 def test_unported_routes_raise(setup, kw, env, monkeypatch):
+    """``hybrid`` still raises (its kernels are ROADMAP queue 2 items 12-13).
+    The other routes, CLS modes and knobs are ported: each is held against
+    team_tpu on the same payload to the tower bound. team_tpu reads
+    ``TEAM_LN_MODE`` into a module global when imported, so it is set there
+    too."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    x = torch.zeros((1, SZ, SZ, 3))
-    with pytest.raises(NotImplementedError):
-        tq.encode_image_int8(setup["tqv"], x, CFG, **kw)
+    if kw.get("gemm_impl") == "hybrid":
+        with pytest.raises(NotImplementedError):
+            tq.encode_image_int8(setup["tqv"], torch.zeros((1, SZ, SZ, 3)), CFG, **kw)
+        return
+    if "TEAM_LN_MODE" in env:
+        monkeypatch.setattr(jq, "_LN_MODE", env["TEAM_LN_MODE"])
+    x = np.random.default_rng(7).standard_normal((6, SZ, SZ, 3)).astype(np.float32)
+    want = np.asarray(jq.encode_image_int8(setup["jqv"], jnp.asarray(x), JCFG, attn_impl="xla",
+                                           interpret=True, **{"gemm_impl": "static3d_qi", **kw}),
+                      np.float64)
+    got = tq.encode_image_int8(setup["tqv"], torch.from_numpy(x), CFG, **kw).double().numpy()
+    cos = (want * got).sum(-1) / (np.linalg.norm(want, axis=-1) * np.linalg.norm(got, axis=-1))
+    assert cos.min() >= 0.9999, cos
+    assert np.abs(got - want).max() <= 5e-3 * np.sqrt((want ** 2).mean()) + 1e-6
 
 
 # -- the runtime: calibrate, gate, commit, reuse ---------------------------

@@ -123,24 +123,42 @@ def _good():
     pytest.param(lambda a: a[:2] + [a[2][:, :1]] + a[3:], {}, ValueError, id="qk_scale-size"),
     pytest.param(lambda a: a, {"kv_len": 0}, ValueError, id="kv_len-zero"),
     pytest.param(lambda a: a, {"kv_len": 9}, ValueError, id="kv_len-past-seq"),
-    pytest.param(lambda a: a, {"pv_int8": True}, NotImplementedError, id="pv_int8"),
-    pytest.param(lambda a: a, {"defer_norm": True}, NotImplementedError, id="defer_norm"),
+    # modes the wrapper has (exc None): taken, and held against team_tpu's kernel
+    pytest.param(lambda a: a, {"pv_int8": True}, None, id="pv_int8"),
+    pytest.param(lambda a: a, {"defer_norm": True}, None, id="defer_norm"),
     pytest.param(lambda a: [a[0].to("meta")] + a[1:], {}, ValueError, id="meta-device"),
 ])
 def test_wrapper_rejects_bad_input(mutate, kw, exc):
     qkv, deq, qks, oinv, m2 = mutate(_good())
+    if exc is None:
+        want = jmha.fused_mha_packed_q3i(*(jnp.asarray(t.numpy()) for t in (qkv, deq, qks, oinv)),
+                                         2, interpret=True, qk_m2=jnp.asarray(m2.numpy()), **kw)
+        assert_within_one_step(fused_mha_packed_q3i(qkv, deq, qks, oinv, 2, qk_m2=m2, **kw).numpy(),
+                               np.asarray(want))
+        return
     with pytest.raises(exc):
         fused_mha_packed_q3i(qkv, deq, qks, oinv, 2, qk_m2=m2, **kw)
 
 
 def test_wrappers_reject_heads_and_unported_knobs(monkeypatch):
+    """Bad heads raise. The knobs ``TEAM_QI_SOFTMAX=exp2i`` and
+    ``TEAM_QI_ROWSUM=reduce`` are ported: both wrappers follow team_tpu's
+    kernels under each (its module globals set and JAX's caches cleared,
+    since its jitted wrappers read them when traced)."""
+    import jax
+
     qkv, deq, qks, oinv, m2 = _good()
     with pytest.raises(ValueError):
         fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, 3, qk_m2=m2)
+    args = [jnp.asarray(t.numpy()) for t in (qkv, deq, qks, oinv)]
     for knob, value in (("TEAM_QI_SOFTMAX", "exp2i"), ("TEAM_QI_ROWSUM", "reduce")):
         with monkeypatch.context() as m:
             m.setenv(knob, value)
-            with pytest.raises(NotImplementedError):
-                fused_mha_packed_q3i(qkv, deq, qks, oinv, 2, qk_m2=m2)
-            with pytest.raises(NotImplementedError):
-                fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, 2, qk_m2=m2)
+            m.setattr(jmha, "_QI_" + knob.split("_")[-1], value)
+            jax.clear_caches()
+            for port, ref in ((fused_mha_packed_q3i, jmha.fused_mha_packed_q3i),
+                              (fused_mha_packed_q3i_cls, jmha.fused_mha_packed_q3i_cls)):
+                want = ref(*args, 2, interpret=True, qk_m2=jnp.asarray(m2.numpy()))
+                assert_within_one_step(port(qkv, deq, qks, oinv, 2, qk_m2=m2).numpy(),
+                                       np.asarray(want))
+        jax.clear_caches()

@@ -8,7 +8,12 @@ Curves (top-1, top-"5", zero-shot) agree within 0.1 pp and features within
 sides calibrate on their own bf16 towers, so their payloads may differ by a
 rounding step and a borderline image may flip: curves agree within one test
 image per task (8.33, 4.17 and 2.78 pp for the 12, 24 and 36 test images of
-tasks 1-3). Subprocesses run the port's CLI (SimpleCIL, and PROOF on the flash-attention
+tasks 1-3). Two more roundings differ there: the calibration forward runs
+``attention_impl="auto"``, where the port's packed plain version rounds
+q·dh^-0.5 to bf16 before QKᵀ and team_tpu's CPU route scales after it (the
+two agree at dh=64, not at the tiny tower's dh=32; ROADMAP fault 3.10), and
+team_tpu's runtime encodes under ``jax.jit``, where XLA on the CPU keeps bf16
+intermediates in float32. Subprocesses run the port's CLI (SimpleCIL, and PROOF on the flash-attention
 route) and check that neither jax nor team_tpu is imported (this process has
 both: conftest)."""
 
@@ -290,14 +295,33 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
                  NotImplementedError, id="int8_hybrid"),
     pytest.param({"checkpoint_dir": "ckpt"}, {}, NotImplementedError, id="checkpoint_dir"),
     pytest.param({"mesh_shape": [2]}, {}, NotImplementedError, id="mesh_shape"),
-    pytest.param({}, {"TEAM_CLIP_CHECKPOINT": "clip.pt"}, NotImplementedError, id="clip_checkpoint"),
+    # a checkpoint file that exists (written under tmp_path): the loader is not ported
+    pytest.param({}, {"TEAM_CLIP_CHECKPOINT": "<tmp>/clip.pt"}, NotImplementedError,
+                 id="clip_checkpoint"),
 ])
 def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
     for k, v in env.items():
+        if v.startswith("<tmp>/"):
+            path = tmp_path / v[len("<tmp>/"):]
+            path.write_bytes(b"\0")
+            v = str(path)
         monkeypatch.setenv(k, v)
     cfg = torch_cfg(kw.pop("model_name", "simplecil"), tmp_path, **kw)
     with pytest.raises(exc):
         torch_train(cfg)
+
+
+def test_clip_checkpoint_that_names_no_file_trains_as_the_random_init(tmp_path, monkeypatch):
+    """As team_tpu (``backbone_runtime.py:41-50``): a ``TEAM_CLIP_CHECKPOINT``
+    that names no file means the random init, and the run is the same as one
+    without the variable."""
+    monkeypatch.delenv("TEAM_CLIP_CHECKPOINT", raising=False)
+    want = torch_train(torch_cfg("simplecil", tmp_path / "plain"))
+    monkeypatch.setenv("TEAM_CLIP_CHECKPOINT", str(tmp_path / "no_such_checkpoint.pt"))
+    got = torch_train(torch_cfg("simplecil", tmp_path / "unset"))
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
 
 
 def test_cuda_device_without_cuda_raises(tmp_path, monkeypatch):

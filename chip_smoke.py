@@ -24,10 +24,18 @@ Phases, one line or more each:
      (mha_packed_proj) and attention sub-block (attn_block) at the vision and
      text shapes and the pre-split attention (mha_short, kv_len = S and < S)
      at the vision shape, bf16 and f32, with non-zero biases and layer-norm
-     affines
+     affines; the int8 GEMMs of the dynamic tiers at the vision tower's shapes
+     and at the gate batch's ragged M (3,152 rows): int8_linear at qkv
+     768->2304 and out 768->768 (bf16 and f32, with and without the GELU,
+     within one bf16 step; the [N, K] entry bit for bit), gelu_quant at fc
+     768->3072 (bn 512) and the dynamic layer norm -> int8 at most one int8
+     step apart on under 1 % of the outputs with scales within 1e-6, the
+     block-scale GEMM at proj 3072->768 (6 K blocks), and the 3-D static
+     producer bit for bit the 2-D one
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
-     kernels a composition of PyTorch calls), timed with CUDA
+     kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
+     alone and the xla tier's composition), timed with CUDA
      events over calls queued behind a device spin (device time, not the
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
      peak of their type) computed from the same inputs
@@ -53,7 +61,12 @@ Phases, one line or more each:
      "attn_block", SimpleCIL (bf16) on "mha_packed_proj" and ZS-CLIP (f32) on
      "attn_block", whose fused launches must equal the layers times the
      image-tower (non-causal) and text-tower (causal) calls, with no packed
-     or flash launch
+     or flash launch; SimpleCIL (bf16) on the dynamic tiers int8_gemm_impl
+     hybrid and pallas at batch 16, each with its own payload cache, whose
+     gate on the static payload must decide by the >= 0.999 rule and the run
+     serve what it decided, with each of the tier's kernels launched exactly
+     its count per block of each int8 batch (pallas: 2 ln_quantize, 2
+     int8_linear, 1 gelu_quant, 1 blockscale; hybrid: 2, 0, 1, 1)
   6. features against the plain-attention towers (packed and flash routes)
      and against the bf16 tower on a small batch, each int8 route against
      itself with the plain versions of its kernels (same payload, same card),
@@ -69,10 +82,16 @@ Phases, one line or more each:
      tower on mha_short against the same towers through the plain versions
      of their kernels; the image-encode rates at the eval batch (bf16, f32,
      int8 on each route, bf16 through flash, bf16 and f32 on attn_block,
-     mha_packed_proj and mha_short)
+     mha_packed_proj and mha_short); hybrid and pallas through the library API
+     on the dynamic payload at full width (every kernel call held against its
+     plain version on the tower's inputs, launches per encode exact, features
+     against the plain versions and the bf16 tower, encode rates), and the
+     int8 text tower on the class prompts (xla, hybrid and pallas on the
+     dynamic text payload, static3d_qi on the prompt-set payload) against
+     the bf16 text tower and against itself with the plain versions
   7. a torch.profiler split of one B=128 encode: int8 (static3d_qi,
-     static_qa and static3d_qis), bf16, bf16 through flash, bf16 on
-     attn_block and on mha_packed_proj
+     static_qa and static3d_qis), the int8 pallas tier, bf16, bf16 through
+     flash, bf16 on attn_block and on mha_packed_proj
 Then one JSON line of kernel results, and last the JSON status line.
 Any failure raises, and the script exits non-zero without the status line.
 """
@@ -97,7 +116,7 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
 }
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
 SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
-           "mha_packed_q.cu", "int8_quant.cu")
+           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu")
 # flash attention: (batch, heads, seq, causal, kv_len); vision and text are
 # the towers' shapes on the main path, S=577 a shape the auto route sends to it
 FLASH_SHAPES = {"vision": (128, 12, 197, False, None), "text": (32, 8, 77, True, 77),
@@ -164,6 +183,17 @@ Q3I_MODES = {
 # the phase-6 configuration whose encodes count each mode's launches
 MODE_SERVED = {"exp2i": "exp2i", "reduce": "reduce", "reduce_defer": "reduce_defer",
                "pv_int8": "static3d_qi2", "pv_int8_defer": "static3d_qi2_defer"}
+# the int8 GEMMs of the vision tower's blocks on the dynamic tiers, (K, N)
+GEMM_SHAPES = {"qkv": (768, 2304), "out": (768, 768)}
+FC_SHAPE, PROJ_SHAPE = (768, 3072), (3072, 768)
+# the dynamic tiers' kernels (int8_matmul wrappers) and their calls per block
+TIER_PER_BLOCK = {
+    "hybrid": {"ln_quantize": 2, "int8_linear": 0, "int8_linear_gelu_quant": 1,
+               "int8_linear_blockscale": 1},
+    "pallas": {"ln_quantize": 2, "int8_linear": 2, "int8_linear_gelu_quant": 1,
+               "int8_linear_blockscale": 1},
+}
+TIER_KERNELS = tuple(TIER_PER_BLOCK["pallas"])
 DATASET = {"num_classes": 4, "img_size": 224, "train_per_stage": 64, "test_per_stage": 32}
 EVAL_B = 128  # the learners' eval batch
 # the learner batch of exps/IIMinsects202.json: the int8 run calibrates on its
@@ -172,6 +202,8 @@ EVAL_B = 128  # the learners' eval batch
 # calibration batch of one colour does not cover the next colour: the gate
 # then falls back, in team_tpu as here)
 FLAGSHIP_BATCH = 16
+# the rows of a batch of 16 at S=197: the gate batch's, no multiple of a kernel tile
+RAGGED_M = FLAGSHIP_BATCH * 197
 
 
 def _card() -> str:
@@ -748,6 +780,173 @@ def time_int8_io(ms, im, dev) -> dict:
     return times
 
 
+def gemm_inputs(im, m, k, n, dev, seed=0):
+    """Row-quantized activations, a quantized [K, N] weight (column-major, as
+    a payload holds it), its scales and a bias."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq, xs = im.quantize_rows(torch.randn((m, k), generator=g, device=dev))
+    wq, ws = im.quantize_weight(torch.randn((k, n), generator=g, device=dev) * k ** -0.5)
+    return xq, wq, xs, ws, torch.randn(n, generator=g, device=dev) * 0.1
+
+
+def _check_gemm(name: str, out, ref) -> float:
+    """max |out - ref|; raises past one bf16 step (2^-7 |ref|) for bf16, and
+    past 1e-5 of the largest |ref| (tanh from another library; without the
+    GELU the same products in the same order) for both."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    limit = 1e-5 * ref.float().abs().max().item()
+    if out.dtype == torch.bfloat16:
+        limit = limit + BF16_STEP * ref.float().abs()
+    worst = err.max().item()
+    print(f"  {name}: max_abs_err={worst:.3e} (limit 1e-5 max|ref|"
+          f"{' + 2^-7 |ref|' if out.dtype == torch.bfloat16 else ''})")
+    if out.shape != ref.shape or out.dtype != ref.dtype or not bool((err <= limit).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def _check_scales(name: str, s, ref) -> float:
+    rel = ((s - ref).abs() / ref.abs()).max().item()
+    print(f"  {name} scales: max relative difference {rel:.3e} (limit 1e-6)")
+    if s.shape != ref.shape or not rel <= 1e-6:
+        raise AssertionError(f"{name}: scales disagree with the plain version")
+    return rel
+
+
+def compare_int8_gemm(im, dev) -> dict:
+    """The int8 GEMM kernels and the dynamic layer norm -> int8 kernel against
+    their plain versions at the vision tower's shapes and at the gate batch's
+    ragged M: int8_linear at qkv and out (bf16 and f32, with and without the
+    GELU; the [N, K] entry bit for bit the [K, N] one), gelu_quant at fc (bn
+    512), blockscale at proj on its output (6 K blocks), ln_quantize; and
+    ln_quantize_static3 bit for bit ln_quantize_static."""
+    import torch
+
+    worst = dict.fromkeys(("int8_linear", "int8_linear_gelu_quant", "int8_linear_blockscale",
+                           "ln_quantize"), 0.0)
+    b, s, _, _ = MAIN_SHAPES["vision"]
+    for m in (b * s, RAGGED_M):
+        for shape, (k, n) in GEMM_SHAPES.items():
+            xq, wq, xs, ws, bias = gemm_inputs(im, m, k, n, dev)
+            for activation in (None, "gelu"):
+                for dt in (torch.bfloat16, torch.float32):
+                    kw = dict(activation=activation, out_dtype=dt)
+                    out = im.int8_linear(xq, wq, xs, ws, bias, **kw)
+                    ref = im.int8_linear_reference(xq, wq, xs, ws, bias, **kw)
+                    torch_sync()
+                    worst["int8_linear"] = max(worst["int8_linear"], _check_gemm(
+                        f"int8_linear {shape} M={m} K={k} N={n} {activation} {dt}", out, ref))
+            nk = im.int8_linear_nk(xq, wq.t(), xs, ws, bias)
+            equal = torch.equal(nk, im.int8_linear(xq, wq, xs, ws, bias))
+            print(f"  int8_linear_nk {shape} M={m} vs int8_linear: bit for bit {equal} (tolerance 0)")
+            if not equal:
+                raise AssertionError("int8_linear_nk differs from int8_linear on the same weight")
+        xq, wq, xs, ws, bias = gemm_inputs(im, m, *FC_SHAPE, dev, seed=1)
+        gq, gs = im.int8_linear_gelu_quant(xq, wq, xs, ws, bias)
+        rq, rs = im.int8_linear_gelu_quant_reference(xq, wq, xs, ws, bias)
+        torch_sync()
+        name = f"int8_linear_gelu_quant fc M={m} K={FC_SHAPE[0]} N={FC_SHAPE[1]} bn=512"
+        if gs.shape != (FC_SHAPE[1] // 512, m):
+            raise AssertionError(f"{name}: scales of shape {tuple(gs.shape)}")
+        worst["int8_linear_gelu_quant"] = max(worst["int8_linear_gelu_quant"],
+                                              _int8_disagreement(name, gq, rq))
+        _check_scales(name, gs, rs)
+        _, w2q, _, w2s, b2 = gemm_inputs(im, m, *PROJ_SHAPE, dev, seed=2)
+        for dt in (torch.bfloat16, torch.float32):
+            out = im.int8_linear_blockscale(gq, w2q, gs, w2s, b2, out_dtype=dt)
+            ref = im.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2, out_dtype=dt)
+            torch_sync()
+            worst["int8_linear_blockscale"] = max(worst["int8_linear_blockscale"], _check_gemm(
+                f"int8_linear_blockscale proj M={m} K={PROJ_SHAPE[0]} N={PROJ_SHAPE[1]} "
+                f"n_kb={gs.shape[0]} {dt}", out, ref))
+        x, gamma, beta, inv_a = producer_inputs(m, 768, dev, seed=3)
+        q, sc = im.ln_quantize(x, gamma, beta)
+        rq, rsc = im.ln_quantize_reference(x, gamma, beta)
+        three = im.ln_quantize_static3(x.reshape(-1, s, 768), gamma, beta, inv_a)
+        two = im.ln_quantize_static(x, gamma, beta, inv_a)
+        torch_sync()
+        worst["ln_quantize"] = max(worst["ln_quantize"],
+                                   _int8_disagreement(f"ln_quantize M={m} D=768", q, rq))
+        _check_scales(f"ln_quantize M={m} D=768", sc, rsc)
+        equal = torch.equal(three.reshape(m, 768), two)
+        print(f"  ln_quantize_static3 [{m // s}, {s}, 768] vs ln_quantize_static: bit for bit "
+              f"{equal} (tolerance 0)")
+        if not equal:
+            raise AssertionError("ln_quantize_static3 differs from ln_quantize_static")
+    return worst
+
+
+def _timed_pairs(pairs: dict) -> dict:
+    """plain, kernel, kernel, plain for each entry of ``pairs`` (name ->
+    (kernel, plain, library call or None, composition, bound)), then the
+    library call and the composition."""
+    times = {}
+    for name, (kernel, plain, lib, comp, bnd) in pairs.items():
+        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        lib_ms = _time_ms(lib) if lib is not None else None
+        comp_ms = _time_ms(comp)
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+                       "composition_ms": comp_ms, **bnd}
+        lib_text = f"torch._int_mm alone {lib_ms:.4f} ms" if lib_ms is not None else \
+            "no single PyTorch call"
+        print(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, {lib_text}, "
+              f"the xla tier's composition {comp_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+    return times
+
+
+def time_int8_gemm(im, quant, dev) -> dict:
+    """The four kernels of the dynamic tiers at the vision tower's shapes (M =
+    25,216): int8_linear at qkv and out, gelu_quant at fc, blockscale at proj
+    (6 K blocks), ln_quantize; each bound from its bytes (each input read once,
+    each output written once) and its int8 operations. The yardsticks:
+    torch._int_mm alone at the same shape (the product only), and the xla
+    tier's composition of the same step (torch._int_mm and the torch epilogue;
+    for ln_quantize quant._ln_quant_rows)."""
+    import torch
+
+    b, s, _, _ = MAIN_SHAPES["vision"]
+    m = b * s
+    pairs = {}
+    for shape, (k, n) in GEMM_SHAPES.items():
+        xq, wq, xs, ws, bias = gemm_inputs(im, m, k, n, dev, seed=4)
+        pairs[f"int8_linear {shape}"] = (
+            lambda a=(xq, wq, xs, ws, bias): im.int8_linear(*a),
+            lambda a=(xq, wq, xs, ws, bias): im.int8_linear_reference(*a),
+            lambda a=(xq, wq): torch._int_mm(*a),
+            lambda a=(xq, wq, xs, ws, bias): im.int8_linear_xla(*a),
+            bound(m * k + k * n + m * 4 + 2 * n * 4 + m * n * 2, {"int8": 2 * m * k * n}))
+    k, n = FC_SHAPE
+    xq, wq, xs, ws, bias = gemm_inputs(im, m, k, n, dev, seed=5)
+    gq, gs = im.int8_linear_gelu_quant(xq, wq, xs, ws, bias)
+    pairs["int8_linear_gelu_quant fc"] = (
+        lambda: im.int8_linear_gelu_quant(xq, wq, xs, ws, bias),
+        lambda: im.int8_linear_gelu_quant_reference(xq, wq, xs, ws, bias),
+        lambda: torch._int_mm(xq, wq),
+        lambda: im.quantize_rows(im.int8_linear_xla(xq, wq, xs, ws, bias, activation="gelu")),
+        bound(m * k + k * n + m * 4 + 2 * n * 4 + m * n + gs.numel() * 4, {"int8": 2 * m * k * n}))
+    k2, n2 = PROJ_SHAPE
+    _, w2q, _, w2s, b2 = gemm_inputs(im, 8, k2, n2, dev, seed=6)
+    pairs["int8_linear_blockscale proj"] = (
+        lambda: im.int8_linear_blockscale(gq, w2q, gs, w2s, b2),
+        lambda: im.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2),
+        lambda: torch._int_mm(gq, w2q),
+        lambda: im.int8_linear_xla(gq, w2q, gs[0], w2s, b2),
+        bound(m * k2 + k2 * n2 + gs.numel() * 4 + 2 * n2 * 4 + m * n2 * 2,
+              {"int8": 2 * m * k2 * n2}))
+    x, gamma, beta, _ = producer_inputs(m, 768, dev, seed=7)
+    ln = {"scale": gamma, "bias": beta}
+    pairs["ln_quantize"] = (
+        lambda: im.ln_quantize(x, gamma, beta), lambda: im.ln_quantize_reference(x, gamma, beta),
+        None, lambda: quant._ln_quant_rows(x, ln),
+        bound(x.numel() * 2 + 2 * 768 * 4 + x.numel() + m * 4, {}))
+    return _timed_pairs(pairs)
+
+
 def torch_sync() -> None:
     import torch
 
@@ -993,6 +1192,69 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
     return results
 
 
+def run_int8_dynamic_tiers(ms, im, log_dir: str, cache_root: str) -> dict:
+    """SimpleCIL (bf16) through the trainer on int8_gemm_impl hybrid and
+    pallas at batch 16, each with its own payload cache. As in team_tpu the
+    runtime builds the static payload and gates it through the tier's blocks:
+    the decision must follow the rule (min cosine >= 0.999 commits, else bf16
+    from then on), and each of the tier's kernels must launch exactly its
+    count per block in every int8 batch (the gate batch, and every later one
+    if it committed), with no other int8 kernel."""
+    from team_tpu_torch.learners.backbone_runtime import GATE_MIN_COSINE, BackboneRuntime
+    from team_tpu_torch.trainer import train
+    from team_tpu_torch.utils import phase_timer
+
+    others = {"ln_quantize_static": im.ln_quantize_static, "row_quant_static": im.row_quant_static,
+              **{name: getattr(ms, name) for name in Q3I_COUNTERS}}
+    results = {}
+    for tier, per_block in TIER_PER_BLOCK.items():
+        calls = {"int8": 0, "calib": 0}
+
+        def count_encodes(rt):
+            for key, attr in (("int8", "_encode_int8"), ("calib", "_calib_forward")):
+                setattr(rt, attr, _counted(getattr(rt, attr), calls, key))
+
+        cfg = smoke_config("simplecil", "bfloat16", os.path.join(log_dir, f"simplecil_{tier}"),
+                           batch_size=FLAGSHIP_BATCH, encoder_quant="int8_static",
+                           extras={"int8_cache_dir": os.path.join(cache_root, tier),
+                                   "int8_gemm_impl": tier})
+        phase_timer.reset()
+        with recording(BackboneRuntime, count_encodes) as made:
+            ms.reset_launch_counts()
+            im.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train(cfg)
+            wall = time.perf_counter() - t0
+            got = {name: getattr(im, name).launches for name in TIER_KERNELS}
+            stray = {name: fn.launches for name, fn in others.items() if fn.launches}
+        rt = made[0]
+        passed = rt.gate_cosine is not None and rt.gate_cosine >= GATE_MIN_COSINE
+        print(f"  simplecil (int8_static, int8_gemm_impl {tier}, batch {FLAGSHIP_BATCH}): "
+              f"{wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}; held-out gate "
+              f"min cosine {rt.gate_cosine} (limit {GATE_MIN_COSINE}): "
+              f"{'commits' if passed else 'serves bf16'}; committed {rt.int8_committed}, "
+              f"serving {rt.encoder_quant}; {calls['int8']} int8 batches, {calls['calib']} "
+              f"calibration forwards; launches {got}")
+        for line in phase_timer.format_report().splitlines():
+            print("    " + line)
+        served = "int8_static" if passed else "bf16"
+        if len(made) != 1 or rt.int8_committed != passed or rt.encoder_quant != served \
+                or (calls["int8"] == 1) == passed:
+            raise AssertionError(f"{tier}: the gate's decision ({rt.gate_cosine}) and what the "
+                                 "run served disagree with the >= 0.999 rule")
+        layers = rt.clip_cfg.vision.layers
+        want = {name: calls["int8"] * layers * n for name, n in per_block.items()}
+        if calls["int8"] == 0 or got != want or stray:
+            raise AssertionError(f"{tier}: launches {got} (others {stray}), want {want} "
+                                 f"({per_block} per block of each int8 batch)")
+        accs = list(res["cnn_top1"]) + list(res["cnn_top5"])
+        if len(res["cnn_top1"]) != 2 or not all(0.0 <= float(a) <= 100.0 for a in accs):
+            raise AssertionError(f"simplecil {tier}: bad accuracy curve {res}")
+        results[tier] = {"launches": got, "int8_batches": calls["int8"],
+                         "gate_cosine": rt.gate_cosine, "committed": passed, "wall_s": wall}
+    return results
+
+
 def run_proof_path(ms, fa, log_dir: str) -> dict:
     """PROOF (bf16) with attention_impl="pallas" through the trainer: every
     attention of both towers goes through the flash kernel. Then PROOF's loss
@@ -1159,7 +1421,7 @@ def _eval_batch(images):
     return np.stack([images[i % len(images)] for i in range(EVAL_B)])
 
 
-def check_features(dev, cache_dir: str, cache_root: str) -> dict:
+def check_features(im, dev, cache_dir: str, cache_root: str) -> dict:
     """The kernel-path towers against the plain-attention towers (same random
     weights) on a small batch of the smoke dataset; the int8 tower, loaded
     from the main path's cache, against itself with the plain kernels and
@@ -1225,7 +1487,10 @@ def check_features(dev, cache_dir: str, cache_root: str) -> dict:
             rates.update(_check_int8_config(ms, name, route, cache, per_encode, images, bf16_img,
                                             runtimes, served_launches))
     rates["int8_xla"] = _xla_tier(ms, params, images, bf16_img)
-    return rates, runtimes, short_launches, served_launches
+    tiers = _dynamic_tiers(im, params, images, bf16_img, dev)
+    rates.update({f"int8_{tier}": t["rate"] for tier, t in tiers.items()})
+    text = _text_tower_int8(params, prompts, dev)
+    return rates, runtimes, short_launches, served_launches, tiers, text
 
 
 def _xla_tier(ms, params, images, bf16_img) -> float:
@@ -1279,6 +1544,193 @@ def _xla_tier(ms, params, images, bf16_img) -> float:
     rate = 10 * EVAL_B / (time.perf_counter() - t0)
     print(f"  encode int8 xla: {rate:.1f} img/s (B={EVAL_B}, 224x224 uint8 in, ViT-B/16 image tower)")
     return rate
+
+
+def _plain_tier_fns() -> dict:
+    """The plain versions of the dynamic tiers' kernels and of the packed
+    attention, by the name ``quant`` calls them under."""
+    from team_tpu_torch.ops import int8_matmul as im
+    from team_tpu_torch.ops import mha_short as ms
+
+    return {**{name: getattr(im, name + "_reference") for name in TIER_KERNELS},
+            "attention_core": lambda qkv, heads, *, causal, kv_len, impl:
+                ms.mha_packed_reference(qkv, heads, causal, kv_len)}
+
+
+def _swapped(fns: dict, run):
+    """``run()`` with ``fns`` in place of the functions of those names in
+    ``quant`` (same payload, same card)."""
+    from team_tpu_torch.backbone import quant
+
+    saved = {name: getattr(quant, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(quant, name, fn)
+    try:
+        return run()
+    finally:
+        for name, fn in saved.items():
+            setattr(quant, name, fn)
+
+
+def _tier_kernels_on_tower_inputs(run, label: str):
+    """``run()`` through the kernels, with every call of the dynamic tiers'
+    kernels held against its plain version on the same inputs (the tower's
+    own activations): int8 outputs at most one step apart on under
+    INT8_MAX_FRAC of them, scales within 1e-6 relative, bf16 outputs within
+    one bf16 step (2^-7 |ref|) plus 1e-5 of the largest |ref|."""
+    import torch
+
+    from team_tpu_torch.backbone import quant
+
+    plain = _plain_tier_fns()
+    stats = {}
+
+    def checked(name, kernel):
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            ref = plain[name](*args, **kwargs)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            st = stats.setdefault(name, {"steps": 0, "n_diff": 0, "n": 0, "scale_rel": 0.0,
+                                         "bf16_ok": True})
+            for o, r in zip(outs, refs):
+                if o.dtype == torch.int8:
+                    diff = (o.int() - r.int()).abs()
+                    st["steps"] = max(st["steps"], int(diff.max().item()))
+                    st["n_diff"] += int((diff > 0).sum())
+                    st["n"] += diff.numel()
+                elif o.dtype == torch.float32:
+                    st["scale_rel"] = max(st["scale_rel"], ((o - r).abs() / r.abs()).max().item())
+                else:
+                    err = (o.float() - r.float()).abs()
+                    limit = BF16_STEP * r.float().abs() + 1e-5 * r.float().abs().max()
+                    st["bf16_ok"] &= bool((err <= limit).all())
+            return out
+        return call
+
+    out = _swapped({n: checked(n, getattr(quant, n)) for n in TIER_KERNELS}, run)
+    for name, st in stats.items():
+        frac = st["n_diff"] / st["n"] if st["n"] else 0.0
+        print(f"    {label}, {name} on the tower's own inputs: max |diff| {st['steps']} int8 steps "
+              f"on {100 * frac:.5f} % of {st['n']}, scales {st['scale_rel']:.2e} relative, bf16 "
+              f"within one step {st['bf16_ok']}")
+        if st["steps"] > 1 or frac >= INT8_MAX_FRAC or st["scale_rel"] > 1e-6 or not st["bf16_ok"]:
+            raise AssertionError(f"{label}: {name} disagrees with its plain version on the "
+                                 "tower's inputs")
+    return out
+
+
+def _dynamic_tiers(im, params, images, bf16_img, dev) -> dict:
+    """hybrid and pallas through the library API on the dynamic payload of
+    quantize_vision_tower at full width: every kernel call held against its
+    plain version on the tower's inputs, the kernels' launches in one encode
+    exact, the features against the same tier with the plain versions and
+    against the bf16 tower, and the encode rate at the eval batch."""
+    import torch
+
+    from team_tpu_torch.backbone import quant
+    from team_tpu_torch.backbone.clip import CLIPConfig
+    from team_tpu_torch.bridge import tree_to
+    from team_tpu_torch.ops.preprocess import preprocess_batch
+
+    cfg = CLIPConfig.vit_b16()
+    qv = quant.quantize_vision_tower(tree_to(params, dev))
+    small = torch.from_numpy(images).to(dev)
+    batch = torch.from_numpy(_eval_batch(images)).to(dev)
+    out = {}
+    for tier, per_block in TIER_PER_BLOCK.items():
+        def encode(u8, tier=tier):  # uint8 images already on the card, as _encode_rate's
+            return quant.encode_image_int8(qv, preprocess_batch(u8, cfg.vision.image_size), cfg,
+                                           gemm_impl=tier)
+
+        im.reset_launch_counts()
+        img = encode(small)
+        launches = {name: getattr(im, name).launches for name in TIER_KERNELS}
+        want = {name: cfg.vision.layers * n for name, n in per_block.items()}
+        checked = _tier_kernels_on_tower_inputs(lambda: encode(small), f"int8 {tier}")
+        plain = _swapped(_plain_tier_fns(), lambda: encode(small))
+        cos = torch.nn.functional.cosine_similarity(img, plain, dim=-1).min().item()
+        cos_bf16 = torch.nn.functional.cosine_similarity(img, bf16_img, dim=-1).min().item()
+        print(f"  int8 {tier} (dynamic payload, library API): launches in one encode {launches} "
+              f"(want {want}); features vs the plain versions: min cosine {cos:.7f} (limit "
+              f"0.9999); vs the bf16 tower: min cosine {cos_bf16:.7f}")
+        if launches != want or cos < 0.9999 or not bool(torch.isfinite(img).all()) \
+                or not torch.equal(checked, img):
+            raise AssertionError(f"the {tier} tier through its kernels disagrees with its plain "
+                                 "versions or missed a kernel")
+        encode(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            encode(batch)
+        torch.cuda.synchronize()
+        rate = 10 * EVAL_B / (time.perf_counter() - t0)
+        print(f"  encode int8 {tier}: {rate:.1f} img/s (B={EVAL_B}, 224x224 uint8 in, ViT-B/16 "
+              "image tower)")
+        out[tier] = {"rate": rate, "launches": launches, "cos_plain": cos, "cos_bf16": cos_bf16,
+                     "encode": encode, "batch": batch}
+    return out
+
+
+def _text_tower_int8(params, prompts, dev) -> dict:
+    """encode_text_int8 at full width on the class prompts: xla, hybrid and
+    pallas on the dynamic text payload, static3d_qi on the prompt-set payload;
+    each against the bf16 text tower (min cosine >= 0.99) and against itself
+    with the plain versions of its kernels, with the dynamic tiers' launches
+    exact and each of their kernel calls held against its plain version on
+    the tower's own inputs. Against the plain versions the dynamic tiers are
+    held to cosine >= 0.9995, the others to 0.9999: ln_quantize's scales
+    differ from its plain version's by a few ulps (its f32 sums run in
+    another order), which moves the bf16 rounding of some of the next GEMM's
+    outputs in a block, and 12 causal blocks carry that to the
+    pooled token (0.9997708 at 8 prompts, NVIDIA H100 80GB HBM3, 700.00 W).
+    The tower with only ln_quantize's plain version in place is printed
+    beside it, to show where the drift comes from."""
+    import torch
+
+    from team_tpu_torch.backbone import quant
+    from team_tpu_torch.backbone.clip import CLIPConfig, cast_frozen_params, encode_text
+    from team_tpu_torch.backbone.tokenizer import Tokenizer
+    from team_tpu_torch.bridge import tree_to
+    from team_tpu_torch.ops import int8_matmul as im
+
+    cfg = CLIPConfig.vit_b16()
+    tokens = torch.from_numpy(Tokenizer(require_bpe=False)(prompts)).to(dev)
+    p32 = tree_to(params, dev)
+    bf16 = encode_text(cast_frozen_params(params, torch.bfloat16, dev), tokens, cfg,
+                       compute_dtype=torch.bfloat16)
+    dyn = quant.quantize_text_tower(p32)
+    static = quant.quantize_text_tower_for_prompts(p32, tokens, cfg, heads=cfg.text.heads)
+    plain = {**_plain_int8_fns(), **_plain_tier_fns()}
+    out = {}
+    for route, qt in (("xla", dyn), ("hybrid", dyn), ("pallas", dyn), ("static3d_qi", static)):
+        im.reset_launch_counts()
+        got = quant.encode_text_int8(qt, tokens, cfg, gemm_impl=route)
+        launches = {name: getattr(im, name).launches for name in TIER_KERNELS}
+        want = {name: cfg.text.layers * n for name, n in TIER_PER_BLOCK.get(route, {}).items()}
+        if want:
+            checked = _tier_kernels_on_tower_inputs(
+                lambda: quant.encode_text_int8(qt, tokens, cfg, gemm_impl=route), f"text {route}")
+            if not torch.equal(checked, got):
+                raise AssertionError(f"the int8 text tower on {route} is not deterministic")
+        ref = _swapped(plain, lambda: quant.encode_text_int8(qt, tokens, cfg, gemm_impl=route))
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+        cos_bf16 = torch.nn.functional.cosine_similarity(got, bf16, dim=-1).min().item()
+        limit = 0.9995 if want else 0.9999
+        if want:
+            ln_plain = _swapped({"ln_quantize": plain["ln_quantize"]},
+                                lambda: quant.encode_text_int8(qt, tokens, cfg, gemm_impl=route))
+            print(f"    text {route} with only ln_quantize's plain version in place: min cosine "
+                  f"{torch.nn.functional.cosine_similarity(ln_plain, ref, dim=-1).min().item():.7f} "
+                  "against the plain versions")
+        print(f"  int8 text tower on {route} ({len(prompts)} class prompts, "
+              f"{'prompt-set' if route == 'static3d_qi' else 'dynamic'} payload): vs the plain "
+              f"versions min cosine {cos:.7f} (limit {limit}), vs the bf16 text tower "
+              f"{cos_bf16:.7f} (limit 0.99); launches {launches}")
+        if got.shape != bf16.shape or not bool(torch.isfinite(got).all()) or cos < limit \
+                or cos_bf16 < 0.99 or (want and launches != want):
+            raise AssertionError(f"the int8 text tower on {route} disagrees or missed a kernel")
+        out[route] = {"cos_plain": cos, "cos_bf16": cos_bf16}
+    return out
 
 
 def _check_int8_config(ms, name, route, cache, per_encode, images, bf16_img, runtimes,
@@ -1431,16 +1883,7 @@ def _plain_int8_fns() -> dict:
 def _encode_with(rt, images, fns: dict):
     """The int8 tower's features with ``fns`` in place of the functions of
     those names in ``quant`` (same payload, same card)."""
-    from team_tpu_torch.backbone import quant
-
-    saved = {name: getattr(quant, name) for name in fns}
-    for name, fn in fns.items():
-        setattr(quant, name, fn)
-    try:
-        return rt.encode_image(rt.to_device(images))
-    finally:
-        for name, fn in saved.items():
-            setattr(quant, name, fn)
+    return _swapped(fns, lambda: rt.encode_image(rt.to_device(images)))
 
 
 def _int8_kernels_on_tower_inputs(rt, images, route: str):
@@ -1478,23 +1921,26 @@ def _int8_kernels_on_tower_inputs(rt, images, route: str):
 
 
 def _kernel_group(name: str) -> str:
+    if "gemm_kernel" in name or "gelu_quant_kernel" in name:
+        return "int8 GEMM kernels (int8_linear, gelu_quant, blockscale)"
     if "ln_qkv_kernel" in name or "mha_packed_proj_kernel" in name:
         return "fused attention kernels (layer norm + qkv GEMM; attention + out-projection)"
     if ("q3i_kernel" in name or "mha_packed_kernel" in name or "flash_kernel" in name
             or "mha_q_kernel" in name):
         return "attention kernels"
-    if "quant_static_kernel" in name:
-        return "quantize producers (ln_quantize_static, row_quant_static)"
+    if "quant_static_kernel" in name or "ln_quant_kernel" in name:
+        return "quantize producers (ln_quantize, ln_quantize_static, row_quant_static)"
     low = name.lower()
     if "gemm" in low or "nvjet" in low or "cutlass" in low or "xmma" in low:
         return "GEMMs"
     return "elementwise and other"
 
 
-def profile_encodes(int8_runtimes, dev) -> None:
+def profile_encodes(int8_runtimes, pallas_encode, dev) -> None:
     """torch.profiler device time of one B=128 encode, by kernel: int8 on
-    static3d_qi, static_qa and static3d_qis, bf16 through the packed kernel,
-    bf16 through the flash kernel, bf16 on attn_block and on mha_packed_proj."""
+    static3d_qi, static_qa and static3d_qis, the int8 pallas tier (library
+    API, dynamic payload), bf16 through the packed kernel, bf16 through the
+    flash kernel, bf16 on attn_block and on mha_packed_proj."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1507,18 +1953,21 @@ def profile_encodes(int8_runtimes, dev) -> None:
                    for route in ("pallas", *FUSED_ROUTES)}
     size = rt_bf16.clip_cfg.vision.image_size
     u8 = np.random.default_rng(0).integers(0, 256, (EVAL_B, size, size, 3), dtype=np.uint8)
-    for name, rt in (("int8_static", int8_runtimes["static3d_qi"]),
-                     ("int8_static static_qa", int8_runtimes["static_qa"]),
-                     ("int8_static static3d_qis", int8_runtimes["static3d_qis"]),
-                     ("bfloat16", rt_bf16),
-                     ("bfloat16 through the flash kernel", bf16_routes["pallas"]),
-                     *((f"bfloat16 on {r}", bf16_routes[r]) for r in FUSED_ROUTES)):
-        batch = rt.to_device(u8)
-        rt.encode_image(batch)
+    runs = [(name, rt.encode_image, rt.to_device(u8)) for name, rt in (
+        ("int8_static", int8_runtimes["static3d_qi"]),
+        ("int8_static static_qa", int8_runtimes["static_qa"]),
+        ("int8_static static3d_qis", int8_runtimes["static3d_qis"]))]
+    runs.append(("int8 pallas tier (dynamic payload)", pallas_encode,
+                 torch.from_numpy(u8).to(dev)))
+    runs += [(name, rt.encode_image, rt.to_device(u8)) for name, rt in (
+        ("bfloat16", rt_bf16), ("bfloat16 through the flash kernel", bf16_routes["pallas"]),
+        *((f"bfloat16 on {r}", bf16_routes[r]) for r in FUSED_ROUTES))]
+    for name, encode, batch in runs:
+        encode(batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rt.encode_image(batch)
+            encode(batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
@@ -1545,6 +1994,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
+        from team_tpu_torch.backbone import quant
         from team_tpu_torch.ops import _build
         from team_tpu_torch.ops import flash_attention as fa
         from team_tpu_torch.ops import int8_matmul as im
@@ -1579,6 +2029,7 @@ def main() -> int:
     q3i_err.update(compare_q3i_modes(ms, dev))
     q3i_err.update(compare_q3i_split_sb(ms, dev))
     int8_io_err = compare_int8_io(ms, im, dev)
+    gemm_err = compare_int8_gemm(im, dev)
     flash_err = compare_flash(fa, dev)
     fused_err = compare_fused(ms, dev)
 
@@ -1587,6 +2038,7 @@ def main() -> int:
     times = time_kernel(ms, dev)
     times.update(time_q3i(ms, dev))
     times.update(time_int8_io(ms, im, dev))
+    times.update(time_int8_gemm(im, quant, dev))
     flash_times = time_flash(fa, dev)
     times.update(time_fused(ms, dev))
 
@@ -1595,14 +2047,15 @@ def main() -> int:
         counts = run_main_path(ms, log_dir)
         int8 = run_int8_path(ms, log_dir, os.path.join(log_dir, "int8_cache"))
         routes = run_int8_routes(ms, im, log_dir, os.path.join(log_dir, "int8_route_caches"))
+        dynamic = run_int8_dynamic_tiers(ms, im, log_dir, os.path.join(log_dir, "int8_tier_caches"))
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
         print("phase 6: features and encode rates")
-        rates, int8_runtimes, short_launches, served = check_features(
-            dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
+        rates, int8_runtimes, short_launches, served, tiers, text = check_features(
+            im, dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
     print("phase 7: profile of one encode")
-    profile_encodes(int8_runtimes, dev)
+    profile_encodes(int8_runtimes, tiers["pallas"]["encode"], dev)
 
     def timing(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1610,6 +2063,18 @@ def main() -> int:
     q3i_common = {"route": "cuda", "source": "team_tpu_torch/csrc/mha_packed_q3i.cu"}
     q_common = {"route": "cuda", "source": "team_tpu_torch/csrc/mha_packed_q.cu"}
     quant_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_quant.cu"}
+    gemm_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_gemm.cu",
+                   "library": "torch._int_mm alone (the int8 product only)",
+                   "composition": "the xla tier's torch composition of the same step"}
+
+    def gemm_timing(t):
+        return {**timing(t), "composition_ms": t["composition_ms"]}
+
+    def tier_launches(name):
+        return sum(r["launches"][name] for r in dynamic.values())
+
+    tier_gates = {tier: {"gate_cosine": r["gate_cosine"], "committed": r["committed"],
+                         "int8_batches": r["int8_batches"]} for tier, r in dynamic.items()}
 
     def route_launches(name):
         return sum(r["launches"][name] for r in routes.values())
@@ -1672,6 +2137,38 @@ def main() -> int:
         "launches": route_launches("ln_quantize_static"),
         "max_abs_err": int8_io_err["ln_quantize_static"], **timing(times["ln_quantize_static"]),
         "gate_cosine": route_cosines("static_qa", "static"),
+        "static3_entry": "ln_quantize_static3 (team_tpu/ops/int8_matmul.py:416): this kernel on "
+                         "the [B*S, D] view, bit for bit ln_quantize_static (phase 3); no route "
+                         "calls it",
+    }, {
+        "name": "ln_quantize", **quant_common, "replaces": "team_tpu/ops/int8_matmul.py:324",
+        "launches": tier_launches("ln_quantize"), "launches_from": "phase 5 simplecil on hybrid "
+        "and pallas (gate batch)", "max_abs_err": gemm_err["ln_quantize"],
+        **timing(times["ln_quantize"]), "composition_ms": times["ln_quantize"]["composition_ms"],
+        "composition": "quant._ln_quant_rows (the xla tier's layer norm and quantize_rows)",
+        "gate": tier_gates,
+    }, {
+        "name": "int8_linear", **gemm_common, "replaces": "team_tpu/ops/int8_matmul.py:54",
+        "entries": "int8_linear, int8_linear_nk (bit for bit), int8_linear_kgrid, "
+                   "int8_linear_wres, int8_linear_dma, quantized_linear",
+        "launches": tier_launches("int8_linear"), "launches_from": "phase 5 simplecil on pallas "
+        "(gate batch)", "max_abs_err": gemm_err["int8_linear"],
+        **gemm_timing(times["int8_linear qkv"]), "out": gemm_timing(times["int8_linear out"]),
+        "encode_img_per_s": {tier: t["rate"] for tier, t in tiers.items()},
+        "features_cos_bf16": {tier: t["cos_bf16"] for tier, t in tiers.items()},
+        "text_tower": text,
+    }, {
+        "name": "int8_linear_gelu_quant", **gemm_common,
+        "replaces": "team_tpu/ops/int8_matmul.py:490",
+        "launches": tier_launches("int8_linear_gelu_quant"), "launches_from": "phase 5 simplecil "
+        "on hybrid and pallas (gate batch)", "max_abs_err": gemm_err["int8_linear_gelu_quant"],
+        **gemm_timing(times["int8_linear_gelu_quant fc"]),
+    }, {
+        "name": "int8_linear_blockscale", **gemm_common,
+        "replaces": "team_tpu/ops/int8_matmul.py:565",
+        "launches": tier_launches("int8_linear_blockscale"), "launches_from": "phase 5 simplecil "
+        "on hybrid and pallas (gate batch)", "max_abs_err": gemm_err["int8_linear_blockscale"],
+        **gemm_timing(times["int8_linear_blockscale proj"]),
     }, {
         "name": "row_quant_static", **quant_common,
         "replaces": "team_tpu/ops/int8_matmul.py:458",

@@ -39,8 +39,18 @@ The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
   dequant (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3`);
 - ``static3d_qaf``: as ``static3d_qa`` with ``_ln_quant3``.
 
-The dynamic ``xla`` tier (:func:`quantize_vision_tower`, per-row dynamic
-activation scales, ``_qblock_forward_xla``) runs on plain PyTorch. The knobs
+The dynamic tiers (:func:`quantize_vision_tower`, per-row dynamic activation
+scales) are ``xla`` (``_qblock_forward_xla``, plain PyTorch), ``hybrid``
+(``_qblock_forward_hybrid``: the layer norm to int8 by the
+:func:`team_tpu_torch.ops.int8_matmul.ln_quantize` kernel, the qkv and out
+GEMMs ``int8_linear_xla``, the fc GEMM with its GELU and block requantize in
+the ``int8_linear_gelu_quant`` kernel, proj in ``int8_linear_blockscale``)
+and ``pallas`` (``_qblock_forward_pallas``: ``hybrid`` with the qkv and out
+GEMMs in the ``int8_linear`` kernel); both take the tanh GELU, ``xla`` the
+exact one. The int8 text tower (:func:`encode_text_int8`, causal, pooled at
+the end-of-text token) runs the same block functions on every dynamic tier
+and on every static route of one block function; its static payload is
+calibrated on the prompt set (:func:`quantize_text_tower_for_prompts`). The knobs
 that team_tpu reads are read here at each call: ``TEAM_QI_SOFTMAX``,
 ``TEAM_QI_ROWSUM`` and ``TEAM_QI_DEFER`` (the attention's modes),
 ``TEAM_LN_MODE`` (``1pass``, else the two-pass layer norm of ``_ln_quant3``),
@@ -49,9 +59,7 @@ that team_tpu reads are read here at each call: ``TEAM_QI_SOFTMAX``,
 
 Payloads are the JAX package's trees, key for key, and are saved with
 ``torch.save`` in place of orbax, with the route family they were gated on;
-one payload serves every static route. The ``hybrid`` and ``pallas`` tiers
-(their GEMM and quantize kernels are ROADMAP queue 2 items 12-13) and the
-text tower (queue 1 item 9) are not ported yet; the tiers raise.
+one payload serves every static route.
 """
 
 from __future__ import annotations
@@ -65,9 +73,10 @@ import torch.nn.functional as F
 from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, attention_core,
                                           embed_patches, patch_pixels)
 from team_tpu_torch.bridge import tree_to
-from team_tpu_torch.ops.int8_matmul import (INV127, int8_linear_xla, int8_matmul,
-                                            ln_quantize_static, quantize_rows, quantize_weight,
-                                            row_quant_static)
+from team_tpu_torch.ops.int8_matmul import (INV127, int8_linear, int8_linear_blockscale,
+                                            int8_linear_gelu_quant, int8_linear_xla, int8_matmul,
+                                            ln_quantize, ln_quantize_static, quantize_rows,
+                                            quantize_weight, row_quant_static)
 from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q3,
                                           fused_mha_packed_q3i, fused_mha_packed_q3i_cls,
                                           fused_mha_packed_q3i_cls_split, fused_mha_packed_q3i_sb)
@@ -585,12 +594,65 @@ def _qblock_forward_xla(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len,
     return x + proj.reshape(b, s, d)
 
 
+def _qlinear(x2d: torch.Tensor, qp: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``quant.py:_qlinear``: per-row quantize (:func:`quantize_rows`), then
+    the :func:`int8_linear` kernel."""
+    x_q, x_scale = quantize_rows(x2d)
+    return int8_linear(x_q, qp["w_q"], x_scale, qp["scale"], qp["b"])
+
+
+def _mlp_blockscale(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The MLP half of the ``hybrid`` and ``pallas`` blocks: :func:`ln_quantize`,
+    the fc GEMM with the tanh GELU and the per-(row, column block) requantize
+    (:func:`int8_linear_gelu_quant`), the proj GEMM over those block scales
+    (:func:`int8_linear_blockscale`), the residual."""
+    b, s, d = x.shape
+    hq, hs = ln_quantize(x.reshape(b * s, d), qb["ln_2"]["scale"], qb["ln_2"]["bias"])
+    gq, gs = int8_linear_gelu_quant(hq, qb["fc"]["w_q"], hs, qb["fc"]["scale"], qb["fc"]["b"])
+    proj = int8_linear_blockscale(gq, qb["proj"]["w_q"], gs, qb["proj"]["scale"], qb["proj"]["b"])
+    return x + proj.reshape(b, s, d)
+
+
+def _qblock_forward_hybrid(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                           attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The ``hybrid`` tier's block (``quant.py:_qblock_forward_hybrid``):
+    :func:`ln_quantize` -> the qkv GEMM :func:`int8_linear_xla` -> bf16
+    attention (:func:`attention_core`, with ``attn_impl``) -> per-row
+    quantize -> the out GEMM :func:`int8_linear_xla` -> residual; then
+    :func:`_mlp_blockscale`."""
+    b, s, d = x.shape
+    hq, hs = ln_quantize(x.reshape(b * s, d), qb["ln_1"]["scale"], qb["ln_1"]["bias"])
+    qkv = int8_linear_xla(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
+    o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
+                       kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
+    oq, osc = quantize_rows(o.reshape(b * s, d))
+    x = x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
+                            qb["out"]["b"]).reshape(b, s, d)
+    return _mlp_blockscale(qb, x)
+
+
+def _qblock_forward_pallas(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                           attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The ``pallas`` tier's block (``quant.py:_qblock_forward``): as
+    :func:`_qblock_forward_hybrid` with the qkv GEMM in the :func:`int8_linear`
+    kernel and the out GEMM :func:`_qlinear`."""
+    b, s, d = x.shape
+    hq, hs = ln_quantize(x.reshape(b * s, d), qb["ln_1"]["scale"], qb["ln_1"]["bias"])
+    qkv = int8_linear(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
+    o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
+                       kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
+    x = x + _qlinear(o.reshape(b * s, d), qb["out"]).reshape(b, s, d)
+    return _mlp_blockscale(qb, x)
+
+
 _GEMM_IMPLS = ("xla", "hybrid", "static", "static_qa", "static3d", "static3d_qa", "static3d_qaf",
                "static3d_qi", "static3d_qis", "static3d_qib", "static3d_qi2", "pallas")
 _DYNAMIC_TIERS = ("xla", "hybrid", "pallas")
 # the block of each route that runs one block function in every layer
-# (``quant.py:1179-1190``); static3d_qis and static3d_qib have their own loops
-_BLOCKS = {"xla": _qblock_forward_xla, "static": _qblock_forward_static,
+# (``quant.py:1179-1190``); static3d_qis and static3d_qib have their own loops.
+# It is also the text tower's table (``quant.py:1010-1019``).
+_BLOCKS = {"xla": _qblock_forward_xla, "hybrid": _qblock_forward_hybrid,
+           "pallas": _qblock_forward_pallas, "static": _qblock_forward_static,
            "static_qa": _qblock_forward_static_qa, "static3d": _qblock_forward_static3d,
            "static3d_qa": _qblock_forward_static3d_qa, "static3d_qaf": _qblock_forward_static3d_qaf,
            "static3d_qi": _qblock_forward_static3d_qi, "static3d_qi2": _qblock_forward_static3d_qi2}
@@ -604,13 +666,9 @@ def route_family(gemm_impl: str) -> str:
 
 
 def check_route(gemm_impl: str) -> None:
-    """Raise on an int8 route that the port does not have."""
+    """Raise on a name that is not an int8 route."""
     if gemm_impl not in _GEMM_IMPLS:
         raise ValueError(f"unknown int8 gemm_impl {gemm_impl!r}")
-    if gemm_impl in ("hybrid", "pallas"):
-        raise NotImplementedError(
-            f"int8 gemm_impl={gemm_impl!r}: its GEMM and quantize kernels are not ported yet "
-            "(ROADMAP queue 2 items 12-13)")
 
 
 def _cls_mode(cls_last) -> str:
@@ -725,6 +783,76 @@ def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor,
         tokens = _bf16(patches_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
     return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
                                cls_last=cls_last)
+
+
+# ---------------------------------------------------------------------------
+# the int8 text tower
+# ---------------------------------------------------------------------------
+
+def quantize_text_tower(params: Params) -> Dict[str, Any]:
+    """The dynamic tiers' payload of the text tower (``quant.py:916``): int8
+    GEMM weights; embeddings, norms and the projection pass through."""
+    t = params["text"]
+    return {"token_embedding": t["token_embedding"], "pos": t["pos"],
+            "blocks": [quantize_block(b) for b in t["blocks"]],
+            "ln_final": t["ln_final"], "proj": t["proj"]}
+
+
+def calibrate_text_tower(params: Params, tokens: torch.Tensor, cfg: CLIPConfig, *,
+                         attn_impl: str = "auto"):
+    """Per-block, per-channel activation abs-max of the bf16 text tower
+    (causal) over ``[B, 77]`` token ids (``quant.py:930``)."""
+    t = cfg.text
+    p = params["text"]
+    x = _bf16(p["token_embedding"][tokens.long()]) + _bf16(p["pos"])
+    stats = []
+    for blk in p["blocks"]:
+        x, st = _block_calib_forward(blk, x, t.heads, t.context_length, attn_impl=attn_impl,
+                                     causal=True)
+        stats.append(st)
+    return stats
+
+
+def quantize_text_tower_static(params: Params, calib_stats, *, margin: float = 1.5,
+                               heads: Optional[int] = None) -> Dict[str, Any]:
+    """Static-W8A8 payload of the text tower (``quant.py:948``), the scheme of
+    :func:`quantize_vision_tower_static`."""
+    t = params["text"]
+    return {"token_embedding": t["token_embedding"], "pos": t["pos"],
+            "blocks": [quantize_block_static(b, st, margin=margin, heads=heads)
+                       for b, st in zip(t["blocks"], calib_stats)],
+            "ln_final": t["ln_final"], "proj": t["proj"]}
+
+
+def quantize_text_tower_for_prompts(params: Params, tokens: torch.Tensor, cfg: CLIPConfig, *,
+                                    margin: float = 1.0, attn_impl: str = "auto",
+                                    heads: Optional[int] = None) -> Dict[str, Any]:
+    """The static text payload calibrated on the finite prompt set it will
+    encode (``quant.py:974``): ``tokens [N, 77]`` are those prompts, so
+    ``margin=1.0`` clips nothing."""
+    stats = calibrate_text_tower(params, tokens, cfg, attn_impl=attn_impl)
+    return quantize_text_tower_static(params, stats, margin=margin, heads=heads)
+
+
+def encode_text_int8(qtext: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig, *,
+                     attn_impl: str = "auto", gemm_impl: str = "xla") -> torch.Tensor:
+    """Quantized text tower (``quant.py:995``): ``[B, 77]`` int tokens ->
+    ``[B, embed_dim]`` float32, causal, pooled at the end-of-text token (the
+    largest id). ``gemm_impl`` is any route of one block function
+    (``_BLOCKS``): the dynamic tiers on :func:`quantize_text_tower`'s payload,
+    the static routes on :func:`quantize_text_tower_for_prompts`'s."""
+    if gemm_impl not in _BLOCKS:
+        raise ValueError(f"encode_text_int8 takes gemm_impl in {sorted(_BLOCKS)}, got "
+                         f"{gemm_impl!r}")
+    block = _BLOCKS[gemm_impl]
+    t = cfg.text
+    tokens = tokens.long()
+    x = _bf16(qtext["token_embedding"][tokens]) + _bf16(qtext["pos"])
+    for qb in qtext["blocks"]:
+        x = block(qb, x, t.heads, t.context_length, attn_impl=attn_impl, causal=True)
+    x = _layer_norm(qtext["ln_final"], x)
+    x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+    return (x @ _bf16(qtext["proj"])).float()
 
 
 # ---------------------------------------------------------------------------

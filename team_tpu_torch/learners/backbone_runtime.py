@@ -13,8 +13,8 @@ runs the cosine gate (min cosine >= 0.999 against the bf16 tower); a pass
 commits the quantized tower (and saves it under ``int8_cache_dir`` when
 set, for later runs to load), a failure logs a warning and serves bf16 from
 then on. As in team_tpu the runtime always builds the static payload, so a
-dynamic tier (``xla``) encodes it through its own blocks and its gate
-decides. A payload loaded from ``int8_cache_dir`` commits without a gate
+dynamic tier (``xla``, ``hybrid``, ``pallas``) encodes it through its own
+blocks and its gate decides. A payload loaded from ``int8_cache_dir`` commits without a gate
 only on the route family (static or dynamic) it was gated on; on the other
 family it goes through the held-out gate like a fresh one (team_tpu trusts
 it on every route). The text tower stays in the compute dtype.

@@ -1,5 +1,5 @@
-"""int8 weight quantization, the plain int8 matrix product, and the static
-quantize producers.
+"""int8 weight quantization, the int8 matrix products, and the quantize
+producers of the int8 tiers.
 
 Counterparts of ``team_tpu/ops/int8_matmul.py``:
 - ``quantize_weight`` and the XLA ``dot_general`` (int8 x int8 -> int32) that
@@ -7,15 +7,27 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   _static_linear3``);
 - ``quantize_rows`` and ``int8_linear_xla``, the dynamic ``xla`` tier's
   per-row quantize and GEMM (plain PyTorch, as XLA ops in team_tpu);
-- ``ln_quantize_static`` (TPU kernel ``_ln_quant_static_kernel``) and
-  ``row_quant_static`` (``_row_quant_static_kernel``): bf16 ``[M, D]`` to
-  int8 ``[M, D]`` with a calibrated per-channel scale, in one read and one
-  write; CUDA kernels ``csrc/int8_quant.cu``, compiled with ``nvcc`` on
-  first use and bound with ``ctypes``. On a CPU tensor each wrapper computes
-  its plain version; on a CUDA tensor it launches its kernel or raises.
+- ``ln_quantize_static`` (TPU kernel ``_ln_quant_static_kernel``),
+  ``ln_quantize_static3`` (its 3-D form) and ``row_quant_static``
+  (``_row_quant_static_kernel``): bf16 ``[M, D]`` to int8 ``[M, D]`` with a
+  calibrated per-channel scale, in one read and one write; ``ln_quantize``
+  (``_ln_quant_kernel``): the layer norm to int8 with a dynamic per-row
+  scale; CUDA kernels ``csrc/int8_quant.cu``;
+- the GEMMs of the ``hybrid`` and ``pallas`` tiers: ``int8_linear`` and its
+  TPU tilings ``int8_linear_nk``, ``_kgrid``, ``_wres`` and ``_dma`` (one
+  kernel), ``int8_linear_gelu_quant`` (GEMM, GELU and a requantize with one
+  scale per row and column block) and ``int8_linear_blockscale`` (its
+  consumer, one activation scale per row and K block); CUDA kernels
+  ``csrc/int8_gemm.cu`` on the tensor cores (``mma.sync`` s8);
+  ``quantized_linear`` quantizes rows and calls ``int8_linear``.
 
-The Pallas GEMMs and the dynamic ``ln_quantize`` serve the ``hybrid`` and
-``pallas`` tiers and are not ported yet (ROADMAP queue 2 items 12-13).
+The CUDA sources are compiled with ``nvcc`` on first use and bound with
+``ctypes``. On a CPU tensor each wrapper computes its plain version (the
+``*_reference`` function beside it); on a CUDA tensor it launches its
+kernel or raises. The TPU wrappers' tiling arguments (``block_m``,
+``block_k``, ``n_split``, ``interpret``) are accepted and change nothing,
+except ``block_n`` of ``int8_linear_gelu_quant``, which sets the width of
+its scale blocks, as in team_tpu.
 """
 
 from __future__ import annotations
@@ -64,10 +76,7 @@ def int8_linear_xla(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     per-row ``x_scale`` and the per-column ``w_scale`` in float32, plus
     ``bias``, then the exact (erf) GELU when ``activation="gelu"``, cast to
     ``out_dtype``."""
-    out = int8_matmul(x_q, w_q).float() * x_scale.reshape(-1, 1).float() \
-        * w_scale.reshape(1, -1).float()
-    if bias is not None:
-        out = out + bias.reshape(1, -1).float()
+    out = _dequant(int8_matmul(x_q, w_q), x_scale, w_scale, bias)
     if activation == "gelu":
         out = F.gelu(out, approximate="none")
     return out.to(out_dtype)
@@ -144,7 +153,10 @@ def _quant_library() -> ctypes.CDLL:
                                                                     ctypes.c_void_p]
     lib.team_row_quant_static.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                                                   ctypes.c_void_p]
+    lib.team_ln_quantize.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                                             ctypes.c_void_p]
     lib.team_ln_quantize_static.restype = ctypes.c_int
+    lib.team_ln_quantize.restype = ctypes.c_int
     lib.team_row_quant_static.restype = ctypes.c_int
     lib.team_ln_quantize_static_max_width.restype = ctypes.c_int
     return lib
@@ -154,6 +166,7 @@ def build() -> None:
     """Compile and load this module's kernels now (set-up), instead of at
     their first call."""
     _quant_library()
+    _gemm_library()
 
 
 def _quant_operands(name: str, x: torch.Tensor, vectors) -> list:
@@ -191,6 +204,26 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _launch_ln_quantize_static(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                               a: torch.Tensor, name: str) -> torch.Tensor:
+    _check_kernel_input(name, x)
+    lib = _quant_library()
+    _check_width(name, x.shape[1], lib)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.team_ln_quantize_static(x.data_ptr(), g.data_ptr(), b.data_ptr(), a.data_ptr(),
+                                          out.data_ptr(), x.shape[0], x.shape[1],
+                                          torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    return out
+
+
+def _check_width(name: str, d: int, lib: ctypes.CDLL) -> None:
+    if d > lib.team_ln_quantize_static_max_width():
+        raise ValueError(f"{name}: D={d} is wider than the kernel's "
+                         f"{lib.team_ln_quantize_static_max_width()}")
+
+
 def ln_quantize_static(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                        inv_a: torch.Tensor) -> torch.Tensor:
     """Layer norm then static per-channel int8 quantize in one pass:
@@ -201,19 +234,69 @@ def ln_quantize_static(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                                         ("inv_a", inv_a)))
     if x.device.type == "cpu":
         return ln_quantize_static_reference(x, g, b, a)
-    _check_kernel_input("ln_quantize_static", x)
-    lib = _quant_library()
-    if x.shape[1] > lib.team_ln_quantize_static_max_width():
-        raise ValueError(f"ln_quantize_static: D={x.shape[1]} is wider than the kernel's "
-                         f"{lib.team_ln_quantize_static_max_width()}")
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.team_ln_quantize_static(x.data_ptr(), g.data_ptr(), b.data_ptr(), a.data_ptr(),
-                                          out.data_ptr(), x.shape[0], x.shape[1],
-                                          torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "ln_quantize_static")
+    out = _launch_ln_quantize_static(x, g, b, a, "ln_quantize_static")
     ln_quantize_static.launches += 1
     return out
+
+
+def ln_quantize_static3(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                        inv_a: torch.Tensor, *, group: int = 8,
+                        interpret: bool = False) -> torch.Tensor:
+    """:func:`ln_quantize_static` over ``x [B, S, D]`` -> int8 ``[B, S, D]``
+    (TPU kernel ``_ln_quant_static3_kernel``, ``int8_matmul.py:427``): the
+    same kernel on the contiguous ``[B*S, D]`` view; ``group`` (the TPU's
+    samples per grid step) changes nothing. No route calls it, as in
+    team_tpu. Each kernel launch adds one to ``ln_quantize_static3.launches``."""
+    if x.dim() != 3:
+        raise ValueError(f"ln_quantize_static3: x must be [B, S, D], got {tuple(x.shape)}")
+    bsz, s, d = x.shape
+    x2 = x.reshape(bsz * s, d)
+    g, b, a = _quant_operands("ln_quantize_static3", x2, (("gamma", gamma), ("beta", beta),
+                                                          ("inv_a", inv_a)))
+    if x.device.type == "cpu":
+        return ln_quantize_static_reference(x2, g, b, a).reshape(bsz, s, d)
+    out = _launch_ln_quantize_static(x2, g, b, a, "ln_quantize_static3")
+    ln_quantize_static3.launches += 1
+    return out.reshape(bsz, s, d)
+
+
+def ln_quantize_reference(x: torch.Tensor, gamma: torch.Tensor,
+                          beta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the TPU kernel (``int8_matmul.py:324``): the
+    layer norm of :func:`ln_quantize_static_reference` without ``inv_a``,
+    then the row's amax, ``s = amax·f32(1/127)`` (1 where amax = 0) and
+    ``clip(round(y / s), ±127)``: ``(q int8 [M, D], s float32 [1, M])``."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    y = y * gamma.reshape(-1).float() + beta.reshape(-1).float()
+    amax = y.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(amax > 0, amax * INV127.to(amax.device), torch.ones_like(amax))
+    return _quantize_static(y / s), s.reshape(1, -1)
+
+
+def ln_quantize(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+                block_m: int = 512, interpret: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer norm then dynamic per-row int8 quantize in one pass (the
+    ``hybrid`` and ``pallas`` tiers' producer): ``x [M, D]`` (bfloat16 on the
+    card), ``gamma``, ``beta`` ``[D]`` -> ``(q int8 [M, D], s float32 [1, M])``.
+    Each kernel launch adds one to ``ln_quantize.launches``."""
+    g, b = _quant_operands("ln_quantize", x, (("gamma", gamma), ("beta", beta)))
+    if x.device.type == "cpu":
+        return ln_quantize_reference(x, g, b)
+    _check_kernel_input("ln_quantize", x)
+    lib = _quant_library()
+    _check_width("ln_quantize", x.shape[1], lib)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((1, x.shape[0]), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.team_ln_quantize(x.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
+                                   s.data_ptr(), x.shape[0], x.shape[1],
+                                   torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "ln_quantize")
+    ln_quantize.launches += 1
+    return q, s
 
 
 def row_quant_static(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
@@ -234,10 +317,315 @@ def row_quant_static(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-ln_quantize_static.launches = 0
-row_quant_static.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the int8 GEMMs of the hybrid and pallas tiers
+# ---------------------------------------------------------------------------
+
+_GEMM_SOURCE = "int8_gemm.cu"
+
+
+def _pick_block_n(n: int, target: int) -> int:
+    """team_tpu's N block (``int8_matmul.py:86``): the largest multiple of 128
+    up to ``target`` that divides ``n``, else the largest divisor up to
+    ``target``. It sets :func:`int8_linear_gelu_quant`'s scale blocks (512 at
+    N=3072), and so the K blocks of :func:`int8_linear_blockscale`."""
+    for cand in range(min(target, n) // 128 * 128, 0, -128):
+        if n % cand == 0:
+            return cand
+    for cand in range(min(target, n), 0, -1):
+        if n % cand == 0:
+            return cand
+    return n
+
+
+def _dequant(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``f32(acc)·x_scale[m]·w_scale[n] + bias[n]``, in the TPU kernel's order."""
+    out = acc.float() * x_scale.reshape(-1, 1).float() * w_scale.reshape(1, -1).float()
+    return out if bias is None else out + bias.reshape(1, -1).float()
+
+
+def int8_linear_reference(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                          w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                          activation: Optional[str] = None,
+                          out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel (``int8_matmul.py:54``):
+    ``[M, K] @ [K, N]`` int8 -> int32 (:func:`int8_matmul`, exact), the
+    dequant of :func:`_dequant`, then the tanh GELU when
+    ``activation="gelu"``, cast to ``out_dtype``."""
+    out = _dequant(int8_matmul(x_q, w_q), x_scale, w_scale, bias)
+    if activation == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    return out.to(out_dtype)
+
+
+def int8_linear_gelu_quant_reference(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                                     w_scale: torch.Tensor, bias: torch.Tensor, *,
+                                     block_n: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the TPU kernel (``int8_matmul.py:490``):
+    ``y = gelu_tanh(dequant(x_q @ w_q))``; for each row and block of ``bn =
+    _pick_block_n(N, block_n)`` columns ``s = amax|y|·f32(1/127)`` (1 where
+    amax = 0) and ``q = clip(round(y / s), ±127)``: ``(q int8 [M, N], s
+    float32 [N/bn, M])``."""
+    y = F.gelu(_dequant(int8_matmul(x_q, w_q), x_scale, w_scale, bias), approximate="tanh")
+    m, n = y.shape
+    bn = _pick_block_n(n, block_n)
+    yb = y.reshape(m, n // bn, bn)
+    amax = yb.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(amax > 0, amax * INV127.to(amax.device), torch.ones_like(amax))
+    return _quantize_static(yb / s).reshape(m, n), s.reshape(m, n // bn).t().contiguous()
+
+
+def int8_linear_blockscale_reference(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
+                                     w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                                     *, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel (``int8_matmul.py:565``): K
+    in ``n_kb = x_scales.shape[0]`` blocks of ``bk = K/n_kb``; ``acc += f32(
+    x_q[:, block] @ w_q[block]) · x_scales[kb]`` in block order from 0, then
+    ``acc·w_scale + bias``, cast to ``out_dtype``."""
+    k = x_q.shape[1]
+    n_kb = x_scales.shape[0]
+    if k % n_kb:
+        raise ValueError(f"int8_linear_blockscale: {n_kb} scale blocks do not divide K={k}")
+    bk = k // n_kb
+    acc = None
+    for kb in range(n_kb):
+        part = int8_matmul(x_q[:, kb * bk:(kb + 1) * bk].contiguous(),
+                           _column_major(w_q[kb * bk:(kb + 1) * bk]))
+        term = part.float() * x_scales[kb].reshape(-1, 1).float()
+        acc = term if acc is None else acc + term
+    out = acc * w_scale.reshape(1, -1).float()
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return out.to(out_dtype)
+
+
+def _gemm_library() -> ctypes.CDLL:
+    from team_tpu_torch.ops._build import load_library
+
+    lib = load_library(_GEMM_SOURCE)
+    ptrs, i = ctypes.c_void_p, ctypes.c_int
+    lib.team_int8_linear.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
+    lib.team_int8_linear_blockscale.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
+    lib.team_int8_linear_gelu_quant.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
+    for fn in (lib.team_int8_linear, lib.team_int8_linear_blockscale,
+               lib.team_int8_linear_gelu_quant, lib.team_int8_gemm_max_block_n):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _gemm_operands(name: str, x_q: torch.Tensor, wt_q: torch.Tensor, x_scale: torch.Tensor,
+                   w_scale: torch.Tensor, bias: Optional[torch.Tensor], x_scale_rows: int):
+    """Check the operands of a GEMM kernel: ``x_q [M, K]`` and ``wt_q [N, K]``
+    int8 on one CUDA device, K a multiple of 32 and N of 8; returns them
+    contiguous and 16-byte aligned with the scales and bias as flat float32
+    (bias zeros when absent)."""
+    if x_q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x_q.device}")
+    if x_q.dtype != torch.int8 or wt_q.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 operands, got {x_q.dtype} and {wt_q.dtype}")
+    if x_q.dim() != 2 or wt_q.dim() != 2 or x_q.shape[1] != wt_q.shape[1]:
+        raise ValueError(f"{name}: x [M, K] and the weight must share K, got {tuple(x_q.shape)} "
+                         f"and [N, K] = {tuple(wt_q.shape)}")
+    m, k = x_q.shape
+    n = wt_q.shape[0]
+    if k % 32 or n % 8:
+        raise ValueError(f"{name}: the kernel takes K divisible by 32 and N by 8 (the mma "
+                         f"shape), got K={k}, N={n}")
+    if bias is None:
+        bias = torch.zeros(n, dtype=torch.float32, device=x_q.device)
+    vectors = []
+    for vname, t, size in (("x_scale", x_scale, x_scale_rows * m), ("w_scale", w_scale, n),
+                           ("bias", bias, n)):
+        if t.numel() != size:
+            raise ValueError(f"{name}: {vname} must hold {size} values, got {tuple(t.shape)}")
+        if t.device != x_q.device:
+            raise ValueError(f"{name}: {vname} lies on {t.device}, x on {x_q.device}")
+        vectors.append(_aligned(t.reshape(-1).float()))
+    return (_aligned(x_q), _aligned(wt_q), *vectors)
+
+
+def _out_f32(name: str, out_dtype: torch.dtype) -> int:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the kernel writes bfloat16 or float32, not {out_dtype}")
+    return int(out_dtype == torch.float32)
+
+
+def _linear_kernel(name: str, x_q, wt_q, x_scale, w_scale, bias, activation,
+                   out_dtype) -> torch.Tensor:
+    """Launch K1 on ``wt_q [N, K]``: a ``[K, N]`` weight's transpose, which is
+    a view of :func:`quantize_weight`'s column-major layout (any other layout
+    is copied by :func:`_gemm_operands`)."""
+    if activation not in (None, "gelu"):
+        raise ValueError(f"{name}: activation must be None or 'gelu', got {activation!r}")
+    f32 = _out_f32(name, out_dtype)
+    x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, wt_q, x_scale, w_scale, bias, 1)
+    m, k = x_q.shape
+    n = wt_q.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        err = _gemm_library().team_int8_linear(
+            x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+            out.data_ptr(), m, n, k, int(activation == "gelu"), f32,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    return out
+
+
+def _linear_entry(fn, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype) -> torch.Tensor:
+    """The body of the K1 wrappers ``fn`` (``wt_q`` the ``[N, K]`` weight): the
+    plain version on the CPU, else the kernel, counted on ``fn.launches``."""
+    if x_q.device.type == "cpu":
+        return int8_linear_reference(x_q, wt_q.t(), x_scale, w_scale, bias,
+                                     activation=activation, out_dtype=out_dtype)
+    out = _linear_kernel(fn.__name__, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype)
+    fn.launches += 1
+    return out
+
+
+def int8_linear(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                activation: Optional[str] = None, out_dtype: torch.dtype = torch.bfloat16,
+                block_m: int = 512, block_n: int = 512, interpret: bool = False) -> torch.Tensor:
+    """``dequant(x_q @ w_q) + bias`` with an optional tanh GELU -> ``[M, N]``
+    (``int8_matmul.py:233``): ``x_q [M, K]`` int8, ``w_q [K, N]`` int8,
+    ``x_scale`` ``[M, 1]`` or ``[1, M]``, ``w_scale [1, N]``. Each kernel
+    launch adds one to ``int8_linear.launches``."""
+    return _linear_entry(int8_linear, x_q, w_q.t(), x_scale, w_scale, bias, activation, out_dtype)
+
+
+def int8_linear_nk(x_q: torch.Tensor, wt_q: torch.Tensor, x_scale: torch.Tensor,
+                   w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                   activation: Optional[str] = None, out_dtype: torch.dtype = torch.bfloat16,
+                   block_m: int = 512, block_n: int = 512, interpret: bool = False) -> torch.Tensor:
+    """:func:`int8_linear` with the weight stored ``[N, K]``
+    (``int8_matmul.py:116``), which is the kernel's own operand. Each kernel
+    launch adds one to ``int8_linear_nk.launches``."""
+    return _linear_entry(int8_linear_nk, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype)
+
+
+def int8_linear_kgrid(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                      w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                      activation: Optional[str] = None, out_dtype: torch.dtype = torch.bfloat16,
+                      block_m: int = 512, block_n: int = 512, block_k: int = 256,
+                      interpret: bool = False) -> torch.Tensor:
+    """:func:`int8_linear` (``int8_matmul.py:186``, the TPU's K-gridded
+    tiling). Each kernel launch adds one to ``int8_linear_kgrid.launches``."""
+    return _linear_entry(int8_linear_kgrid, x_q, w_q.t(), x_scale, w_scale, bias, activation,
+                         out_dtype)
+
+
+def int8_linear_wres(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                     w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                     activation: Optional[str] = None, out_dtype: torch.dtype = torch.bfloat16,
+                     block_m: int = 512, n_split: int = 1,
+                     interpret: bool = False) -> torch.Tensor:
+    """:func:`int8_linear` (``int8_matmul.py:659``, the TPU's
+    weight-stationary tiling). Each kernel launch adds one to
+    ``int8_linear_wres.launches``."""
+    return _linear_entry(int8_linear_wres, x_q, w_q.t(), x_scale, w_scale, bias, activation,
+                         out_dtype)
+
+
+def int8_linear_dma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                    w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                    activation: Optional[str] = None, out_dtype: torch.dtype = torch.bfloat16,
+                    block_m: int = 512, n_split: int = 1,
+                    interpret: bool = False) -> torch.Tensor:
+    """:func:`int8_linear` (``int8_matmul.py:797``, the TPU's hand-pipelined
+    DMA tiling). Each kernel launch adds one to ``int8_linear_dma.launches``."""
+    return _linear_entry(int8_linear_dma, x_q, w_q.t(), x_scale, w_scale, bias, activation,
+                         out_dtype)
+
+
+def int8_linear_gelu_quant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, bias: torch.Tensor, *, block_m: int = 512,
+                           block_n: int = 512,
+                           interpret: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize(gelu_tanh(dequant(x_q @ w_q) + bias))`` with one scale per
+    row and block of ``bn = _pick_block_n(N, block_n)`` columns
+    (``int8_matmul.py:506``): ``(q int8 [M, N], scales float32 [N/bn, M])``,
+    the input of :func:`int8_linear_blockscale`. The f32 activation stays on
+    chip. Each kernel launch adds one to ``int8_linear_gelu_quant.launches``."""
+    if x_q.device.type == "cpu":
+        return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
+    name = "int8_linear_gelu_quant"
+    x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, w_q.t(), x_scale, w_scale, bias, 1)
+    m, k = x_q.shape
+    n = wt_q.shape[0]
+    bn = _pick_block_n(n, block_n)
+    lib = _gemm_library()
+    if bn > lib.team_int8_gemm_max_block_n():
+        raise ValueError(f"{name}: column block {bn} is wider than the kernel's "
+                         f"{lib.team_int8_gemm_max_block_n()}")
+    q = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
+    scales = torch.empty((n // bn, m), dtype=torch.float32, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        err = lib.team_int8_linear_gelu_quant(
+            x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+            q.data_ptr(), scales.data_ptr(), m, n, k, bn, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    int8_linear_gelu_quant.launches += 1
+    return q, scales
+
+
+def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
+                           w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                           out_dtype: torch.dtype = torch.bfloat16, block_m: int = 512,
+                           block_n: int = 512, interpret: bool = False) -> torch.Tensor:
+    """The product over activations with one scale per row and K block
+    (``int8_matmul.py:585``): ``x_scales [n_kb, M]``, K blocks of ``bk =
+    K/n_kb`` columns (the producer's ``bn``); each block's int32 sum is
+    dequantized with its row scale into an f32 accumulator, in block order.
+    Each kernel launch adds one to ``int8_linear_blockscale.launches``."""
+    if x_q.device.type == "cpu":
+        return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
+                                                out_dtype=out_dtype)
+    name = "int8_linear_blockscale"
+    f32 = _out_f32(name, out_dtype)
+    n_kb = x_scales.shape[0]
+    x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, w_q.t(), x_scales, w_scale, bias, n_kb)
+    m, k = x_q.shape
+    n = wt_q.shape[0]
+    if k % n_kb or (k // n_kb) % 32:
+        raise ValueError(f"{name}: {n_kb} scale blocks must cut K={k} into blocks that are "
+                         "multiples of 32")
+    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        err = _gemm_library().team_int8_linear_blockscale(
+            x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+            out.data_ptr(), m, n, k, k // n_kb, f32, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    int8_linear_blockscale.launches += 1
+    return out
+
+
+def quantized_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, *, activation: Optional[str] = None,
+                     out_dtype: torch.dtype = torch.bfloat16,
+                     interpret: bool = False) -> torch.Tensor:
+    """Quantize the rows of ``x`` (:func:`quantize_rows`), then
+    :func:`int8_linear` (``int8_matmul.py:850``)."""
+    x_q, x_scale = quantize_rows(x)
+    return int8_linear(x_q, w_q, x_scale, w_scale, bias, activation=activation,
+                       out_dtype=out_dtype)
+
+
+_COUNTED = (ln_quantize_static, ln_quantize_static3, row_quant_static, ln_quantize, int8_linear,
+            int8_linear_nk, int8_linear_kgrid, int8_linear_wres, int8_linear_dma,
+            int8_linear_gelu_quant, int8_linear_blockscale)
 
 
 def reset_launch_counts() -> None:
-    ln_quantize_static.launches = 0
-    row_quant_static.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+reset_launch_counts()

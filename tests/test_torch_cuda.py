@@ -25,7 +25,14 @@ sequence-major entry as its default one (``pv_int8``: plus what one
 p8 = rint(p·127) across a rounding edge moves an output by, up to
 deq_v·o_inv steps), the split CLS entry equal to the packed CLS entry bit for
 bit; the tower on the sequence-major, flat-batch,
-int8-PV, CLS-mode, knob and ``xla`` routes as on the static routes."""
+int8-PV, CLS-mode, knob and ``xla`` routes as on the static routes; the int8
+GEMM kernels against their plain versions, float32 1e-5 of the output's
+largest magnitude (the tanh from another library; without the GELU the
+same products in the same order) and bfloat16 one bf16 step (2^-7) of the
+output, ``gelu_quant`` and the dynamic layer norm -> int8 kernel to one int8
+step on under 1 % of the outputs with scales within 1e-6 relative, the 3-D
+static producer bit for bit the 2-D one; the image and text towers on the
+``hybrid`` and ``pallas`` tiers as on the static routes."""
 
 import math
 
@@ -640,3 +647,153 @@ def test_new_routes_through_the_kernels_match_plain_versions(cuda_device, monkey
     err = (got - want).abs().max().item()
     rms = want.pow(2).mean().sqrt().item()
     assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (route, cos, err, rms)
+
+
+# -- the int8 GEMMs and the dynamic layer norm -> int8 of the hybrid and pallas tiers --
+
+def gemm_inputs(m, k, n, device, seed=0):
+    """Row-quantized activations, a quantized [K, N] weight (column-major, as
+    the payload holds it) and a bias."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq, xs = tim.quantize_rows(torch.randn((m, k), generator=g, device=device))
+    wq, ws = tim.quantize_weight(torch.randn((k, n), generator=g, device=device) * k ** -0.5)
+    return xq, wq, xs, ws, torch.randn(n, generator=g, device=device) * 0.1
+
+
+def assert_gemm_close(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs()
+    limit = 1e-5 * ref.float().abs().max().item()
+    if out.dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -7 * ref.float().abs()
+    assert bool((err <= limit).all()), err.max().item()
+
+
+@pytest.mark.parametrize("m,k,n", [(128 * 197, 768, 2304), (16 * 197, 768, 768), (37, 64, 96)])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_linear_kernel_matches_plain_version(cuda_device, m, k, n, activation, out_dtype):
+    xq, wq, xs, ws, b = gemm_inputs(m, k, n, cuda_device)
+    ref = tim.int8_linear_reference(xq, wq, xs, ws, b, activation=activation, out_dtype=out_dtype)
+    launches = (tim.int8_linear.launches, tim.int8_linear_nk.launches)
+    out = tim.int8_linear(xq, wq, xs, ws, b, activation=activation, out_dtype=out_dtype)
+    out_nk = tim.int8_linear_nk(xq, wq.t(), xs, ws, b, activation=activation, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (tim.int8_linear.launches, tim.int8_linear_nk.launches) == (launches[0] + 1,
+                                                                       launches[1] + 1)
+    assert_gemm_close(out, ref)
+    torch.testing.assert_close(out_nk, out, rtol=0, atol=0)
+
+
+def test_int8_linear_tilings_and_quantized_linear_are_the_one_kernel(cuda_device):
+    xq, wq, xs, ws, b = gemm_inputs(197, 128, 64, cuda_device)
+    want = tim.int8_linear(xq, wq, xs, ws, b)
+    for fn in (tim.int8_linear_kgrid, tim.int8_linear_wres, tim.int8_linear_dma):
+        launches = fn.launches
+        torch.testing.assert_close(fn(xq, wq, xs, ws, b), want, rtol=0, atol=0)
+        assert fn.launches == launches + 1
+    x = torch.randn((33, 128), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                    device=cuda_device)
+    x_q, x_s = tim.quantize_rows(x)
+    torch.testing.assert_close(tim.quantized_linear(x, wq, ws, b), tim.int8_linear(x_q, wq, x_s, ws, b),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n,block_n,n2", [(128 * 197, 768, 3072, 512, 768),
+                                              (16 * 197 + 5, 768, 3072, 512, 768),
+                                              (40, 64, 128, 32, 96), (37, 64, 256, 512, 64)])
+def test_gelu_quant_and_blockscale_kernels_match_plain_versions(cuda_device, m, k, n, block_n, n2):
+    xq, wq, xs, ws, b = gemm_inputs(m, k, n, cuda_device)
+    launches = (tim.int8_linear_gelu_quant.launches, tim.int8_linear_blockscale.launches)
+    gq, gs = tim.int8_linear_gelu_quant(xq, wq, xs, ws, b, block_n=block_n)
+    rq, rs = tim.int8_linear_gelu_quant_reference(xq, wq, xs, ws, b, block_n=block_n)
+    torch.cuda.synchronize()
+    assert gs.shape == rs.shape == (n // tim._pick_block_n(n, block_n), m)
+    assert_within_one_int8_step(gq, rq)
+    torch.testing.assert_close(gs, rs, rtol=1e-6, atol=0)
+    _, w2q, _, w2s, b2 = gemm_inputs(m, n, n2, cuda_device, seed=1)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = tim.int8_linear_blockscale(gq, w2q, gs, w2s, b2, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert_gemm_close(out, tim.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2,
+                                                                     out_dtype=out_dtype))
+    assert (tim.int8_linear_gelu_quant.launches, tim.int8_linear_blockscale.launches) == (
+        launches[0] + 1, launches[1] + 2)
+
+
+@pytest.mark.parametrize("m,d", [(128 * 197, 768), (16 * 197 + 5, 768), (37, 64), (9, 1024)])
+def test_ln_quantize_kernels_match_plain_versions(cuda_device, m, d):
+    x, gamma, beta, inv_a = producer_inputs(m, d, cuda_device)
+    launches = (tim.ln_quantize.launches, tim.ln_quantize_static3.launches)
+    q, s = tim.ln_quantize(x, gamma, beta)
+    rq, rs = tim.ln_quantize_reference(x, gamma, beta)
+    three = tim.ln_quantize_static3(x.reshape(1, m, d), gamma, beta, inv_a)
+    torch.cuda.synchronize()
+    assert (tim.ln_quantize.launches, tim.ln_quantize_static3.launches) == (launches[0] + 1,
+                                                                            launches[1] + 1)
+    assert s.shape == rs.shape == (1, m)
+    assert_within_one_int8_step(q, rq)
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+    torch.testing.assert_close(three.reshape(m, d), tim.ln_quantize_static(x, gamma, beta, inv_a),
+                               rtol=0, atol=0)
+
+
+def test_int8_gemm_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    xq, wq, xs, ws, b = gemm_inputs(8, 64, 96, cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        tim.int8_linear(xq.float(), wq, xs, ws, b)
+    with pytest.raises(ValueError, match="divisible by 32"):
+        tim.int8_linear(xq[:, :48].contiguous(), wq[:48], xs, ws, b)
+    with pytest.raises(ValueError, match="lies on"):
+        tim.int8_linear(xq, wq, xs.cpu(), ws, b)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tim.int8_linear(xq, wq, xs, ws, b, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="wider"):
+        tim.int8_linear_gelu_quant(*gemm_inputs(8, 64, 2048, cuda_device), block_n=2048)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tim.int8_linear_blockscale(xq, wq, torch.ones((4, 8), device=cuda_device), ws, b)
+    x, gamma, beta, _ = producer_inputs(8, 64, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tim.ln_quantize(x.float(), gamma, beta)
+
+
+def plain_tier_kernels(monkeypatch):
+    """Send the dynamic tiers' kernels to their plain versions (same card)."""
+    for name in ("ln_quantize", "int8_linear", "int8_linear_gelu_quant", "int8_linear_blockscale"):
+        monkeypatch.setattr(tquant, name, getattr(tim, name + "_reference"))
+    monkeypatch.setattr(tquant, "attention_core", lambda qkv, heads, *, causal, kv_len, impl:
+                        mha_packed_reference(qkv, heads, causal, kv_len))
+
+
+@pytest.mark.parametrize("tower", ["image", "text"])
+@pytest.mark.parametrize("tier", ["hybrid", "pallas"])
+def test_dynamic_tiers_through_the_kernels_match_plain_versions(cuda_device, monkeypatch, tier,
+                                                                tower):
+    """The tiny towers on the card (widths 64, 192, 256: the kernels' shapes)
+    on each tier through its kernels, against the same tier with the plain
+    versions (same payload), and each kernel's launches per block."""
+    cfg = tclip.CLIPConfig.tiny()
+    params = tree_to(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg), cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    if tower == "image":
+        qv = tquant.quantize_vision_tower(params)
+        x = torch.randn((8, 32, 32, 3), generator=gen).to(cuda_device)
+        encode, layers = tquant.encode_image_int8, cfg.vision.layers
+    else:
+        qv = tquant.quantize_text_tower(params)
+        x = torch.randint(1, 1000, (8, 77), generator=gen).to(cuda_device)
+        encode, layers = tquant.encode_text_int8, cfg.text.layers
+    counters = (tim.ln_quantize, tim.int8_linear, tim.int8_linear_gelu_quant,
+                tim.int8_linear_blockscale)
+    before = [c.launches for c in counters]
+    got = encode(qv, x, cfg, gemm_impl=tier).double()
+    torch.cuda.synchronize()
+    per_block = {"hybrid": (2, 0, 1, 1), "pallas": (2, 2, 1, 1)}[tier]
+    assert [c.launches - n for c, n in zip(counters, before)] == [layers * k for k in per_block]
+    plain_tier_kernels(monkeypatch)
+    want = encode(qv, x, cfg, gemm_impl=tier).double()
+    assert got.shape == (8, cfg.embed_dim) and bool(torch.isfinite(got).all())
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    err = (got - want).abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (tier, tower, cos, err, rms)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import team_tpu.backbone.quant as jq
+import team_tpu.ops.int8_matmul as jim
 import team_tpu_torch.backbone.quant as tq
 from team_tpu.backbone.clip import CLIPConfig as JCLIPConfig
 from team_tpu.backbone.clip import init_clip_params as jax_init
@@ -247,24 +248,26 @@ def test_tower_launches_q3i_per_block(setup):
     pytest.param({}, {"TEAM_GELU": "sigmoid"}, id="env-gelu-sigmoid"),
 ])
 def test_unported_routes_raise(setup, kw, env, monkeypatch):
-    """``hybrid`` still raises (its kernels are ROADMAP queue 2 items 12-13).
-    The other routes, CLS modes and knobs are ported: each is held against
-    team_tpu on the same payload to the tower bound. team_tpu reads
-    ``TEAM_LN_MODE`` into a module global when imported, so it is set there
-    too."""
+    """Every route, CLS mode and knob here is ported: each is held against
+    team_tpu on the same payload to the tower bound; ``hybrid`` on the
+    dynamic payload of ``quantize_vision_tower`` (its own), with team_tpu's
+    ``quantize_rows`` jitted as in its runtime and ``attn_impl="xla"`` on both
+    sides. team_tpu reads ``TEAM_LN_MODE`` into a module global when
+    imported, so it is set there too."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if kw.get("gemm_impl") == "hybrid":
-        with pytest.raises(NotImplementedError):
-            tq.encode_image_int8(setup["tqv"], torch.zeros((1, SZ, SZ, 3)), CFG, **kw)
-        return
     if "TEAM_LN_MODE" in env:
         monkeypatch.setattr(jq, "_LN_MODE", env["TEAM_LN_MODE"])
+    qv_j, qv_t, kw_t = setup["jqv"], setup["tqv"], dict(kw)
+    if kw.get("gemm_impl") == "hybrid":
+        monkeypatch.setattr(jq, "quantize_rows", jax.jit(jim.quantize_rows))
+        qv_j = jax.jit(jq.quantize_vision_tower)(setup["jp"])
+        qv_t, kw_t["attn_impl"] = params_from_numpy(_np(qv_j)), "xla"
     x = np.random.default_rng(7).standard_normal((6, SZ, SZ, 3)).astype(np.float32)
-    want = np.asarray(jq.encode_image_int8(setup["jqv"], jnp.asarray(x), JCFG, attn_impl="xla",
+    want = np.asarray(jq.encode_image_int8(qv_j, jnp.asarray(x), JCFG, attn_impl="xla",
                                            interpret=True, **{"gemm_impl": "static3d_qi", **kw}),
                       np.float64)
-    got = tq.encode_image_int8(setup["tqv"], torch.from_numpy(x), CFG, **kw).double().numpy()
+    got = tq.encode_image_int8(qv_t, torch.from_numpy(x), CFG, **kw_t).double().numpy()
     cos = (want * got).sum(-1) / (np.linalg.norm(want, axis=-1) * np.linalg.norm(got, axis=-1))
     assert cos.min() >= 0.9999, cos
     assert np.abs(got - want).max() <= 5e-3 * np.sqrt((want ** 2).mean()) + 1e-6
@@ -324,8 +327,17 @@ def test_runtime_failed_gate_serves_bf16(setup, monkeypatch):
 
 
 def test_runtime_rejects_unported_tiers(setup):
-    with pytest.raises(NotImplementedError):
-        _runtime(setup["tp"], int8_gemm_impl="hybrid")
+    """``hybrid`` is ported: as in team_tpu, the runtime gates the static
+    payload through its blocks, where the gate fails, and serves bf16
+    (held against team_tpu's gate in tests/test_torch_int8_gemm.py). The
+    encoder_quant="int8" tier of no route is still refused."""
+    rt = _runtime(setup["tp"], int8_gemm_impl="hybrid")
+    x = [torch.from_numpy(_u8_images(4, seed)) for seed in (30, 31)]
+    rt.encode_image(x[0])
+    feats = rt.encode_image(x[1])
+    assert rt.int8_impl == "hybrid" and rt.gate_cosine < 0.999
+    assert not rt.int8_committed and rt.encoder_quant == "bf16"
+    torch.testing.assert_close(feats, rt._calib_forward(x[1])[1], rtol=0, atol=0)
     cfg = Config(convnet_type="clip", device=["cpu"], encoder_quant="int8",
                  extras={"tiny_backbone": True})
     with pytest.raises(NotImplementedError):

@@ -336,15 +336,14 @@ def test_route_calls_its_kernels_in_every_block(setup, route):
 
 @pytest.mark.parametrize("route", ["xla", "hybrid", "pallas", "static3d_qi2", "static3d_qis",
                                    "static3d_qib"])
-def test_unported_routes_still_raise(setup, route):
-    """``hybrid`` and ``pallas`` still raise (their kernels are ROADMAP queue
-    2 items 12-13); the others are ported and held against team_tpu, ``xla``
-    on the dynamic payload of ``quantize_vision_tower``."""
-    if route in ("hybrid", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tq.encode_image_int8(setup["tqv"], torch.zeros((1, SZ, SZ, 3)), CFG, gemm_impl=route)
-        return
-    qv = ("jqv_dyn", "tqv_dyn") if route == "xla" else ("jqv", "tqv")
+def test_unported_routes_still_raise(setup, route, monkeypatch):
+    """Every route here is ported and held against team_tpu: the dynamic
+    tiers ``xla``, ``hybrid`` and ``pallas`` on the dynamic payload of
+    ``quantize_vision_tower``, the others on the static payload. team_tpu's
+    ``quantize_rows`` runs jitted, as in its runtime (XLA then multiplies by
+    f32(1/127), as the port does)."""
+    monkeypatch.setattr(jq, "quantize_rows", jax.jit(jim.quantize_rows))
+    qv = ("jqv_dyn", "tqv_dyn") if route in ("xla", "hybrid", "pallas") else ("jqv", "tqv")
     _assert_tower_close(*_features(route, "float", setup[qv[0]], setup[qv[1]]))
 
 

@@ -291,8 +291,9 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
     # it, as team_tpu's front end asserts (team_tpu/ops/attention.py:55)
     pytest.param({"model_name": "proof", "attention_impl": "mha_short"}, {}, ValueError,
                  id="proof"),
-    pytest.param({"encoder_quant": "int8_static", "extras": {"int8_gemm_impl": "hybrid"}}, {},
-                 NotImplementedError, id="int8_hybrid"),
+    # ported: exc None holds the trainer on the option against team_tpu
+    pytest.param({"encoder_quant": "int8_static", "attention_impl": "xla",
+                  "extras": {"int8_gemm_impl": "hybrid"}}, {}, None, id="int8_hybrid"),
     pytest.param({"checkpoint_dir": "ckpt"}, {}, NotImplementedError, id="checkpoint_dir"),
     pytest.param({"mesh_shape": [2]}, {}, NotImplementedError, id="mesh_shape"),
     # a checkpoint file that exists (written under tmp_path): the loader is not ported
@@ -300,6 +301,14 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
                  id="clip_checkpoint"),
 ])
 def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
+    """Each option the port lacks raises. ``int8_gemm_impl="hybrid"`` is
+    ported: SimpleCIL through both trainers on it, with ``attention_impl=
+    "xla"`` on both sides (ROADMAP 3.10) and team_tpu's kernels of the tier
+    in interpret mode; both gate the static payload through the tier, both
+    gates fail and both serve bf16, and the curves agree within 0.1 pp."""
+    if exc is None:
+        _hybrid_trainer_matches_team_tpu(kw, tmp_path, monkeypatch)
+        return
     for k, v in env.items():
         if v.startswith("<tmp>/"):
             path = tmp_path / v[len("<tmp>/"):]
@@ -309,6 +318,30 @@ def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
     cfg = torch_cfg(kw.pop("model_name", "simplecil"), tmp_path, **kw)
     with pytest.raises(exc):
         torch_train(cfg)
+
+
+def _hybrid_trainer_matches_team_tpu(kw, tmp_path, monkeypatch):
+    import team_tpu.backbone.quant as jquant
+    from team_tpu.learners.backbone_runtime import BackboneRuntime as JaxRuntime
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime as TorchRuntime
+
+    for name in ("ln_quantize", "int8_linear_gelu_quant", "int8_linear_blockscale"):
+        fn = getattr(jquant, name)
+        monkeypatch.setattr(jquant, name, lambda *a, _fn=fn, interpret=False, **k:
+                            _fn(*a, interpret=True, **k))
+    jax_rts = _capture_instances(monkeypatch, JaxRuntime)
+    torch_rts = _capture_instances(monkeypatch, TorchRuntime)
+    jp = init_clip_params(jax.random.PRNGKey(0), CLIPConfig.tiny())
+    want = jax_train(tiny_cfg("simplecil", tmp_path / "jax", **kw))
+    got = torch_train(torch_cfg("simplecil", tmp_path / "torch", **kw),
+                      params_from_numpy(jax.tree_util.tree_map(np.asarray, jp)))
+    (jrt,), (trt,) = jax_rts, torch_rts
+    assert jrt._qvision is None and jrt.encoder_quant == "bf16"
+    assert trt.int8_impl == "hybrid" and trt.gate_cosine < 0.999
+    assert not trt.int8_committed and trt.encoder_quant == "bf16"
+    assert len(got["cnn_top1"]) == 3
+    for key in ("cnn_top1", "cnn_top5", "avg_acc"):
+        np.testing.assert_allclose(got[key], want[key], atol=0.1, err_msg=key)
 
 
 def test_clip_checkpoint_that_names_no_file_trains_as_the_random_init(tmp_path, monkeypatch):

@@ -31,11 +31,17 @@ Phases, one line or more each:
      768->3072 (bn 512) and the dynamic layer norm -> int8 at most one int8
      step apart on under 1 % of the outputs with scales within 1e-6, the
      block-scale GEMM at proj 3072->768 (6 K blocks), and the 3-D static
-     producer bit for bit the 2-D one
+     producer bit for bit the 2-D one; the tensor-parallel head splits at
+     nm 2 and 4: each rank of fused_mha_packed_tp (vision and causal text,
+     bf16 and f32) and of fused_mha_packed_q3i_tp (the vision shape in every
+     mode of the q3i kernel, the causal text shape) against its plain
+     version, and the ranks side by side against the whole-head kernels bit
+     for bit
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
      kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
-     alone and the xla tier's composition), timed with CUDA
+     alone and the xla tier's composition; for the head split SDPA on the
+     rank's head views, one rank's launch timed), timed with CUDA
      events over calls queued behind a device spin (device time, not the
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
      peak of their type) computed from the same inputs
@@ -66,7 +72,19 @@ Phases, one line or more each:
      gate on the static payload must decide by the >= 0.999 rule and the run
      serve what it decided, with each of the tier's kernels launched exactly
      its count per block of each int8 batch (pallas: 2 ln_quantize, 2
-     int8_linear, 1 gelu_quant, 1 blockscale; hybrid: 2, 0, 1, 1)
+     int8_linear, 1 gelu_quant, 1 blockscale; hybrid: 2, 0, 1, 1); the
+     parallel paths: PROOF (bf16, batch 16) in a world of one rank over NCCL
+     with mesh_shape [1] and [1, 1], whose curves must equal the run without
+     a mesh, then two ranks spawned on the one card (this script with
+     --parallel-worker; gloo, CUDA tensors staged through the host): PROOF
+     data parallel on mesh_shape [2] through the trainer (curves equal, loss
+     components within 1e-3 relative of the single process), the bf16 image
+     tower at B=128 under a [1, 2] layout on mha_packed_tp (weights split by
+     shard_clip_params; one head-split launch a block; features against one
+     device's, cosine >= 0.999) and the int8 static3d_qi tower under it
+     (q3i attention through fused_mha_packed_q3i_tp, 12 launches an int8
+     encode, the ranks' gates identical and committed, features against one
+     device's on the same payload)
   6. features against the plain-attention towers (packed and flash routes)
      and against the bf16 tower on a small batch, each int8 route against
      itself with the plain versions of its kernels (same payload, same card),
@@ -959,7 +977,8 @@ def smoke_config(model_name: str, dtype: str, log_dir: str, **kw):
     extras = {"tiny_backbone": False, "dataset_kwargs": dict(DATASET), **kw.pop("extras", {})}
     return Config(prefix="chip_smoke", dataset="synthetic_insects", model_name=model_name,
                   convnet_type="clip", init_cls=2, increment=2, batch_size=kw.pop("batch_size", 128),
-                  seed=[1], shuffle=True, device=[0], compute_dtype=dtype, log_dir=log_dir,
+                  seed=[1], shuffle=True, device=kw.pop("device", [0]), compute_dtype=dtype,
+                  log_dir=log_dir,
                   extras=extras, **kw)
 
 
@@ -1859,12 +1878,13 @@ def _fused_route_features(params, images, prompts, rates: dict) -> int:
 
 def _plain_int8_fns() -> dict:
     """The plain versions of every kernel the int8 routes call, by the name
-    ``quant`` calls them under."""
+    ``quant`` calls them under (with no tensor-parallel layout registered,
+    ``fused_mha_packed_q3i_tp`` runs the whole-head kernel)."""
     from team_tpu_torch.ops import int8_matmul as im
     from team_tpu_torch.ops import mha_short as ms
 
     return {
-        "fused_mha_packed_q3i": ms.mha_packed_q3i_plain,
+        "fused_mha_packed_q3i_tp": ms.mha_packed_q3i_plain,
         "fused_mha_packed_q3i_cls": ms.mha_packed_q3i_cls_plain,
         "fused_mha_packed_q3i_cls_split": ms.mha_packed_q3i_cls_split_plain,
         "fused_mha_packed_q3i_sb": ms.mha_packed_q3i_sb_reference,
@@ -1986,6 +2006,461 @@ def profile_encodes(int8_runtimes, pallas_encode, dev) -> None:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  {e.key[:110]}")
 
 
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel head split (kernels #2 and #11) and the parallel paths
+# ---------------------------------------------------------------------------
+
+TP_NM = (2, 4)  # model ranks the head-split kernels are held at (12 and 8 heads split)
+# the modes of #7 that #11 is held in at the vision shape: name -> (knobs, arguments,
+# whether the static softmax's constant is given)
+TP_Q3I_MODES = {"static": ({}, {}, True), "rowmax": ({}, {}, False),
+                **{m: (env, kw, True) for m, (env, kw) in Q3I_MODES.items()}}
+PARALLEL_WORLD = 2  # ranks the parallel phase spawns on the one card (gloo)
+
+
+class TPLayout:
+    """A tensor-parallel layout with this process at ``model_rank`` of
+    ``n_model``, as ``set_tp_mesh`` takes it (the kernel checks need no
+    process group: each rank's share is computed in turn)."""
+
+    def __init__(self, rank: int, nm: int):
+        self.model_rank, self.n_model = rank, nm
+
+
+def tp_ranks(ms, nm: int, fn) -> list:
+    """``fn()`` under each of the ``nm`` model ranks' layouts, in rank order."""
+    outs = []
+    try:
+        for r in range(nm):
+            ms.set_tp_mesh(TPLayout(r, nm))
+            outs.append(fn(r))
+    finally:
+        ms.set_tp_mesh(None)
+    return outs
+
+
+def compare_tp(ms, dev) -> dict:
+    """The head-split kernels at the towers' shapes for nm in TP_NM: each
+    rank's output against its plain version (the packed tolerances; one int8
+    step, the int8 PV's wider limit), and the ranks side by side against the
+    whole-head kernels #1 and #7 bit for bit (tolerance 0)."""
+    import torch
+
+    worst = {"fused_mha_packed_tp": 0.0, "fused_mha_packed_q3i_tp": 0}
+    for tower, (b, s, h, causal) in MAIN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((b, s, 3 * h * 64), generator=torch.Generator(device=dev).manual_seed(8),
+                              device=dev).to(dtype)
+            whole = ms.fused_mha_packed(qkv, h, causal=causal)
+            for nm in TP_NM:
+                outs = tp_ranks(ms, nm, lambda r: ms.fused_mha_packed_tp(qkv, h, causal=causal))
+                refs = [ms.mha_packed_tp_plain(qkv, h, r, nm, causal=causal) for r in range(nm)]
+                torch_sync()
+                err = max((o.float() - p.float()).abs().max().item() for o, p in zip(outs, refs))
+                equal = torch.equal(torch.cat(outs, dim=-1), whole)
+                tol = TOL[str(dtype)]
+                print(f"  mha_packed_tp {tower} B={b} S={s} H={h} nm={nm} {dtype}: ranks vs plain "
+                      f"max_abs_err {err:.3e} (tol {tol:g}); side by side == fused_mha_packed "
+                      f"bit for bit {equal}")
+                if not math.isfinite(err) or err > tol or not equal:
+                    raise AssertionError("fused_mha_packed_tp disagrees with its plain version or "
+                                         "with the whole-head kernel")
+                worst["fused_mha_packed_tp"] = max(worst["fused_mha_packed_tp"], err)
+    cases = [(*MAIN_SHAPES["vision"], mode) for mode in TP_Q3I_MODES] + \
+            [(*MAIN_SHAPES["text"], "rowmax")]
+    for b, s, h, causal, mode in cases:
+        env, kw, static = TP_Q3I_MODES[mode]
+        qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=9)
+        call = dict(causal=causal, qk_m2=m2 if static else None, **kw)
+        limit = pv_int8_limit(deq, oinv) if kw.get("pv_int8") else 1
+        with knobs(env):
+            whole = ms.fused_mha_packed_q3i(qkv, deq, qks, oinv, h, **call)
+            for nm in TP_NM:
+                outs = tp_ranks(ms, nm, lambda r: ms.fused_mha_packed_q3i_tp(qkv, deq, qks, oinv, h,
+                                                                               **call))
+                name = f"q3i_tp[{mode}] B={b} S={s} H={h} causal={causal} nm={nm}"
+                for r, out in enumerate(outs):
+                    ref = ms.mha_packed_q3i_tp_plain(qkv, deq, qks, oinv, h, r, nm, **call)
+                    torch_sync()
+                    worst["fused_mha_packed_q3i_tp"] = max(
+                        worst["fused_mha_packed_q3i_tp"],
+                        _int8_disagreement(f"{name} rank {r} vs plain", out, ref, limit))
+                equal = torch.equal(torch.cat(outs, dim=-1), whole)
+                print(f"  {name}: side by side == fused_mha_packed_q3i bit for bit {equal} "
+                      "(tolerance 0)")
+                if not equal:
+                    raise AssertionError("fused_mha_packed_q3i_tp differs from the whole-head kernel")
+    return worst
+
+
+def time_tp(ms, dev) -> dict:
+    """Card time of one rank's launch of each head-split kernel (rank 0; the
+    ranks do equal work) at the vision shape for nm in TP_NM and the text
+    shape at nm 2, beside its plain version, its bound (the rank's third of
+    qkv read, its D/nm columns written) and, for #2,
+    scaled_dot_product_attention on the rank's head views of the full qkv
+    (#11 has no one-call counterpart)."""
+    import torch
+
+    times = {}
+    for tower, (b, s, h, causal) in MAIN_SHAPES.items():
+        qkv = torch.randn((b, s, 3 * h * 64), generator=torch.Generator(device=dev).manual_seed(10),
+                          device=dev).to(torch.bfloat16)
+        for nm in TP_NM if tower == "vision" else TP_NM[:1]:
+            hm = h // nm
+            ms.set_tp_mesh(TPLayout(0, nm))
+            try:
+                kernel = lambda: ms.fused_mha_packed_tp(qkv, h, causal=causal)  # noqa: E731
+                plain = lambda: ms.mha_packed_tp_plain(qkv, h, 0, nm, causal=causal)  # noqa: E731
+                p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+            finally:
+                ms.set_tp_mesh(None)
+            q, k, v = (t.reshape(b, s, h, 64)[:, :, :hm].transpose(1, 2)
+                       for t in qkv.split(h * 64, dim=-1))
+            lib = sdpa_ms(q, k, v, causal)
+            key = f"tp {tower} nm={nm}"
+            times[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                          **bound(qkv.numel() * 2 // nm + b * s * hm * 64 * 2,
+                                  {"bf16": attention_ops(b, hm, s, 64, causal)})}
+            print(f"  mha_packed_tp {tower} B={b} S={s} H={h} nm={nm} causal={causal} bf16, one "
+                  f"rank: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                  f"scaled_dot_product_attention on its head views {lib:.4f} ms, bound "
+                  f"{times[key]['bound_ms']:.4f} ms ({times[key]['bound_by']})")
+    b, s, h, _ = MAIN_SHAPES["vision"]
+    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, dev, seed=11)
+    args = (qkv, deq, qks, oinv, h)
+    for nm in TP_NM:
+        hm, dm = h // nm, h * 64 // nm
+        ms.set_tp_mesh(TPLayout(0, nm))
+        try:
+            kernel = lambda: ms.fused_mha_packed_q3i_tp(*args, qk_m2=m2)  # noqa: E731
+            plain = lambda: ms.mha_packed_q3i_tp_plain(*args, 0, nm, qk_m2=m2)  # noqa: E731
+            p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        finally:
+            ms.set_tp_mesh(None)
+        ops = attention_ops(b, hm, s, 64, False) // 2
+        bnd = bound(qkv.numel() // nm + b * s * dm + 4 * (3 * dm + 2 * hm + dm),
+                    {"int8": ops, "bf16": ops})
+        key = f"q3i_tp vision nm={nm}"
+        times[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None, **bnd}
+        print(f"  q3i_tp vision B={b} S={s} H={h} nm={nm} int8, one rank: kernel {k1:.4f}/"
+              f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); no single PyTorch call computes it")
+    return times
+
+
+def _proof_config(log_dir: str, **kw):
+    return smoke_config("proof", "bfloat16", log_dir, batch_size=FLAGSHIP_BATCH, tuned_epoch=2,
+                        **kw)
+
+
+def _train_recording(cfg, grads_path: str = "") -> dict:
+    """One PROOF run through the trainer: its curves and each epoch's loss
+    stats. With ``grads_path``, the gradients the optimizer takes in the
+    first GRAD_STEPS steps (summed over the ranks under a data group) are
+    pickled there, one list of leaves (None: no gradient) a step."""
+    import pickle
+
+    from team_tpu_torch.learners import proof as proof_learner
+    from team_tpu_torch.learners.proof_net import trainable_leaves
+    from team_tpu_torch.trainer import train
+
+    losses, grads, step = [], [], proof_learner.train_step
+
+    def record(learner):
+        learner._epoch_stats_hook = lambda task, epoch, st: losses.append(
+            [task, epoch, {k: float(v) for k, v in st.items()}])
+
+    def recorded(tr, *a, **k):
+        st = step(tr, *a, **k)
+        if len(grads) < GRAD_STEPS:
+            grads.append([None if p.grad is None else p.grad.detach().float().cpu().numpy()
+                          for p in trainable_leaves(tr)])
+        return st
+
+    t0 = time.perf_counter()
+    if grads_path:
+        proof_learner.train_step = recorded
+    try:
+        with recording(proof_learner.Learner, record):
+            res = train(cfg)
+    finally:
+        proof_learner.train_step = step
+    if grads_path:
+        with open(grads_path, "wb") as f:
+            pickle.dump(grads, f)
+    return {"curves": [float(a) for a in res["cnn_top1"]], "stats": losses,
+            "wall_s": time.perf_counter() - t0}
+
+
+GRAD_STEPS = 2  # steps whose gradients the data-parallel check holds
+GRAD_LIMIT = 1e-3  # of each leaf's largest gradient; a sum off by the world size is 0.5
+
+
+def _grads_agree(name: str, want_path: str, got_path: str) -> float:
+    """The gradients two runs pickled (:func:`_train_recording`) agree leaf
+    by leaf within GRAD_LIMIT of the leaf's largest. AdamW's update does not
+    see a gradient scaled by a constant, so the curves and losses alone would
+    pass a step off by the world size; the gradients do not."""
+    import pickle
+
+    import numpy as np
+
+    with open(want_path, "rb") as f:
+        want = pickle.load(f)
+    with open(got_path, "rb") as f:
+        got = pickle.load(f)
+    if len(want) != GRAD_STEPS or len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} and {len(want)} steps of gradients recorded")
+    worst, ratio = 0.0, []
+    for gw, gg in zip(want, got):
+        if [a is None for a in gw] != [b is None for b in gg]:
+            raise AssertionError(f"{name}: the leaves with a gradient differ")
+        for a, b in zip(gw, gg):
+            if a is not None:
+                scale = max(float(np.abs(a).max()), 1e-12)
+                worst = max(worst, float(np.abs(a - b).max()) / scale)
+        ratio.append(sum(float(np.abs(b).sum()) for b in gg if b is not None)
+                     / max(sum(float(np.abs(a).sum()) for a in gw if a is not None), 1e-30))
+    print(f"  {name}: the first {GRAD_STEPS} steps' gradients within {worst:.3e} of each leaf's "
+          f"largest (limit {GRAD_LIMIT}); summed |g| ratio {ratio}")
+    if not worst <= GRAD_LIMIT:
+        raise AssertionError(f"{name}: gradients differ by {worst} of their largest")
+    return worst
+
+
+def _agree(name: str, want: dict, got: dict) -> None:
+    """Curves equal, and each epoch's loss components within 1e-3 relative
+    (the bound of tests/test_multihost.py)."""
+    worst = 0.0
+    if got["curves"] != want["curves"] or len(got["stats"]) != len(want["stats"]):
+        raise AssertionError(f"{name}: curves {got['curves']} vs {want['curves']}")
+    for (t0, e0, d0), (t1, e1, d1) in zip(want["stats"], got["stats"]):
+        if (t0, e0) != (t1, e1) or d0["n"] != d1["n"]:
+            raise AssertionError(f"{name}: epochs differ")
+        for k in ("total", "ce", "clip", "unicl"):
+            rel = abs(d0[k] - d1[k]) / max(1.0, abs(d0[k]))
+            worst = max(worst, rel)
+    print(f"  {name}: curves {got['curves']} equal; loss components within {worst:.3e} relative "
+          "(limit 1e-3)")
+    if worst > 1e-3:
+        raise AssertionError(f"{name}: loss components differ by {worst}")
+
+
+def run_parallel_paths(ms, log_dir: str) -> dict:
+    """Phase 5's parallel paths at full ViT-B/16 width. (a) A world of one
+    rank over NCCL: PROOF with mesh_shape [1] and [1, 1] gives the curves of
+    the run without a mesh. (b) PARALLEL_WORLD ranks on the one card over
+    gloo, spawned from this script (parallel_worker): PROOF data parallel on
+    mesh_shape [2], which must give the single-process curves; the bf16
+    image tower under a [1, 2] layout on mha_packed_tp; the int8
+    static3d_qi tower under it, whose q3i attention runs through #11."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from team_tpu_torch.parallel import collectives
+    from team_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    single_grads = os.path.join(log_dir, "proof_nomesh_grads.pkl")
+    single = _train_recording(_proof_config(os.path.join(log_dir, "proof_nomesh")), single_grads)
+    print(f"  proof (bf16, default route, batch {FLAGSHIP_BATCH}) without a mesh: curves "
+          f"{single['curves']}, {single['wall_s']:.2f} s")
+    init = os.path.join(log_dir, "rdzv_world1")
+    maybe_init_distributed([0], init_method=f"file://{init}", world_size=1, rank=0)
+    print(f"  joined: {collectives.describe()}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError("a world of one rank on its own card must run over NCCL")
+    try:
+        for shape in ([1], [1, 1]):
+            got = _train_recording(_proof_config(os.path.join(log_dir, f"proof_mesh{len(shape)}"),
+                                                 mesh_shape=shape,
+                                                 mesh_axis_names=["data", "model"]))
+            _agree(f"proof mesh_shape {shape} (world 1, NCCL) vs no mesh", single, got)
+    finally:
+        dist.destroy_process_group()
+
+    out_dir = os.path.join(log_dir, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               str(r), str(PARALLEL_WORLD), os.path.join(out_dir, "rdzv"), out_dir],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(PARALLEL_WORLD)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("  "):
+                print(f"  rank {r}:{line}")
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} failed (exit {p.returncode}):\n{out[-6000:]}")
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json"), encoding="utf-8") as f:
+            ranks.append(json.load(f))
+    print(f"  {PARALLEL_WORLD} ranks on one card ({ranks[0]['describe']}): {wall:.2f} s with start-up")
+    grad_err = 0.0
+    for r, res in enumerate(ranks):
+        _agree(f"rank {r}: proof mesh_shape [{PARALLEL_WORLD}] (gloo) vs the single process",
+               single, res["dp"])
+        grad_err = max(grad_err, _grads_agree(
+            f"rank {r}: proof mesh_shape [{PARALLEL_WORLD}] (gloo) vs the single process",
+            single_grads, os.path.join(out_dir, f"dp_grads_rank{r}.pkl")))
+    # the TP image tower against the single-device tower on the same weights and images
+    rt_feats = [np.load(os.path.join(out_dir, f"tp_image_rank{r}.npy")) for r in range(PARALLEL_WORLD)]
+    if not np.array_equal(rt_feats[0], rt_feats[1]):
+        raise AssertionError("the ranks' tensor-parallel features differ")
+    ref = _single_device_features(os.path.join(out_dir, "tp_images.npy"))
+    a, b = torch.from_numpy(rt_feats[0]).double(), torch.from_numpy(ref).double()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+    print(f"  bf16 image tower on mha_packed_tp under [1, {PARALLEL_WORLD}] vs one device: min "
+          f"cosine {cos:.7f} over {len(a)} images (limit {TP_MIN_COSINE}), max abs diff "
+          f"{(a - b).abs().max().item():.3e}")
+    if not cos >= TP_MIN_COSINE:
+        raise AssertionError("tensor-parallel features disagree with the single-device tower")
+    gates = [(res["int8"]["gate_cosine"], res["int8"]["committed"]) for res in ranks]
+    print(f"  int8 static3d_qi under [1, {PARALLEL_WORLD}]: gate (min cosine, committed) per rank "
+          f"{gates}")
+    if len(set(gates)) != 1 or not gates[0][1]:
+        raise AssertionError("the ranks' int8 gates differ or did not commit")
+    launches = {"fused_mha_packed_tp": [res["launches"]["fused_mha_packed_tp"] for res in ranks],
+                "fused_mha_packed_q3i_tp": [res["launches"]["fused_mha_packed_q3i_tp"]
+                                            for res in ranks]}
+    print(f"  head-split launches per rank: {launches}")
+    if not all(n > 0 for v in launches.values() for n in v):
+        raise AssertionError("a rank's parallel path launched no head-split kernel")
+    return {"launches": {k: sum(v) for k, v in launches.items()}, "per_rank": launches,
+            "tp_cosine": cos, "gate": gates[0], "wall_s": wall, "dp_grad_err": grad_err,
+            "dp_wall_s": [res["dp"]["wall_s"] for res in ranks]}
+
+
+TP_MIN_COSINE = 0.999  # bf16 row-parallel sums run in another order than one device's GEMM
+TP_IMAGES = 128  # the learners' eval batch
+
+
+def _tp_weights_and_images():
+    """The full-width towers' random weights (seed 0) and a B=128 batch of
+    the smoke dataset's test images (uint8, 224x224), the same in every process."""
+    import numpy as np
+    import torch
+
+    from team_tpu_torch.backbone.clip import CLIPConfig, init_clip_params
+    from team_tpu_torch.data import DataManager
+
+    dm = DataManager("synthetic_insects", True, 1, 2, 2, **DATASET)
+    images = np.stack(dm.get_dataset(np.arange(4), source="test", mode="test").images[:8])
+    return init_clip_params(torch.Generator().manual_seed(0), CLIPConfig.vit_b16()), \
+        _eval_batch(images)
+
+
+def _single_device_features(images_path: str):
+    import numpy as np
+
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+
+    params, _ = _tp_weights_and_images()
+    rt = BackboneRuntime(smoke_config("simplecil", "bfloat16", ""), params=params)
+    return rt.encode_image(rt.to_device(np.load(images_path))).cpu().numpy()
+
+
+def parallel_worker(rank: int, world: int, init: str, out_dir: str) -> int:
+    """One rank of phase 5's parallel paths, run by run_parallel_paths:
+    ``world`` ranks share card 0 (device list [0, 0]), so the layout gives
+    gloo and host staging. Writes rank<r>.json (and the TP features) to
+    ``out_dir``; the parent checks them."""
+    import numpy as np
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    from team_tpu_torch.backbone.clip import CLIPConfig, cast_frozen_params, encode_image
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+    from team_tpu_torch.ops import mha_short as ms
+    from team_tpu_torch.ops.preprocess import preprocess_batch
+    from team_tpu_torch.parallel import collectives
+    from team_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed, shard_clip_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    devices = [0] * world
+    maybe_init_distributed(devices, init_method=f"file://{init}", world_size=world, rank=rank)
+    ms.build()
+    res = {"describe": collectives.describe()}
+    # data parallel: PROOF over a [world] mesh through the trainer
+    res["dp"] = _train_recording(_proof_config(os.path.join(out_dir, "proof_dp"),
+                                               mesh_shape=[world], device=devices),
+                                 os.path.join(out_dir, f"dp_grads_rank{rank}.pkl"))
+    print(f"  proof mesh_shape [{world}]: curves {res['dp']['curves']}, "
+          f"{res['dp']['wall_s']:.2f} s", flush=True)
+    # tensor parallel: the bf16 image tower under a [1, world] layout, weights split
+    mesh = make_mesh([1, world], ("data", "model"), device=devices)
+    dev = mesh.device
+    params, images = _tp_weights_and_images()
+    if rank == 0:
+        np.save(os.path.join(out_dir, "tp_images.npy"), images)
+    clip_cfg = CLIPConfig.vit_b16()
+    layers = clip_cfg.vision.layers
+    split = shard_clip_params(cast_frozen_params(params, torch.bfloat16, dev), mesh)
+    ms.reset_launch_counts()
+    ms.set_tp_mesh(mesh)
+    try:
+        with torch.no_grad():
+            x = preprocess_batch(torch.from_numpy(images).to(dev), clip_cfg.vision.image_size)
+            t0 = time.perf_counter()
+            feats = encode_image(split, x, clip_cfg, compute_dtype=torch.bfloat16,
+                                 attn_impl="mha_packed_tp")
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t0
+        launches_tp = ms.fused_mha_packed_tp.launches
+        np.save(os.path.join(out_dir, f"tp_image_rank{rank}.npy"), feats.float().cpu().numpy())
+        print(f"  bf16 image tower, B={len(images)}, on mha_packed_tp: {tp_s:.3f} s, "
+              f"mha_packed_tp launches {launches_tp} (one a block)", flush=True)
+        if launches_tp != layers:
+            raise AssertionError(f"mha_packed_tp launches {launches_tp}, want one a block")
+        # the int8 static3d_qi tower: calibrate, gate, then one committed encode
+        qcfg = smoke_config("simplecil", "bfloat16", "", attention_impl="mha_packed_tp",
+                            encoder_quant="int8_static", device=devices)
+        qrt = BackboneRuntime(qcfg, params=params)
+        batches = [images[i:i + FLAGSHIP_BATCH] for i in (0, FLAGSHIP_BATCH)]
+        ms.reset_launch_counts()
+        for batch in batches:
+            qrt.encode_image(qrt.to_device(batch))
+        q_feats = qrt.encode_image(qrt.to_device(images))
+        torch.cuda.synchronize()
+        launches_q = ms.fused_mha_packed_q3i_tp.launches
+        launches_tp += ms.fused_mha_packed_tp.launches
+    finally:
+        ms.set_tp_mesh(None)
+    # the same payload on one device (whole-head kernels, the CLS kernel last)
+    whole = qrt.encode_image(qrt.to_device(images)).double()
+    cos = torch.nn.functional.cosine_similarity(whole, q_feats.double(), dim=-1).min().item()
+    same = bool(torch.equal(whole, q_feats.double()))
+    print(f"  int8 static3d_qi on mha_packed_tp: gate {qrt.gate_cosine}, committed "
+          f"{qrt.int8_committed}; q3i_tp launches {launches_q}; features vs one device's: min "
+          f"cosine {cos:.7f} (limit 0.99999), bit for bit {same}", flush=True)
+    if not qrt.int8_committed or launches_q != 2 * layers or not cos >= 0.99999:
+        raise AssertionError("the int8 tower under tensor parallelism: gate, launches or features")
+    res["int8"] = {"gate_cosine": qrt.gate_cosine, "committed": qrt.int8_committed,
+                   "cos_one_device": cos, "bit_equal_one_device": same}
+    res["launches"] = {"fused_mha_packed_tp": launches_tp, "fused_mha_packed_q3i_tp": launches_q}
+    collectives.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2032,6 +2507,7 @@ def main() -> int:
     gemm_err = compare_int8_gemm(im, dev)
     flash_err = compare_flash(fa, dev)
     fused_err = compare_fused(ms, dev)
+    tp_err = compare_tp(ms, dev)
 
     print("phase 4: timing (CUDA events over 20 calls queued behind a device spin, after 3 "
           "warm-up; plain, kernel, kernel, plain)")
@@ -2041,6 +2517,7 @@ def main() -> int:
     times.update(time_int8_gemm(im, quant, dev))
     flash_times = time_flash(fa, dev)
     times.update(time_fused(ms, dev))
+    times.update(time_tp(ms, dev))
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -2051,6 +2528,7 @@ def main() -> int:
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
+        parallel = run_parallel_paths(ms, log_dir)
         print("phase 6: features and encode rates")
         rates, int8_runtimes, short_launches, served, tiers, text = check_features(
             im, dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
@@ -2212,6 +2690,30 @@ def main() -> int:
         "text": timing(times["fused_attn_block text bf16"]),
         "encode_img_per_s": fused_rates("attn_block"),
         "runs_wall_s": {k: r["wall_s"] for k, r in fused.items()},
+    }, {
+        "name": "fused_mha_packed_tp", "route": "cuda", "source": "team_tpu_torch/csrc/mha_packed.cu",
+        "replaces": "team_tpu/ops/mha_short.py:1241",
+        "launches": parallel["launches"]["fused_mha_packed_tp"],
+        "launches_per_rank": parallel["per_rank"]["fused_mha_packed_tp"],
+        "launches_from": f"phase 5, {PARALLEL_WORLD} ranks on one card: the bf16 tower and the "
+                         "int8 tier's calibration under a [1, 2] layout",
+        "max_abs_err": tp_err["fused_mha_packed_tp"], "equals_fused_mha_packed": True,
+        "per_rank_launch": "nm=2, rank 0", **timing(times["tp vision nm=2"]),
+        "nm4": timing(times["tp vision nm=4"]), "text": timing(times["tp text nm=2"]),
+        "library": "scaled_dot_product_attention on the rank's head views",
+        "tp_features_cos": parallel["tp_cosine"],
+    }, {
+        "name": "fused_mha_packed_q3i_tp", **q3i_common,
+        "replaces": "team_tpu/ops/mha_short.py:1294",
+        "launches": parallel["launches"]["fused_mha_packed_q3i_tp"],
+        "launches_per_rank": parallel["per_rank"]["fused_mha_packed_q3i_tp"],
+        "launches_from": f"phase 5, {PARALLEL_WORLD} ranks on one card: the int8 static3d_qi "
+                         "tower under a [1, 2] layout (gate batch and one committed encode)",
+        "max_abs_err": tp_err["fused_mha_packed_q3i_tp"], "equals_fused_mha_packed_q3i": True,
+        "per_rank_launch": "nm=2, rank 0", **timing(times["q3i_tp vision nm=2"]),
+        "nm4": timing(times["q3i_tp vision nm=4"]), "gate": parallel["gate"],
+        "parallel_wall_s": parallel["wall_s"], "dp_proof_wall_s": parallel["dp_wall_s"],
+        "dp_grad_err": parallel["dp_grad_err"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2220,4 +2722,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:  # one rank of phase 5's parallel paths
+        sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

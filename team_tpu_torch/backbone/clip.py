@@ -12,7 +12,13 @@ tower only). ``"mha_packed_proj"`` fuses the out-projection and residual
 into the attention kernel, ``"attn_block"`` the whole attention sub-block
 (:func:`~team_tpu_torch.ops.mha_short.fused_mha_packed_proj`,
 :func:`~team_tpu_torch.ops.mha_short.fused_attn_block`); the other large
-GEMMs are ``torch.matmul``.
+GEMMs are ``torch.matmul``. ``"mha_packed_tp"`` under a registered
+tensor-parallel layout (:func:`~team_tpu_torch.ops.mha_short.set_tp_mesh`)
+splits each block over the model ranks as XLA's partitioner splits
+team_tpu's tower under ``shard_clip_params``' layout (column-parallel qkv
+and fc, row-parallel out and proj, the head-split attention kernel
+:func:`~team_tpu_torch.ops.mha_short.fused_mha_packed_tp`); with none it is
+the packed route, as in team_tpu.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from team_tpu_torch.ops.attention import multi_head_attention
-from team_tpu_torch.ops.mha_short import fused_attn_block, fused_mha_packed, fused_mha_packed_proj
+from team_tpu_torch.ops.mha_short import (
+    fused_attn_block, fused_mha_packed, fused_mha_packed_proj, fused_mha_packed_tp, tp_mesh,
+    tp_split)
+from team_tpu_torch.parallel import collectives
 from team_tpu_torch.ops.preprocess import patch_norm_consts
 
 
@@ -196,14 +205,15 @@ def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
     takes the head-split views without copying them; ``mha_short``: the
     pre-split kernel; the block-level ``attn_block`` and ``mha_packed_proj``,
     which the int8 tier passes here as team_tpu's ``_attn_core`` does: the
-    plain route)."""
+    plain route). ``mha_packed_tp`` runs the head-split kernel under a
+    registered tensor-parallel layout and gathers the ranks' heads over the
+    model group (the global array team_tpu's ``shard_map`` returns), else the
+    packed kernel."""
     b, s, d3 = qkv.shape
     d = d3 // 3
     dh = d // heads
     if impl == "mha_packed_tp":
-        raise NotImplementedError(
-            "attn_impl='mha_packed_tp': the head split over a mesh is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+        return gather_heads(fused_mha_packed_tp(qkv, heads, causal=causal, kv_len=kv_len), d)
     if impl == "auto" and s < 512:
         impl = "mha_packed"
     if impl == "mha_packed":
@@ -219,6 +229,50 @@ def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
     return o.permute(0, 2, 1, 3).reshape(b, s, d)
 
 
+def gather_heads(o: torch.Tensor, d: int) -> torch.Tensor:
+    """A head-split kernel's ``[..., D/nm]`` output gathered over the
+    registered layout's model group into ``[..., D]``; a whole output as it is."""
+    if o.shape[-1] == d:
+        return o
+    return collectives.all_gather(o, tp_mesh().model_group, dim=-1)
+
+
+def _rank_block(t: torch.Tensor, dim: int, full: int, rank: int, nm: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (``full`` long when whole):
+    a block of ``shard_clip_params`` is taken as it is, a whole tensor sliced."""
+    size = full // nm
+    return t if t.shape[dim] == size else t.narrow(dim, rank * size, size)
+
+
+def _tp_block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+                      rank: int, nm: int) -> torch.Tensor:
+    """One block split over the model ranks, computing what XLA's partitioner
+    computes from ``shard_clip_params``' layout: the qkv GEMM on this rank's
+    block of columns, an ``all_gather`` into the full packed qkv that
+    :func:`fused_mha_packed_tp` takes, the rank's heads, the out-projection
+    on the matching rows of ``out_w`` summed over the ranks, then the bias
+    once (``x + o @ out_w + out_b`` in team_tpu's order); the MLP likewise
+    (fc columns, GELU, proj rows, sum, bias)."""
+    group = tp_mesh().model_group
+    a, m = p["attn"], p["mlp"]
+    d = x.shape[-1]
+
+    def row_parallel(x, h, w, b):
+        w = _rank_block(w, 0, h.shape[-1] * nm, rank, nm).to(x.dtype)
+        return x + collectives.all_reduce(h @ w, "sum", group) + b.to(x.dtype)
+
+    h = _layer_norm(p["ln_1"], x)
+    qkv = _linear(h, _rank_block(a["qkv_w"], 1, 3 * d, rank, nm),
+                  _rank_block(a["qkv_b"], 0, 3 * d, rank, nm))
+    o = fused_mha_packed_tp(collectives.all_gather(qkv, group, dim=-1), heads, causal=causal,
+                            kv_len=kv_len)
+    x = row_parallel(x, o, a["out_w"], a["out_b"])
+    f = m["fc_b"].shape[-1]
+    h = _linear(_layer_norm(p["ln_2"], x), _rank_block(m["fc_w"], 1, f, rank, nm),
+                _rank_block(m["fc_b"], 0, f, rank, nm))
+    return row_parallel(x, F.gelu(h, approximate="none"), m["proj_w"], m["proj_b"])
+
+
 def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``x + h @ w + b`` in team_tpu's order: the product joins the residual
     before the bias (two roundings in bf16)."""
@@ -231,8 +285,15 @@ def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_l
     ``attn_block`` runs the attention sub-block in :func:`fused_attn_block`,
     ``mha_packed_proj`` the attention, out-projection and residual in
     :func:`fused_mha_packed_proj` after a ``torch.matmul`` qkv GEMM; the MLP
-    half is ``torch.matmul`` on every route, as team_tpu leaves it to XLA."""
+    half is ``torch.matmul`` on every route, as team_tpu leaves it to XLA.
+    ``mha_packed_tp`` under a registered layout whose model axis splits the
+    heads: :func:`_tp_block_forward`."""
     a = p["attn"]
+    if impl == "mha_packed_tp":
+        shard = tp_split(heads, x.shape[-1])
+        if shard is not None:
+            return _tp_block_forward(p, x, heads, causal=causal, kv_len=kv_len, rank=shard[0],
+                                     nm=shard[1])
     if impl == "attn_block":
         x = fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
                              a["out_w"], a["out_b"], heads, causal=causal)

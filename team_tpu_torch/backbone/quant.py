@@ -17,7 +17,11 @@ The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
 
 - ``static3d_qi`` (default): ``_ln_quant3``, integer-QKᵀ attention
   (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i`, q and k
-  quantized with one scale per head), the last block in a CLS-only form
+  quantized with one scale per head; under a registered tensor-parallel
+  layout :func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i_tp`, the
+  rank's heads, gathered over the model group before the replicated
+  out-projection, as team_tpu's ``out_specs`` make XLA do), the last block
+  in a CLS-only form
   (``TEAM_CLS_LAST``: ``"kq"``, the CLS-query kernel; ``"kqs"``, a split qkv
   GEMM and the split CLS-query kernel; ``"mlp"``, the full kernel and a
   CLS-only tail; ``"attn"``, the CLS attention in plain torch; ``"0"``: in
@@ -71,15 +75,15 @@ import torch
 import torch.nn.functional as F
 
 from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, attention_core,
-                                          embed_patches, patch_pixels)
+                                          embed_patches, gather_heads, patch_pixels)
 from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.ops.int8_matmul import (INV127, int8_linear, int8_linear_blockscale,
                                             int8_linear_gelu_quant, int8_linear_xla, int8_matmul,
                                             ln_quantize, ln_quantize_static, quantize_rows,
                                             quantize_weight, row_quant_static)
 from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q3,
-                                          fused_mha_packed_q3i, fused_mha_packed_q3i_cls,
-                                          fused_mha_packed_q3i_cls_split, fused_mha_packed_q3i_sb)
+                                          fused_mha_packed_q3i_cls, fused_mha_packed_q3i_cls_split,
+                                          fused_mha_packed_q3i_sb, fused_mha_packed_q3i_tp, tp_mesh)
 from team_tpu_torch.ops.preprocess import patch_norm_consts
 
 BF16 = torch.bfloat16
@@ -367,19 +371,29 @@ def _qi_defer() -> bool:
     return os.environ.get("TEAM_QI_DEFER", "0") == "1"
 
 
+def _q3i_attention(qb: Dict[str, Any], qkvq: torch.Tensor, heads: int, **kw) -> torch.Tensor:
+    """The integer-QKᵀ attention of a q3i block over the full int8 qkv, with
+    the block's scales and ``TEAM_QI_DEFER``, routed as team_tpu's
+    ``fused_mha_packed_q3i_tp``: under a registered tensor-parallel layout
+    whose model axis splits the heads, the rank's heads
+    (:func:`fused_mha_packed_q3i_tp`) gathered over the model group; else
+    that wrapper's own fallback, the whole-head kernel."""
+    site = qb["qkv"]
+    args = (qkvq, site["deq_i"], site["qk_scale"], qb["out"]["inv_a"], heads)
+    kw.update(qk_m2=site.get("qk_m2"), defer_norm=_qi_defer())
+    return gather_heads(fused_mha_packed_q3i_tp(*args, **kw), qkvq.shape[-1] // 3)
+
+
 def _qblock_forward_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
                                 attn_impl: str = "auto", causal: bool = False,
                                 pv_int8: bool = False) -> torch.Tensor:
     """Static-W8A8 block with integer-QKᵀ attention: one-pass LN -> int8 ->
     qkv GEMM requantized with per-head-uniform q/k scales ->
-    :func:`fused_mha_packed_q3i` (``pv_int8``: the int8 PV) -> out-projection
-    -> residual; then the MLP. ``attn_impl`` is ignored: the kernel is the
+    :func:`_q3i_attention` (``pv_int8``: the int8 PV) -> out-projection ->
+    residual; then the MLP. ``attn_impl`` is ignored: the kernel is the
     attention."""
-    site = qb["qkv"]
-    oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
-                              qb["out"]["inv_a"], heads, causal=causal,
-                              kv_len=_masked_kv_len(kv_len, x.shape[1]),
-                              qk_m2=site.get("qk_m2"), pv_int8=pv_int8, defer_norm=_qi_defer())
+    oq = _q3i_attention(qb, _qkv_int8(qb, x), heads, causal=causal,
+                        kv_len=_masked_kv_len(kv_len, x.shape[1]), pv_int8=pv_int8)
     return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
 
 
@@ -470,8 +484,12 @@ def _qblock_forward_static3d_qi_clsmlp(qb: Dict[str, Any], x: torch.Tensor, head
     projected for every row with ``w_q[:, D:]`` and q for row 0 only with
     ``w_q[:, :D]``, each requantized with its slice of ``out_inv_a_i``, then
     :func:`fused_mha_packed_q3i_cls_split`; anything else (``"mlp"``), the full
-    kernel (``TEAM_QI_DEFER`` read as in every block) and its row 0."""
+    kernel (``TEAM_QI_DEFER`` read as in every block) and its row 0. Under a
+    registered tensor-parallel layout the CLS kernels give way to the full
+    head-split kernel (``quant.py:728-740``)."""
     site = qb["qkv"]
+    if tp_mesh() is not None:
+        attn_cls = "mlp"
     if attn_cls == "kqs":
         d = x.shape[-1]
         x8 = _ln_quant3(x, qb["ln_1"], site["inv_a"])
@@ -487,9 +505,7 @@ def _qblock_forward_static3d_qi_clsmlp(qb: Dict[str, Any], x: torch.Tensor, head
         oq = fused_mha_packed_q3i_cls(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                                       qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
     else:
-        oq = fused_mha_packed_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
-                                  qb["out"]["inv_a"], heads, defer_norm=_qi_defer(),
-                                  qk_m2=site.get("qk_m2"))[:, :1]
+        oq = _q3i_attention(qb, _qkv_int8(qb, x), heads)[:, :1]
     return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
 
 
@@ -552,13 +568,10 @@ def _qblock_forward_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: in
     """The flat-batch block (``quant.py:_qblock_forward_static3d_qib``): the
     GEMMs and producers over ``xf [BF, (B/BF)*S, D]``, the same rows as
     ``[B, S, D]`` (every reshape is a view: the producers and the residual
-    work by row), and :func:`fused_mha_packed_q3i` at the real
-    ``[B, S, 3D]``. Non-causal, every key."""
+    work by row), and :func:`_q3i_attention` at the real ``[B, S, 3D]``.
+    Non-causal, every key."""
     bf, m, d = xf.shape
-    site = qb["qkv"]
-    oq = fused_mha_packed_q3i(_qkv_int8(qb, xf).reshape(b_real, s_real, 3 * d), site["deq_i"],
-                              site["qk_scale"], qb["out"]["inv_a"], heads,
-                              defer_norm=_qi_defer(), qk_m2=site.get("qk_m2"))
+    oq = _q3i_attention(qb, _qkv_int8(qb, xf).reshape(b_real, s_real, 3 * d), heads)
     return _mlp_residual(qb, xf + _static_linear3(oq.reshape(bf, m, d), qb["out"]))
 
 

@@ -1,15 +1,18 @@
 // Multi-head attention for Hopper (sm_90a), forward only, over two layouts.
 //
 // Replaces two TPU kernels of team_tpu/ops/mha_short.py:
-//   - _mha_packed_kernel (entry fused_mha_packed): the packed qkv projection
-//     [B, S, 3*D] as the qkv GEMM wrote it, to [B, S, D]; optional causal
-//     mask and key mask;
+//   - _mha_packed_kernel (entries fused_mha_packed and, heads split over a
+//     tensor-parallel group, fused_mha_packed_tp): the packed qkv projection
+//     [B, S, 3*D] as the qkv GEMM wrote it, to [B, S, D] (the head split: to
+//     the rank's [B, S, D/nm]); optional causal mask and key mask;
 //   - _mha_kernel (entry fused_mha_short): pre-split q, k, v [B, H, S, Dh]
 //     to [B, H, S, Dh], non-causal, keys >= kv_len masked (every query row
 //     is returned).
-// Both are one kernel over a strided [B, H, S, Dh] view: the packed layout is
+// All are one kernel over a strided [B, H, S, Dh] view: the packed layout is
 // (batch, head, row) strides (S*3D, Dh, 3D) with k and v at +D and +2D, the
-// pre-split one the tensor's own strides. The numerics are the TPU kernels':
+// head split the same with q, k and v offset by the rank's r*D/nm columns
+// (its heads are read in place, no copy), the pre-split one the tensor's own
+// strides. The numerics are the TPU kernels':
 //   q = round_to_input_dtype(q * dh^-0.5); logits = q.k in f32;
 //   f32 row-max softmax, normalised before PV;
 //   p = round_to_input_dtype(p); out = p.v accumulated in f32, stored in the
@@ -145,4 +148,22 @@ extern "C" int team_mha_short_fwd(const void* q, const void* k, const void* v, v
   return launch_dtype(dtype, q, k, v, out, {sb, sh, sr},
                       {static_cast<long long>(heads) * seq * dh, static_cast<long long>(seq) * dh, dh},
                       batch, seq, heads, dh, kv_len, 0, scale, stream);
+}
+
+// The packed layout's heads split over nm tensor-parallel ranks: rank r of nm
+// reads heads [r*H/nm, (r+1)*H/nm) of the full packed qkv [B, S, 3*D] in place
+// (q, k and v offset by r*D/nm columns, row stride 3D) and writes its slice
+// out [B, S, D/nm]. heads_local = H/nm. Each head's arithmetic is the packed
+// entry's, so the ranks' outputs side by side are that entry's bit for bit.
+extern "C" int team_mha_packed_tp_fwd(const void* qkv, void* out, int dtype, int batch, int seq,
+                                      int heads_local, int dh, int rank, int nm, int kv_len,
+                                      int causal, float scale, void* stream) {
+  if (nm < 1 || rank < 0 || rank >= nm) return cudaErrorInvalidValue;
+  const long long d_local = static_cast<long long>(heads_local) * dh;
+  const long long d_model = d_local * nm;
+  const size_t e = element_bytes(dtype);
+  const char* base = static_cast<const char*>(qkv) + rank * d_local * e;
+  return launch_dtype(dtype, base, base + d_model * e, base + 2 * d_model * e, out,
+                      {seq * 3 * d_model, dh, 3 * d_model}, {seq * d_local, dh, d_local}, batch,
+                      seq, heads_local, dh, kv_len, causal, scale, stream);
 }

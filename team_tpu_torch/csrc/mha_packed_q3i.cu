@@ -3,6 +3,7 @@
 //
 // Replaces four TPU kernels of team_tpu/ops/mha_short.py:
 //   _mha_packed_q3i_kernel           (entry fused_mha_packed_q3i)           -> team_mha_packed_q3i_fwd
+//                                    (entry fused_mha_packed_q3i_tp)        -> team_mha_packed_q3i_tp_fwd
 //   _mha_packed_q3i_cls_kernel       (entry fused_mha_packed_q3i_cls)       -> team_mha_packed_q3i_cls_fwd
 //   _mha_packed_q3i_cls_split_kernel (entry fused_mha_packed_q3i_cls_split) -> team_mha_packed_q3i_cls_split_fwd
 //   _mha_packed_q3i_sb_kernel        (entry fused_mha_packed_q3i_sb)        -> team_mha_packed_q3i_sb_fwd
@@ -11,7 +12,11 @@
 // them: it reads q, k and v and writes out through explicit row and sample
 // strides, so the packed [B, S, 3*D] layout, the sequence-major [S, B, 3*D]
 // layout and the split q [B, 1, D] + kv [B, S, 2*D] inputs differ only in the
-// pointers and strides each entry passes.
+// pointers and strides each entry passes. So does the tensor-parallel head
+// split: rank r of nm reads heads [r*H/nm, (r+1)*H/nm) of the full packed
+// tensor in place, and its per-head and per-channel scales through pointers
+// offset to its heads (the kernel reads only v's segment of deq: q's and k's
+// scales are folded into qk_scale).
 //
 // The math is the TPU kernel's (mha_short.py:493-592):
 //   acc = q8 . k8 as an exact int32 sum;
@@ -114,7 +119,7 @@ struct Operands {
 
 template <int DH, bool CLS, int NORM, bool EXP2I>
 __global__ void __launch_bounds__(kWarps * 32)
-q3i_kernel(Operands ops, const float* __restrict__ deq, const float* __restrict__ qk_scale,
+q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
            const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq, int heads,
            int kv_len, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -127,7 +132,6 @@ q3i_kernel(Operands ops, const float* __restrict__ deq, const float* __restrict_
   const int h = blockIdx.y;
   const int row0 = CLS ? 0 : blockIdx.x * kRows;
   const int row_end = CLS ? 1 : min(row0 + kRows, seq);
-  const int d_model = heads * DH;
   const int8_t* q_base = ops.q + b * ops.q_batch + h * DH;
   const int8_t* k_base = ops.k + b * ops.kv_batch + h * DH;
   const int8_t* v_base = ops.v + b * ops.kv_batch + h * DH;
@@ -159,7 +163,7 @@ q3i_kernel(Operands ops, const float* __restrict__ deq, const float* __restrict_
 #pragma unroll
   for (int c = 0; c < kPerLane; ++c) {
     const int col = h * DH + lane + 32 * c;
-    pv_scale[c] = __fmul_rn(deq[2 * d_model + col], o_inv[col]);
+    pv_scale[c] = __fmul_rn(deq_v[col], o_inv[col]);
     if constexpr (kPvInt8) pv_scale[c] = __fmul_rn(pv_scale[c], kInv127);
   }
 
@@ -265,7 +269,7 @@ q3i_kernel(Operands ops, const float* __restrict__ deq, const float* __restrict_
 
 struct Args {
   Operands ops;
-  const float* deq;
+  const float* deq_v;  // v's dequant scales: the [D] segment at 2*D of deq
   const float* qks;
   const float* o_inv;
   const float* qk_m2;
@@ -282,7 +286,7 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const dim3 grid(CLS ? 1 : (a.seq + kRows - 1) / kRows, a.heads, a.batch);
   q3i_kernel<DH, CLS, NORM, EXP2I><<<grid, kWarps * 32, smem, a.stream>>>(
-      a.ops, a.deq, a.qks, a.o_inv, a.qk_m2, a.seq, a.heads, a.kv_len, a.causal);
+      a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2, a.seq, a.heads, a.kv_len, a.causal);
   return cudaGetLastError();
 }
 
@@ -308,6 +312,8 @@ int launch_norm(const Args& a, int norm) {
   }
 }
 
+// deq is the full [3*D] vector of the heads' D = heads*dh columns: v's
+// segment starts at 2*D
 Args make_args(const void* q, const void* k, const void* v, void* out, const void* deq,
                const void* qks, const void* o_inv, const void* qk_m2, int batch, int seq,
                int heads, int dh, void* stream) {
@@ -316,7 +322,7 @@ Args make_args(const void* q, const void* k, const void* v, void* out, const voi
   a.ops.k = static_cast<const int8_t*>(k);
   a.ops.v = static_cast<const int8_t*>(v);
   a.ops.out = static_cast<int8_t*>(out);
-  a.deq = static_cast<const float*>(deq);
+  a.deq_v = static_cast<const float*>(deq) + 2 * static_cast<long long>(heads) * dh;
   a.qks = static_cast<const float*>(qks);
   a.o_inv = static_cast<const float*>(o_inv);
   a.qk_m2 = static_cast<const float*>(qk_m2);
@@ -387,6 +393,38 @@ extern "C" int team_mha_packed_q3i_cls_split_fwd(const void* q, const void* kv, 
   a.ops.kv_batch = 2 * d * seq;
   a.ops.o_row = a.ops.o_batch = d;
   return launch_dh<true, kMxu, false>(a);
+}
+
+// The packed entry's heads split over nm tensor-parallel ranks: rank r of nm
+// reads heads [r*H/nm, (r+1)*H/nm) of the full qkv int8 [B, S, 3*D] in place
+// and writes out int8 [B, S, D/nm]; deq [3*D], qk_scale [H], o_inv [D] and
+// qk_m2 [H] (or NULL) are the full vectors, read at the rank's heads through
+// offset pointers. heads_local = H/nm; the other arguments as the packed
+// entry's, whose arithmetic each head keeps, so the ranks' outputs side by
+// side are that entry's bit for bit.
+extern "C" int team_mha_packed_q3i_tp_fwd(const void* qkv, const void* deq, const void* qk_scale,
+                                          const void* o_inv, const void* qk_m2, void* out,
+                                          int batch, int seq, int heads_local, int dh, int rank,
+                                          int nm, int kv_len, int causal, int exp2i, int norm,
+                                          void* stream) {
+  if (nm < 1 || rank < 0 || rank >= nm) return cudaErrorInvalidValue;
+  const long long d_local = static_cast<long long>(heads_local) * dh;
+  const long long d = d_local * nm;
+  const long long head0 = static_cast<long long>(rank) * heads_local;
+  const int8_t* base = static_cast<const int8_t*>(qkv) + rank * d_local;
+  Args a = make_args(base, base + d, base + 2 * d, out, deq, qk_scale, o_inv, qk_m2, batch, seq,
+                     heads_local, dh, stream);
+  a.deq_v = static_cast<const float*>(deq) + 2 * d + rank * d_local;
+  a.qks = static_cast<const float*>(qk_scale) + head0;
+  a.o_inv = static_cast<const float*>(o_inv) + rank * d_local;
+  if (qk_m2 != nullptr) a.qk_m2 = static_cast<const float*>(qk_m2) + head0;
+  a.ops.q_row = a.ops.kv_row = 3 * d;
+  a.ops.q_batch = a.ops.kv_batch = 3 * d * seq;
+  a.ops.o_row = d_local;
+  a.ops.o_batch = d_local * seq;
+  a.kv_len = kv_len;
+  a.causal = causal;
+  return exp2i ? launch_norm<true>(a, norm) : launch_norm<false>(a, norm);
 }
 
 // Sequence-major: qkv int8 [S, B, 3*D] -> out int8 [S, B, D], non-causal,

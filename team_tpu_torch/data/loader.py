@@ -57,8 +57,8 @@ class ArrayLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
-        # optional row restriction (e.g. per-host shard for multi-host feature
-        # extraction, team_tpu.parallel.mesh.host_shard_indices)
+        # optional row restriction, served in its order (e.g. a rank's share of
+        # the feature extraction, team_tpu_torch.parallel.mesh.host_shard_indices)
         self.indices = None if indices is None else np.asarray(indices)
         self.num_threads = num_threads
         self.image_size = image_size

@@ -17,7 +17,11 @@ dynamic tier (``xla``, ``hybrid``, ``pallas``) encodes it through its own
 blocks and its gate decides. A payload loaded from ``int8_cache_dir`` commits without a gate
 only on the route family (static or dynamic) it was gated on; on the other
 family it goes through the held-out gate like a fresh one (team_tpu trusts
-it on every route). The text tower stays in the compute dtype.
+it on every route). The text tower stays in the compute dtype. Under several
+ranks each calibrates on its own batch and the ranks build one tower: the
+activation abs-maxes are combined by ``all_reduce(max)`` (exact), the gate's
+min cosine by ``all_reduce(min)``, so every rank decides alike, and only
+rank 0 saves the payload (``team_tpu/learners/backbone_runtime.py:191-239``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from team_tpu_torch.backbone import quant
 from team_tpu_torch.backbone.clip import (
@@ -38,7 +43,8 @@ from team_tpu_torch.backbone.tokenizer import Tokenizer
 from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.config import Config
 from team_tpu_torch.ops.preprocess import preprocess_batch
-from team_tpu_torch.utils.toolkit import resolve_device
+from team_tpu_torch.parallel import collectives
+from team_tpu_torch.parallel.layout import resolve_device
 
 _KNOWN_TYPES = ("clip", "clip_laion2b", "openai_clip")
 GATE_MIN_COSINE = 0.999
@@ -145,6 +151,8 @@ class BackboneRuntime:
         """Calibrate on this batch and return its bf16 features; the gate
         waits for the next batch, so that it runs on held-out data."""
         calib, ref = self._calib_forward(images)
+        if collectives.group_size() > 1:
+            calib = tree_map(lambda a: collectives.all_reduce(a, "max"), calib)
         params32 = {"vision": tree_to(self._vision_f32, self.device)}
         self._qvision_pending = quant.quantize_vision_tower_static(
             params32, calib, heads=self.clip_cfg.vision.heads)
@@ -159,13 +167,14 @@ class BackboneRuntime:
         feats = self._encode_int8(qv, images)
         a, b = ref.double(), feats.double()
         cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-30)
-        self.gate_cosine = float(cos.min())
+        # one decision on every rank
+        self.gate_cosine = float(collectives.all_reduce(cos.min(), "min"))
         if self.gate_cosine >= GATE_MIN_COSINE:
             self._commit(qv)
             logging.info("int8_static encoder enabled (held-out cosine min %.6f)",
                          self.gate_cosine)
             cache = self.cfg.get("int8_cache_dir")
-            if cache:
+            if cache and collectives.group_rank() == 0:
                 quant.save_quantized_tower(cache, qv, quant.route_family(self.int8_impl))
                 logging.info("validated quantized tower saved to %s", cache)
             return feats

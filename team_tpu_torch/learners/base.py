@@ -21,6 +21,8 @@ import torch
 
 from team_tpu_torch.config import Config
 from team_tpu_torch.data import ArrayLoader, DataManager, native_io
+from team_tpu_torch.parallel import collectives
+from team_tpu_torch.parallel.mesh import allgather_host_shards, host_shard_indices
 from team_tpu_torch.utils.phase_timer import phase
 from team_tpu_torch.utils.toolkit import accuracy, topk_accuracy
 
@@ -154,23 +156,34 @@ class BaseLearner:
 
     def _cached_features(self, ds, batch_size=EVAL_BATCH) -> np.ndarray:
         """Frozen features for every row of ``ds``, encoding only the rows the
-        run-wide cache does not hold yet."""
+        run-wide cache does not hold yet. Under several ranks the missing
+        rows (the same on every rank: the cache evolves deterministically)
+        are split over the ranks, each encodes its share, and the shares are
+        gathered into every rank's cache, so the run still encodes each image
+        once (``team_tpu/learners/base.py:186-238``)."""
         cache = getattr(self, "_feature_cache", None)
         if cache is None:
             cache = self._feature_cache = {}
         keys = self._feat_keys(ds)
-        missing = np.asarray([i for i, k in enumerate(keys) if k not in cache])
+        missing = np.asarray([i for i, k in enumerate(keys) if k not in cache], dtype=np.int64)
         if len(missing):
-            loader = self._loader(ds, batch_size=batch_size, indices=missing)
-            pending, rows = [], []
-            with phase("cache_fill_dispatch"):
-                for batch in loader:
-                    v = int(batch.get("valid", len(batch["label"])))
-                    pending.append((v, self.extract_vector(self.backbone.to_device(batch["image"]))))
-                    rows.append(batch["index"][:v])
+            multi = collectives.group_size() > 1
+            share = missing[host_shard_indices(len(missing))] if multi else missing
+            pending = []
+            if len(share):
+                loader = self._loader(ds, batch_size=batch_size, indices=share)
+                with phase("cache_fill_dispatch"):
+                    for batch in loader:
+                        v = int(batch.get("valid", len(batch["label"])))
+                        pending.append((v, self.extract_vector(
+                            self.backbone.to_device(batch["image"]))))
             with phase("cache_fill_fetch"):
-                feats = _gather_rows(pending)
-            for row, f in zip(np.concatenate(rows), feats):
+                feats = (_gather_rows(pending) if pending
+                         else np.zeros((0, self.feature_dim), np.float32))
+                if multi:
+                    feats = allgather_host_shards(feats, len(missing))
+            # the loader serves its rows in order, so feats[i] is missing[i]'s (or share[i]'s)
+            for row, f in zip(missing if multi else share, feats):
                 cache[keys[int(row)]] = f
         return np.stack([cache[k] for k in keys])
 

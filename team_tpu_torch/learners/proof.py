@@ -14,6 +14,14 @@ The epoch is a plain loop over batches, one optimizer step each; the last
 batch is padded and masked (``valid_mask``), as in the reference port. The
 TPU's ``lax.scan`` over power-of-two chunks of batches was a compile-time
 device and has no counterpart here.
+
+``mesh_shape`` lays the ranks out on a mesh (:mod:`team_tpu_torch.parallel`;
+one process per device): the state is replicated, each batch is padded to a
+multiple of the data axis (masked, never trimmed) and each rank steps on its
+rows of it (:func:`proof_net.train_step` under a data group, team_tpu's one
+global step), with the fusion dropout's keeps drawn for the global batch and
+sliced to the rank's rows; the frozen features are encoded over the ranks
+and gathered.
 """
 
 from __future__ import annotations
@@ -30,13 +38,16 @@ from team_tpu_torch.config import Config
 from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
 from team_tpu_torch.learners.base import EVAL_BATCH, BaseLearner
 from team_tpu_torch.learners.proof_net import (
-    ProofBuffers, ProofDims, TaskContext, eval_correct_scan, eval_logits,
+    DataShard, ProofBuffers, ProofDims, TaskContext, eval_correct_scan, eval_logits,
     init_buffers, init_proof_params, loss_kwargs, lr_schedule, make_optimizer, project_image,
     project_text, train_step, trainable_leaves)
 from team_tpu_torch.modules import lifecycle
 from team_tpu_torch.modules.evolution import (
     evolve_and_update, fuse_evolved_prototypes, sync_class_prototypes)
 from team_tpu_torch.modules.state_distance import StateDistanceMatrix
+from team_tpu_torch.parallel import collectives
+from team_tpu_torch.parallel.mesh import (
+    MeshContext, allgather_host_shards, host_shard_indices, make_mesh)
 from team_tpu_torch.utils.phase_timer import phase
 
 
@@ -116,10 +127,20 @@ class Learner(BaseLearner):
                                         float(self.backbone.logit_scale))
             tr, aux = tree_to(tr, self.device), tree_to(aux, self.device)
             buffers = init_buffers(self.dims, self.device)
+        # an optional mesh: state replicated (rank 0's), batches split over the
+        # data axis (replaces the reference's nn.DataParallel, proof.py:312-313)
+        self._mesh_ctx: Optional[MeshContext] = None
+        clip_shards = 1
+        if cfg.mesh_shape:
+            mesh = self._mesh_ctx = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names, cfg.device)
+            tr, aux = mesh.replicate(tr), mesh.replicate(aux)
+            buffers = mesh.replicate(buffers)
+            if not cfg.parity_mode and not cfg.global_clip_loss:
+                clip_shards = mesh.n_data  # fix mode: the per-shard contrastive loss
         for leaf in trainable_leaves(tr):
             leaf.requires_grad_(True)
         self.trainable, self.aux, self.buffers = tr, aux, buffers
-        self._loss_kwargs = loss_kwargs(cfg, self.dims)
+        self._loss_kwargs = loss_kwargs(cfg, self.dims, clip_shards)
 
     def _make_ctx(self) -> TaskContext:
         t = np.zeros(self.dims.max_tasks, np.float32)
@@ -217,9 +238,18 @@ class Learner(BaseLearner):
 
     def _dataset_features(self, ds, normalize: bool = False):
         """Frozen features, labels and stage ids of ``ds`` (through the
-        run-wide cache where the pipeline is deterministic)."""
+        run-wide cache where the pipeline is deterministic; there the cache
+        splits the encode over the ranks). Outside the cache, several ranks
+        each encode their interleaved share of the rows and the shares are
+        gathered back into dataset order on every rank."""
+        rows = None
+        if not self._cacheable(ds) and collectives.group_size() > 1:
+            rows = host_shard_indices(len(ds))
         feats, labels, stages = self._extract_vectors_with_states(
-            self._loader(ds, batch_size=EVAL_BATCH))
+            self._loader(ds, batch_size=EVAL_BATCH, indices=rows))
+        if rows is not None:
+            feats, labels, stages = (allgather_host_shards(a, len(ds))
+                                     for a in (feats, labels, stages))
         if normalize:
             feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
         return feats, labels, stages
@@ -244,6 +274,12 @@ class Learner(BaseLearner):
         k_full = -(-n // bs)  # the last batch is padded with row 0 and masked
         reencode_every = max(1, int(cfg.get("augment_reencode_every", 1)))
         keep_fn = getattr(self, "_keep_masks_override", None)
+        mesh, data = self._mesh_ctx, None
+        bs_eff, mine = bs, slice(None)
+        if mesh is not None and mesh.n_data > 1:
+            data = DataShard(mesh.data_group, mesh.data_rank, mesh.n_data)
+            bs_eff = -(-bs // mesh.n_data) * mesh.n_data  # the batch splits over the data axis
+            mine = mesh.data_rows(bs_eff)
         for epoch in range(self.tuned_epoch):
             if self._train_stochastic and epoch > 0 and epoch % reencode_every == 0:
                 self._train_feats = self._extract_vectors_with_states(self._stoch_loader)
@@ -254,22 +290,25 @@ class Learner(BaseLearner):
                 group["lr"] = lr_schedule(cfg, epoch)
             order = shuffle_rng.permutation(n)
             pad = k_full * bs - n
-            rows = to(np.concatenate([order, np.zeros(pad, dtype=order.dtype)]).astype(np.int64))
-            vmask = to(np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)]))
+            rows = np.concatenate([order, np.zeros(pad, dtype=order.dtype)]).astype(np.int64)
+            vmask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+            # [K, B], then the batch dim padded for the data axis (masked)
+            rows = to(np.pad(rows.reshape(k_full, bs), ((0, 0), (0, bs_eff - bs))))
+            vmask = to(np.pad(vmask.reshape(k_full, bs), ((0, 0), (0, bs_eff - bs))))
 
             pending_stats = []
             with phase("epoch_steps"):
                 for kb in range(k_full):
-                    idx = rows[kb * bs:(kb + 1) * bs]
+                    idx = rows[kb, mine]
                     batch = {"feat": feats_d[idx], "label": labels_d[idx],
-                             "stage_id": stages_d[idx], "valid_mask": vmask[kb * bs:(kb + 1) * bs]}
+                             "stage_id": stages_d[idx], "valid_mask": vmask[kb, mine]}
                     masks = keep_fn(self._cur_task, epoch, kb, k_full) if keep_fn else None
                     if masks is not None:
-                        masks = tuple(torch.as_tensor(np.asarray(m), device=self.device)
+                        masks = tuple(torch.as_tensor(np.asarray(m), device=self.device)[mine]
                                       for m in masks)
                     st = train_step(tr, opt, batch, self.ctx, self.buffers, epoch,
                                     self._loss_kwargs, keep_masks=masks,
-                                    generator=self._dropout_gen)
+                                    generator=self._dropout_gen, data=data)
                     pending_stats.append(torch.stack([st.total_loss, st.unicl_loss, st.ce_loss,
                                                       st.clip_loss, st.correct.float()]))
                 # one host fetch for the epoch's stats; an empty train set has none

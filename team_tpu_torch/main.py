@@ -3,7 +3,11 @@ a JSON experiment file, the JSON winning.
 
     python -m team_tpu_torch.main --config exps/synthetic_smoke.json --device 0
 
-``--device`` takes a CUDA device index or ``cpu``.
+``--device`` takes a CUDA device index or ``cpu``, or one per rank
+(``0,0``: two ranks share card 0). Data parallel over N ranks, one process
+per device (a config with ``"mesh_shape": [N]``):
+
+    torchrun --nproc_per_node N -m team_tpu_torch.main --config cfg.json
 """
 
 from __future__ import annotations

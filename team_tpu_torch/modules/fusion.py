@@ -54,12 +54,16 @@ def _dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
 def fusion_attention(params: Dict, x: torch.Tensor, key_mask: torch.Tensor, *, n_head: int = 1,
                      dropout_rate: float = 0.1, deterministic: bool = True,
                      keep_masks: Optional[KeepMasks] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     keep_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Self-attention over ``x: [B, S, D]`` with ``key_mask: [S]`` (1 = real
     token). Returns ``[B, S, D]``; positions whose key mask is 0 carry garbage
     that callers exclude. Training (``deterministic=False``) applies both
     dropouts with ``keep_masks`` when given, else with keeps drawn from
-    ``generator``."""
+    ``generator``. ``keep_shard=(rank, size)``: ``x`` is block ``rank`` of
+    ``size`` equal blocks of a global batch, so the keeps are drawn for the
+    global batch and this block's rows taken (the same draw however the
+    batch is split)."""
     d_k = params["w_qs"].shape[1] // n_head
     d_v = params["w_vs"].shape[1] // n_head
     b, s, d_model = x.shape
@@ -77,7 +81,9 @@ def fusion_attention(params: Dict, x: torch.Tensor, key_mask: torch.Tensor, *, n
     attn = torch.softmax(logits, dim=-1)
     train = not deterministic and dropout_rate > 0.0
     if train and keep_masks is None:
-        keep_masks = draw_keep_masks(b, s, d_model, n_head, dropout_rate, generator, x.device)
+        rank, size = keep_shard or (0, 1)
+        keep_masks = tuple(m[rank * b:(rank + 1) * b] for m in draw_keep_masks(
+            b * size, s, d_model, n_head, dropout_rate, generator, x.device))
     if train:
         attn = _dropout(attn, keep_masks[0], dropout_rate)
     out = torch.matmul(attn.to(v.dtype), v)

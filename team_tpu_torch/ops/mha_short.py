@@ -24,6 +24,12 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   split q ``[B, 1, D]`` and kv ``[B, S, 2*D]``), and sequence-major
   ``[S, B, 3*D]`` to ``[S, B, D]``; one CUDA kernel over strides,
   ``csrc/mha_packed_q3i.cu``.
+- ``fused_mha_packed_tp`` and ``fused_mha_packed_q3i_tp`` (``shard_map``
+  head splits of ``_mha_packed_kernel`` and ``_mha_packed_q3i_kernel``):
+  under a registered tensor-parallel layout (:func:`set_tp_mesh`) rank r of
+  nm computes heads ``[r·H/nm, (r+1)·H/nm)`` of the full packed qkv and
+  returns its ``[B, S, D/nm]`` slice; entries of ``csrc/mha_packed.cu`` and
+  ``csrc/mha_packed_q3i.cu`` that read the rank's heads in place.
 - ``fused_mha_packed_q`` and ``fused_mha_packed_q3`` (TPU kernels
   ``_mha_packed_q_kernel`` and ``_mha_packed_q3_kernel``): the same tier's
   int8-in, int8-out attention with per-channel dequant (in float32 and in
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -110,6 +116,10 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.team_mha_short_fwd.restype = ctypes.c_int
+    # qkv, out; dtype, batch, seq, heads_local, dh, rank, nm, kv_len, causal; scale; stream
+    lib.team_mha_packed_tp_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                                           + [ctypes.c_float, ctypes.c_void_p])
+    lib.team_mha_packed_tp_fwd.restype = ctypes.c_int
     lib.team_mha_packed_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.team_mha_packed_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -523,8 +533,12 @@ def _q3i_library() -> ctypes.CDLL:
                                                       + [ctypes.c_void_p] + ints + [ctypes.c_void_p])
     # qkv, deq, qk_scale, o_inv, out; ints; stream
     lib.team_mha_packed_q3i_sb_fwd.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
+    # qkv, vecs, out; batch, seq, heads_local, dh; rank, nm, kv_len, causal, exp2i, norm; stream
+    lib.team_mha_packed_q3i_tp_fwd.argtypes = ([ctypes.c_void_p] + vecs + [ctypes.c_void_p] + ints
+                                               + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     for entry in ("team_mha_packed_q3i_fwd", "team_mha_packed_q3i_cls_fwd",
-                  "team_mha_packed_q3i_cls_split_fwd", "team_mha_packed_q3i_sb_fwd"):
+                  "team_mha_packed_q3i_cls_split_fwd", "team_mha_packed_q3i_sb_fwd",
+                  "team_mha_packed_q3i_tp_fwd"):
         getattr(lib, entry).restype = ctypes.c_int
     lib.team_mha_packed_q3i_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.team_mha_packed_q3i_smem_bytes.restype = ctypes.c_size_t
@@ -644,6 +658,14 @@ def _q3i_launch(entry: str, inputs, vecs, out, batch: int, seq: int, heads: int,
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
 
+def _q3i_norm(pv_int8: bool, defer_norm: bool) -> int:
+    """The kernel's normalisation (enum Norm) for the wrapper's arguments and
+    ``TEAM_QI_ROWSUM``."""
+    if _q3i_rowsum() == "mxu" and not pv_int8:
+        return _NORM_MXU
+    return (_NORM_PV8 if pv_int8 else _NORM_REDUCE) + int(defer_norm)
+
+
 def fused_mha_packed_q3i(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
                          o_inv: torch.Tensor, heads: int, *, causal: bool = False,
                          kv_len: Optional[int] = None, qk_m2: Optional[torch.Tensor] = None,
@@ -671,10 +693,7 @@ def fused_mha_packed_q3i(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch
     if qkv_q.device.type == "cpu":
         return mha_packed_q3i_plain(qkv_q, *vecs[:3], heads, causal=causal, kv_len=kv_len,
                                     qk_m2=vecs[3], pv_int8=pv_int8, defer_norm=defer_norm)
-    if _q3i_rowsum() == "mxu" and not pv_int8:
-        norm = _NORM_MXU
-    else:
-        norm = (_NORM_PV8 if pv_int8 else _NORM_REDUCE) + int(defer_norm)
+    norm = _q3i_norm(pv_int8, defer_norm)
     b, s, d3 = qkv_q.shape
     out = torch.empty((b, s, d3 // 3), dtype=torch.int8, device=qkv_q.device)
     _q3i_launch("team_mha_packed_q3i_fwd", [qkv_q], vecs, out, b, s, heads,
@@ -751,6 +770,173 @@ fused_mha_packed_q3i.launches = 0
 fused_mha_packed_q3i_cls.launches = 0
 fused_mha_packed_q3i_cls_split.launches = 0
 fused_mha_packed_q3i_sb.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel head split (heads over the model axis of a registered layout)
+# ---------------------------------------------------------------------------
+
+_TP_MESH = None
+
+
+def set_tp_mesh(mesh) -> None:
+    """Register the tensor-parallel layout of :func:`fused_mha_packed_tp`,
+    :func:`fused_mha_packed_q3i_tp` and the towers' ``mha_packed_tp`` route:
+    an object with ``model_rank`` and ``n_model`` (this process's place on
+    the model axis and the axis size), such as
+    :class:`team_tpu_torch.parallel.mesh.MeshContext`. ``None`` clears it.
+    The registry keeps the towers' signatures free of the layout, as in
+    team_tpu (``mha_short.py:1230``)."""
+    global _TP_MESH
+    _TP_MESH = mesh
+
+
+def tp_mesh():
+    """The registered tensor-parallel layout, or ``None``."""
+    return _TP_MESH
+
+
+def tp_split(heads: int, d: int) -> Optional[Tuple[int, int]]:
+    """``(rank, nm)`` of the registered layout's model axis when the heads
+    split over it: a layout is registered, ``nm > 1`` and ``nm`` divides the
+    heads and ``D``. ``None`` otherwise: team_tpu's wrappers then run the
+    whole-head kernel (``mha_short.py:1258-1266``, ``:1314-1325``)."""
+    if _TP_MESH is None:
+        return None
+    nm = int(_TP_MESH.n_model)
+    if nm == 1 or heads % nm or d % nm:
+        return None
+    return int(_TP_MESH.model_rank), nm
+
+
+def _rank_columns(t: torch.Tensor, rank: int, nm: int, segments: int) -> torch.Tensor:
+    """The rank's columns of each of ``segments`` equal segments of the last
+    dim, side by side (its heads' q, k and v of a packed qkv)."""
+    seg = t.shape[-1] // segments
+    dm = seg // nm
+    return torch.cat([t[..., i * seg + rank * dm:i * seg + (rank + 1) * dm]
+                      for i in range(segments)], dim=-1)
+
+
+def mha_packed_tp_plain(qkv: torch.Tensor, heads: int, rank: int, nm: int, *,
+                        causal: bool = False, kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of rank ``rank``'s share of
+    :func:`fused_mha_packed_tp`: its heads' q, k and v sliced out of the full
+    packed ``[B, S, 3D]`` (team_tpu's ``dynamic_slice`` + ``concatenate``),
+    then :func:`mha_packed_reference` on ``heads/nm`` heads -> ``[B, S, D/nm]``."""
+    return mha_packed_reference(_rank_columns(qkv, rank, nm, 3), heads // nm, causal, kv_len)
+
+
+def fused_mha_packed_tp(qkv: torch.Tensor, heads: int, *, causal: bool = False,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """Tensor-parallel :func:`fused_mha_packed`: ``qkv`` is the full packed
+    ``[B, S, 3*D]``; rank r of the registered layout's nm model ranks
+    returns ``[B, S, D/nm]``, its heads ``[r·H/nm, (r+1)·H/nm)`` (the
+    ``P(data, None, model)`` shard, which the row-parallel out-projection
+    takes). The kernel reads the rank's heads in place. With no layout
+    registered, ``nm == 1`` or heads or D not divisible by nm, the
+    whole-head kernel runs and returns ``[B, S, D]``, as in team_tpu. Each
+    kernel launch adds one to ``fused_mha_packed_tp.launches``."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be [B, S, 3*D], got {tuple(qkv.shape)}")
+    b, s, d3 = qkv.shape
+    kv = kv_len if (kv_len is not None and kv_len < s) else None
+    shard = tp_split(heads, d3 // 3)
+    if shard is None:
+        return fused_mha_packed(qkv, heads, causal=causal, kv_len=kv)
+    rank, nm = shard
+    if kv is not None and kv < 1:
+        raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"qkv dtype {qkv.dtype} not supported (float32, bfloat16)")
+    if qkv.device.type == "cpu":
+        return mha_packed_tp_plain(qkv, heads, rank, nm, causal=causal, kv_len=kv)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_mha_packed_tp runs on CPU or CUDA tensors, got {qkv.device}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    hm, dm = heads // nm, d3 // 3 // nm
+    dh = dm // hm
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    lib = _library()
+    code = _DTYPE_CODES[qkv.dtype]
+    smem = lib.team_mha_packed_smem_bytes(code, s, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V "
+                         f"(limit {_SMEM_LIMIT})")
+    out = torch.empty((b, s, dm), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = lib.team_mha_packed_tp_fwd(
+            qkv.data_ptr(), out.data_ptr(), code, b, s, hm, dh, rank, nm,
+            s if kv is None else kv, int(causal), dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mha_packed_tp kernel launch failed: cudaError {err}")
+    fused_mha_packed_tp.launches += 1
+    return out
+
+
+def mha_packed_q3i_tp_plain(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                            o_inv: torch.Tensor, heads: int, rank: int, nm: int, *,
+                            causal: bool = False, kv_len: Optional[int] = None,
+                            qk_m2: Optional[torch.Tensor] = None, pv_int8: bool = False,
+                            defer_norm: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of rank ``rank``'s share of
+    :func:`fused_mha_packed_q3i_tp`: its heads' int8 q, k and v and the
+    matching slices of ``deq`` (its q, k and v segments), ``qk_scale``,
+    ``o_inv`` and ``qk_m2``, then :func:`mha_packed_q3i_plain` on
+    ``heads/nm`` heads -> int8 ``[B, S, D/nm]``."""
+    hm = heads // nm
+    m2 = None if qk_m2 is None else qk_m2.reshape(-1)[rank * hm:(rank + 1) * hm]
+    return mha_packed_q3i_plain(
+        _rank_columns(qkv_q, rank, nm, 3), _rank_columns(deq.reshape(-1), rank, nm, 3),
+        qk_scale.reshape(-1)[rank * hm:(rank + 1) * hm], _rank_columns(o_inv.reshape(-1), rank, nm, 1),
+        hm, causal=causal, kv_len=kv_len, qk_m2=m2, pv_int8=pv_int8, defer_norm=defer_norm)
+
+
+def fused_mha_packed_q3i_tp(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
+                            o_inv: torch.Tensor, heads: int, *, causal: bool = False,
+                            kv_len: Optional[int] = None, pv_int8: bool = False,
+                            defer_norm: bool = False,
+                            qk_m2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tensor-parallel :func:`fused_mha_packed_q3i`: the full int8 packed
+    ``[B, S, 3*D]`` and the full scale vectors in; rank r of the registered
+    layout's nm model ranks returns int8 ``[B, S, D/nm]``, its heads with
+    their slices of ``deq``, ``qk_scale``, ``o_inv`` and ``qk_m2`` (the
+    kernel reads them through pointers offset to its heads). Every mode and
+    knob of :func:`fused_mha_packed_q3i`. With no layout registered,
+    ``nm == 1`` or heads or D not divisible by nm, the whole-head kernel runs
+    and returns ``[B, S, D]``, as in team_tpu. Each kernel launch adds one to
+    ``fused_mha_packed_q3i_tp.launches``."""
+    s = qkv_q.shape[1] if qkv_q.dim() == 3 else 0
+    kv = kv_len if (kv_len is not None and kv_len < s) else None
+    shard = tp_split(heads, qkv_q.shape[-1] // 3) if qkv_q.dim() == 3 else None
+    if shard is None:
+        return fused_mha_packed_q3i(qkv_q, deq, qk_scale, o_inv, heads, causal=causal, kv_len=kv,
+                                    qk_m2=qk_m2, pv_int8=pv_int8, defer_norm=defer_norm)
+    rank, nm = shard
+    if kv is not None and kv < 1:
+        raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
+    softmax = _q3i_softmax(qk_m2, causal or kv is not None)
+    vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if softmax == "static" else None,
+                         heads)
+    if qkv_q.device.type == "cpu":
+        return mha_packed_q3i_tp_plain(qkv_q, *vecs[:3], heads, rank, nm, causal=causal,
+                                       kv_len=kv, qk_m2=vecs[3], pv_int8=pv_int8,
+                                       defer_norm=defer_norm)
+    b, s, d3 = qkv_q.shape
+    hm = heads // nm
+    out = torch.empty((b, s, d3 // 3 // nm), dtype=torch.int8, device=qkv_q.device)
+    _q3i_launch("team_mha_packed_q3i_tp_fwd", [qkv_q], vecs, out, b, s, hm, rank, nm,
+                s if kv is None else kv, int(causal), int(softmax == "exp2i"),
+                _q3i_norm(pv_int8, defer_norm))
+    fused_mha_packed_q3i_tp.launches += 1
+    return out
+
+
+fused_mha_packed_tp.launches = 0
+fused_mha_packed_q3i_tp.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -894,3 +1080,5 @@ def reset_launch_counts() -> None:
     fused_mha_packed_q3i_sb.launches = 0
     fused_mha_packed_q.launches = 0
     fused_mha_packed_q3.launches = 0
+    fused_mha_packed_tp.launches = 0
+    fused_mha_packed_q3i_tp.launches = 0

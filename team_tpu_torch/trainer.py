@@ -5,7 +5,12 @@ then per task ``incremental_train`` -> ``eval_task`` -> ``after_task`` (and,
 for PROOF, the state-distance update and, under ``enable_plots``, the
 distance-matrix plot), the top-1 and top-"5" curves, the running average and
 ``metrics.jsonl``. The ``topk=4`` metric is reported as "top5", as the
-reference does.
+reference does. Under ``torchrun`` (or a process group joined before) every
+rank runs the protocol on its device, the learners split their work over the
+ranks by ``mesh_shape``, and only rank 0 logs and writes ``metrics.jsonl``,
+as team_tpu's process 0 does:
+
+    torchrun --nproc_per_node 2 -m team_tpu_torch.main --config cfg.json  # "mesh_shape": [2]
 """
 
 from __future__ import annotations
@@ -23,18 +28,18 @@ from team_tpu_torch.backbone.clip import Params
 from team_tpu_torch.config import Config
 from team_tpu_torch.data import DataManager
 from team_tpu_torch.learners.factory import get_model
+from team_tpu_torch.parallel import collectives
+from team_tpu_torch.parallel.layout import resolve_device
+from team_tpu_torch.parallel.mesh import maybe_init_distributed
 from team_tpu_torch.utils.phase_timer import phase
 from team_tpu_torch.utils.toolkit import (
-    count_parameters, describe_devices, resolve_device, set_random, setup_logging)
+    count_parameters, describe_devices, set_random, setup_logging, world_rank)
 
 
 def _check_supported(cfg: Config) -> None:
     if cfg.checkpoint_dir:
         raise NotImplementedError(
             "checkpoint_dir: per-task checkpoints are not ported yet (ROADMAP queue 1 item 11)")
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            "mesh_shape: data and tensor parallelism are not ported yet (ROADMAP queue 1 item 10)")
 
 
 @contextlib.contextmanager
@@ -79,9 +84,10 @@ def train(cfg: Config, clip_params: Optional[Params] = None,
 def _train(cfg: Config, clip_params: Optional[Params],
            proof_state: Optional[Dict[str, Any]]) -> Dict[str, List[float]]:
     _check_supported(cfg)
+    maybe_init_distributed(cfg.device)
     logs_name = setup_logging(cfg)
     set_random(cfg.seed[0])
-    describe_devices(resolve_device(cfg.device))
+    describe_devices(resolve_device(cfg.device), collectives.describe())
     for key, value in cfg.to_dict().items():
         logging.info("%s: %s", key, value)
 
@@ -135,6 +141,8 @@ def _train(cfg: Config, clip_params: Optional[Params],
         avg_acc = sum(cnn_curve["top1"]) / len(cnn_curve["top1"])
         logging.info("average accuracy: %.4f", avg_acc)
 
+        if world_rank() != 0:  # rank 0 writes the run's files
+            continue
         if cfg.enable_plots and hasattr(model, "state_distance"):
             try:
                 from team_tpu_torch.analysis.plots import visualize_distance_matrix

@@ -1,8 +1,8 @@
 """Metric and utility helpers.
 
 Counterpart of ``team_tpu/utils/toolkit.py`` (which imports jax, so the
-numpy metrics are repeated here unchanged), plus the device helpers that
-replace ``team_tpu/parallel/mesh.py:describe_devices``.
+numpy metrics are repeated here unchanged), plus the log line that
+replaces ``team_tpu/parallel/mesh.py:describe_devices``.
 """
 
 from __future__ import annotations
@@ -75,18 +75,24 @@ def set_random(seed: int = 1) -> None:
 
 
 def setup_logging(cfg) -> str:
-    """Timestamped file+stdout logging; returns the run's log directory."""
+    """Timestamped file+stdout logging; returns the run's log directory. Under
+    several ranks only rank 0 writes the log file and logs below WARNING, as
+    team_tpu's process 0 does."""
     init_cls = 0 if cfg.init_cls == cfg.increment else cfg.init_cls
     logs_name = os.path.join(cfg.log_dir, cfg.model_name, cfg.dataset, str(init_cls), str(cfg.increment))
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    if world_rank() != 0:
+        logging.basicConfig(level=logging.WARNING, format="%(asctime)s [%(filename)s] => %(message)s",
+                            handlers=[logging.StreamHandler(sys.stdout)])
+        return logs_name
     os.makedirs(logs_name, exist_ok=True)
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     seed = cfg.seed[0] if isinstance(cfg.seed, (list, tuple)) else cfg.seed
     logfilename = os.path.join(
         logs_name, "{}_{}_{}_{}".format(cfg.prefix, seed, cfg.convnet_type, timestamp)
     )
-    root = logging.getLogger()
-    for h in list(root.handlers):
-        root.removeHandler(h)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s [%(filename)s] => %(message)s",
@@ -98,29 +104,22 @@ def setup_logging(cfg) -> str:
     return logs_name
 
 
-def resolve_device(device: Any) -> torch.device:
-    """The config's ``device`` (``[0]``, ``0``, ``"cuda:1"``, ``["cpu"]``) as a
-    ``torch.device``. A CUDA device raises when CUDA is absent: the CPU is
-    used only when asked for by name."""
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise NotImplementedError(
-                f"device={list(device)}: more than one device is the parallel port "
-                "(ROADMAP queue 1 item 10)")
-        device = device[0]
-    dev = torch.device("cuda", int(device)) if isinstance(device, int) or str(device).isdigit() \
-        else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available; "
-                           "pass device 'cpu' to run on the CPU")
-    return dev
+def world_rank() -> int:
+    """This process's rank in the joined process group (0 when there is none)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def describe_devices(device: torch.device) -> str:
+def describe_devices(device: torch.device, layout: str = "") -> str:
+    """One log line: this rank's device and ``layout`` (the world, the
+    collectives' backend and their transport, when ranks are joined)."""
     if device.type == "cuda":
         txt = (f"{torch.cuda.device_count()} device(s): cuda, running on {device} "
                f"({torch.cuda.get_device_name(device)})")
     else:
         txt = f"running on {device}"
+    if layout:
+        txt += "; " + layout
     logging.info(txt)
     return txt

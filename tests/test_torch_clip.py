@@ -132,19 +132,16 @@ def test_preprocess_refuses_a_resize():
 
 
 @pytest.mark.parametrize("impl", ["attn_block", "mha_packed_proj", "mha_packed_tp", "pallas", "mha_short"])
-def test_unported_attention_routes_raise(impl):
-    """The route still to port (``mha_packed_tp``, the head split over a mesh)
-    raises. The ported ones (flash, pre-split, fused out-projection, fused
-    sub-block: their plain versions on the CPU) give the plain route's
-    features in float32, where the kernels' single roundings and the plain
-    route's agree to the sums' order."""
+def test_ported_attention_routes_match_plain(impl):
+    """Every route gives the plain route's features in float32, where the
+    kernels' single roundings and the plain route's agree to the sums'
+    order: flash, pre-split, fused out-projection, fused sub-block (their
+    plain versions on the CPU), and ``mha_packed_tp`` with no
+    tensor-parallel layout registered, which runs the packed kernel, as
+    team_tpu's ``fused_mha_packed_tp`` falls back (``mha_short.py:1258``)."""
     _, tcfg = _tiny()
     tp = tclip.init_clip_params(torch.Generator().manual_seed(0), tcfg)
     images = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
-    if impl != "mha_packed_tp":
-        torch.testing.assert_close(tclip.encode_image(tp, images, tcfg, attn_impl=impl),
-                                   tclip.encode_image(tp, images, tcfg, attn_impl="xla"),
-                                   rtol=1e-5, atol=1e-5)
-        return
-    with pytest.raises(NotImplementedError):
-        tclip.encode_image(tp, images, tcfg, attn_impl=impl)
+    torch.testing.assert_close(tclip.encode_image(tp, images, tcfg, attn_impl=impl),
+                               tclip.encode_image(tp, images, tcfg, attn_impl="xla"),
+                               rtol=1e-5, atol=1e-5)

@@ -32,7 +32,9 @@ same products in the same order) and bfloat16 one bf16 step (2^-7) of the
 output, ``gelu_quant`` and the dynamic layer norm -> int8 kernel to one int8
 step on under 1 % of the outputs with scales within 1e-6 relative, the 3-D
 static producer bit for bit the 2-D one; the image and text towers on the
-``hybrid`` and ``pallas`` tiers as on the static routes."""
+``hybrid`` and ``pallas`` tiers as on the static routes; the head-split
+kernels, each rank as its whole-head kernel against the plain version, and
+the ranks side by side equal to the whole-head kernel bit for bit."""
 
 import math
 
@@ -167,7 +169,7 @@ def test_int8_tower_through_the_kernels_matches_plain_attention(cuda_device, mon
     got = tquant.encode_image_int8(qv, images, cfg).double()
     assert (fused_mha_packed_q3i.launches - before[0],
             fused_mha_packed_q3i_cls.launches - before[1]) == (cfg.vision.layers - 1, 1)
-    monkeypatch.setattr(tquant, "fused_mha_packed_q3i",
+    monkeypatch.setattr(tquant, "fused_mha_packed_q3i_tp",
                         lambda qkv, deq, qks, oinv, h, qk_m2=None, **kw:
                         mha_packed_q3i_reference(qkv, deq, qks, oinv, h, qk_m2=qk_m2))
     monkeypatch.setattr(tquant, "fused_mha_packed_q3i_cls",
@@ -634,7 +636,7 @@ def test_new_routes_through_the_kernels_match_plain_versions(cuda_device, monkey
     got = tquant.encode_image_int8(qv, images, cfg, gemm_impl=route, cls_last=cls_last).double()
     torch.cuda.synchronize()
     assert tuple(c.launches - n for c, n in zip(counters, before)) == per_encode(cfg.vision.layers)
-    for name, plain in (("fused_mha_packed_q3i", tms.mha_packed_q3i_plain),
+    for name, plain in (("fused_mha_packed_q3i_tp", tms.mha_packed_q3i_plain),
                         ("fused_mha_packed_q3i_cls", tms.mha_packed_q3i_cls_plain),
                         ("fused_mha_packed_q3i_cls_split", tms.mha_packed_q3i_cls_split_plain),
                         ("fused_mha_packed_q3i_sb", tms.mha_packed_q3i_sb_reference),
@@ -797,3 +799,61 @@ def test_dynamic_tiers_through_the_kernels_match_plain_versions(cuda_device, mon
     err = (got - want).abs().max().item()
     rms = want.pow(2).mean().sqrt().item()
     assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (tier, tower, cos, err, rms)
+
+
+# -- the tensor-parallel head split: rank r of nm computes its heads of the full packed qkv --
+
+class _Layout:
+    def __init__(self, rank, nm):
+        self.model_rank, self.n_model = rank, nm
+
+
+def _ranks(fn, nm):
+    outs = []
+    try:
+        for r in range(nm):
+            tms.set_tp_mesh(_Layout(r, nm))
+            outs.append(fn(r))
+    finally:
+        tms.set_tp_mesh(None)
+    return outs
+
+
+@pytest.mark.parametrize("nm", [2, 4])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,causal", [(128, 197, 12, False), (32, 77, 8, True)])
+def test_mha_packed_tp_kernel_matches_plain_and_the_whole_head_kernel(cuda_device, dtype, atol,
+                                                                      b, s, h, causal, nm):
+    """Each rank's kernel against its plain version; the ranks side by side
+    are the whole-head kernel's output bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((b, s, 3 * h * 64), generator=g, device=cuda_device).to(dtype)
+    launches = tms.fused_mha_packed_tp.launches
+    outs = _ranks(lambda r: tms.fused_mha_packed_tp(x, h, causal=causal), nm)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_packed_tp.launches == launches + nm
+    for r, out in enumerate(outs):
+        assert out.dtype == dtype and out.shape == (b, s, h * 64 // nm)
+        torch.testing.assert_close(out.float(), tms.mha_packed_tp_plain(
+            x, h, r, nm, causal=causal).float(), rtol=0, atol=atol)
+    assert torch.equal(torch.cat(outs, dim=-1), fused_mha_packed(x, h, causal=causal))
+
+
+@pytest.mark.parametrize("nm", [2, 4])
+@pytest.mark.parametrize("mode", ["static", "rowmax", "causal", "pv_int8", "reduce_defer"])
+def test_q3i_tp_kernel_matches_plain_and_the_whole_head_kernel(cuda_device, monkeypatch, nm, mode):
+    b, s, h = (32, 77, 8) if mode == "causal" else (128, 197, 12)
+    qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, cuda_device, seed=4)
+    kw = {"qk_m2": m2 if mode == "static" else None, "causal": mode == "causal",
+          "pv_int8": mode == "pv_int8", "defer_norm": mode == "reduce_defer"}
+    if mode == "reduce_defer":
+        monkeypatch.setenv("TEAM_QI_ROWSUM", "reduce")
+    launches = tms.fused_mha_packed_q3i_tp.launches
+    outs = _ranks(lambda r: tms.fused_mha_packed_q3i_tp(qkv, deq, qks, oinv, h, **kw), nm)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_packed_q3i_tp.launches == launches + nm
+    limit = pv_int8_limit(deq, oinv) if mode == "pv_int8" else 1
+    for r, out in enumerate(outs):
+        assert_within_one_int8_step(out, tms.mha_packed_q3i_tp_plain(qkv, deq, qks, oinv, h, r, nm,
+                                                                     **kw), limit)
+    assert torch.equal(torch.cat(outs, dim=-1), fused_mha_packed_q3i(qkv, deq, qks, oinv, h, **kw))

@@ -216,7 +216,7 @@ def test_tower_launches_q3i_per_block(setup):
     """On the CPU nothing is launched; the block structure is counted by
     wrapping the two wrappers."""
     calls = {"full": 0, "cls": 0}
-    orig = (tq.fused_mha_packed_q3i, tq.fused_mha_packed_q3i_cls)
+    orig = (tq.fused_mha_packed_q3i_tp, tq.fused_mha_packed_q3i_cls)
 
     def full(*a, **k):
         calls["full"] += 1
@@ -229,7 +229,7 @@ def test_tower_launches_q3i_per_block(setup):
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, SZ, SZ, 3)).astype(np.float32))
     mp = pytest.MonkeyPatch()
     with mp.context() as m:
-        m.setattr(tq, "fused_mha_packed_q3i", full)
+        m.setattr(tq, "fused_mha_packed_q3i_tp", full)
         m.setattr(tq, "fused_mha_packed_q3i_cls", cls)
         tq.encode_image_int8(setup["tqv"], x, CFG)
         assert calls == {"full": CFG.vision.layers - 1, "cls": 1}

@@ -239,7 +239,7 @@ def test_route_features_match_jax_on_uint8_ingest(setup, route, cls_last, ingest
                                    cls_last=cls_last))
 
 
-COUNTED = ("fused_mha_packed_q3i", "fused_mha_packed_q3i_cls", "fused_mha_packed_q3i_cls_split",
+COUNTED = ("fused_mha_packed_q3i_tp", "fused_mha_packed_q3i_cls", "fused_mha_packed_q3i_cls_split",
            "fused_mha_packed_q3i_sb", "_cls_attn_q3i", "attention_core")
 
 
@@ -274,7 +274,7 @@ def test_route_calls_its_attention_in_every_block(setup, monkeypatch, route, cls
     def counting(name, fn):
         def wrapped(*a, **k):
             calls[name] += 1
-            if name == "fused_mha_packed_q3i":
+            if name == "fused_mha_packed_q3i_tp":
                 seen_kw.append(k)
             return fn(*a, **k)
         return wrapped

@@ -309,7 +309,7 @@ COUNTED = ("ln_quantize_static", "row_quant_static", "fused_mha_packed_q", "fuse
 def test_route_calls_its_kernels_in_every_block(setup, route):
     """On the CPU nothing is launched; the calls are counted by wrapping the
     wrappers that ``quant`` calls. Every block runs in full: no CLS-last form."""
-    calls = dict.fromkeys(COUNTED + ("fused_mha_packed_q3i", "fused_mha_packed_q3i_cls"), 0)
+    calls = dict.fromkeys(COUNTED + ("fused_mha_packed_q3i_tp", "fused_mha_packed_q3i_cls"), 0)
 
     def counting(name, fn):
         def wrapped(*a, **k):
@@ -328,7 +328,7 @@ def test_route_calls_its_kernels_in_every_block(setup, route):
         tq.encode_image_int8(setup["tqv"], x, CFG, gemm_impl=route, cls_last="kq")
     layers = CFG.vision.layers
     assert [calls[n] for n in COUNTED] == [layers * c for c in PER_BLOCK[route]]
-    assert calls["fused_mha_packed_q3i"] == calls["fused_mha_packed_q3i_cls"] == 0
+    assert calls["fused_mha_packed_q3i_tp"] == calls["fused_mha_packed_q3i_cls"] == 0
     assert (tim.ln_quantize_static.launches, tim.row_quant_static.launches,
             tms.fused_mha_packed_q.launches, tms.fused_mha_packed_q3.launches,
             tms.fused_mha_packed.launches) == launches

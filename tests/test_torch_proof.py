@@ -169,9 +169,15 @@ def test_clip_loss_matches_jax():
     _close(tclip.clip_loss(torch.from_numpy(img), torch.from_numpy(txt), torch.tensor(14.3),
                            valid_mask=torch.from_numpy(vm)),
            tclip.clip_loss(torch.from_numpy(img[:4]), torch.from_numpy(txt[:4]), torch.tensor(14.3)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tclip.clip_loss(torch.from_numpy(img), torch.from_numpy(txt), torch.tensor(1.0),
-                        axis_name="data")
+    # the global-batch form with no process group joined gathers over a world
+    # of one: the single-shard loss (tests/test_torch_parallel.py holds it
+    # against team_tpu's shard_map over two ranks)
+    for mask in (None, vm):
+        m = None if mask is None else torch.from_numpy(mask)
+        _close(tclip.clip_loss(torch.from_numpy(img), torch.from_numpy(txt), torch.tensor(14.3),
+                               axis_name="data", valid_mask=m),
+               jclip_loss(jnp.asarray(img), jnp.asarray(txt), jnp.asarray(14.3),
+                          valid_mask=None if mask is None else jnp.asarray(mask)))
 
 
 @pytest.mark.parametrize("case", ["plain", "evolution", "padded"])

@@ -295,13 +295,16 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
     pytest.param({"encoder_quant": "int8_static", "attention_impl": "xla",
                   "extras": {"int8_gemm_impl": "hybrid"}}, {}, None, id="int8_hybrid"),
     pytest.param({"checkpoint_dir": "ckpt"}, {}, NotImplementedError, id="checkpoint_dir"),
-    pytest.param({"mesh_shape": [2]}, {}, NotImplementedError, id="mesh_shape"),
+    # ported: PROOF lays its mesh over the launched ranks, one device each, so a
+    # 2-rank mesh in one process raises (tests/test_torch_parallel.py runs two)
+    pytest.param({"model_name": "proof", "mesh_shape": [2]}, {}, ValueError, id="mesh_shape"),
     # a checkpoint file that exists (written under tmp_path): the loader is not ported
     pytest.param({}, {"TEAM_CLIP_CHECKPOINT": "<tmp>/clip.pt"}, NotImplementedError,
                  id="clip_checkpoint"),
 ])
 def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
-    """Each option the port lacks raises. ``int8_gemm_impl="hybrid"`` is
+    """Each option the port lacks raises, and so does a mesh larger than the
+    launched world. ``int8_gemm_impl="hybrid"`` is
     ported: SimpleCIL through both trainers on it, with ``attention_impl=
     "xla"`` on both sides (ROADMAP 3.10) and team_tpu's kernels of the tier
     in interpret mode; both gate the static payload through the tier, both

@@ -36,7 +36,18 @@ Phases, one line or more each:
      bf16 and f32) and of fused_mha_packed_q3i_tp (the vision shape in every
      mode of the q3i kernel, the causal text shape) against its plain
      version, and the ranks side by side against the whole-head kernels bit
-     for bit
+     for bit; the v2 pre-split attention (#4) at the vision shape in bf16 and
+     f32, both exp dtypes, every key and kv_len < S (f32 within 1e-5, bf16
+     within two bf16 steps of |ref| plus one of its row's largest |ref| plus
+     1e-5), and on bf16 inputs its two
+     switches shown to take effect (deferred normalise against #3, bf16 exp
+     against f32 exp); each q3i decomposition variant (#29) on the probe's
+     inputs at B=128 with o_inv 20-60 and 0.5-2, one int8 step on under 1 %
+     (copy bit for bit; the float outputs checked finite first); the probe
+     paths' kernels at the probes' own shapes and inputs (B=256): #3 and each
+     #4 implementation of attn_shootout on its first two layers' inputs (as
+     v2), each #29 variant on r4_attn_decomp's first layer; the u8
+     normalize (#26) bit for bit over every u8 value and at B=128, 224^2
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
      kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
@@ -44,7 +55,9 @@ Phases, one line or more each:
      rank's head views, one rank's launch timed), timed with CUDA
      events over calls queued behind a device spin (device time, not the
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
-     peak of their type) computed from the same inputs
+     peak of their type) computed from the same inputs; #4 (f32 and bf16 exp)
+     against SDPA, #29's variants (copy against qkv[..., :D].contiguous()),
+     #26 with the torch composition of its arithmetic as context
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -84,7 +97,15 @@ Phases, one line or more each:
      device's, cosine >= 0.999) and the int8 static3d_qi tower under it
      (q3i attention through fused_mha_packed_q3i_tp, 12 launches an int8
      encode, the ranks' gates identical and committed, features against one
-     device's on the same payload)
+     device's on the same payload); the probe entry points, each with the
+     counts zeroed before it: team_tpu_torch.scripts.attn_shootout (MODE all,
+     then qpad128; B=256) must launch #4, team_tpu_torch.scripts.r4_attn_decomp
+     (B=256) every #29 variant, and #26 through the library API at B=128 once;
+     then the repairs: the bicubic resize on the card against the CPU (32->224
+     up, 256x320->224 down, within 1e-5) and the open_clip loader at ViT-B/16
+     width (a seeded synthetic .npz through TEAM_CLIP_CHECKPOINT; the tree
+     equal to the source arrays, the runtime and one encode equal to
+     params=, and FileNotFoundError without allow_byte_tokenizer)
   6. features against the plain-attention towers (packed and flash routes)
      and against the bf16 tower on a small batch, each int8 route against
      itself with the plain versions of its kernels (same payload, same card),
@@ -134,7 +155,7 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
 }
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
 SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
-           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu")
+           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu")
 # flash attention: (batch, heads, seq, causal, kv_len); vision and text are
 # the towers' shapes on the main path, S=577 a shape the auto route sends to it
 FLASH_SHAPES = {"vision": (128, 12, 197, False, None), "text": (32, 8, 77, True, 77),
@@ -2461,6 +2482,514 @@ def parallel_worker(rank: int, world: int, init: str, out_dir: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# #4 fused_mha_short_v2, #29 the q3i decomposition variants,
+# #26 normalize_uint8_kernel, their entry points, and the repairs of faults
+# 3.2 (bicubic resize) and 3.8 (the open_clip loader, require_bpe)
+# ---------------------------------------------------------------------------
+
+V2_CASES = ((None,), (150,))  # kv_len at the vision shape: every key, and keys >= 150 masked
+V2_STEPS = 2  # bf16 #3/#4 on the probe paths and #4 at the vision shape: bf16 steps of |ref|
+VARIANT_OINV = {"script": (20.0, 60.0), "unclipped": (0.5, 2.0)}  # o_inv ranges the variants are held at
+RESIZE_TOL = 1e-5  # the resize on the card against the CPU (float32 contractions in another order)
+RESIZE_CASES = (((4, 32, 32, 3), "up 32->224"), ((4, 256, 320, 3), "down 256x320->224"))
+
+
+def v2_inputs(b, h, s, dtype, dev, seed=0, dh=64):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, h, s, dh), generator=g, device=dev).to(dtype) for _ in range(3)]
+
+
+def _bf16_step(x):
+    """One bf16 step (unit in the last place) at each ``x >= 0``."""
+    import torch
+
+    _, expo = torch.frexp(x.clamp_min(2.0 ** -126))  # x = m 2^e, m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(x), expo - 8)
+
+
+def _check_bf16_steps(name: str, out, ref) -> float:
+    """max |out - ref| of a bfloat16 attention output ``[..., Dh]``; raises
+    past V2_STEPS bf16 steps of |ref|, plus one step of the largest |ref| in
+    its row, plus float32's 1e-5. The row's step covers a probability p_j
+    rounded to bf16 on the other side of an edge (its f32 value one ulp
+    apart, the exp or the sum in another order): that moves each output of
+    the row by at most 2^-8 p_j |v_j|, which small outputs of a row of
+    near-uniform p (the probes' inputs) do not cover by their own steps."""
+    r = ref.float()
+    err = (out.float() - r).abs()
+    own = TOL["torch.float32"] + V2_STEPS * _bf16_step(r.abs())
+    limit = own + _bf16_step(r.abs().amax(dim=-1, keepdim=True))
+    worst = err.max().item()
+    past_own = 100 * (err > own).float().mean().item()
+    print(f"  {name} torch.bfloat16: max_abs_err={worst:.3e}, {past_own:.4f} % of outputs past "
+          f"{V2_STEPS} steps of |ref|, worst at {(err / limit).max().item():.3f} of the limit "
+          f"(tol {V2_STEPS} steps of |ref| + one step of the row's max |ref| + "
+          f"{TOL['torch.float32']:g})")
+    if out.shape != ref.shape or not math.isfinite(worst) or bool((err > limit).any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def _check_switch(switch: str, out, without, ref) -> None:
+    """A template switch of ``attend_rows`` takes effect: the bf16 kernel's
+    output with it differs from its output without it, and fewer of its
+    outputs differ from the plain version of the switched arithmetic."""
+    import torch
+
+    differ = (out != ref).float().mean().item()
+    differ_without = (without != ref).float().mean().item()
+    print(f"  switch {switch}: {100 * differ:.4f} % of the outputs differ from its plain version "
+          f"with it, {100 * differ_without:.4f} % without it")
+    if torch.equal(out, without) or not differ < differ_without:
+        raise AssertionError(f"the kernel's {switch} switch does not take effect")
+
+
+def compare_v2(ms, dev) -> float:
+    """#4 against its plain version at the vision shape, bf16 and f32, both
+    exp dtypes, every key and kv_len < S (f32 within 1e-5; bf16 as
+    :func:`_check_bf16_steps`). On bf16 inputs each switch
+    must show: the deferred normalise against #3 (the same kernel without
+    it), the bf16 exp against the f32 exp."""
+    import torch
+
+    b, s, h, _ = MAIN_SHAPES["vision"]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = v2_inputs(b, h, s, dtype, dev)
+        for (kv_len,) in V2_CASES:
+            outs = {}
+            for exp_dtype in (torch.float32, torch.bfloat16):
+                out = ms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=exp_dtype)
+                ref = ms.mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+                torch_sync()
+                name = f"fused_mha_short_v2 B={b} H={h} S={s} kv_len={kv_len} exp {exp_dtype}"
+                worst = max(worst, _check_bf16_steps(name, out, ref) if dtype == torch.bfloat16
+                            else _check_close(name, out, ref, dtype))
+                outs[exp_dtype] = out, ref
+            if dtype == torch.bfloat16:
+                v1 = ms.fused_mha_short(q, k, v, kv_len)
+                torch_sync()
+                _check_switch(f"DEFER (kv_len={kv_len})", outs[torch.float32][0], v1,
+                              outs[torch.float32][1])
+                _check_switch(f"BF16_EXP (kv_len={kv_len})", outs[torch.bfloat16][0],
+                              outs[torch.float32][0], outs[torch.bfloat16][1])
+    return worst
+
+
+def _variant_inputs(r4, dev, oinv_range):
+    """The probe's inputs at the vision batch, o_inv drawn in ``oinv_range``."""
+    import torch
+
+    qkv, qks, qkm2, oinv = r4.make_inputs(MAIN_SHAPES["vision"][0], dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    lo, hi = oinv_range
+    return qkv, qks, qkm2, torch.rand(oinv.shape, generator=g, device=dev) * (hi - lo) + lo
+
+
+def _check_variant(ms, name: str, qkv, qks, qkm2, oinv, heads: int, variant: str) -> int:
+    """One #29 variant against its plain version: copy bit for bit, the
+    others at most one int8 step on under 1 % of the outputs, their float
+    outputs before rounding checked finite first (so no comparison rests on
+    converting inf or NaN to int8)."""
+    import torch
+
+    out = ms.fused_mha_q3i_variant(qkv, qks, qkm2, oinv, heads, variant)
+    ref = ms.mha_q3i_variant_reference(qkv, qks, qkm2, oinv, heads, variant)
+    torch_sync()
+    if variant == "copy":
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name}: the copy differs from q")
+        print(f"  {name}: bit for bit (tolerance 0)")
+        return 0
+    before = ms.mha_q3i_variant_float(qkv, qks, qkm2, oinv, heads, variant)
+    if not bool(torch.isfinite(before).all()):
+        raise AssertionError(f"{name}: the plain float output is not finite")
+    saturated = (ref.abs() == 127).float().mean().item()
+    return _int8_disagreement(f"{name} ({100 * saturated:.1f} % at +-127)", out, ref)
+
+
+def compare_q3i_variants(ms, dev) -> dict:
+    """Each #29 variant against its plain version (:func:`_check_variant`) on
+    the probe's inputs at the vision batch, with the script's o_inv (20-60,
+    where full saturates most outputs) and with o_inv 0.5-2 (most not
+    clipped)."""
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    worst = dict.fromkeys(ms.Q3I_VARIANTS, 0)
+    for label, rng in VARIANT_OINV.items():
+        qkv, qks, qkm2, oinv = _variant_inputs(r4, dev, rng)
+        for variant in ms.Q3I_VARIANTS:
+            name = f"q3i variant {variant} B={qkv.shape[0]} S={r4.S} H={r4.H} o_inv {label}"
+            worst[variant] = max(worst[variant], _check_variant(ms, name, qkv, qks, qkm2, oinv,
+                                                                r4.H, variant))
+    return worst
+
+
+def compare_probe_shapes(ms, dev) -> dict:
+    """The kernels of the two probe paths at the probes' own shapes and
+    inputs (B=256), against their plain versions. attn_shootout: each of its
+    kernel implementations (MODE all and qpad128) on the inputs of its first
+    two chained layers, the probe's first input and tanh of the kernel's
+    output on it (v1 and v2 as :func:`_check_bf16_steps`).
+    r4_attn_decomp: each variant on the probe's own inputs
+    (:func:`_check_variant`), its first layer only: from the second layer
+    on, full's inputs are mostly +-127 and its exp2 overflows to inf in the
+    plain version too."""
+    import torch
+
+    from team_tpu_torch.scripts import attn_shootout as sh
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    bf16 = torch.bfloat16
+    plains = {  # attn_shootout's labels -> (kernel, plain version)
+        "plain (xla_attention)": None,
+        "mha_short v1": ("fused_mha_short", lambda x: ms.mha_short_reference(x, x, x, sh.S)),
+        "mha_short v2 f32exp": ("fused_mha_short_v2",
+                                lambda x: ms.mha_short_v2_reference(x, x, x, sh.S)),
+        "mha_short v2 bf16exp": ("fused_mha_short_v2",
+                                 lambda x: ms.mha_short_v2_reference(x, x, x, sh.S, bf16)),
+        "v2 qpad=128 (deferred norm)": ("fused_mha_short_v2",
+                                        lambda x: ms.mha_short_v2_reference(x, x, x, sh.S)),
+        "v2 qpad=128 bf16exp": ("fused_mha_short_v2",
+                                lambda x: ms.mha_short_v2_reference(x, x, x, sh.S, bf16)),
+    }
+    worst = {"fused_mha_short": 0.0, "fused_mha_short_v2": 0.0}
+    x0 = sh.make_inputs(sh.B, dev, n=1)[0]
+    for mode in ("all", "qpad128"):
+        for label, attn in sh.implementations(mode).items():
+            if plains[label] is None:
+                continue
+            kernel, plain = plains[label]
+            x = x0
+            for layer in range(2):
+                out = attn(x, x, x)
+                ref = plain(x)
+                torch_sync()
+                name = f"attn_shootout {label} layer {layer} B={sh.B} H={sh.H} S={sh.S}"
+                worst[kernel] = max(worst[kernel], _check_bf16_steps(name, out, ref))
+                x = torch.tanh(out)
+    qkv, qks, qkm2, oinv = r4.make_inputs(r4.B, dev)
+    for variant in ms.Q3I_VARIANTS:
+        name = f"r4_attn_decomp {variant} layer 0 B={r4.B} S={r4.S} H={r4.H}"
+        worst[variant] = _check_variant(ms, name, qkv, qks, qkm2, oinv, r4.H, variant)
+    return worst
+
+
+def u8_images(b, s, dev, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (b, s, s, 3), generator=g, device=dev, dtype=torch.uint8)
+
+
+def compare_normalize(pp, dev) -> float:
+    """#26 against its plain version bit for bit: every u8 value in every
+    channel, and a B=128, 224^2 batch."""
+    import torch
+
+    every = torch.arange(256, dtype=torch.uint8, device=dev).reshape(1, 16, 16, 1).expand(1, 16, 16, 3)
+    worst = 0.0
+    for name, x in (("every u8 value", every.contiguous()),
+                    (f"B={MAIN_SHAPES['vision'][0]} 224^2", u8_images(MAIN_SHAPES["vision"][0], 224, dev))):
+        out = pp.normalize_uint8_kernel(x)
+        ref = pp.normalize_uint8_plain(x)
+        torch_sync()
+        equal = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        err = (out - ref).abs().max().item()
+        print(f"  normalize_uint8_kernel {name}: bit for bit {equal} (tolerance 0)")
+        if not equal:
+            raise AssertionError(f"normalize_uint8_kernel ({name}) differs from its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def time_probe_kernels(ms, pp, dev) -> dict:
+    """#4, #29 and #26 at the vision shape (plain, kernel, kernel, plain),
+    each with its bound and its library yardstick: SDPA for #4, the q
+    segment's copy for #29 copy, none for the others (#26 with the torch
+    composition of the same arithmetic as context)."""
+    import torch
+
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    b, s, h, _ = MAIN_SHAPES["vision"]
+    dh = 64
+    times = {}
+    q, k, v = v2_inputs(b, h, s, torch.bfloat16, dev, seed=1)
+    v2_bound = bound(4 * q.numel() * 2, {"bf16": attention_ops(b, h, s, dh, False)})
+    lib = sdpa_ms(q, k, v, False)
+    for exp_dtype, tag in ((torch.float32, "f32exp"), (torch.bfloat16, "bf16exp")):
+        kernel = lambda e=exp_dtype: ms.fused_mha_short_v2(q, k, v, exp_dtype=e)  # noqa: E731
+        plain = lambda e=exp_dtype: ms.mha_short_v2_reference(q, k, v, None, e)  # noqa: E731
+        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        times[f"v2 {tag}"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                              **v2_bound}
+        print(f"  fused_mha_short_v2 {tag} B={b} H={h} S={s} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+              f"bound {v2_bound['bound_ms']:.4f} ms ({v2_bound['bound_by']})")
+
+    qkv, qks, qkm2, oinv = _variant_inputs(r4, dev, VARIANT_OINV["script"])
+    d = r4.D
+    vecs = (qks.numel() + qkm2.numel() + oinv.numel()) * 4
+    out_bytes = b * s * d
+    qk_pairs = b * h * s * s  # (query, key) pairs of a full row
+    sliced_pairs = b * h * s * dh  # the first Dh keys of each row
+    needs = {  # what each variant's output depends on: bytes, operations
+        "copy": bound(2 * out_bytes, {}),
+        "full": bound(qkv.numel() + out_bytes + vecs, {"int8": 2 * qk_pairs * dh,
+                                                       "bf16": 2 * qk_pairs * (dh + 1)}),
+        "qkonly": bound(out_bytes + b * dh * d + out_bytes + vecs, {"int8": 2 * sliced_pairs * dh}),
+    }
+    needs["noexp"] = needs["full"]
+    needs["nopv"] = needs["qkonly"]
+    for variant in ms.Q3I_VARIANTS:
+        kernel = lambda var=variant: ms.fused_mha_q3i_variant(qkv, qks, qkm2, oinv, r4.H, var)  # noqa: E731
+        plain = lambda var=variant: ms.mha_q3i_variant_reference(qkv, qks, qkm2, oinv, r4.H, var)  # noqa: E731
+        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        lib = _time_ms(lambda: qkv[..., :d].contiguous()) if variant == "copy" else None
+        bnd = needs[variant]
+        times[f"variant {variant}"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                                       "library_ms": lib, **bnd}
+        yard = f"qkv[..., :D].contiguous() {lib:.4f} ms" if lib is not None else \
+            "no single PyTorch call computes it"
+        print(f"  q3i variant {variant} B={b} S={s} H={h} int8: kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, {yard}, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+
+    x = u8_images(b, 224, dev, seed=1)
+    mean = torch.tensor(pp.CLIP_MEAN, device=dev)
+    std = torch.tensor(pp.CLIP_STD, device=dev)
+    p1, k1, k2, p2 = (_time_ms(lambda: pp.normalize_uint8_plain(x)),
+                      _time_ms(lambda: pp.normalize_uint8_kernel(x)),
+                      _time_ms(lambda: pp.normalize_uint8_kernel(x)),
+                      _time_ms(lambda: pp.normalize_uint8_plain(x)))
+    comp = _time_ms(lambda: (x.float() / 255.0 - mean) / std)
+    bnd = bound(x.numel() * 5, {"f32": 2 * x.numel()})
+    times["normalize_uint8"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+                                "composition_ms": comp, **bnd}
+    print(f"  normalize_uint8_kernel B={b} 224^2: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms, no single PyTorch call computes it (the composition "
+          f"(x.float() / 255 - mean) / std {comp:.4f} ms), bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})")
+    return times
+
+
+def run_probe_paths(ms, pp, dev) -> dict:
+    """The probe entry points, each with the counts zeroed just before it
+    and read just after: the attention shoot-out (MODE all, then the q_pad=128
+    mode) and the q3i decomposition probe at their own shapes (B=256), and
+    #26 through the library API at B=128, 224^2. Each must launch its kernel."""
+    from team_tpu_torch.scripts import attn_shootout, r4_attn_decomp
+
+    res = {}
+    ms.reset_launch_counts()
+    t0 = time.perf_counter()
+    res["shootout"] = {**attn_shootout.main([]), **attn_shootout.main(["--mode", "qpad128"])}
+    res["shootout_wall_s"] = time.perf_counter() - t0
+    res["v2_launches"] = ms.fused_mha_short_v2.launches
+    print(f"  attn_shootout: fused_mha_short_v2 launched {res['v2_launches']} times "
+          f"(fused_mha_short {ms.fused_mha_short.launches}), {res['shootout_wall_s']:.2f} s")
+    if res["v2_launches"] == 0:
+        raise AssertionError("attn_shootout did not launch fused_mha_short_v2")
+
+    ms.reset_launch_counts()
+    t0 = time.perf_counter()
+    res["decomp"] = r4_attn_decomp.main([])
+    res["decomp_wall_s"] = time.perf_counter() - t0
+    res["variant_launches"] = dict(ms.fused_mha_q3i_variant.launches)
+    print(f"  r4_attn_decomp: variant launches {res['variant_launches']}, "
+          f"{res['decomp_wall_s']:.2f} s")
+    if not all(res["variant_launches"].values()):
+        raise AssertionError("r4_attn_decomp did not launch every variant")
+
+    x = u8_images(MAIN_SHAPES["vision"][0], 224, dev, seed=2)
+    pp.normalize_uint8_kernel.launches = 0
+    out = pp.normalize_uint8_kernel(x)
+    torch_sync()
+    res["normalize_launches"] = pp.normalize_uint8_kernel.launches
+    print(f"  normalize_uint8_kernel (library API) B={x.shape[0]} 224^2: "
+          f"{res['normalize_launches']} launch, out {tuple(out.shape)} {out.dtype}")
+    if res["normalize_launches"] != 1 or tuple(out.shape) != tuple(x.shape):
+        raise AssertionError("the library API did not launch normalize_uint8_kernel once")
+    return res
+
+
+def check_resize(pp, dev) -> float:
+    """Fault 3.2's repair: the bicubic resize on the card against the same
+    function on the CPU, up and down, within RESIZE_TOL."""
+    import torch
+
+    worst = 0.0
+    for i, (shape, label) in enumerate(RESIZE_CASES):
+        g = torch.Generator().manual_seed(10 + i)
+        x = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+        for flip in (False, True):
+            got = pp.preprocess_batch(x.to(dev), 224, flip=flip)
+            want = pp.preprocess_batch(x, 224, flip=flip)
+            err = (got.cpu() - want).abs().max().item()
+            print(f"  resize {label} flip={flip}: card vs CPU max |diff| {err:.3e} "
+                  f"(tol {RESIZE_TOL:g}), out {tuple(got.shape)}")
+            if tuple(got.shape) != (shape[0], 224, 224, 3) or not err <= RESIZE_TOL:
+                raise AssertionError(f"resize {label}: card and CPU disagree")
+            worst = max(worst, err)
+    return worst
+
+
+def openclip_shapes(cfg) -> dict:
+    """The key and shape of every array that ``convert_openclip_state_dict``
+    reads from an open_clip checkpoint of ``cfg``'s towers (a
+    ``team_tpu_torch`` ``CLIPConfig``)."""
+    v, t = cfg.vision, cfg.text
+
+    def blocks(prefix: str, layers: int, w: int) -> dict:
+        shapes = {}
+        for i in range(layers):
+            p = f"{prefix}{i}."
+            shapes.update({
+                p + "ln_1.weight": (w,), p + "ln_1.bias": (w,),
+                p + "attn.in_proj_weight": (3 * w, w), p + "attn.in_proj_bias": (3 * w,),
+                p + "attn.out_proj.weight": (w, w), p + "attn.out_proj.bias": (w,),
+                p + "ln_2.weight": (w,), p + "ln_2.bias": (w,),
+                p + "mlp.c_fc.weight": (4 * w, w), p + "mlp.c_fc.bias": (4 * w,),
+                p + "mlp.c_proj.weight": (w, 4 * w), p + "mlp.c_proj.bias": (w,)})
+        return shapes
+
+    return {
+        "visual.conv1.weight": (v.width, 3, v.patch_size, v.patch_size),
+        "visual.class_embedding": (v.width,),
+        "visual.positional_embedding": (v.seq_len, v.width),
+        "visual.ln_pre.weight": (v.width,), "visual.ln_pre.bias": (v.width,),
+        **blocks("visual.transformer.resblocks.", v.layers, v.width),
+        "visual.ln_post.weight": (v.width,), "visual.ln_post.bias": (v.width,),
+        "visual.proj": (v.width, cfg.embed_dim),
+        "token_embedding.weight": (t.vocab_size, t.width),
+        "positional_embedding": (t.context_length, t.width),
+        **blocks("transformer.resblocks.", t.layers, t.width),
+        "ln_final.weight": (t.width,), "ln_final.bias": (t.width,),
+        "text_projection": (t.width, cfg.embed_dim),
+        "logit_scale": (),
+    }
+
+
+def synthetic_openclip_npz(path: str, seed: int = 0) -> dict:
+    """A seeded open_clip-format state dict of ViT-B/16's keys and shapes,
+    every array random (no checkpoint exists here), saved as ``.npz``."""
+    import numpy as np
+
+    from team_tpu_torch.backbone.clip import CLIPConfig
+
+    rng = np.random.default_rng(seed)
+    sd = {k: (rng.standard_normal(shape) * (0.02 if len(shape) > 1 else 0.1)
+              + (1.0 if k.endswith(("ln_1.weight", "ln_2.weight")) else 0.0)).astype(np.float32)
+          for k, shape in openclip_shapes(CLIPConfig.vit_b16()).items()}
+    sd["logit_scale"] = np.asarray(np.log(1 / 0.07), dtype=np.float32)
+    np.savez(path, **sd)
+    return sd
+
+
+def _loaded_leaves(tree, sd):
+    """(name, loaded leaf, the source array in the tree's layout) for every
+    kind of entry the loader converts: the patch kernel, the embeddings, the
+    layer norms and projections of both towers, every array of one block of
+    each tower, logit_scale."""
+    v, t = tree["vision"], tree["text"]
+    conv = sd["visual.conv1.weight"]
+    out = [("vision.patch_w", v["patch_w"], conv.reshape(conv.shape[0], -1).T),
+           ("vision.cls", v["cls"], sd["visual.class_embedding"]),
+           ("vision.pos", v["pos"], sd["visual.positional_embedding"]),
+           ("vision.ln_pre.scale", v["ln_pre"]["scale"], sd["visual.ln_pre.weight"]),
+           ("vision.ln_post.bias", v["ln_post"]["bias"], sd["visual.ln_post.bias"]),
+           ("vision.proj", v["proj"], sd["visual.proj"]),
+           ("text.token_embedding", t["token_embedding"], sd["token_embedding.weight"]),
+           ("text.pos", t["pos"], sd["positional_embedding"]),
+           ("text.ln_final.bias", t["ln_final"]["bias"], sd["ln_final.bias"]),
+           ("text.proj", t["proj"], sd["text_projection"]),
+           ("logit_scale", tree["logit_scale"], sd["logit_scale"])]
+    block = (("ln_1", "scale", "ln_1.weight", False), ("ln_1", "bias", "ln_1.bias", False),
+             ("attn", "qkv_w", "attn.in_proj_weight", True), ("attn", "qkv_b", "attn.in_proj_bias", False),
+             ("attn", "out_w", "attn.out_proj.weight", True), ("attn", "out_b", "attn.out_proj.bias", False),
+             ("ln_2", "scale", "ln_2.weight", False), ("ln_2", "bias", "ln_2.bias", False),
+             ("mlp", "fc_w", "mlp.c_fc.weight", True), ("mlp", "fc_b", "mlp.c_fc.bias", False),
+             ("mlp", "proj_w", "mlp.c_proj.weight", True), ("mlp", "proj_b", "mlp.c_proj.bias", False))
+    for tower, prefix in (("vision", "visual.transformer.resblocks."),
+                          ("text", "transformer.resblocks.")):
+        i = len(tree[tower]["blocks"]) // 2
+        for sub, leaf, key, transposed in block:
+            src = sd[f"{prefix}{i}.{key}"]
+            out.append((f"{tower}.blocks[{i}].{sub}.{leaf}", tree[tower]["blocks"][i][sub][leaf],
+                        src.T if transposed else src))
+    return out
+
+
+def check_loader(log_dir: str) -> dict:
+    """Fault 3.8's repair at full ViT-B/16 width: a seeded synthetic open_clip
+    state dict saved as .npz; the loader's tree equals the source arrays
+    (every kind of entry, both towers' block counts); TEAM_CLIP_CHECKPOINT
+    naming the file loads it into the runtime (allow_byte_tokenizer set),
+    whose tree and one encode equal the runtime given the loader's tree
+    through ``params=``; without allow_byte_tokenizer the runtime raises
+    FileNotFoundError (no BPE vocabulary), as team_tpu does."""
+    import numpy as np
+    import torch
+
+    from team_tpu_torch.backbone.clip import CLIPConfig
+    from team_tpu_torch.backbone.import_weights import load_clip_checkpoint
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+
+    path = os.path.join(log_dir, "openclip_synthetic.npz")
+    sd = synthetic_openclip_npz(path)
+    clip_cfg = CLIPConfig.vit_b16()
+    tree = load_clip_checkpoint(path, clip_cfg)
+    leaves = _loaded_leaves(tree, sd)
+    tree_equal = (len(tree["vision"]["blocks"]) == clip_cfg.vision.layers
+                  and len(tree["text"]["blocks"]) == clip_cfg.text.layers
+                  and all(leaf.dtype == torch.float32 and np.array_equal(leaf.numpy(), src)
+                          for _, leaf, src in leaves))
+    cfg = smoke_config("simplecil", "bfloat16", log_dir, extras={"allow_byte_tokenizer": True})
+    with knobs({"TEAM_CLIP_CHECKPOINT": path}):
+        rt = BackboneRuntime(cfg)
+        with expect_raise(FileNotFoundError):
+            BackboneRuntime(smoke_config("simplecil", "bfloat16", log_dir))
+    ref_rt = BackboneRuntime(cfg, params=tree)
+    runtime_equal = all(torch.equal(a, b) for a, b in zip(_leaves(rt.params), _leaves(ref_rt.params)))
+    images = u8_images(8, 224, rt.device, seed=4)
+    feats, want = rt.encode_image(images), ref_rt.encode_image(images)
+    torch_sync()
+    encode_equal = torch.equal(feats, want) and bool(torch.isfinite(feats).all())
+    print(f"  loader: {len(sd)} open_clip arrays (ViT-B/16) from a .npz; {len(leaves)} leaves of "
+          f"every kind equal the source arrays {tree_equal}; the runtime under "
+          f"TEAM_CLIP_CHECKPOINT equals params= leaf by leaf {runtime_equal}, one encode "
+          f"{tuple(feats.shape)} equal {encode_equal}")
+    if not (tree_equal and runtime_equal and encode_equal):
+        raise AssertionError("the open_clip loader's tree or encode differs")
+    return {"arrays": len(sd), "leaves_checked": len(leaves)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    elif isinstance(tree, list):
+        for item in tree:
+            yield from _leaves(item)
+    else:
+        yield tree
+
+
+@contextlib.contextmanager
+def expect_raise(exc):
+    """Fail unless the block raises ``exc``."""
+    try:
+        yield
+    except exc as e:
+        print(f"  raised {type(e).__name__}: {str(e)[:100]}")
+        return
+    raise AssertionError(f"expected {exc.__name__}")
+
+
 def main() -> int:
     import torch
 
@@ -2474,6 +3003,7 @@ def main() -> int:
         from team_tpu_torch.ops import flash_attention as fa
         from team_tpu_torch.ops import int8_matmul as im
         from team_tpu_torch.ops import mha_short as ms
+        from team_tpu_torch.ops import preprocess as pp
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
@@ -2492,6 +3022,7 @@ def main() -> int:
     ms.build()
     fa.build()
     im.build()
+    pp.build()
     print(f"  {', '.join(SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
     for source in SOURCES:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
@@ -2508,6 +3039,13 @@ def main() -> int:
     flash_err = compare_flash(fa, dev)
     fused_err = compare_fused(ms, dev)
     tp_err = compare_tp(ms, dev)
+    v2_err = compare_v2(ms, dev)
+    variant_err = compare_q3i_variants(ms, dev)
+    probe_err = compare_probe_shapes(ms, dev)
+    v2_err = max(v2_err, probe_err["fused_mha_short_v2"])
+    fused_err["fused_mha_short"] = max(fused_err["fused_mha_short"], probe_err["fused_mha_short"])
+    variant_err = {v: max(e, probe_err[v]) for v, e in variant_err.items()}
+    norm_err = compare_normalize(pp, dev)
 
     print("phase 4: timing (CUDA events over 20 calls queued behind a device spin, after 3 "
           "warm-up; plain, kernel, kernel, plain)")
@@ -2518,6 +3056,7 @@ def main() -> int:
     flash_times = time_flash(fa, dev)
     times.update(time_fused(ms, dev))
     times.update(time_tp(ms, dev))
+    times.update(time_probe_kernels(ms, pp, dev))
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -2529,6 +3068,10 @@ def main() -> int:
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
         parallel = run_parallel_paths(ms, log_dir)
+        probes = run_probe_paths(ms, pp, dev)
+        print("  the repairs: bicubic resize (fault 3.2), the open_clip loader (fault 3.8)")
+        resize_err = check_resize(pp, dev)
+        loader = check_loader(log_dir)
         print("phase 6: features and encode rates")
         rates, int8_runtimes, short_launches, served, tiers, text = check_features(
             im, dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
@@ -2714,6 +3257,28 @@ def main() -> int:
         "nm4": timing(times["q3i_tp vision nm=4"]), "gate": parallel["gate"],
         "parallel_wall_s": parallel["wall_s"], "dp_proof_wall_s": parallel["dp_wall_s"],
         "dp_grad_err": parallel["dp_grad_err"],
+    }, {
+        "name": "fused_mha_short_v2", "route": "cuda", "source": "team_tpu_torch/csrc/mha_packed.cu",
+        "replaces": "team_tpu/ops/mha_short.py:62",
+        "launches": probes["v2_launches"],
+        "launches_from": "phase 5, team_tpu_torch.scripts.attn_shootout (MODE all and qpad128)",
+        "max_abs_err": v2_err, **timing(times["v2 f32exp"]), "bf16exp": timing(times["v2 bf16exp"]),
+        "shootout_ms_per_layer": probes["shootout"],
+    }, *({
+        "name": f"fused_mha_q3i_variant[{variant}]", **q3i_common,
+        "replaces": "scripts/r4_attn_decomp.py:43",
+        "launches": probes["variant_launches"][variant],
+        "launches_from": "phase 5, team_tpu_torch.scripts.r4_attn_decomp",
+        "max_abs_err": variant_err[variant], **timing(times[f"variant {variant}"]),
+        "decomp_ms_per_layer": probes["decomp"][variant],
+    } for variant in ms.Q3I_VARIANTS), {
+        "name": "normalize_uint8_kernel", "route": "cuda",
+        "source": "team_tpu_torch/csrc/preprocess.cu", "replaces": "team_tpu/ops/preprocess.py:60",
+        "launches": probes["normalize_launches"], "launches_from": "phase 5, the library API",
+        "max_abs_err": norm_err, **timing(times["normalize_uint8"]),
+        "composition_ms": times["normalize_uint8"]["composition_ms"],
+        "composition": "(x.float() / 255 - mean) / std",
+        "resize_card_vs_cpu_max_abs": resize_err, "loader": loader,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -119,7 +119,14 @@ __device__ __forceinline__ void stage_kv(const T* k, const T* v, long long row_s
 // the keys for q.k, the row max and sum are warp shuffles, and for p.v the
 // lanes split the head dimension. p and q_sh are this warp's buffers
 // (n_keys and DH floats).
-template <typename T, int DH>
+// Two switches, off by default (the kernels above), give _mha_kernel_v2's
+// softmax: DEFER keeps p unnormalised, rounds it to the input dtype for PV
+// and divides the f32 output by the row sum instead (out = (sum_j p_j v_j) /
+// sum_j p_j); BF16_EXP takes the exponential of a bfloat16 argument as XLA
+// computes exp_dtype=bfloat16 on the CPU: p = exp(bf16(logit - max)), the
+// result kept in f32 (XLA's excess precision elides its rounding to bf16
+// before the f32 row sum; p is rounded to the input dtype for PV).
+template <typename T, int DH, bool DEFER = false, bool BF16_EXP = false>
 __device__ __forceinline__ void attend_rows(const T* q, long long q_row, const T* k_s,
                                             const T* v_s, int ks, int first, int end, int step,
                                             int n_keys, int causal, float scale, float* p,
@@ -144,12 +151,23 @@ __device__ __forceinline__ void attend_rows(const T* q, long long q_row, const T
     m = warp_max(m);
     float l = 0.f;
     for (int j = lane; j < nk; j += 32) {
-      const float e = expf(p[j] - m);
+      float e;
+      if constexpr (BF16_EXP) {
+        e = expf(round_to<__nv_bfloat16>(p[j] - m));
+      } else {
+        e = expf(p[j] - m);
+      }
       p[j] = e;
       l += e;
     }
     l = warp_sum(l);
-    for (int j = lane; j < nk; j += 32) p[j] = round_to<T>(p[j] / l);
+    for (int j = lane; j < nk; j += 32) {
+      if constexpr (DEFER) {
+        p[j] = round_to<T>(p[j]);
+      } else {
+        p[j] = round_to<T>(p[j] / l);
+      }
+    }
     __syncwarp();
 
     float acc[kPerLane];
@@ -163,7 +181,13 @@ __device__ __forceinline__ void attend_rows(const T* q, long long q_row, const T
     }
     T* out = dst + (i - dst_row0) * dst_row;
 #pragma unroll
-    for (int c = 0; c < kPerLane; ++c) out[lane + 32 * c] = from_float<T>(acc[c]);
+    for (int c = 0; c < kPerLane; ++c) {
+      if constexpr (DEFER) {
+        out[lane + 32 * c] = from_float<T>(__fdiv_rn(acc[c], l));
+      } else {
+        out[lane + 32 * c] = from_float<T>(acc[c]);
+      }
+    }
     __syncwarp();  // q_sh and p are rewritten by the next row
   }
 }

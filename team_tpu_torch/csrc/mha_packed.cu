@@ -1,13 +1,17 @@
 // Multi-head attention for Hopper (sm_90a), forward only, over two layouts.
 //
-// Replaces two TPU kernels of team_tpu/ops/mha_short.py:
+// Replaces three TPU kernels of team_tpu/ops/mha_short.py:
 //   - _mha_packed_kernel (entries fused_mha_packed and, heads split over a
 //     tensor-parallel group, fused_mha_packed_tp): the packed qkv projection
 //     [B, S, 3*D] as the qkv GEMM wrote it, to [B, S, D] (the head split: to
 //     the rank's [B, S, D/nm]); optional causal mask and key mask;
 //   - _mha_kernel (entry fused_mha_short): pre-split q, k, v [B, H, S, Dh]
 //     to [B, H, S, Dh], non-causal, keys >= kv_len masked (every query row
-//     is returned).
+//     is returned);
+//   - _mha_kernel_v2 (entry fused_mha_short_v2): _mha_kernel with the
+//     softmax normalisation deferred to the output and an optional bfloat16
+//     exponential (attend_rows' DEFER and BF16_EXP switches, off for the
+//     other entries, whose instantiations are unchanged).
 // All are one kernel over a strided [B, H, S, Dh] view: the packed layout is
 // (batch, head, row) strides (S*3D, Dh, 3D) with k and v at +D and +2D, the
 // head split the same with q, k and v offset by the rank's r*D/nm columns
@@ -48,7 +52,7 @@ size_t smem_bytes(int seq, int dh) {
   return kv_bytes<T>(seq, dh) + row_buffer_bytes(seq, dh);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DEFER = false, bool BF16_EXP = false>
 __global__ void __launch_bounds__(kThreads)
 mha_packed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ out, Strides in, Strides os, int seq, int kv_len, int causal,
@@ -73,47 +77,49 @@ mha_packed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  attend_rows<T, DH>(q + off, in.row, k_s, v_s, ks, row0 + warp, row_end, kWarps, n_keys, causal,
+  attend_rows<T, DH, DEFER, BF16_EXP>(q + off, in.row, k_s, v_s, ks, row0 + warp, row_end, kWarps, n_keys, causal,
                      scale, p_all + warp * seq, q_all + warp * DH,
                      out + b * os.batch + h * os.head, os.row, 0);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DEFER, bool BF16_EXP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strides in,
                    Strides os, int batch, int seq, int heads, int kv_len, int causal, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(seq, DH);
-  cudaError_t err = cudaFuncSetAttribute(mha_packed_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(mha_packed_kernel<T, DH, DEFER, BF16_EXP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
-  mha_packed_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  mha_packed_kernel<T, DH, DEFER, BF16_EXP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), in, os, seq, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DEFER, bool BF16_EXP>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, void* out, Strides in,
                       Strides os, int batch, int seq, int heads, int dh, int kv_len, int causal,
                       float scale, cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
+    case 32: return launch<T, 32, DEFER, BF16_EXP>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
+    case 64: return launch<T, 64, DEFER, BF16_EXP>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
+    case 128: return launch<T, 128, DEFER, BF16_EXP>(q, k, v, out, in, os, batch, seq, heads, kv_len, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// DEFER and BF16_EXP: the v2 softmax switches of attend_rows (off: _mha_kernel's)
+template <bool DEFER = false, bool BF16_EXP = false>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* out,
                          Strides in, Strides os, int batch, int seq, int heads, int dh,
                          int kv_len, int causal, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, in, os, batch, seq, heads, dh, kv_len, causal, scale, s);
+    return launch_dh<float, DEFER, BF16_EXP>(q, k, v, out, in, os, batch, seq, heads, dh, kv_len, causal, scale, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, in, os, batch, seq, heads, dh, kv_len, causal,
+    return launch_dh<__nv_bfloat16, DEFER, BF16_EXP>(q, k, v, out, in, os, batch, seq, heads, dh, kv_len, causal,
                                     scale, s);
   return cudaErrorInvalidValue;
 }
@@ -148,6 +154,23 @@ extern "C" int team_mha_short_fwd(const void* q, const void* k, const void* v, v
   return launch_dtype(dtype, q, k, v, out, {sb, sh, sr},
                       {static_cast<long long>(heads) * seq * dh, static_cast<long long>(seq) * dh, dh},
                       batch, seq, heads, dh, kv_len, 0, scale, stream);
+}
+
+// _mha_kernel_v2 (entry fused_mha_short_v2): team_mha_short_fwd's inputs and
+// output, with the softmax normalisation deferred to the [S, Dh] output and,
+// with bf16_exp = 1, the exponential taken in bfloat16. The TPU kernel's
+// q_pad only aligns its query rows: padded rows are sliced off and padded
+// keys masked, so it changes nothing here and is not passed.
+extern "C" int team_mha_short_v2_fwd(const void* q, const void* k, const void* v, void* out,
+                                     int dtype, int batch, int heads, int seq, int dh,
+                                     long long sb, long long sh, long long sr, int kv_len,
+                                     float scale, int bf16_exp, void* stream) {
+  const Strides os = {static_cast<long long>(heads) * seq * dh, static_cast<long long>(seq) * dh, dh};
+  if (bf16_exp)
+    return launch_dtype<true, true>(dtype, q, k, v, out, {sb, sh, sr}, os, batch, seq, heads, dh,
+                                    kv_len, 0, scale, stream);
+  return launch_dtype<true, false>(dtype, q, k, v, out, {sb, sh, sr}, os, batch, seq, heads, dh,
+                                   kv_len, 0, scale, stream);
 }
 
 // The packed layout's heads split over nm tensor-parallel ranks: rank r of nm

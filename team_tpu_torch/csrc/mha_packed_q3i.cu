@@ -7,6 +7,12 @@
 //   _mha_packed_q3i_cls_kernel       (entry fused_mha_packed_q3i_cls)       -> team_mha_packed_q3i_cls_fwd
 //   _mha_packed_q3i_cls_split_kernel (entry fused_mha_packed_q3i_cls_split) -> team_mha_packed_q3i_cls_split_fwd
 //   _mha_packed_q3i_sb_kernel        (entry fused_mha_packed_q3i_sb)        -> team_mha_packed_q3i_sb_fwd
+// and the decomposition probe's variants of the first (scripts/r4_attn_decomp.py:
+// _variant_kernel, entry fused_mha_q3i_variant -> team_mha_q3i_variant_fwd):
+// the template switch VAR cuts the static kMxu path short (no exp2; q.k
+// alone; the softmax without PV), and a copy kernel gives the floor of
+// reading q and writing the output. VAR's default is every other entry's
+// kernel, unchanged.
 // All four read int8 q, k and v as the qkv GEMM's requantize wrote them (q and
 // k with one scale per head, v per channel) and write int8. One kernel serves
 // them: it reads q, k and v and writes out through explicit row and sample
@@ -84,6 +90,11 @@ constexpr float kInv127 = 1.0f / 127.0f;
 
 enum Norm : int { kMxu = 0, kReduce = 1, kReduceDefer = 2, kPv8 = 3, kPv8Defer = 4 };
 
+// the decomposition probe's variants of the static kMxu path (template switch
+// VAR; kProduction is every entry's kernel, and the probe's "full")
+enum Variant : int { kProduction = 0, kNoExp = 1, kQkOnly = 2, kNoPv = 3 };
+constexpr float kQkOnlyScale = 2e-5f;
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -117,7 +128,7 @@ struct Operands {
   long long q_row, q_batch, kv_row, kv_batch, o_row, o_batch;
 };
 
-template <int DH, bool CLS, int NORM, bool EXP2I>
+template <int DH, bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
 __global__ void __launch_bounds__(kWarps * 32)
 q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
            const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq, int heads,
@@ -128,6 +139,8 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
   constexpr int kPerLane = DH / 32;
   constexpr bool kDefer = NORM == kReduceDefer || NORM == kPv8Defer;
   constexpr bool kPvInt8 = NORM == kPv8 || NORM == kPv8Defer;
+  // qkonly and nopv write a slice of each row's first DH keys, without PV
+  constexpr bool kSliceOut = VAR == kQkOnly || VAR == kNoPv;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int row0 = CLS ? 0 : blockIdx.x * kRows;
@@ -147,7 +160,7 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
     const int r = idx / kW;
     const int w = idx - r * kW;
     k_s[r * kStride + w] = reinterpret_cast<const int*>(k_base + r * ops.kv_row)[w];
-    v_s[r * kStride + w] = reinterpret_cast<const int*>(v_base + r * ops.kv_row)[w];
+    if constexpr (!kSliceOut) v_s[r * kStride + w] = reinterpret_cast<const int*>(v_base + r * ops.kv_row)[w];
   }
   __syncthreads();
 
@@ -182,7 +195,12 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
       for (int w = 0; w < kW; ++w) acc = __dp4a(q[w], k_row[w], acc);
       const float a = static_cast<float>(acc);
       float s;
-      if (use_static) {
+      if constexpr (VAR == kQkOnly) {
+        s = a;
+      } else if constexpr (VAR == kNoExp || VAR == kNoPv) {
+        const float t = __fsub_rn(__fmul_rn(a, qks2), m2);
+        s = VAR == kNoExp ? t : exp2f(t);
+      } else if (use_static) {
         s = exp2f(__fsub_rn(__fmul_rn(a, qks2), m2));
       } else if constexpr (EXP2I) {
         s = a;  // the integer row max comes first; a float holds acc exactly
@@ -192,6 +210,19 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
         m = fmaxf(m, s);
       }
       p[j] = s;
+    }
+    if constexpr (kSliceOut) {
+      // qkonly: clip(rint(f32(acc) * 2e-5)); nopv: clip(rint(p * o_inv)), for
+      // the first DH keys (the caller checks seq >= DH); each lane reads back
+      // the keys it wrote
+      int8_t* dst = ops.out + b * ops.o_batch + i * ops.o_row + h * DH;
+      for (int c = lane; c < DH; c += 32) {
+        const float o = VAR == kQkOnly ? __fmul_rn(p[c], kQkOnlyScale)
+                                       : __fmul_rn(p[c], o_inv[h * DH + c]);
+        dst[c] = static_cast<int8_t>(fminf(fmaxf(rintf(o), -127.f), 127.f));
+      }
+      __syncwarp();  // p is rewritten by the next row
+      continue;
     }
     if (!use_static) m = warp_max(m);
     float l = 0.f;
@@ -267,6 +298,21 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
   }
 }
 
+// The decomposition probe's copy floor: the q segment of each row of the
+// packed [rows, 3*D] int8 tensor to out [rows, D], 16 bytes a thread-step
+// (D % 16 == 0 and both tensors 16-byte aligned; the entry checks).
+__global__ void __launch_bounds__(256)
+q_copy_kernel(const int8_t* __restrict__ qkv, int8_t* __restrict__ out, long long rows, int d) {
+  const int chunks = d / 16;
+  const long long n = rows * chunks;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; idx < n;
+       idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = idx / chunks;
+    const int c = static_cast<int>(idx - r * chunks);
+    reinterpret_cast<uint4*>(out + r * d)[c] = reinterpret_cast<const uint4*>(qkv + r * 3 * d)[c];
+  }
+}
+
 struct Args {
   Operands ops;
   const float* deq_v;  // v's dequant scales: the [D] segment at 2*D of deq
@@ -277,25 +323,25 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DH, bool CLS, int NORM, bool EXP2I>
+template <int DH, bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
 cudaError_t launch(const Args& a) {
   const size_t smem = smem_bytes(a.seq, DH);
-  cudaError_t err = cudaFuncSetAttribute(q3i_kernel<DH, CLS, NORM, EXP2I>,
+  cudaError_t err = cudaFuncSetAttribute(q3i_kernel<DH, CLS, NORM, EXP2I, VAR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(CLS ? 1 : (a.seq + kRows - 1) / kRows, a.heads, a.batch);
-  q3i_kernel<DH, CLS, NORM, EXP2I><<<grid, kWarps * 32, smem, a.stream>>>(
+  q3i_kernel<DH, CLS, NORM, EXP2I, VAR><<<grid, kWarps * 32, smem, a.stream>>>(
       a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2, a.seq, a.heads, a.kv_len, a.causal);
   return cudaGetLastError();
 }
 
-template <bool CLS, int NORM, bool EXP2I>
+template <bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
 int launch_dh(const Args& a) {
   switch (a.dh) {
-    case 32: return launch<32, CLS, NORM, EXP2I>(a);
-    case 64: return launch<64, CLS, NORM, EXP2I>(a);
-    case 128: return launch<128, CLS, NORM, EXP2I>(a);
+    case 32: return launch<32, CLS, NORM, EXP2I, VAR>(a);
+    case 64: return launch<64, CLS, NORM, EXP2I, VAR>(a);
+    case 128: return launch<128, CLS, NORM, EXP2I, VAR>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -425,6 +471,51 @@ extern "C" int team_mha_packed_q3i_tp_fwd(const void* qkv, const void* deq, cons
   a.kv_len = kv_len;
   a.causal = causal;
   return exp2i ? launch_norm<true>(a, norm) : launch_norm<false>(a, norm);
+}
+
+// The variants of scripts/r4_attn_decomp.py:_variant_kernel, the probe that
+// cuts the packed entry's static kMxu path into parts: qkv int8 [B, S, 3*D]
+// -> out int8 [B, S, D]; qk_scale [H], o_inv [D] and qk_m2 [H] as the packed
+// entry's; deq [3*D] is all ones (the probe has no dequant: v's scale 1 makes
+// pv_scale = 1 * o_inv = o_inv exactly). variant:
+//   0 copy:   out = the q segment of qkv;
+//   1 full:   the packed entry's own kernel (static softmax, kMxu);
+//   2 noexp:  full with exp2 removed (p = acc*qks*log2e - m2);
+//   3 qkonly: out[., h*dh + j] = clip(rint(f32(acc_j) * 2e-5)) for keys j < dh;
+//   4 nopv:   out[., h*dh + j] = clip(rint(exp2(...)_j * o_inv)) for keys j < dh.
+// qkonly and nopv compute every key's q.k (and exp2) of the row as full does
+// and write the first dh: they need seq >= dh.
+extern "C" int team_mha_q3i_variant_fwd(const void* qkv, const void* deq, const void* qk_scale,
+                                        const void* o_inv, const void* qk_m2, void* out,
+                                        int batch, int seq, int heads, int dh, int variant,
+                                        void* stream) {
+  const long long d = static_cast<long long>(heads) * dh;
+  if (variant == 0) {
+    if (d % 16 != 0 || reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return cudaErrorInvalidValue;
+    const long long rows = static_cast<long long>(batch) * seq;
+    const long long want = (rows * (d / 16) + 255) / 256;
+    const int blocks = static_cast<int>(want < 1 ? 1 : (want > 132 * 32 ? 132 * 32 : want));
+    q_copy_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(qkv), static_cast<int8_t*>(out), rows, static_cast<int>(d));
+    return cudaGetLastError();
+  }
+  if (qk_m2 == nullptr || variant < 0 || variant > 4) return cudaErrorInvalidValue;
+  if ((variant == 3 || variant == 4) && seq < dh) return cudaErrorInvalidValue;
+  const int8_t* base = static_cast<const int8_t*>(qkv);
+  Args a = make_args(base, base + d, base + 2 * d, out, deq, qk_scale, o_inv, qk_m2, batch, seq,
+                     heads, dh, stream);
+  a.ops.q_row = a.ops.kv_row = 3 * d;
+  a.ops.q_batch = a.ops.kv_batch = 3 * d * seq;
+  a.ops.o_row = d;
+  a.ops.o_batch = d * seq;
+  switch (variant) {
+    case 1: return launch_dh<false, kMxu, false>(a);
+    case 2: return launch_dh<false, kMxu, false, kNoExp>(a);
+    case 3: return launch_dh<false, kMxu, false, kQkOnly>(a);
+    default: return launch_dh<false, kMxu, false, kNoPv>(a);
+  }
 }
 
 // Sequence-major: qkv int8 [S, B, 3*D] -> out int8 [S, B, D], non-causal,

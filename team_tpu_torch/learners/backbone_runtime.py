@@ -39,6 +39,7 @@ from team_tpu_torch.backbone import quant
 from team_tpu_torch.backbone.clip import (
     CLIPConfig, Params, cast_frozen_params, encode_image, encode_image_patches_u8,
     encode_text, init_clip_params)
+from team_tpu_torch.backbone.import_weights import load_clip_checkpoint
 from team_tpu_torch.backbone.tokenizer import Tokenizer
 from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.config import Config
@@ -63,13 +64,13 @@ class BackboneRuntime:
 
     def __init__(self, cfg: Config, seed: int = 0, params: Optional[Params] = None):
         """``params``: a float32 tree of tensors (e.g. the JAX init carried
-        across by :mod:`team_tpu_torch.bridge`); random init from ``seed``
-        when absent."""
+        across by :mod:`team_tpu_torch.bridge`); when absent, the open_clip
+        checkpoint that ``TEAM_CLIP_CHECKPOINT`` names if it names a file
+        (:mod:`team_tpu_torch.backbone.import_weights`), else the random init
+        from ``seed``. A checkpoint file requires the BPE vocabulary unless
+        the config sets ``allow_byte_tokenizer``, as in team_tpu."""
         ckpt = os.environ.get("TEAM_CLIP_CHECKPOINT")
-        if ckpt and os.path.isfile(ckpt):
-            raise NotImplementedError(
-                f"TEAM_CLIP_CHECKPOINT={ckpt!r}: the open_clip checkpoint loader is not ported "
-                "yet (ROADMAP queue 1 item 2)")
+        pretrained = bool(ckpt and os.path.isfile(ckpt))
         self.encoder_quant = cfg.get("encoder_quant", "bf16")
         if self.encoder_quant not in ("bf16", "int8_static"):
             raise NotImplementedError(f"encoder_quant={self.encoder_quant!r}: the port has "
@@ -80,7 +81,10 @@ class BackboneRuntime:
         self.cfg = cfg
         self.clip_cfg = clip_config_for(cfg)
         self.device = resolve_device(cfg.device)
-        if params is None:
+        if params is None and pretrained:
+            logging.info("loading CLIP checkpoint from %s", ckpt)
+            params = load_clip_checkpoint(ckpt, self.clip_cfg)
+        elif params is None:
             # as team_tpu: a checkpoint path that names no file means the random init
             logging.info("no CLIP checkpoint available; random init from seed %d", seed)
             params = init_clip_params(torch.Generator().manual_seed(seed), self.clip_cfg)
@@ -88,7 +92,10 @@ class BackboneRuntime:
         self.attn_impl = cfg.attention_impl
         # on the fused routes the attention biases stay float32, as their kernels add them
         self.params = cast_frozen_params(params, self.compute_dtype, self.device, self.attn_impl)
-        self.tokenizer = Tokenizer(require_bpe=False)
+        # pretrained weights with the byte-fallback ids would corrupt every text
+        # feature: the BPE vocabulary is required unless explicitly waived
+        self.tokenizer = Tokenizer(
+            require_bpe=pretrained and not cfg.get("allow_byte_tokenizer", False))
         self.out_dim = self.clip_cfg.embed_dim
         self._text_cache: Dict[str, np.ndarray] = {}
         # int8 tier state: the float32 image tower is quantized after calibration

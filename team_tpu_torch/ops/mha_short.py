@@ -8,6 +8,9 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
 - ``fused_mha_short`` (TPU kernel ``_mha_kernel``): non-causal attention over
   pre-split ``[B, H, S, Dh]`` with a key mask; the same CUDA kernel over the
   tensors' own strides.
+- ``fused_mha_short_v2`` (TPU kernel ``_mha_kernel_v2``): the same with
+  the softmax normalisation deferred to the output and an optional bf16
+  exponential; the same CUDA kernel with those two switches.
 - ``fused_mha_packed_proj`` and ``fused_attn_block`` (TPU kernels
   ``_mha_packed_proj_kernel`` and ``_attn_block_kernel``): packed attention
   with the out-projection GEMM, its bias and the residual fused in, and the
@@ -116,6 +119,11 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.team_mha_short_fwd.restype = ctypes.c_int
+    # team_mha_short_fwd's arguments, then bf16_exp before the stream
+    lib.team_mha_short_v2_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.team_mha_short_v2_fwd.restype = ctypes.c_int
     # qkv, out; dtype, batch, seq, heads_local, dh, rank, nm, kv_len, causal; scale; stream
     lib.team_mha_packed_tp_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                                            + [ctypes.c_float, ctypes.c_void_p])
@@ -206,6 +214,31 @@ def mha_short_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _softmax_pv(qs, k, v, False, kv_len, dtype).to(dtype)
 
 
+def mha_short_v2_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len: Optional[int] = None,
+                           exp_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_kernel_v2`` over ``[B, H, S, Dh]``:
+    ``q = round(q·dh^-0.5)``; f32 logits with keys ``>= kv_len`` at -1e30;
+    ``p = exp((logits - rowmax).astype(exp_dtype))``; ``den = Σ f32(p)``;
+    ``out = (Σ_j round(p_j)·v_j) / den`` in f32, stored in the input dtype
+    (round: to the input dtype). Every query row is returned. With a
+    bfloat16 ``exp_dtype`` the argument is rounded to bf16 and the
+    exponential kept in f32, as XLA computes it on the CPU (its excess
+    precision elides the rounding of ``exp``'s bf16 result before the f32
+    row sum)."""
+    dtype = q.dtype
+    s = q.shape[2]
+    qs = (q.float() * q.shape[-1] ** -0.5).to(dtype)
+    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if kv_len is not None and kv_len < s:
+        keep = (torch.arange(s, device=q.device) < kv_len)[None, :].expand(s, s)
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).to(exp_dtype).float())
+    den = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(dtype).float(), v.float())
+    return (out / den).to(dtype)
+
+
 def mha_packed_proj_reference(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
                               x_resid: torch.Tensor, heads: int,
                               causal: bool = False) -> torch.Tensor:
@@ -264,25 +297,26 @@ def _on_card(name: str, main: torch.Tensor, others: dict) -> None:
             raise ValueError(f"{other} lies on {t.device}, the input on {main.device}")
 
 
-def fused_mha_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
-    """Non-causal attention over pre-split ``[B, H, S, Dh]`` (float32 or
-    bfloat16) with keys ``>= kv_len`` masked; returns ``[B, H, S, Dh]``
-    contiguous, every query row. Any strides with a unit stride along Dh
-    (shared by q, k and v) go to the kernel as they are. Each kernel launch
-    adds one to ``fused_mha_short.launches``."""
+def _check_short(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: Optional[int]) -> None:
+    """Check pre-split ``[B, H, S, Dh]`` inputs of the short-attention entries."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, S, Dh] shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, s, dh = q.shape
+    s = q.shape[2]
     if kv_len is not None and not 1 <= kv_len <= s:
         raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    _on_card("fused_mha_short", q, {"k": k, "v": v})
-    if q.device.type == "cpu":
-        return mha_short_reference(q, k, v, kv_len)
+    _on_card(name, q, {"k": k, "v": v})
+
+
+def _launch_short(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_len: Optional[int], *extra) -> torch.Tensor:
+    """Launch ``entry`` of ``csrc/mha_packed.cu`` on checked CUDA inputs
+    (``extra``: the entry's arguments after the scale)."""
+    b, h, s, dh = q.shape
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
@@ -295,13 +329,53 @@ def fused_mha_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
     sb, sh, sr, _ = q.stride()
     with torch.cuda.device(q.device):
-        err = lib.team_mha_short_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, b, h, s, dh,
-            sb, sh, sr, s if kv_len is None else kv_len, dh ** -0.5,
+            sb, sh, sr, s if kv_len is None else kv_len, dh ** -0.5, *extra,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mha_short kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return out
+
+
+def fused_mha_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Non-causal attention over pre-split ``[B, H, S, Dh]`` (float32 or
+    bfloat16) with keys ``>= kv_len`` masked; returns ``[B, H, S, Dh]``
+    contiguous, every query row. Any strides with a unit stride along Dh
+    (shared by q, k and v) go to the kernel as they are. Each kernel launch
+    adds one to ``fused_mha_short.launches``."""
+    _check_short("fused_mha_short", q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return mha_short_reference(q, k, v, kv_len)
+    out = _launch_short("team_mha_short_fwd", q, k, v, kv_len)
     fused_mha_short.launches += 1
+    return out
+
+
+_EXP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_mha_short_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_len: Optional[int] = None, *, exp_dtype: torch.dtype = torch.float32,
+                       q_pad: int = 16) -> torch.Tensor:
+    """:func:`fused_mha_short` with ``_mha_kernel_v2``'s softmax: the
+    normalisation deferred to the ``[S, Dh]`` output and the exponential in
+    ``exp_dtype`` (float32 or bfloat16); see :func:`mha_short_v2_reference`.
+    ``q_pad`` is the TPU kernel's query-row alignment (a positive int): padded
+    rows are sliced off and padded keys masked there, so every value gives
+    the same result, and the kernel computes the S rows alone. Each kernel
+    launch adds one to ``fused_mha_short_v2.launches``."""
+    if isinstance(q_pad, bool) or not isinstance(q_pad, int) or q_pad < 1:
+        raise ValueError(f"q_pad must be a positive int, got {q_pad!r}")
+    if exp_dtype not in _EXP_DTYPES:
+        raise TypeError(f"exp_dtype must be float32 or bfloat16, got {exp_dtype}")
+    _check_short("fused_mha_short_v2", q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+    out = _launch_short("team_mha_short_v2_fwd", q, k, v, kv_len,
+                        int(exp_dtype == torch.bfloat16))
+    fused_mha_short_v2.launches += 1
     return out
 
 
@@ -417,6 +491,7 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
 
 
 fused_mha_short.launches = 0
+fused_mha_short_v2.launches = 0
 fused_mha_packed_proj.launches = 0
 fused_mha_packed_proj.causal_launches = 0
 fused_attn_block.launches = 0
@@ -536,9 +611,12 @@ def _q3i_library() -> ctypes.CDLL:
     # qkv, vecs, out; batch, seq, heads_local, dh; rank, nm, kv_len, causal, exp2i, norm; stream
     lib.team_mha_packed_q3i_tp_fwd.argtypes = ([ctypes.c_void_p] + vecs + [ctypes.c_void_p] + ints
                                                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    # qkv, vecs (deq all ones), out; ints; variant; stream
+    lib.team_mha_q3i_variant_fwd.argtypes = ([ctypes.c_void_p] + vecs + [ctypes.c_void_p] + ints
+                                             + [ctypes.c_int, ctypes.c_void_p])
     for entry in ("team_mha_packed_q3i_fwd", "team_mha_packed_q3i_cls_fwd",
                   "team_mha_packed_q3i_cls_split_fwd", "team_mha_packed_q3i_sb_fwd",
-                  "team_mha_packed_q3i_tp_fwd"):
+                  "team_mha_packed_q3i_tp_fwd", "team_mha_q3i_variant_fwd"):
         getattr(lib, entry).restype = ctypes.c_int
     lib.team_mha_packed_q3i_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.team_mha_packed_q3i_smem_bytes.restype = ctypes.c_size_t
@@ -770,6 +848,88 @@ fused_mha_packed_q3i.launches = 0
 fused_mha_packed_q3i_cls.launches = 0
 fused_mha_packed_q3i_cls_split.launches = 0
 fused_mha_packed_q3i_sb.launches = 0
+
+
+# the decomposition probe's variants of the q3i kernel
+# (scripts/r4_attn_decomp.py:_variant_kernel), by their codes in
+# ``csrc/mha_packed_q3i.cu``'s team_mha_q3i_variant_fwd
+Q3I_VARIANTS = {"copy": 0, "full": 1, "noexp": 2, "qkonly": 3, "nopv": 4}
+QKONLY_SCALE = 2e-5
+
+
+def _round_int8(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+
+def mha_q3i_variant_float(qkv_q: torch.Tensor, qk_scale: torch.Tensor, qk_m2: torch.Tensor,
+                          o_inv: torch.Tensor, heads: int, variant: str) -> torch.Tensor:
+    """The float32 output of a decomposition variant before its int8
+    rounding, ``[B, S, 3D]`` int8 -> ``[B, S, D]`` (not ``copy``): with
+    ``acc = q8·k8`` exact and ``t = f32(acc)·(qks·log2e) − m2``,
+    ``qkonly`` ``f32(acc)·2e-5`` and ``nopv`` ``exp2(t)·o_inv`` on the first
+    Dh keys of each row (S >= Dh); ``full`` and ``noexp`` take ``p = exp2(t)``
+    or ``t``, ``pb = bf16(p)`` and ``(Σ pb·v8)·o_inv / Σ pb`` in f32 (the
+    ones column of the TPU kernel's PV dot)."""
+    if variant not in Q3I_VARIANTS or variant == "copy":
+        raise ValueError(f"variant {variant!r} has no float stage (variants: {list(Q3I_VARIANTS)})")
+    b, s, d3 = qkv_q.shape
+    d = d3 // 3
+    dh = d // heads
+    q, k, v = (_split_heads(t, heads) for t in qkv_q.split(d, dim=-1))
+    acc = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
+    oinv = o_inv.reshape(1, heads, 1, dh).float()
+    if variant == "qkonly":
+        out = acc[..., :dh] * QKONLY_SCALE
+    else:
+        t = (acc * (qk_scale.reshape(1, heads, 1, 1).float() * LOG2E)
+             - qk_m2.reshape(1, heads, 1, 1).float())
+        p = t if variant == "noexp" else torch.exp2(t)
+        if variant == "nopv":
+            out = p[..., :dh] * oinv
+        else:
+            pb = p.to(torch.bfloat16).float()
+            out = torch.matmul(pb, v.float()) * oinv / pb.sum(dim=-1, keepdim=True)
+    return out.permute(0, 2, 1, 3).reshape(b, s, d)
+
+
+def mha_q3i_variant_reference(qkv_q: torch.Tensor, qk_scale: torch.Tensor, qk_m2: torch.Tensor,
+                              o_inv: torch.Tensor, heads: int, variant: str) -> torch.Tensor:
+    """Plain PyTorch version of the decomposition probe's ``variant``:
+    ``copy`` the q segment; else :func:`mha_q3i_variant_float` rounded half
+    to even and clipped to ±127."""
+    if variant == "copy":
+        return qkv_q[..., :qkv_q.shape[-1] // 3].contiguous()
+    return _round_int8(mha_q3i_variant_float(qkv_q, qk_scale, qk_m2, o_inv, heads, variant))
+
+
+def fused_mha_q3i_variant(qkv_q: torch.Tensor, qk_scale: torch.Tensor, qk_m2: torch.Tensor,
+                          o_inv: torch.Tensor, heads: int, variant: str) -> torch.Tensor:
+    """One variant of the q3i decomposition probe: ``[B, S, 3D]`` int8 ->
+    ``[B, S, D]`` int8 (:func:`mha_q3i_variant_reference`). ``full`` is the
+    packed q3i kernel's static-softmax, ones-column route with v's dequant
+    scale 1; the others cut it short. ``TEAM_QI_GROUP`` is a TPU VMEM knob
+    and is not read. Each kernel launch adds one to
+    ``fused_mha_q3i_variant.launches[variant]``."""
+    if variant not in Q3I_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (variants: {list(Q3I_VARIANTS)})")
+    vecs = _q3i_operands(qkv_q, None, qk_scale, o_inv, qk_m2, heads)
+    if vecs[3] is None:
+        raise ValueError("the variants take the static softmax: qk_m2 is required")
+    b, s, d3 = qkv_q.shape
+    d = d3 // 3
+    dh = d // heads
+    if variant in ("qkonly", "nopv") and s < dh:
+        raise ValueError(f"variant {variant} writes the first Dh={dh} keys of a row: S={s} < Dh")
+    if qkv_q.device.type == "cpu":
+        return mha_q3i_variant_reference(qkv_q, vecs[1], vecs[3], vecs[2], heads, variant)
+    vecs[0] = torch.ones(3 * d, dtype=torch.float32, device=qkv_q.device)  # v's scale 1
+    out = torch.empty((b, s, d), dtype=torch.int8, device=qkv_q.device)
+    _q3i_launch("team_mha_q3i_variant_fwd", [qkv_q], vecs, out, b, s, heads, Q3I_VARIANTS[variant])
+    fused_mha_q3i_variant.launches[variant] += 1
+    return out
+
+
+fused_mha_q3i_variant.launches = dict.fromkeys(Q3I_VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1069,6 +1229,7 @@ def reset_launch_counts() -> None:
     fused_mha_packed.launches = 0
     fused_mha_packed.causal_launches = 0
     fused_mha_short.launches = 0
+    fused_mha_short_v2.launches = 0
     fused_mha_packed_proj.launches = 0
     fused_mha_packed_proj.causal_launches = 0
     fused_attn_block.launches = 0
@@ -1078,6 +1239,7 @@ def reset_launch_counts() -> None:
     fused_mha_packed_q3i_cls.launches = 0
     fused_mha_packed_q3i_cls_split.launches = 0
     fused_mha_packed_q3i_sb.launches = 0
+    fused_mha_q3i_variant.launches = dict.fromkeys(Q3I_VARIANTS, 0)
     fused_mha_packed_q.launches = 0
     fused_mha_packed_q3.launches = 0
     fused_mha_packed_tp.launches = 0

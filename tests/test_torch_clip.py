@@ -5,7 +5,7 @@ numpy inputs. JAX runs ``attn_impl="xla"`` (its CPU route); the port runs
 ``auto`` (the packed attention wrapper, whose CPU path is the plain version)
 and ``xla``. Towers agree to atol 1e-5 / rtol 1e-4 in float32: the sums run
 in another order, nothing else differs. Preprocess is bit-equal at the
-target size."""
+target size, and its resize within 1e-5."""
 
 import dataclasses
 
@@ -127,8 +127,12 @@ def test_patch_norm_consts_bit_equal():
 
 
 def test_preprocess_refuses_a_resize():
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_batch(torch.zeros((1, 40, 40, 3), dtype=torch.uint8), 32)
+    """It refused one until fault 3.2 was repaired; a resize now returns
+    team_tpu's bicubic resize (within 1e-5, tests/test_torch_preprocess.py)."""
+    u8 = np.random.default_rng(4).integers(0, 256, (1, 40, 40, 3), dtype=np.uint8)
+    want = np.asarray(jpre.preprocess_batch(jnp.asarray(u8), 32))
+    got = tpre.preprocess_batch(torch.from_numpy(u8), 32).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["attn_block", "mha_packed_proj", "mha_packed_tp", "pallas", "mha_short"])

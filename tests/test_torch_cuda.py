@@ -34,7 +34,13 @@ step on under 1 % of the outputs with scales within 1e-6 relative, the 3-D
 static producer bit for bit the 2-D one; the image and text towers on the
 ``hybrid`` and ``pallas`` tiers as on the static routes; the head-split
 kernels, each rank as its whole-head kernel against the plain version, and
-the ranks side by side equal to the whole-head kernel bit for bit."""
+the ranks side by side equal to the whole-head kernel bit for bit; the v2
+pre-split kernel (f32 1e-5, bf16 one output step, 2^-7 of |ref|, plus
+1e-5), its deferred normalise and bf16 exp each shown to take effect; the q3i
+decomposition variants at most one int8 step on under 1 % of the outputs
+(``copy`` bit for bit, ``full`` bit for bit the packed q3i kernel with unit
+v scales); the u8 normalize bit for bit; the bicubic resize on the card
+within 1e-5 of the CPU."""
 
 import math
 
@@ -857,3 +863,114 @@ def test_q3i_tp_kernel_matches_plain_and_the_whole_head_kernel(cuda_device, monk
         assert_within_one_int8_step(out, tms.mha_packed_q3i_tp_plain(qkv, deq, qks, oinv, h, r, nm,
                                                                      **kw), limit)
     assert torch.equal(torch.cat(outs, dim=-1), fused_mha_packed_q3i(qkv, deq, qks, oinv, h, **kw))
+
+
+# ---------------------------------------------------------------------------
+# #4 fused_mha_short_v2, #29 the q3i decomposition variants, #26 the u8
+# normalize, and the bicubic resize on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_len", [None, 150])
+@pytest.mark.parametrize("exp_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)])
+def test_mha_short_v2_kernel_matches_plain_version(cuda_device, dtype, rtol, exp_dtype, kv_len):
+    """float32 within 1e-5; bfloat16 within one output step (2^-7 |ref|) and 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn((16, 12, 197, 64), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    launches = tms.fused_mha_short_v2.launches
+    out = tms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=exp_dtype, q_pad=128)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_short_v2.launches == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), tms.mha_short_v2_reference(
+        q, k, v, kv_len, exp_dtype).float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_len", [None, 150])
+def test_mha_short_v2_switches_take_effect(cuda_device, kv_len):
+    """On bf16 inputs the deferred normalise and the bf16 exp each change the
+    kernel's output, and each brings it nearer the plain version of its own
+    arithmetic: fewer outputs differ from it than from the kernel without it
+    (#3 for the normalise, the f32 exp for the exp)."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v = (torch.randn((16, 12, 197, 64), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    v1 = tms.fused_mha_short(q, k, v, kv_len)
+    f32exp = tms.fused_mha_short_v2(q, k, v, kv_len)
+    bf16exp = tms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=torch.bfloat16)
+    for out, without, exp_dtype in ((f32exp, v1, torch.float32), (bf16exp, f32exp, torch.bfloat16)):
+        ref = tms.mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+        assert not torch.equal(out, without)
+        assert (out != ref).sum() < (without != ref).sum()
+
+
+@pytest.mark.parametrize("oinv_range", [(20.0, 60.0), (0.5, 2.0)], ids=["script_oinv", "unclipped"])
+@pytest.mark.parametrize("variant", list(tms.Q3I_VARIANTS))
+def test_q3i_variant_kernels_match_plain_versions(cuda_device, variant, oinv_range):
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    qkv, qks, qkm2, _ = r4.make_inputs(32, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    lo, hi = oinv_range
+    oinv = torch.rand((1, r4.D), generator=g, device=cuda_device) * (hi - lo) + lo
+    launches = tms.fused_mha_q3i_variant.launches[variant]
+    out = tms.fused_mha_q3i_variant(qkv, qks, qkm2, oinv, r4.H, variant)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_q3i_variant.launches[variant] == launches + 1
+    ref = tms.mha_q3i_variant_reference(qkv, qks, qkm2, oinv, r4.H, variant)
+    if variant == "copy":
+        assert torch.equal(out, ref)
+        return
+    assert torch.isfinite(tms.mha_q3i_variant_float(qkv, qks, qkm2, oinv, r4.H, variant)).all()
+    assert_within_one_int8_step(out, ref)
+
+
+def test_q3i_variant_full_is_the_packed_q3i_kernel(cuda_device):
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    qkv, qks, qkm2, oinv = r4.make_inputs(8, cuda_device)
+    ones = torch.ones((1, 3 * r4.D), device=cuda_device)
+    assert torch.equal(tms.fused_mha_q3i_variant(qkv, qks, qkm2, oinv, r4.H, "full"),
+                       fused_mha_packed_q3i(qkv, ones, qks, oinv, r4.H, qk_m2=qkm2))
+
+
+@pytest.mark.parametrize("b,s", [(1, 16), (8, 224), (3, 5)])
+def test_normalize_kernel_is_bit_equal_to_plain_version(cuda_device, b, s):
+    from team_tpu_torch.ops import preprocess as tpre
+
+    g = torch.Generator(device=cuda_device).manual_seed(b)
+    x = torch.randint(0, 256, (b, s, s, 3), generator=g, device=cuda_device, dtype=torch.uint8)
+    if s == 16:  # every value in every channel
+        x = torch.arange(256, dtype=torch.uint8, device=cuda_device).reshape(1, 16, 16, 1).expand(
+            1, 16, 16, 3).contiguous()
+    launches = tpre.normalize_uint8_kernel.launches
+    out = tpre.normalize_uint8_kernel(x)
+    torch.cuda.synchronize()
+    assert tpre.normalize_uint8_kernel.launches == launches + 1
+    assert torch.equal(out.view(torch.int32), tpre.normalize_uint8_plain(x).view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (2, 256, 320, 3)], ids=["up", "down"])
+def test_resize_on_the_card_matches_the_cpu(cuda_device, shape):
+    from team_tpu_torch.ops import preprocess as tpre
+
+    x = torch.randint(0, 256, shape, generator=torch.Generator().manual_seed(1), dtype=torch.uint8)
+    torch.testing.assert_close(tpre.preprocess_batch(x.to(cuda_device), 224, flip=True).cpu(),
+                               tpre.preprocess_batch(x, 224, flip=True), rtol=0, atol=1e-5)
+
+
+def test_probe_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from team_tpu_torch.ops import preprocess as tpre
+
+    x = torch.zeros((1, 4, 4, 3), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):  # a view that is not contiguous
+        tpre.normalize_uint8_kernel(x.transpose(1, 2))
+    q = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError):  # head width 48 is not compiled
+        tms.fused_mha_short_v2(q, q, q)
+    qkv = torch.zeros((1, 40, 3 * 128), dtype=torch.int8, device=cuda_device)
+    vec = torch.ones((1, 2), device=cuda_device)
+    with pytest.raises(ValueError):  # qkonly needs S >= Dh
+        tms.fused_mha_q3i_variant(qkv, vec, vec, torch.ones((1, 128), device=cuda_device), 2,
+                                  "qkonly")

@@ -19,6 +19,7 @@ both: conftest)."""
 
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -230,8 +231,10 @@ def test_int8_static_route_on_attn_block_matches_team_tpu(clip_params, tmp_path,
             key, got[key], want[key])
 
 
-def _run_cli_and_list_reference_modules(tmp_path, model_name: str, **extra) -> list:
-    """Run the port's CLI in a fresh process on the CPU; returns the names of
+def _run_cli_and_list_reference_modules(tmp_path, model_name: str, probes: bool = False,
+                                        **extra) -> list:
+    """Run the port's CLI in a fresh process on the CPU (then, with
+    ``probes``, both probe entry points at a tiny size); returns the names of
     the loaded modules that are jax or team_tpu (or below either)."""
     # no "device" in the JSON, so the --device flag decides
     cfg = {"prefix": "t", "dataset": "synthetic_insects", "model_name": model_name,
@@ -241,9 +244,14 @@ def _run_cli_and_list_reference_modules(tmp_path, model_name: str, **extra) -> l
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     code = ("import runpy, sys\n"
             f"sys.argv = ['main', '--config', {str(tmp_path / 'cfg.json')!r}, '--device', 'cpu']\n"
-            "runpy.run_module('team_tpu_torch.main', run_name='__main__')\n"
-            "print('REFERENCE_MODULES', sorted(m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'team_tpu')))\n")
+            "runpy.run_module('team_tpu_torch.main', run_name='__main__')\n")
+    if probes:
+        code += ("for probe in ('attn_shootout', 'r4_attn_decomp'):\n"
+                 "    sys.argv = [probe, '--device', 'cpu', '--batch', '1', '--layers', '1', "
+                 "'--rounds', '1']\n"
+                 "    runpy.run_module('team_tpu_torch.scripts.' + probe, run_name='__main__')\n")
+    code += ("print('REFERENCE_MODULES', sorted(m for m in sys.modules if m.split('.')[0] "
+             "in ('jax', 'team_tpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -254,7 +262,7 @@ def _run_cli_and_list_reference_modules(tmp_path, model_name: str, **extra) -> l
 
 
 def test_cli_runs_the_slice_without_jax(tmp_path):
-    assert _run_cli_and_list_reference_modules(tmp_path, "simplecil") == []
+    assert _run_cli_and_list_reference_modules(tmp_path, "simplecil", probes=True) == []
 
 
 def test_cli_runs_proof_without_jax_or_team_tpu(tmp_path):
@@ -298,13 +306,15 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
     # ported: PROOF lays its mesh over the launched ranks, one device each, so a
     # 2-rank mesh in one process raises (tests/test_torch_parallel.py runs two)
     pytest.param({"model_name": "proof", "mesh_shape": [2]}, {}, ValueError, id="mesh_shape"),
-    # a checkpoint file that exists (written under tmp_path): the loader is not ported
-    pytest.param({}, {"TEAM_CLIP_CHECKPOINT": "<tmp>/clip.pt"}, NotImplementedError,
+    # a file that exists but holds no checkpoint (one zero byte, under tmp_path): the
+    # loader is ported (tests/test_torch_import_weights.py) and torch.load refuses it,
+    # as in team_tpu
+    pytest.param({}, {"TEAM_CLIP_CHECKPOINT": "<tmp>/clip.pt"}, pickle.UnpicklingError,
                  id="clip_checkpoint"),
 ])
 def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
     """Each option the port lacks raises, and so does a mesh larger than the
-    launched world. ``int8_gemm_impl="hybrid"`` is
+    launched world and a checkpoint file that holds none. ``int8_gemm_impl="hybrid"`` is
     ported: SimpleCIL through both trainers on it, with ``attention_impl=
     "xla"`` on both sides (ROADMAP 3.10) and team_tpu's kernels of the tier
     in interpret mode; both gate the static payload through the tier, both

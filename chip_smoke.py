@@ -47,7 +47,14 @@ Phases, one line or more each:
      paths' kernels at the probes' own shapes and inputs (B=256): #3 and each
      #4 implementation of attn_shootout on its first two layers' inputs (as
      v2), each #29 variant on r4_attn_decomp's first layer; the u8
-     normalize (#26) bit for bit over every u8 value and at B=128, 224^2
+     normalize (#26) bit for bit over every u8 value and at B=128, 224^2;
+     the GEMM probes' kernels at the probes' own shapes and inputs:
+     probe_mm (#27) int8 bit for bit the exact product over a whole 4096^3
+     input and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
+     int8 bit for bit and bf16 within 2^-10 of the largest |ref|, mlp_mega
+     (#30) 2-D and 3-D bit for bit and within 127 s2 per near-edge hq (plus
+     one bf16 step) of the plain version, the share of rows that differ
+     printed
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
      kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
@@ -57,7 +64,9 @@ Phases, one line or more each:
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
      peak of their type) computed from the same inputs; #4 (f32 and bf16 exp)
      against SDPA, #29's variants (copy against qkv[..., :D].contiguous()),
-     #26 with the torch composition of its arithmetic as context
+     #26 with the torch composition of its arithmetic as context; #27
+     against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
+     rate is the mma.sync ceiling), #30 against the torch composition
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -101,6 +110,9 @@ Phases, one line or more each:
      counts zeroed before it: team_tpu_torch.scripts.attn_shootout (MODE all,
      then qpad128; B=256) must launch #4, team_tpu_torch.scripts.r4_attn_decomp
      (B=256) every #29 variant, and #26 through the library API at B=128 once;
+     the GEMM probes at their own shapes, each with the counts zeroed before
+     it: team_tpu_torch.scripts.int8_probe must launch #27, int8_mxu_ceiling
+     #28, r5_megakernel_probe both entries of #30;
      then the repairs: the bicubic resize on the card against the CPU (32->224
      up, 256x320->224 down, within 1e-5) and the open_clip loader at ViT-B/16
      width (a seeded synthetic .npz through TEAM_CLIP_CHECKPOINT; the tree
@@ -155,7 +167,7 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
 }
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
 SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
-           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu")
+           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu", "gemm_probe.cu")
 # flash attention: (batch, heads, seq, causal, kv_len); vision and text are
 # the towers' shapes on the main path, S=577 a shape the auto route sends to it
 FLASH_SHAPES = {"vision": (128, 12, 197, False, None), "text": (32, 8, 77, True, 77),
@@ -2968,6 +2980,195 @@ def check_loader(log_dir: str) -> dict:
     return {"arrays": len(sd), "leaves_checked": len(leaves)}
 
 
+# ---------------------------------------------------------------------------
+# the GEMM probes (#27 probe_mm, #28 mxu_ceiling, #30 mlp_mega)
+# ---------------------------------------------------------------------------
+
+def _probe_inputs(dev) -> dict:
+    """The three probes' own inputs at their own shapes (the scripts' draws):
+    int8_probe's first x and w (M = N = K = 4096) and their bf16 casts, the
+    ceiling's int8 and bf16 x and w, the megakernel's weights and first input."""
+    import torch
+
+    from team_tpu_torch.ops import gemm_probe as gp
+    from team_tpu_torch.scripts import int8_mxu_ceiling as mc
+    from team_tpu_torch.scripts import int8_probe as ip
+    from team_tpu_torch.scripts import r5_megakernel_probe as r5
+
+    xs, w = ip.make_inputs(ip.SIZE, dev)
+    params, inputs = r5.make_inputs(r5.B, 1, dev)
+    return {"mm": (xs[0], w), "mm_bf16": (xs[0].to(torch.bfloat16),
+                                         gp.column_major(w.to(torch.bfloat16))),
+            "ceiling": {dt: mc.make_inputs(dt, mc.M, mc.K, dev) for dt in (torch.int8, torch.bfloat16)},
+            "mega": (inputs[0], params)}
+
+
+def compare_gemm_probes(gp, inp) -> dict:
+    """#27, #28 and #30 against their plain versions at the probes' own shapes
+    and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output,
+    bf16 within (K/16 + 1) ulps of |x|@|w|; mxu_ceiling int8 bit for bit, bf16
+    within CEILING_BF16_SHARE of the largest |ref|; mlp_mega_2d and _3d equal
+    bit for bit and within mlp_mega_limit of the plain version (the float
+    intermediate checked finite first), with the share of rows that differ."""
+    import torch
+
+    from team_tpu_torch.scripts import int8_mxu_ceiling as mc
+
+    err = {}
+    x, w = inp["mm"]
+    out, ref = gp.probe_mm(x, w), gp.probe_mm_reference(x, w)
+    torch_sync()
+    if not torch.equal(out, ref):
+        raise AssertionError("probe_mm int8 differs from the exact product")
+    print(f"  probe_mm int8 M=N=K={x.shape[0]}: bit for bit the exact product (tolerance 0)")
+    err["probe_mm int8"] = 0.0
+    xb, wb = inp["mm_bf16"]
+    out, ref = gp.probe_mm(xb, wb), gp.probe_mm_reference(xb, wb)
+    limit = gp.probe_mm_bf16_limit(xb, wb)
+    torch_sync()
+    diff = (out - ref).abs()
+    err["probe_mm bf16"] = diff.max().item()
+    print(f"  probe_mm bf16 M=N=K={xb.shape[0]}: max_abs_err={err['probe_mm bf16']:.3e}, "
+          f"{100 * (diff > 0).float().mean().item():.4f} % of outputs differ, worst at "
+          f"{(diff / limit).max().item():.3f} of the limit ((K/16 + 1) ulps of |x|@|w|)")
+    if not bool((diff <= limit).all()):
+        raise AssertionError("probe_mm bf16 disagrees with its plain version")
+
+    for dtype, (x, w) in inp["ceiling"].items():
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        out, ref = gp.mxu_ceiling(x, w, mc.REPS, mc.M), gp.mxu_ceiling_reference(x, w, mc.REPS, mc.M)
+        torch_sync()
+        e = (out - ref).abs().max().item()
+        err[f"mxu_ceiling {tag}"] = e
+        if dtype == torch.int8:
+            ok = torch.equal(out, ref)
+            print(f"  mxu_ceiling int8 M={mc.M} K=N={mc.K} REPS={mc.REPS}: bit for bit {ok} "
+                  "(tolerance 0)")
+        else:
+            tol = gp.CEILING_BF16_SHARE * ref.abs().max().item()
+            ok = e <= tol
+            print(f"  mxu_ceiling bf16 M={mc.M} K=N={mc.K} REPS={mc.REPS}: max_abs_err={e:.3e} "
+                  f"(tol {tol:.3e}, 2^-10 of max |ref| {ref.abs().max().item():.3f})")
+        if not ok:
+            raise AssertionError(f"mxu_ceiling {tag} disagrees with its plain version")
+
+    x, (w1, s1, w2, s2, qi) = inp["mega"]
+    b, s, k = x.shape
+    out3 = gp.mlp_mega_3d(x, w1, s1, w2, s2, qi)
+    out2 = gp.mlp_mega_2d(x.reshape(b * s, k), w1, s1, w2, s2, qi)
+    torch_sync()
+    if not torch.equal(out2.reshape(x.shape), out3):
+        raise AssertionError("mlp_mega_2d and mlp_mega_3d differ")
+    hidden = gp.mlp_mega_hidden(x, w1, s1, qi)
+    if not all(bool(torch.isfinite(t).all()) for t in hidden.values()):
+        raise AssertionError("mlp_mega: the plain float intermediate is not finite")
+    saturated = (hidden["v"].abs() >= 127).float().mean().item()
+    del hidden
+    ref = gp.mlp_mega_reference(x, w1, s1, w2, s2, qi)
+    edges = gp.mlp_mega_edge_rows(x, w1, s1, qi)
+    limit = gp.mlp_mega_limit(ref, edges, s2)
+    diff = (out3.float() - ref.float()).abs()
+    rows_differ = (diff.reshape(b * s, -1).amax(dim=1) > 0).float().mean().item()
+    err["mlp_mega"] = diff.max().item()
+    err["mlp_mega rows differing"] = rows_differ
+    print(f"  mlp_mega B={b} S={s} K={k} N={w1.shape[1]}: 2-D and 3-D bit for bit; "
+          f"max_abs_err={err['mlp_mega']:.3e}, {100 * rows_differ:.4f} % of rows differ, "
+          f"{100 * (edges > 0).float().mean().item():.4f} % of rows hold an hq near a rounding "
+          f"edge ({int(edges.sum())} values), {100 * saturated:.1f} % of hq at +-127; limit 127 s2 "
+          "per near-edge value of the row plus one bf16 step (rows without one: bit for bit)")
+    if not bool((diff <= limit).all()):
+        raise AssertionError("mlp_mega disagrees with its plain version")
+    return err
+
+
+def time_gemm_probes(gp, inp) -> dict:
+    """#27, #28 and #30 at the probes' shapes (plain, kernel, kernel, plain),
+    each with its bound and its library call: torch._int_mm and torch.matmul
+    (bf16 out) for #27, none for #28, the torch composition (the probe's xla
+    variant) for #30."""
+    import torch
+
+    from team_tpu_torch.scripts import int8_mxu_ceiling as mc
+    from team_tpu_torch.scripts import r5_megakernel_probe as r5
+
+    times = {}
+
+    def four(kernel, plain):
+        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "k": (k1, k2), "p": (p1, p2)}
+
+    for tag, (x, w), lib_name, lib in (
+            ("int8", inp["mm"], "torch._int_mm", torch._int_mm),
+            ("bf16", inp["mm_bf16"], "torch.matmul (bf16 out)", torch.matmul)):
+        m, k = x.shape
+        n = w.shape[1]
+        t = four(lambda: gp.probe_mm(x, w), lambda: gp.probe_mm_reference(x, w))
+        t["library_ms"] = _time_ms(lambda: lib(x, w))
+        esz = x.element_size()
+        t.update(bound((m * k + k * n) * esz + m * n * 4, {tag: 2 * m * n * k}))
+        t["tops"] = 2 * m * n * k / t["ms"] / 1e9
+        times[f"probe_mm {tag}"] = t
+        print(f"  probe_mm {tag} M=N=K={m}: kernel {t['k'][0]:.4f}/{t['k'][1]:.4f} ms "
+              f"({t['tops']:.1f} TOP/s), plain {t['p'][0]:.4f}/{t['p'][1]:.4f} ms, {lib_name} "
+              f"{t['library_ms']:.4f} ms ({2 * m * n * k / t['library_ms'] / 1e9:.1f} TOP/s), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+    for dtype, (x, w) in inp["ceiling"].items():
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        ops = 2 * mc.M * mc.K * mc.K * mc.REPS
+        t = four(lambda: gp.mxu_ceiling(x, w, mc.REPS, mc.M),
+                 lambda: gp.mxu_ceiling_reference(x, w, mc.REPS, mc.M))
+        t["library_ms"] = None
+        t.update(bound(x.numel() * x.element_size() + w.numel() * w.element_size()
+                       + mc.M * mc.K * 4, {tag: ops}))
+        t["tops"] = ops / t["ms"] / 1e9
+        t["peak_share"] = t["tops"] / (PEAK_OPS_PER_S[tag] / 1e12)
+        times[f"mxu_ceiling {tag}"] = t
+        print(f"  mxu_ceiling {tag} M={mc.M} K=N={mc.K} REPS={mc.REPS}: kernel "
+              f"{t['k'][0]:.4f}/{t['k'][1]:.4f} ms ({t['tops']:.1f} TOP/s, the mma.sync ceiling, "
+              f"{100 * t['peak_share']:.1f} % of the dense peak), plain "
+              f"{t['p'][0]:.4f}/{t['p'][1]:.4f} ms, no single PyTorch call computes it, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+    x, params = inp["mega"]
+    x2 = x.reshape(-1, x.shape[-1])
+    m, k = x2.shape
+    n = params[0].shape[1]
+    t = four(lambda: gp.mlp_mega_2d(x2, *params), lambda: gp.mlp_mega_reference(x2, *params))
+    t["library_ms"] = _time_ms(lambda: r5.xla_pair(x2, *params))
+    t.update(bound(m * k + 2 * k * n + m * k * 2 + (2 * n + k) * 4, {"int8": 4 * m * k * n}))
+    t["tops"] = 4 * m * k * n / t["ms"] / 1e9
+    times["mlp_mega"] = t
+    print(f"  mlp_mega M={m} K={k} N={n}: kernel {t['k'][0]:.4f}/{t['k'][1]:.4f} ms "
+          f"({t['tops']:.1f} TOP/s), plain {t['p'][0]:.4f}/{t['p'][1]:.4f} ms, the torch "
+          f"composition (xla_pair) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']})")
+    return times
+
+
+def run_gemm_probe_paths(gp) -> dict:
+    """The three GEMM probe entry points at their own shapes, each with the
+    counts zeroed just before it and read just after; each must launch its
+    kernels (the megakernel probe both entries)."""
+    from team_tpu_torch.scripts import int8_mxu_ceiling, int8_probe, r5_megakernel_probe
+
+    res = {}
+    for name, probe, counted in (("int8_probe", int8_probe, ("probe_mm",)),
+                                 ("int8_mxu_ceiling", int8_mxu_ceiling, ("mxu_ceiling",)),
+                                 ("r5_megakernel_probe", r5_megakernel_probe,
+                                  ("mlp_mega_2d", "mlp_mega_3d"))):
+        gp.reset_launch_counts()
+        t0 = time.perf_counter()
+        res[name] = probe.main([])
+        res[f"{name}_wall_s"] = time.perf_counter() - t0
+        launches = {c: getattr(gp, c).launches for c in counted}
+        res[f"{name}_launches"] = launches
+        print(f"  {name}: launches {launches}, {res[f'{name}_wall_s']:.2f} s")
+        if not all(launches.values()):
+            raise AssertionError(f"{name} did not launch {counted}")
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for key in sorted(tree):
@@ -3001,6 +3202,7 @@ def main() -> int:
         from team_tpu_torch.backbone import quant
         from team_tpu_torch.ops import _build
         from team_tpu_torch.ops import flash_attention as fa
+        from team_tpu_torch.ops import gemm_probe as gp
         from team_tpu_torch.ops import int8_matmul as im
         from team_tpu_torch.ops import mha_short as ms
         from team_tpu_torch.ops import preprocess as pp
@@ -3023,6 +3225,7 @@ def main() -> int:
     fa.build()
     im.build()
     pp.build()
+    gp.build()
     print(f"  {', '.join(SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
     for source in SOURCES:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
@@ -3046,6 +3249,8 @@ def main() -> int:
     fused_err["fused_mha_short"] = max(fused_err["fused_mha_short"], probe_err["fused_mha_short"])
     variant_err = {v: max(e, probe_err[v]) for v, e in variant_err.items()}
     norm_err = compare_normalize(pp, dev)
+    probe_inputs = _probe_inputs(dev)
+    gemm_probe_err = compare_gemm_probes(gp, probe_inputs)
 
     print("phase 4: timing (CUDA events over 20 calls queued behind a device spin, after 3 "
           "warm-up; plain, kernel, kernel, plain)")
@@ -3057,6 +3262,8 @@ def main() -> int:
     times.update(time_fused(ms, dev))
     times.update(time_tp(ms, dev))
     times.update(time_probe_kernels(ms, pp, dev))
+    times.update(time_gemm_probes(gp, probe_inputs))
+    del probe_inputs
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3069,6 +3276,7 @@ def main() -> int:
         fused = run_fused_paths(ms, fa, log_dir)
         parallel = run_parallel_paths(ms, log_dir)
         probes = run_probe_paths(ms, pp, dev)
+        gemm_probes = run_gemm_probe_paths(gp)
         print("  the repairs: bicubic resize (fault 3.2), the open_clip loader (fault 3.8)")
         resize_err = check_resize(pp, dev)
         loader = check_loader(log_dir)
@@ -3082,6 +3290,7 @@ def main() -> int:
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     q3i_common = {"route": "cuda", "source": "team_tpu_torch/csrc/mha_packed_q3i.cu"}
+    probe_common = {"route": "cuda", "source": "team_tpu_torch/csrc/gemm_probe.cu"}
     q_common = {"route": "cuda", "source": "team_tpu_torch/csrc/mha_packed_q.cu"}
     quant_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_quant.cu"}
     gemm_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_gemm.cu",
@@ -3279,6 +3488,35 @@ def main() -> int:
         "composition_ms": times["normalize_uint8"]["composition_ms"],
         "composition": "(x.float() / 255 - mean) / std",
         "resize_card_vs_cpu_max_abs": resize_err, "loader": loader,
+    }, {
+        "name": "probe_mm", **probe_common, "replaces": "scripts/int8_probe.py:48",
+        "launches": gemm_probes["int8_probe_launches"]["probe_mm"],
+        "launches_from": "phase 5, team_tpu_torch.scripts.int8_probe",
+        "max_abs_err": gemm_probe_err["probe_mm int8"], **timing(times["probe_mm int8"]),
+        "tops": times["probe_mm int8"]["tops"], "library": "torch._int_mm",
+        "bf16": {**timing(times["probe_mm bf16"]), "tops": times["probe_mm bf16"]["tops"],
+                 "max_abs_err": gemm_probe_err["probe_mm bf16"],
+                 "library": "torch.matmul on the bf16 operands (bf16 out)"},
+        "probe": gemm_probes["int8_probe"],
+    }, {
+        "name": "mxu_ceiling", **probe_common, "replaces": "scripts/int8_mxu_ceiling.py:50",
+        "launches": gemm_probes["int8_mxu_ceiling_launches"]["mxu_ceiling"],
+        "launches_from": "phase 5, team_tpu_torch.scripts.int8_mxu_ceiling",
+        "max_abs_err": gemm_probe_err["mxu_ceiling int8"], **timing(times["mxu_ceiling int8"]),
+        "tops": times["mxu_ceiling int8"]["tops"], "label": "the mma.sync ceiling",
+        "bf16": {**timing(times["mxu_ceiling bf16"]), "tops": times["mxu_ceiling bf16"]["tops"],
+                 "max_abs_err": gemm_probe_err["mxu_ceiling bf16"]},
+        "probe": gemm_probes["int8_mxu_ceiling"],
+    }, {
+        "name": "mlp_mega", **probe_common, "replaces": "scripts/r5_megakernel_probe.py:73",
+        "entries": "mlp_mega_2d, mlp_mega_3d (r5_megakernel_probe.py:105; bit for bit)",
+        "launches": sum(gemm_probes["r5_megakernel_probe_launches"].values()),
+        "launches_by_entry": gemm_probes["r5_megakernel_probe_launches"],
+        "launches_from": "phase 5, team_tpu_torch.scripts.r5_megakernel_probe",
+        "max_abs_err": gemm_probe_err["mlp_mega"],
+        "rows_differing": gemm_probe_err["mlp_mega rows differing"], **timing(times["mlp_mega"]),
+        "tops": times["mlp_mega"]["tops"], "library": "the torch composition (xla_pair)",
+        "probe_ms_per_pair": gemm_probes["r5_megakernel_probe"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

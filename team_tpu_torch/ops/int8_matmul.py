@@ -54,7 +54,7 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     amax = w32.abs().amax(dim=0, keepdim=True)
     scale = torch.where(amax > 0, amax * INV127.to(amax.device), torch.ones_like(amax))
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
-    return _column_major(q), scale
+    return column_major(q), scale
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,7 +82,7 @@ def int8_linear_xla(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _column_major(w: torch.Tensor) -> torch.Tensor:
+def column_major(w: torch.Tensor) -> torch.Tensor:
     """The same ``[K, N]`` values with strides ``(1, K)``."""
     return w.t().contiguous().t()
 
@@ -110,7 +110,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if m < _INT_MM_MIN_ROWS:
             x2 = torch.cat([x2, x2.new_zeros((_INT_MM_MIN_ROWS - m, k))])
         if w.stride(0) != 1:
-            w = _column_major(w)
+            w = column_major(w)
         out = torch._int_mm(x2.contiguous(), w)[:m]
     return out.reshape(*lead, w.shape[1])
 
@@ -393,7 +393,7 @@ def int8_linear_blockscale_reference(x_q: torch.Tensor, w_q: torch.Tensor, x_sca
     acc = None
     for kb in range(n_kb):
         part = int8_matmul(x_q[:, kb * bk:(kb + 1) * bk].contiguous(),
-                           _column_major(w_q[kb * bk:(kb + 1) * bk]))
+                           column_major(w_q[kb * bk:(kb + 1) * bk]))
         term = part.float() * x_scales[kb].reshape(-1, 1).float()
         acc = term if acc is None else acc + term
     out = acc * w_scale.reshape(1, -1).float()

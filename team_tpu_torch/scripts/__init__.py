@@ -3,4 +3,7 @@
 
     python -m team_tpu_torch.scripts.attn_shootout     # on the card
     python -m team_tpu_torch.scripts.r4_attn_decomp --device cpu --batch 2 --layers 2
+    python -m team_tpu_torch.scripts.int8_probe        # the GEMM probes, on the card
+    python -m team_tpu_torch.scripts.int8_mxu_ceiling
+    python -m team_tpu_torch.scripts.r5_megakernel_probe
 """

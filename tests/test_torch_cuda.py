@@ -40,7 +40,11 @@ pre-split kernel (f32 1e-5, bf16 one output step, 2^-7 of |ref|, plus
 decomposition variants at most one int8 step on under 1 % of the outputs
 (``copy`` bit for bit, ``full`` bit for bit the packed q3i kernel with unit
 v scales); the u8 normalize bit for bit; the bicubic resize on the card
-within 1e-5 of the CPU."""
+within 1e-5 of the CPU; the GEMM probes' kernels (``ops/gemm_probe.py``):
+int8 ``probe_mm`` and ``mxu_ceiling`` bit for bit, their bf16 forms within
+``probe_mm_bf16_limit`` and ``CEILING_BF16_SHARE`` of the largest |ref|, the
+MLP megakernel within ``mlp_mega_limit`` (bit for bit on rows with no hq
+near a rounding edge) and its 2-D and 3-D entries equal bit for bit."""
 
 import math
 
@@ -974,3 +978,99 @@ def test_probe_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # qkonly needs S >= Dh
         tms.fused_mha_q3i_variant(qkv, vec, vec, torch.ones((1, 128), device=cuda_device), 2,
                                   "qkonly")
+
+
+def _int8(shape, gen, device, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 384), (100, 96, 40)])
+def test_probe_mm_int8_kernel_is_exact(cuda_device, m, k, n):
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, w = _int8((m, k), g, cuda_device), gp.column_major(_int8((k, n), g, cuda_device))
+    launches = gp.probe_mm.launches
+    out = gp.probe_mm(x, w)
+    torch.cuda.synchronize()
+    assert gp.probe_mm.launches == launches + 1 and out.dtype == torch.int32
+    assert torch.equal(out, gp.probe_mm_reference(x, w))
+    assert torch.equal(gp.probe_mm(x, w.contiguous()), out)  # another layout is copied
+
+
+@pytest.mark.parametrize("values", ["int8", "normal"])
+@pytest.mark.parametrize("m,k,n", [(256, 512, 384), (100, 48, 40)])
+def test_probe_mm_bf16_kernel_matches_plain_version(cuda_device, m, k, n, values):
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    if values == "int8":
+        x, w = _int8((m, k), g, cuda_device), _int8((k, n), g, cuda_device)
+    else:
+        x, w = (torch.randn(s, generator=g, device=cuda_device) for s in ((m, k), (k, n)))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    out = gp.probe_mm(x, w, torch.float32)
+    ref = gp.probe_mm_reference(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert bool(((out - ref).abs() <= gp.probe_mm_bf16_limit(x, w)).all())
+
+
+@pytest.mark.parametrize("m,k,n,reps", [(512, 768, 768, 100), (100, 64, 96, 70)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_mxu_ceiling_kernel_matches_plain_version(cuda_device, dtype, m, k, n, reps):
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    rows = m + 8 * 64
+    if dtype == torch.int8:
+        x, w = _int8((rows, k), g, cuda_device), _int8((k, n), g, cuda_device, -3, 4)
+    else:
+        x, w = ((torch.randn(s, generator=g, device=cuda_device) * 0.1).to(dtype)
+                for s in ((rows, k), (k, n)))
+    launches = gp.mxu_ceiling.launches
+    out = gp.mxu_ceiling(x, gp.column_major(w), reps=reps, m=m)
+    ref = gp.mxu_ceiling_reference(x, w, reps=reps, m=m)
+    torch.cuda.synchronize()
+    assert gp.mxu_ceiling.launches == launches + 1 and tuple(out.shape) == (m, n)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() <= gp.CEILING_BF16_SHARE * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,s,k,n", [(4, 197, 768, 3072), (3, 7, 64, 256)])
+def test_mlp_mega_kernel_matches_plain_version_and_its_3d_entry(cuda_device, b, s, k, n):
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _int8((b, s, k), g, cuda_device)
+    w1, w2 = gp.column_major(_int8((k, n), g, cuda_device)), gp.column_major(_int8((n, k), g, cuda_device))
+    s1 = torch.full((1, n), 2e-4, device=cuda_device)
+    s2 = torch.full((1, k), 2e-4, device=cuda_device)
+    qi = torch.full((1, n), 30.0, device=cuda_device)
+    out3 = gp.mlp_mega_3d(x, w1, s1, w2, s2, qi)
+    out2 = gp.mlp_mega_2d(x.reshape(b * s, k), w1, s1, w2, s2, qi, block_m=256)
+    ref = gp.mlp_mega_reference(x, w1, s1, w2, s2, qi)
+    torch.cuda.synchronize()
+    assert torch.equal(out2.reshape(b, s, k), out3) and out3.dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(t).all()) for t in gp.mlp_mega_hidden(x, w1, s1, qi).values())
+    limit = gp.mlp_mega_limit(ref, gp.mlp_mega_edge_rows(x, w1, s1, qi), s2)
+    assert bool(((out3.float() - ref.float()).abs() <= limit).all())
+
+
+def test_gemm_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    z8 = torch.zeros((64, 48), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # int8 K must be a multiple of 32
+        gp.probe_mm(z8, torch.zeros((48, 8), dtype=torch.int8, device=cuda_device))
+    x = torch.zeros((16 + 512, 1280), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # wider than the shared-memory-resident K
+        gp.mxu_ceiling(x, torch.zeros((1280, 64), dtype=torch.int8, device=cuda_device), 4, 16)
+    k, n = 64, 4096
+    xm = torch.zeros((2, k), dtype=torch.int8, device=cuda_device)
+    vn, vk = torch.ones((1, n), device=cuda_device), torch.ones((1, k), device=cuda_device)
+    with pytest.raises(ValueError):  # the hidden block [64, N] does not fit
+        gp.mlp_mega_2d(xm, torch.zeros((k, n), dtype=torch.int8, device=cuda_device), vn,
+                       torch.zeros((n, k), dtype=torch.int8, device=cuda_device), vk, vn)

@@ -234,7 +234,7 @@ def test_int8_static_route_on_attn_block_matches_team_tpu(clip_params, tmp_path,
 def _run_cli_and_list_reference_modules(tmp_path, model_name: str, probes: bool = False,
                                         **extra) -> list:
     """Run the port's CLI in a fresh process on the CPU (then, with
-    ``probes``, both probe entry points at a tiny size); returns the names of
+    ``probes``, every probe entry point at a tiny size); returns the names of
     the loaded modules that are jax or team_tpu (or below either)."""
     # no "device" in the JSON, so the --device flag decides
     cfg = {"prefix": "t", "dataset": "synthetic_insects", "model_name": model_name,
@@ -246,9 +246,15 @@ def _run_cli_and_list_reference_modules(tmp_path, model_name: str, probes: bool 
             f"sys.argv = ['main', '--config', {str(tmp_path / 'cfg.json')!r}, '--device', 'cpu']\n"
             "runpy.run_module('team_tpu_torch.main', run_name='__main__')\n")
     if probes:
-        code += ("for probe in ('attn_shootout', 'r4_attn_decomp'):\n"
-                 "    sys.argv = [probe, '--device', 'cpu', '--batch', '1', '--layers', '1', "
-                 "'--rounds', '1']\n"
+        probe_args = {
+            "attn_shootout": ["--batch", "1", "--layers", "1"],
+            "r4_attn_decomp": ["--batch", "1", "--layers", "1"],
+            "int8_probe": ["--size", "64"],
+            "int8_mxu_ceiling": ["--m", "16", "--k", "32", "--reps", "5"],
+            "r5_megakernel_probe": ["--batch", "1", "--layers", "1", "--inputs", "1",
+                                    "--variants", "xla,mk2d256,mk3d8"]}
+        code += (f"for probe, args in {probe_args!r}.items():\n"
+                 "    sys.argv = [probe, '--device', 'cpu', '--rounds', '1', *args]\n"
                  "    runpy.run_module('team_tpu_torch.scripts.' + probe, run_name='__main__')\n")
     code += ("print('REFERENCE_MODULES', sorted(m for m in sys.modules if m.split('.')[0] "
              "in ('jax', 'team_tpu')))\n")

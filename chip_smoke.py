@@ -5,7 +5,9 @@
 Phases, one line or more each:
   1. the card (nvidia-smi name and power limit); TF32 off for matmuls and cuDNN
   2. build the kernels from team_tpu_torch/csrc, one nvcc per source, all
-     started together (set-up)
+     started together (set-up); ptxas's registers and spills of each
+     kernel; cuobjdump -sass of attn_block.cu: HMMA in every bf16 fused
+     kernel, none in the f32 ones
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -66,7 +68,8 @@ Phases, one line or more each:
      against SDPA, #29's variants (copy against qkv[..., :D].contiguous()),
      #26 with the torch composition of its arithmetic as context; #27
      against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
-     rate is the mma.sync ceiling), #30 against the torch composition
+     rate is the mma.sync ceiling), #30 against the torch composition; the
+     fused kernels' TFLOP/s and share of their bound beside their times
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -365,6 +368,40 @@ def time_kernel(ms, dev) -> dict:
     return times
 
 
+# the fused kernels of csrc/attn_block.cu: bf16 on the tensor cores, f32 on the CUDA cores
+TC_KERNELS = ("mha_packed_proj_kernel_tc", "ln_qkv_kernel_tc")
+CUDA_CORE_KERNELS = ("mha_packed_proj_kernel", "ln_qkv_kernel")
+
+
+def check_tensor_cores(build) -> dict:
+    """HMMA instructions in each kernel of the built attn_block library
+    (``cuobjdump -sass``): every bf16 kernel issues its products on the tensor
+    cores, and no f32 kernel does."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build._target("attn_block.cu"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    found = defaultdict(list)
+    for fn, n in counts.items():
+        kind = next((k for k in TC_KERNELS if k in fn), None) or next(
+            (k for k in CUDA_CORE_KERNELS if k in fn), None)
+        if kind is not None:
+            found[kind].append(n)
+    print(f"  cuobjdump -sass attn_block.cu, HMMA per kernel: {dict(found)}")
+    if any(not found[k] or min(found[k]) == 0 for k in TC_KERNELS):
+        raise AssertionError(f"a bf16 fused kernel issues no HMMA: {dict(found)}")
+    if any(not found[k] or max(found[k]) > 0 for k in CUDA_CORE_KERNELS):
+        raise AssertionError(f"an f32 fused kernel is missing or issues HMMA: {dict(found)}")
+    return dict(found)
+
+
 def fused_inputs(b, s, h, dtype, dev, seed=0, dh=64):
     """x, a layer norm's affine, the attention's weights and biases (biases and
     affine non-zero: the random init makes them 0 and 1), and a packed qkv."""
@@ -485,21 +522,27 @@ def time_fused(ms, dev) -> dict:
         act = b * s * d * size  # one [B, S, D] activation
         attn_ops = attention_ops(b, h, s, dh, causal)
         proj_ops = 2 * b * s * d * d
+        ops = {"fused_mha_packed_proj": attn_ops + proj_ops,
+               "fused_attn_block": 2 * b * s * d * 3 * d + attn_ops + proj_ops}
         bounds = {  # inputs read once, the output written once
             "fused_mha_packed_proj": bound(3 * act + d * d * size + d * 4 + 2 * act,
-                                           {kind: attn_ops + proj_ops}),
+                                           {kind: ops["fused_mha_packed_proj"]}),
             "fused_attn_block": bound(2 * act + 4 * d * d * size + 6 * d * 4,
-                                      {kind: 2 * b * s * d * 3 * d + attn_ops + proj_ops}),
+                                      {kind: ops["fused_attn_block"]}),
         }
         for name, (kernel, plain) in _fused_calls(ms, inp, h, causal).items():
             p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
             lib = _composition_ms(inp, h, causal, with_ln=name == "fused_attn_block")
             t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
                  **bounds[name]}
+            t["tflops"] = ops[name] / t["ms"] / 1e9
+            t["bound_share"] = t["bound_ms"] / t["ms"]
             times[f"{name} {tower} {kind}"] = t
             print(f"  {name} {tower} B={b} S={s} H={h} causal={causal} {kind}: kernel "
-                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library composition "
-                  f"{lib:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                  f"{k1:.4f}/{k2:.4f} ms ({t['tflops']:.1f} TFLOP/s, "
+                  f"{100 * t['bound_share']:.1f} % of the bound), plain {p1:.4f}/{p2:.4f} ms, "
+                  f"library composition {lib:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
     b, s, h, _ = MAIN_SHAPES["vision"]
     q, k, v = flash_inputs((b, h, s, False, None), torch.bfloat16, dev, seed=5)
     kernel = lambda: ms.fused_mha_short(q, k, v)  # noqa: E731
@@ -3231,6 +3274,7 @@ def main() -> int:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: " + line.strip())
+    hmma = check_tensor_cores(_build)
 
     print("phase 3: kernels vs plain versions")
     max_err = compare_kernel(ms, dev)
@@ -3299,6 +3343,9 @@ def main() -> int:
 
     def gemm_timing(t):
         return {**timing(t), "composition_ms": t["composition_ms"]}
+
+    def fused_timing(t):
+        return {**timing(t), "tflops": t["tflops"], "bound_share": t["bound_share"]}
 
     def tier_launches(name):
         return sum(r["launches"][name] for r in dynamic.values())
@@ -3426,20 +3473,22 @@ def main() -> int:
         "launches": fused_launches("mha_packed_proj"),
         "causal_launches": fused_launches("mha_packed_proj_causal"),
         "max_abs_err": fused_err["fused_mha_packed_proj"],
-        **timing(times["fused_mha_packed_proj vision bf16"]),
+        **fused_timing(times["fused_mha_packed_proj vision bf16"]),
         "library": "composition: scaled_dot_product_attention + addmm + add",
-        "f32": timing(times["fused_mha_packed_proj vision f32"]),
-        "text": timing(times["fused_mha_packed_proj text bf16"]),
+        "f32": fused_timing(times["fused_mha_packed_proj vision f32"]),
+        "text": fused_timing(times["fused_mha_packed_proj text bf16"]),
+        "hmma_per_kernel": hmma,
         "encode_img_per_s": fused_rates("mha_packed_proj"),
     }, {
         "name": "fused_attn_block", "route": "cuda", "source": "team_tpu_torch/csrc/attn_block.cu",
         "replaces": "team_tpu/ops/mha_short.py:935",
         "launches": fused_launches("attn_block"), "causal_launches": fused_launches("attn_block_causal"),
         "kernel_launches": fused_launches("attn_block") + fused_launches("attn_block_proj"),
-        "max_abs_err": fused_err["fused_attn_block"], **timing(times["fused_attn_block vision bf16"]),
+        "max_abs_err": fused_err["fused_attn_block"],
+        **fused_timing(times["fused_attn_block vision bf16"]),
         "library": "composition: layer_norm + addmm + scaled_dot_product_attention + addmm + add",
-        "f32": timing(times["fused_attn_block vision f32"]),
-        "text": timing(times["fused_attn_block text bf16"]),
+        "f32": fused_timing(times["fused_attn_block vision f32"]),
+        "text": fused_timing(times["fused_attn_block text bf16"]),
         "encode_img_per_s": fused_rates("attn_block"),
         "runs_wall_s": {k: r["wall_s"] for k, r in fused.items()},
     }, {

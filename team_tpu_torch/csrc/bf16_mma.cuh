@@ -12,17 +12,11 @@
 #pragma once
 
 #include "int8_mma.cuh"
+#include "mma_frag.cuh"
 
 namespace {
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using mma_frag::mma_bf16;
 
 // the tile's product in f32: p.a, p.b are the bf16 operands as bytes and p.k
 // is K in bytes (a multiple of 32, one k-step)

@@ -16,7 +16,8 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   with the out-projection GEMM, its bias and the residual fused in, and the
   whole attention sub-block (layer norm, qkv GEMM, attention, out-projection,
   residual); CUDA kernels ``csrc/attn_block.cu`` (the sub-block in two
-  launches, through a ``[B, S, 3*D]`` workspace).
+  launches, through a ``[B, S, 3*D]`` workspace; bfloat16 on the tensor
+  cores, float32 on the CUDA cores).
 - ``fused_mha_packed_q3i``, ``fused_mha_packed_q3i_cls``,
   ``fused_mha_packed_q3i_cls_split`` and ``fused_mha_packed_q3i_sb`` (TPU
   kernels ``_mha_packed_q3i_kernel``, ``_mha_packed_q3i_cls_kernel``,
@@ -379,6 +380,19 @@ def fused_mha_short_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_proj_smem(lib: ctypes.CDLL, code: int, s: int, d: int, dh: int) -> None:
+    """Raise unless one block of the attention + out-projection kernel fits."""
+    smem = lib.team_attn_block_smem_bytes(0, code, s, d, dh)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s}, D={d} need {smem} bytes of shared memory (limit {_SMEM_LIMIT})")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes: the bf16
+    kernels of ``csrc/attn_block.cu`` copy 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
                         x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     """Launch the attention + out-projection kernel on checked CUDA inputs."""
@@ -391,10 +405,9 @@ def _launch_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Ten
         raise ValueError("qkv and x_resid must be contiguous")
     lib = _block_library()
     code = _DTYPE_CODES[qkv.dtype]
-    smem = lib.team_attn_block_smem_bytes(0, code, s, d, dh)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={s}, D={d} need {smem} bytes of shared memory (limit {_SMEM_LIMIT})")
-    w = out_w.to(qkv.dtype).contiguous()
+    _check_proj_smem(lib, code, s, d, dh)
+    qkv, x = _aligned(qkv), _aligned(x)
+    w = _aligned(out_w.to(qkv.dtype).contiguous())
     bias = out_b.reshape(-1).float().contiguous()
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -471,10 +484,12 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
         raise ValueError(f"head width {dh} not compiled (supported: {_BLOCK_HEAD_DIMS})")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
+    x = _aligned(x)
     lib = _block_library()
     code = _DTYPE_CODES[x.dtype]
-    w = qkv_w.to(x.dtype).contiguous()
+    _check_proj_smem(lib, code, s, d, dh)  # before the first of the two launches
+    qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
+    w = _aligned(qkv_w.to(x.dtype).contiguous())
     vecs = [t.reshape(-1).float().contiguous() for t in (ln_scale, ln_bias, qkv_b)]
     with torch.cuda.device(x.device):
         err = lib.team_ln_qkv_fwd(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),

@@ -19,7 +19,9 @@ its kernels against the same tower with the plain versions, cosine >= 0.9999
 and max |Δ| <= 5e-3·rms; the pre-split kernel as the packed one; the fused
 out-projection and attention sub-block kernels float32 1e-5 and bfloat16
 2e-2 plus one bf16 step (2^-7) of the output's magnitude (the residual
-makes outputs up to ~5, where one step is 0.03); the integer-QKᵀ kernel's
+makes outputs up to ~5, where one step is 0.03), their bf16 tensor-core
+forms at the tile edges, the longest S, with float32 weights and unaligned
+inputs to the same limit; the integer-QKᵀ kernel's
 other modes (``exp2i``, ``reduce``, ``defer_norm``, ``pv_int8``) and its
 sequence-major entry as its default one (``pv_int8``: plus what one
 p8 = rint(p·127) across a rounding edge moves an output by, up to
@@ -492,6 +494,100 @@ def test_towers_through_the_fused_kernels_match_plain_attention(cuda_device, imp
                                rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(txt, tclip.encode_text(params, tokens, cfg, attn_impl="xla"),
                                rtol=1e-4, atol=1e-5)
+
+
+# the bf16 tensor-core kernels at their edges: key and query tiles whole and
+# ragged by one (S = 16, 17, 64, 65), one row, one sample, the text tower's
+# causal S=77 at H=8, head width 32 at D=768 and at D=160 (no multiple of the
+# 64-deep weight slices), and past the 256 keys whose logits a thread keeps
+# in registers (the three-pass windows)
+BF16_EDGE_SHAPES = [(2, 16, 4, 64, False), (2, 17, 4, 64, True), (2, 64, 4, 64, True),
+                    (2, 65, 4, 64, False), (3, 65, 2, 64, True), (1, 1, 4, 64, False),
+                    (1, 1, 2, 64, True), (1, 40, 4, 32, False), (3, 77, 8, 64, True),
+                    (2, 37, 24, 32, False), (2, 33, 5, 32, True), (2, 300, 4, 64, True),
+                    (2, 300, 4, 32, False)]
+
+
+def _both_fused(inputs, h, causal):
+    """(kernel, plain version) of the out-projection and the whole sub-block."""
+    x, ln, attn, qkv = inputs
+    return [(tms.fused_mha_packed_proj(qkv, attn[2], attn[3], x, h, causal=causal),
+             tms.mha_packed_proj_reference(qkv, attn[2], attn[3], x, h, causal)),
+            (tms.fused_attn_block(x, *ln, *attn, h, causal=causal),
+             tms.attn_block_reference(x, *ln, *attn, h, causal))]
+
+
+@pytest.mark.parametrize("b,s,h,dh,causal", BF16_EDGE_SHAPES)
+def test_bf16_fused_kernels_at_the_tile_edges(cuda_device, b, s, h, dh, causal):
+    inputs = fused_block_inputs(b, s, h, dh, torch.bfloat16, cuda_device, seed=2)
+    for out, ref in _both_fused(inputs, h, causal):
+        torch.cuda.synchronize()
+        assert_fused_close(out, ref, torch.bfloat16)
+
+
+def _cuda_core_bf16_smem(s, d, dh):
+    """Shared memory of the CUDA-core bf16 kernel that the tensor-core one
+    replaced (64-row o tile, padded K/V, per-warp row buffers)."""
+    a16 = lambda n: (n + 15) // 16 * 16  # noqa: E731
+    return a16(64 * (d + 2) * 2) + max(a16(2 * s * (dh + 2) * 2), 32 * 128 * 2) + 8 * (s + dh) * 4
+
+
+def test_bf16_fused_kernels_take_every_shape_the_cuda_core_kernel_took(cuda_device):
+    lib = tms._block_library()
+    fits = lambda s, d, dh: lib.team_attn_block_smem_bytes(0, 1, s, d, dh) <= tms._SMEM_LIMIT  # noqa: E731
+    for dh in (32, 64):
+        for h in range(1, 1 + 1800 // dh):
+            d = h * dh
+            for s in range(1, 1400):
+                if _cuda_core_bf16_smem(s, d, dh) > tms._SMEM_LIMIT:
+                    break
+                assert fits(s, d, dh), (s, d, dh)
+
+
+def test_bf16_fused_kernels_at_the_longest_s_and_one_past(cuda_device):
+    lib = tms._block_library()
+    h, dh = 12, 64
+    longest = max(s for s in range(1, 2048)
+                  if lib.team_attn_block_smem_bytes(0, 1, s, h * dh, dh) <= tms._SMEM_LIMIT)
+    assert longest >= 445  # the CUDA-core kernel's longest at this width
+    for causal in (False, True):
+        inputs = fused_block_inputs(1, longest, h, dh, torch.bfloat16, cuda_device, seed=4)
+        for out, ref in _both_fused(inputs, h, causal):
+            torch.cuda.synchronize()
+            assert_fused_close(out, ref, torch.bfloat16)
+    x, ln, attn, qkv = fused_block_inputs(1, longest + 1, h, dh, torch.bfloat16, cuda_device)
+    launches = (tms.fused_attn_block.launches, tms.fused_mha_packed_proj.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        tms.fused_mha_packed_proj(qkv, attn[2], attn[3], x, h)
+    with pytest.raises(ValueError, match="shared memory"):
+        tms.fused_attn_block(x, *ln, *attn, h)
+    assert (tms.fused_attn_block.launches, tms.fused_mha_packed_proj.launches) == launches
+
+
+def test_bf16_fused_kernels_cast_f32_weights_and_take_unaligned_inputs(cuda_device):
+    b, s, h, dh = 2, 65, 4, 64
+    x, ln, attn, qkv = fused_block_inputs(b, s, h, dh, torch.bfloat16, cuda_device, seed=5)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    d = h * dh
+    w_qkv, w_out = (torch.randn(shape, generator=g, device=cuda_device) * d ** -0.5
+                    for shape in ((d, 3 * d), (d, d)))  # float32, cast by the wrappers
+    attn = (w_qkv, attn[1], w_out, attn[3])
+
+    def unaligned(t):  # the same values, 2 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    counts = lambda: (tms.fused_mha_packed_proj.launches, tms.fused_attn_block.launches,  # noqa: E731
+                      tms.fused_attn_block.proj_launches)
+    for xs, qkvs in ((x, qkv), (unaligned(x), unaligned(qkv))):
+        before = counts()
+        pairs = _both_fused((xs, ln, attn, qkvs), h, False)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+        for out, ref in pairs:
+            assert_fused_close(out, ref, torch.bfloat16)
 
 
 def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

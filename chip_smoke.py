@@ -6,8 +6,10 @@ Phases, one line or more each:
   1. the card (nvidia-smi name and power limit); TF32 off for matmuls and cuDNN
   2. build the kernels from team_tpu_torch/csrc, one nvcc per source, all
      started together (set-up); ptxas's registers and spills of each
-     kernel; cuobjdump -sass of attn_block.cu: HMMA in every bf16 fused
-     kernel, none in the f32 ones
+     kernel, no spill in a tensor-core kernel; cuobjdump -sass of
+     attn_block.cu, mha_packed.cu and flash_attention.cu: HMMA in every
+     tensor-core (bf16, *_tc) kernel, none in the CUDA-core ones (f32; #4's
+     bf16)
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -69,7 +71,9 @@ Phases, one line or more each:
      #26 with the torch composition of its arithmetic as context; #27
      against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
      rate is the mma.sync ceiling), #30 against the torch composition; the
-     fused kernels' TFLOP/s and share of their bound beside their times
+     fused kernels' TFLOP/s and share of their bound beside their times; the
+     tensor-core attention kernels (#1-#4, #14) against the CUDA-core
+     kernels' ms of PERF.md, SDPA (the factor) and the bound (its share)
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -156,6 +160,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -368,38 +373,70 @@ def time_kernel(ms, dev) -> dict:
     return times
 
 
-# the fused kernels of csrc/attn_block.cu: bf16 on the tensor cores, f32 on the CUDA cores
-TC_KERNELS = ("mha_packed_proj_kernel_tc", "ln_qkv_kernel_tc")
-CUDA_CORE_KERNELS = ("mha_packed_proj_kernel", "ln_qkv_kernel")
+# the attention sources whose bf16 kernels run on the tensor cores (mma.sync)
+# and whose f32 kernels (and #4's bf16 kernel) run on the CUDA cores: source ->
+# (tensor-core kernels, CUDA-core kernels), by name (a tensor-core name, *_tc,
+# holds its CUDA-core kernel's name, so it is matched first)
+TC_SOURCES = {
+    "attn_block.cu": (("mha_packed_proj_kernel_tc", "ln_qkv_kernel_tc"),
+                      ("mha_packed_proj_kernel", "ln_qkv_kernel")),
+    "mha_packed.cu": (("mha_packed_kernel_tc",), ("mha_packed_kernel",)),
+    "flash_attention.cu": (("flash_kernel_tc",), ("flash_kernel",)),
+}
 
 
 def check_tensor_cores(build) -> dict:
-    """HMMA instructions in each kernel of the built attn_block library
-    (``cuobjdump -sass``): every bf16 kernel issues its products on the tensor
-    cores, and no f32 kernel does."""
+    """HMMA instructions in each kernel of the built attention libraries
+    (``cuobjdump -sass``): every tensor-core (bf16) kernel issues its products
+    on the tensor cores, and no CUDA-core kernel (f32; #4's bf16) does.
+    Returns source -> kernel -> the HMMA count of each of its instantiations."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build._target("attn_block.cu"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {}
-    name = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
-    found = defaultdict(list)
-    for fn, n in counts.items():
-        kind = next((k for k in TC_KERNELS if k in fn), None) or next(
-            (k for k in CUDA_CORE_KERNELS if k in fn), None)
-        if kind is not None:
-            found[kind].append(n)
-    print(f"  cuobjdump -sass attn_block.cu, HMMA per kernel: {dict(found)}")
-    if any(not found[k] or min(found[k]) == 0 for k in TC_KERNELS):
-        raise AssertionError(f"a bf16 fused kernel issues no HMMA: {dict(found)}")
-    if any(not found[k] or max(found[k]) > 0 for k in CUDA_CORE_KERNELS):
-        raise AssertionError(f"an f32 fused kernel is missing or issues HMMA: {dict(found)}")
-    return dict(found)
+    found = {}
+    for source, (tc, cuda_core) in TC_SOURCES.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(build._target(source))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts = {}
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = 0
+            elif name is not None and "HMMA" in line:
+                counts[name] += 1
+        kinds = defaultdict(list)
+        for fn, n in counts.items():
+            kind = next((k for k in tc if k in fn), None) or next(
+                (k for k in cuda_core if k in fn), None)
+            if kind is not None:
+                kinds[kind].append(n)
+        print(f"  cuobjdump -sass {source}, HMMA per kernel: {dict(kinds)}")
+        if any(not kinds[k] or min(kinds[k]) == 0 for k in tc):
+            raise AssertionError(f"a tensor-core kernel of {source} issues no HMMA: "
+                                 f"{dict(kinds)}")
+        if any(not kinds[k] or max(kinds[k]) > 0 for k in cuda_core):
+            raise AssertionError(f"a CUDA-core kernel of {source} is missing or issues HMMA: "
+                                 f"{dict(kinds)}")
+        found[source] = dict(kinds)
+    return found
+
+
+def check_no_spills(build) -> None:
+    """Raise if ptxas reported a spill in a tensor-core kernel (phase 2 prints
+    every kernel's registers). A library loaded from an earlier build has no
+    report in this process."""
+    for source, (tc, _) in TC_SOURCES.items():
+        log = build.BUILD_LOGS.get(source)
+        if log is None:
+            print(f"  ptxas {source}: no report in this process (built before)")
+            continue
+        name = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif name is not None and any(k in name for k in tc):
+                spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+                if any(spills):
+                    raise AssertionError(f"{source}: {name} spills ({line.strip()})")
 
 
 def fused_inputs(b, s, h, dtype, dev, seed=0, dh=64):
@@ -556,6 +593,35 @@ def time_fused(ms, dev) -> dict:
           f"{p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound "
           f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return times
+
+
+# the CUDA-core bf16 kernels that the tensor-core ones replaced: their card ms
+# as PERF.md §6 records them (this script's phase 4 on an NVIDIA H100 80GB HBM3
+# at 700.00 W), by phase-4 key -> (kernel, ms, the attention's shape (B, H, S,
+# causal))
+CUDA_CORE_MS = {
+    "vision": ("fused_mha_packed", 1.6571, (128, 12, 197, False)),
+    "text": ("fused_mha_packed", 0.0456, (32, 8, 77, True)),
+    "fused_mha_short vision bf16": ("fused_mha_short", 1.6671, (128, 12, 197, False)),
+    "tp vision nm=2": ("fused_mha_packed_tp, one rank", 0.8636, (128, 6, 197, False)),
+    "tp vision nm=4": ("fused_mha_packed_tp, one rank", 0.4564, (128, 3, 197, False)),
+    "tp text nm=2": ("fused_mha_packed_tp, one rank", 0.0243, (32, 4, 77, True)),
+    "flash vision": ("flash_attention", 1.9232, (128, 12, 197, False)),
+    "flash text": ("flash_attention", 0.0480, (32, 8, 77, True)),
+}
+
+
+def report_redesign(times: dict, flash_times: dict) -> None:
+    """The tensor-core attention kernels' phase-4 times beside the CUDA-core
+    kernels' ms of PERF.md, SDPA (the factor) and the bound (its share)."""
+    measured = {**times, **{f"flash {k}": t for k, t in flash_times.items()}}
+    for key, (name, before, (b, h, s, causal)) in CUDA_CORE_MS.items():
+        t = measured[key]
+        tflops = attention_ops(b, h, s, 64, causal) / t["ms"] / 1e9
+        print(f"  {name} ({key}): {t['ms']:.4f} ms on the tensor cores against the CUDA-core "
+              f"kernel's {before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster; "
+              f"{t['ms'] / t['library_ms']:.2f}x scaled_dot_product_attention; "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; {tflops:.1f} TFLOP/s")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -3275,6 +3341,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: " + line.strip())
     hmma = check_tensor_cores(_build)
+    check_no_spills(_build)
 
     print("phase 3: kernels vs plain versions")
     max_err = compare_kernel(ms, dev)
@@ -3308,6 +3375,7 @@ def main() -> int:
     times.update(time_probe_kernels(ms, pp, dev))
     times.update(time_gemm_probes(gp, probe_inputs))
     del probe_inputs
+    report_redesign(times, flash_times)
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3371,6 +3439,7 @@ def main() -> int:
         "launches": counts["launches"], "causal_launches": counts["causal"],
         "max_abs_err": max_err, **timing(times["vision"]),
         "text": timing(times["text"]), "encode_img_per_s": rates,
+        "hmma_per_kernel": hmma["mha_packed.cu"],
     }, {
         "name": "fused_mha_packed_q3i", **q3i_common,
         "replaces": "team_tpu/ops/mha_short.py:477",
@@ -3458,7 +3527,8 @@ def main() -> int:
         "replaces": "team_tpu/ops/flash_attention.py:35",
         "launches": proof["flash"], "causal_launches": proof["causal"],
         "max_abs_err": flash_err, **timing(flash_times["vision"]),
-        "text": timing(flash_times["text"]), "proof_wall_s": proof["wall_s"],
+        "text": timing(flash_times["text"]), "hmma_per_kernel": hmma["flash_attention.cu"],
+        "proof_wall_s": proof["wall_s"],
         "proof_step_ms": proof["step_ms"], "proof_step_device_ms": proof["step_device_ms"],
         "proof_loss_rel_diff": proof["loss_rel_diff"], "import_dynamo_s": proof["import_dynamo_s"],
     }, {
@@ -3477,7 +3547,7 @@ def main() -> int:
         "library": "composition: scaled_dot_product_attention + addmm + add",
         "f32": fused_timing(times["fused_mha_packed_proj vision f32"]),
         "text": fused_timing(times["fused_mha_packed_proj text bf16"]),
-        "hmma_per_kernel": hmma,
+        "hmma_per_kernel": hmma["attn_block.cu"],
         "encode_img_per_s": fused_rates("mha_packed_proj"),
     }, {
         "name": "fused_attn_block", "route": "cuda", "source": "team_tpu_torch/csrc/attn_block.cu",

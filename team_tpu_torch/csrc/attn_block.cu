@@ -42,7 +42,8 @@
 //     and walks all 3*D columns of its rows (the text tower's few row tiles
 //     split the columns over more blocks), so the layer norm runs once and
 //     the ring runs on across column tiles;
-//   - the attention (WarpAttention): two groups of four warps, 16 query
+//   - the attention (WarpAttention of csrc/mma_attention.cuh, which
+//     mha_packed.cu shares): two groups of four warps, 16 query
 //     rows a warp, each group on every other head with K and V of its own
 //     (one group where two heads' K/V do not fit). K and V of a head are
 //     staged whole, padded with zeros to a multiple of 16 keys (chunks
@@ -63,12 +64,13 @@
 // "highest", which TF32's 10-bit mantissa would not meet.
 
 #include "attention_common.cuh"
-#include "mma_frag.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace mma_frag;
+using namespace mma_attention;
 
 // ---------------------------------------------------------------------------
 // shared by both paths
@@ -242,28 +244,13 @@ cudaError_t launch_ln_qkv(const void* x, const float* ln_g, const float* ln_b, c
 
 constexpr int kTcRows = 64;          // rows of the A tile (query tile, row tile)
 constexpr int kTcWarps = 8;          // both kernels; the attention runs in groups of 4 warps
-constexpr int kGroupWarps = 4;       // 16 query rows a warp
-constexpr int kWinBlocks = 16;       // 16-key blocks of logits a thread keeps in registers
 constexpr int kMaxStages = 4;        // weight ring depth at most (cp_async_wait takes up to 4)
 constexpr long long kSmemLimit = 232448;  // dynamic shared memory a block may opt into on sm_90
 
 __host__ __device__ constexpr int tc_pitch(int d_model) { return d_model + 8; }
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 
 __host__ __device__ constexpr size_t tc_tile_bytes(int d_model) {
   return static_cast<size_t>(kTcRows) * tc_pitch(d_model) * sizeof(bf16);
-}
-
-// element offset of 8-element chunk c of row r in a [rows, 8 * cpr] bf16 tile
-// with no padding: the chunks are XOR-swizzled so that the 8 rows one
-// ldmatrix phase reads fall on distinct banks (cpr a multiple of 8, or 4)
-__device__ __forceinline__ int swz(int r, int c, int cpr) {
-  return (r * cpr + ((cpr & 7) == 0 ? c ^ (r & 7) : c ^ ((r >> 1) & 3))) * 8;
-}
-
-// barrier of one group of 4 warps (ids 1 and 2; __syncthreads is 0)
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kGroupWarps * 32) : "memory");
 }
 
 // the weight ring of a GEMM: nst stages of `depth` k-rows (16, 32 or 64:
@@ -420,172 +407,6 @@ struct TcGemm {
           }
         }
       }
-    }
-  }
-};
-
-// rows [0, nk) of one head's K or V (row stride ld) into dst, [pad16(nk), DH]
-// swizzled, zero past nk (0 * NaN is NaN); the group's threads take part
-template <int DH>
-__device__ __forceinline__ void stage_rows_tc(const bf16* src, long long ld, int nk, bf16* dst,
-                                              int tid) {
-  constexpr int kCpr = DH / 8;
-  const int n = pad16(nk) * kCpr;
-  for (int c = tid; c < n; c += kGroupWarps * 32) {
-    const int r = c / kCpr, ch = c - r * kCpr;
-    const bool ok = r < nk;
-    cp_async16(dst + swz(r, ch, kCpr), src + (ok ? r * ld + ch * 8 : 0), ok);
-  }
-}
-
-// One warp's attention over query rows [row_w, row_w + 16) of one head:
-// softmax() (QK^T, the row max and sum), then pv(). Rows at or past seq
-// compute on zero queries and are never stored. q row i at q + i * ld; K and
-// V staged by stage_rows_tc (nk keys).
-template <int DH>
-struct WarpAttention {
-  static constexpr int KS = DH / 16;  // mma k-steps of q.k; n-tile pairs of PV
-  static constexpr int kCpr = DH / 8;
-
-  const bf16* k_s;
-  const bf16* v_s;
-  int row_w, causal, g, t, lane, nkw, nb, nwin;
-  uint32_t qf[KS][4];  // q = round(q * scale), as A fragments
-  // logits of a window, then exp(logit - max): s[j][e] for key block 16w + j;
-  // e = 4 * n-tile + the accumulator index (rows g, g, g + 8, g + 8; keys 2t,
-  // 2t + 1); masked keys -inf, then 0
-  float s[kWinBlocks][8];
-  float m[2], l[2];  // row max and sum of rows g and g + 8
-
-  __device__ __forceinline__ WarpAttention(const bf16* q, long long ld, const bf16* k_s_,
-                                           const bf16* v_s_, int seq, int nk, int row_w_,
-                                           int causal_, float scale)
-      : k_s(k_s_), v_s(v_s_), row_w(row_w_), causal(causal_) {
-    lane = threadIdx.x & 31;
-    g = lane >> 2;
-    t = lane & 3;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row_w + g + 8 * hr;
-      const bf16* qr = q + static_cast<long long>(row < seq ? row : 0) * ld;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-        for (int hc = 0; hc < 2; ++hc) {
-          const uint32_t raw =
-              row < seq ? *reinterpret_cast<const uint32_t*>(qr + ks * 16 + hc * 8 + 2 * t) : 0u;
-          const float2 f = unpack_bf16(raw);
-          qf[ks][hr + 2 * hc] = pack_bf16(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
-        }
-    }
-    nkw = causal ? min(nk, row_w + 16) : nk;  // keys any row of the warp sees
-    nb = (nkw + 15) >> 4;
-    nwin = (nb + kWinBlocks - 1) / kWinBlocks;
-  }
-
-  __device__ __forceinline__ void logits(int w) {
-#pragma unroll
-    for (int j = 0; j < kWinBlocks; ++j) {
-      const int kb = w * kWinBlocks + j;
-      if (kb >= nb) continue;
-      float c[2][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t r[4];
-        ldsm_x4(r, k_s + swz(kb * 16 + (lane >> 4) * 8 + (lane & 7), 2 * ks + ((lane >> 3) & 1),
-                             kCpr));
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(c[0], qf[ks], b0);
-        mma_bf16(c[1], qf[ks], b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = kb * 16 + (e >> 2) * 8 + 2 * t + (e & 1);
-        const int row = row_w + g + ((e >> 1) & 1) * 8;
-        const bool keep = key < nkw && (!causal || key <= row);
-        s[j][e] = keep ? c[e >> 2][e & 3] : -CUDART_INF_F;
-      }
-    }
-  }
-
-  // exp(logit - max) in place of window w's logits, added to sum
-  __device__ __forceinline__ void exps(int w, float (&sum)[2]) {
-#pragma unroll
-    for (int j = 0; j < kWinBlocks; ++j) {
-      if (w * kWinBlocks + j >= nb) continue;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[j][e] = expf(s[j][e] - m[(e >> 1) & 1]);
-        sum[(e >> 1) & 1] += s[j][e];
-      }
-    }
-  }
-
-  // f32 row max and row sum over the quad that shares a row; with one
-  // window, its exponentials stay in s for pv()
-  __device__ __forceinline__ void softmax() {
-    m[0] = m[1] = -CUDART_INF_F;
-    for (int w = 0; w < nwin; ++w) {
-      logits(w);
-#pragma unroll
-      for (int j = 0; j < kWinBlocks; ++j) {
-        if (w * kWinBlocks + j >= nb) continue;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], s[j][e]);
-      }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      m[hr] = fmaxf(m[hr], __shfl_xor_sync(0xffffffffu, m[hr], 1));
-      m[hr] = fmaxf(m[hr], __shfl_xor_sync(0xffffffffu, m[hr], 2));
-    }
-    l[0] = l[1] = 0.f;
-    for (int w = 0; w < nwin; ++w) {
-      if (nwin > 1) logits(w);  // one window: its logits are still in registers
-      exps(w, l);
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    }
-  }
-
-  // PV: p = round(e / l) packed from the accumulator layout into A
-  // fragments; round(out) of row row_w + r goes to o + r * lda
-  __device__ __forceinline__ void pv(bf16* o, int lda) {
-    float acc[DH / 8][4] = {};
-    for (int w = 0; w < nwin; ++w) {
-      if (nwin > 1) {
-        float unused[2] = {0.f, 0.f};
-        logits(w);
-        exps(w, unused);
-      }
-#pragma unroll
-      for (int j = 0; j < kWinBlocks; ++j) {
-        const int kb = w * kWinBlocks + j;
-        if (kb >= nb) continue;
-        const uint32_t a[4] = {
-            pack_bf16(__fdiv_rn(s[j][0], l[0]), __fdiv_rn(s[j][1], l[0])),
-            pack_bf16(__fdiv_rn(s[j][2], l[1]), __fdiv_rn(s[j][3], l[1])),
-            pack_bf16(__fdiv_rn(s[j][4], l[0]), __fdiv_rn(s[j][5], l[0])),
-            pack_bf16(__fdiv_rn(s[j][6], l[1]), __fdiv_rn(s[j][7], l[1]))};
-#pragma unroll
-        for (int np = 0; np < KS; ++np) {
-          uint32_t r[4];
-          ldsm_x4_trans(r, v_s + swz(kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                     2 * np + (lane >> 4), kCpr));
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_bf16(acc[2 * np], a, b0);
-          mma_bf16(acc[2 * np + 1], a, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(o + g * lda + nd * 8 + 2 * t) = pack_bf16(acc[nd][0], acc[nd][1]);
-      *reinterpret_cast<uint32_t*>(o + (g + 8) * lda + nd * 8 + 2 * t) =
-          pack_bf16(acc[nd][2], acc[nd][3]);
     }
   }
 };

@@ -11,11 +11,13 @@ are upcast to f32, p stays f32 in the PV product, and the output is
 kernel as it runs in interpret mode on the CPU (full f32 dots), which is what
 the JAX tests pin.
 
-The CUDA kernel (``csrc/flash_attention.cu``) is compiled with ``nvcc`` on
-first use and bound with ``ctypes``. Forward only: the towers that call it are
-frozen, and the TPU kernel's backward is an XLA recompute, not a kernel. On a
-CPU tensor ``flash_attention`` computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+The CUDA kernels (``csrc/flash_attention.cu``) are compiled with ``nvcc`` on
+first use and bound with ``ctypes``: bfloat16 runs on the tensor cores
+(``mma.sync``, p kept to about 2^-17 by a split PV), float32 on the CUDA
+cores (an explicit dispatch on the dtype). Forward only: the towers that call
+them are frozen, and the TPU kernel's backward is an XLA recompute, not a
+kernel. On a CPU tensor ``flash_attention`` computes the plain version; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,6 +51,23 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` starts on 16 bytes (its data and each stride
+    but the last): the bfloat16 tensor-core kernels copy K and V 16 bytes at
+    a time with ``cp.async``."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where :func:`rows_aligned`, else a contiguous copy that
+    starts on 16 bytes (the same values)."""
+    if rows_aligned(t):
+        return t
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _library() -> ctypes.CDLL:
     from team_tpu_torch.ops._build import load_library
 
@@ -66,6 +85,8 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: in
     b, h, s, dh = q.shape
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (aligned_rows(t) for t in (q, k, v))
     lib = _library()
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
@@ -84,9 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention over ``[B, H, S, Dh]`` float32 or bfloat16 inputs.
 
     ``kv_len`` masks keys ``>= kv_len``; ``causal`` the keys after each query.
-    Any strides are taken for B, H and S; Dh must be contiguous. Each kernel
-    launch adds one to ``flash_attention.launches`` (and to
-    ``causal_launches`` when causal)."""
+    Any strides are taken for B, H and S; Dh must be contiguous (a bfloat16
+    input whose rows do not start on 16 bytes is copied first,
+    :func:`aligned_rows`). Each kernel launch adds one to
+    ``flash_attention.launches`` (and to ``causal_launches`` when causal)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k and v must share one [B, H, S, Dh] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -4,13 +4,16 @@ plain PyTorch versions.
 Counterparts of ``team_tpu/ops/mha_short.py``:
 - ``fused_mha_packed`` (TPU kernel ``_mha_packed_kernel``): attention
   straight from the packed qkv projection ``[B, S, 3*D]`` to ``[B, S, D]``,
-  without head-split copies; CUDA kernel ``csrc/mha_packed.cu``.
+  without head-split copies; CUDA kernel ``csrc/mha_packed.cu`` (bfloat16 on
+  the tensor cores through the attention tile of ``csrc/mma_attention.cuh``,
+  float32 on the CUDA cores).
 - ``fused_mha_short`` (TPU kernel ``_mha_kernel``): non-causal attention over
   pre-split ``[B, H, S, Dh]`` with a key mask; the same CUDA kernel over the
   tensors' own strides.
 - ``fused_mha_short_v2`` (TPU kernel ``_mha_kernel_v2``): the same with
   the softmax normalisation deferred to the output and an optional bf16
-  exponential; the same CUDA kernel with those two switches.
+  exponential; the CUDA-core kernel of the same source with those two
+  switches, in bfloat16 too (its p is pinned to logits summed in order).
 - ``fused_mha_packed_proj`` and ``fused_attn_block`` (TPU kernels
   ``_mha_packed_proj_kernel`` and ``_attn_block_kernel``): packed attention
   with the out-projection GEMM, its bias and the residual fused in, and the
@@ -54,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from team_tpu_torch.ops.flash_attention import aligned_rows, rows_aligned
 from team_tpu_torch.ops.int8_matmul import INV127
 
 NEG_INF = -1e30
@@ -129,7 +133,8 @@ def _library() -> ctypes.CDLL:
     lib.team_mha_packed_tp_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                                            + [ctypes.c_float, ctypes.c_void_p])
     lib.team_mha_packed_tp_fwd.restype = ctypes.c_int
-    lib.team_mha_packed_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    # dtype, seq, dh, v2 (1 for team_mha_short_v2_fwd)
+    lib.team_mha_packed_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.team_mha_packed_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -175,10 +180,12 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
     lib = _library()
     code = _DTYPE_CODES[qkv.dtype]
-    smem = lib.team_mha_packed_smem_bytes(code, s, dh)
+    smem = lib.team_mha_packed_smem_bytes(code, s, dh, 0)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V "
                          f"(limit {_SMEM_LIMIT})")
+    if qkv.dtype == torch.bfloat16:
+        qkv = aligned_rows(qkv)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = lib.team_mha_packed_fwd(
@@ -313,6 +320,19 @@ def _check_short(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _on_card(name, q, {"k": k, "v": v})
 
 
+def _short_operands(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v as the pre-split entries pass them: the tensors themselves
+    where they share one set of strides with a unit stride along Dh (and, for
+    bfloat16, every row starts on 16 bytes, :func:`rows_aligned`), else
+    contiguous copies of all three that start on 16 bytes."""
+    ts = (q, k, v)
+    if (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+            and (q.dtype != torch.bfloat16 or all(rows_aligned(t) for t in ts))):
+        return ts
+    return tuple(aligned_rows(t.contiguous()) for t in ts)
+
+
 def _launch_short(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_len: Optional[int], *extra) -> torch.Tensor:
     """Launch ``entry`` of ``csrc/mha_packed.cu`` on checked CUDA inputs
@@ -320,13 +340,12 @@ def _launch_short(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dh = q.shape
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
-    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = _library()
     code = _DTYPE_CODES[q.dtype]
-    smem = lib.team_mha_packed_smem_bytes(code, s, dh)
+    smem = lib.team_mha_packed_smem_bytes(code, s, dh, int(entry == "team_mha_short_v2_fwd"))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V (limit {_SMEM_LIMIT})")
+    q, k, v = _short_operands(q, k, v)
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
     sb, sh, sr, _ = q.stride()
     with torch.cuda.device(q.device):
@@ -387,12 +406,6 @@ def _check_proj_smem(lib: ctypes.CDLL, code: int, s: int, d: int, dh: int) -> No
         raise ValueError(f"S={s}, D={d} need {smem} bytes of shared memory (limit {_SMEM_LIMIT})")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy where its data does not start on 16 bytes: the bf16
-    kernels of ``csrc/attn_block.cu`` copy 16 bytes at a time."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
                         x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     """Launch the attention + out-projection kernel on checked CUDA inputs."""
@@ -406,8 +419,8 @@ def _launch_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Ten
     lib = _block_library()
     code = _DTYPE_CODES[qkv.dtype]
     _check_proj_smem(lib, code, s, d, dh)
-    qkv, x = _aligned(qkv), _aligned(x)
-    w = _aligned(out_w.to(qkv.dtype).contiguous())
+    qkv, x = aligned_rows(qkv), aligned_rows(x)
+    w = aligned_rows(out_w.to(qkv.dtype).contiguous())
     bias = out_b.reshape(-1).float().contiguous()
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -484,12 +497,12 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
         raise ValueError(f"head width {dh} not compiled (supported: {_BLOCK_HEAD_DIMS})")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    x = _aligned(x)
+    x = aligned_rows(x)
     lib = _block_library()
     code = _DTYPE_CODES[x.dtype]
     _check_proj_smem(lib, code, s, d, dh)  # before the first of the two launches
     qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
-    w = _aligned(qkv_w.to(x.dtype).contiguous())
+    w = aligned_rows(qkv_w.to(x.dtype).contiguous())
     vecs = [t.reshape(-1).float().contiguous() for t in (ln_scale, ln_bias, qkv_b)]
     with torch.cuda.device(x.device):
         err = lib.team_ln_qkv_fwd(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
@@ -1036,10 +1049,12 @@ def fused_mha_packed_tp(qkv: torch.Tensor, heads: int, *, causal: bool = False,
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
     lib = _library()
     code = _DTYPE_CODES[qkv.dtype]
-    smem = lib.team_mha_packed_smem_bytes(code, s, dh)
+    smem = lib.team_mha_packed_smem_bytes(code, s, dh, 0)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S={s} needs {smem} bytes of shared memory for K/V "
                          f"(limit {_SMEM_LIMIT})")
+    if qkv.dtype == torch.bfloat16:
+        qkv = aligned_rows(qkv)
     out = torch.empty((b, s, dm), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = lib.team_mha_packed_tp_fwd(

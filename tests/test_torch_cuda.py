@@ -46,7 +46,12 @@ within 1e-5 of the CPU; the GEMM probes' kernels (``ops/gemm_probe.py``):
 int8 ``probe_mm`` and ``mxu_ceiling`` bit for bit, their bf16 forms within
 ``probe_mm_bf16_limit`` and ``CEILING_BF16_SHARE`` of the largest |ref|, the
 MLP megakernel within ``mlp_mega_limit`` (bit for bit on rows with no hq
-near a rounding edge) and its 2-D and 3-D entries equal bit for bit."""
+near a rounding edge) and its 2-D and 3-D entries equal bit for bit; the
+tensor-core forms of the packed and flash kernels at their tile edges, the
+longest S, with key masks and unaligned inputs, as the packed and flash
+kernels (bf16 2e-2), the pre-split and head-split entries equal to the
+packed one bit for bit, and an unaligned input's output equal to the
+aligned one's bit for bit."""
 
 import math
 
@@ -58,6 +63,7 @@ from team_tpu_torch.backbone import quant as tquant
 from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.ops import int8_matmul as tim
 from team_tpu_torch.ops import mha_short as tms
+from team_tpu_torch.ops.flash_attention import build as flash_build
 from team_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from team_tpu_torch.ops.mha_short import (fused_mha_packed, fused_mha_packed_q3i,
                                           fused_mha_packed_q3i_cls, mha_packed_q3i_reference,
@@ -1170,3 +1176,204 @@ def test_gemm_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # the hidden block [64, N] does not fit
         gp.mlp_mega_2d(xm, torch.zeros((k, n), dtype=torch.int8, device=cuda_device), vn,
                        torch.zeros((n, k), dtype=torch.int8, device=cuda_device), vk, vn)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 attention kernels on the tensor cores: the packed kernel that #1,
+# #2, #3 and #4 share (csrc/mha_packed.cu) and the flash kernel #14
+# (csrc/flash_attention.cu), both on the tile of csrc/mma_attention.cuh; f32
+# keeps the CUDA-core kernels
+# ---------------------------------------------------------------------------
+
+# query and key tiles whole and ragged by one (16-key blocks, 64-row tiles,
+# the 8- and 16-block logits windows)
+TC_EDGE_S = [1, 15, 16, 17, 63, 64, 65, 255, 256, 257]
+
+
+def unaligned_copy(t):
+    """The same values, 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    start = (16 - buf.data_ptr() % 16) % 16 // t.element_size() + 1
+    view = buf[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
+def _head_views(qkv, h):
+    b, s, d3 = qkv.shape
+    return [t.reshape(b, s, h, d3 // 3 // h).permute(0, 2, 1, 3) for t in qkv.split(d3 // 3, -1)]
+
+
+def _merge_heads(out):
+    b, h, s, dh = out.shape
+    return out.permute(0, 2, 1, 3).reshape(b, s, h * dh)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s", TC_EDGE_S)
+def test_bf16_packed_kernels_at_the_tile_edges(cuda_device, s, dh):
+    """#1 (causal and not) against its plain version; #3 on the head views
+    with a key mask equal to #1 bit for bit; #2's two ranks side by side
+    equal to #1 bit for bit."""
+    b, h = 2, 2
+    g = torch.Generator(device=cuda_device).manual_seed(s + dh)
+    qkv = torch.randn((b, s, 3 * h * dh), generator=g, device=cuda_device).to(torch.bfloat16)
+    for causal in (False, True):
+        out = fused_mha_packed(qkv, h, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), mha_packed_reference(qkv, h, causal).float(),
+                                   rtol=0, atol=2e-2)
+        ranks = _ranks(lambda r: tms.fused_mha_packed_tp(qkv, h, causal=causal), 2)
+        assert torch.equal(torch.cat(ranks, dim=-1), out)
+    kv_len = s // 2 + 1
+    short = tms.fused_mha_short(*_head_views(qkv, h), kv_len)
+    assert torch.equal(_merge_heads(short), fused_mha_packed(qkv, h, kv_len=kv_len))
+
+
+def _cuda_core_packed_bf16_smem(s, dh):
+    """Shared memory of the CUDA-core bf16 packed kernel that the tensor-core
+    one replaced (padded K/V, per-warp row buffers)."""
+    return (2 * s * (dh + 2) * 2 + 15) // 16 * 16 + 8 * (s + dh) * 4
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_packed_kernel_at_the_longest_s_and_one_past(cuda_device, dh):
+    lib = tms._library()
+    fits = lambda s: lib.team_mha_packed_smem_bytes(1, s, dh, 0) <= tms._SMEM_LIMIT  # noqa: E731
+    longest = max(s for s in range(1, 4096) if fits(s))
+    old = max(s for s in range(1, 4096) if _cuda_core_packed_bf16_smem(s, dh) <= tms._SMEM_LIMIT)
+    assert longest >= old  # every S the CUDA-core kernel took, and more
+    g = torch.Generator(device=cuda_device).manual_seed(dh)
+    qkv = torch.randn((1, longest, 3 * dh), generator=g, device=cuda_device).to(torch.bfloat16)
+    for causal in (False, True):
+        out = fused_mha_packed(qkv, 1, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), mha_packed_reference(qkv, 1, causal).float(),
+                                   rtol=0, atol=2e-2)
+    launches = fused_mha_packed.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_mha_packed(torch.zeros((1, longest + 1, 3 * dh), dtype=torch.bfloat16,
+                                     device=cuda_device), 1)
+    assert fused_mha_packed.launches == launches
+
+
+@pytest.mark.parametrize("b,s,h,dh,causal,kv_len", [
+    (3, 77, 8, 64, True, 60), (2, 130, 4, 32, True, 100), (2, 197, 2, 128, False, 150),
+    (2, 300, 2, 64, True, 250), (2, 33, 4, 32, False, 1)])
+def test_bf16_packed_kernels_take_key_masks_and_unaligned_inputs(cuda_device, b, s, h, dh, causal,
+                                                                 kv_len):
+    """Causal with kv_len < S, one key, dh 32, 64 and 128; inputs 2 bytes past
+    a 16-byte boundary are copied by the wrappers and give the same output."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * s)
+    qkv = torch.randn((b, s, 3 * h * dh), generator=g, device=cuda_device).to(torch.bfloat16)
+    out = fused_mha_packed(qkv, h, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), mha_packed_reference(qkv, h, causal, kv_len).float(),
+                               rtol=0, atol=2e-2)
+    moved = unaligned_copy(qkv)
+    launches = (fused_mha_packed.launches, tms.fused_mha_short.launches)
+    assert torch.equal(fused_mha_packed(moved, h, causal=causal, kv_len=kv_len), out)
+    ranks = _ranks(lambda r: tms.fused_mha_packed_tp(moved, h, causal=causal, kv_len=kv_len), 2)
+    assert torch.equal(torch.cat(ranks, dim=-1), out)
+    q, k, v = (unaligned_copy(t) for t in _head_views(qkv, h))
+    short = tms.fused_mha_short(q, k, v, kv_len)
+    assert (fused_mha_packed.launches, tms.fused_mha_short.launches) == (launches[0] + 1,
+                                                                         launches[1] + 1)
+    torch.testing.assert_close(short.float(), tms.mha_short_reference(q, k, v, kv_len).float(),
+                               rtol=0, atol=2e-2)
+    assert torch.equal(short, tms.fused_mha_short(*_head_views(qkv, h), kv_len))
+
+
+@pytest.mark.parametrize("b,h,s,dh,kv_len", [(4, 4, 77, 32, None), (2, 4, 300, 64, 250),
+                                             (2, 2, 130, 128, None)])
+def test_bf16_v2_switches_take_effect_at_other_widths(cuda_device, b, h, s, dh, kv_len):
+    """As test_mha_short_v2_switches_take_effect, at other widths and S (#4's
+    bf16 kernel beside the tensor-core #3): each switch changes the output and
+    brings it nearer its own plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn((b, h, s, dh), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    v1 = tms.fused_mha_short(q, k, v, kv_len)
+    f32exp = tms.fused_mha_short_v2(q, k, v, kv_len)
+    bf16exp = tms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=torch.bfloat16)
+    for out, without, exp_dtype in ((f32exp, v1, torch.float32), (bf16exp, f32exp, torch.bfloat16)):
+        ref = tms.mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+        assert not torch.equal(out, without)
+        assert (out != ref).sum() < (without != ref).sum()
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 577, 1024])
+def test_bf16_flash_kernel_at_the_tile_edges(cuda_device, s, dh):
+    """Every key, one key, causal, and causal with kv_len < S."""
+    b, h = 2, 2
+    g = torch.Generator(device=cuda_device).manual_seed(s + dh)
+    q, k, v = (torch.randn((b, h, s, dh), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    for causal, kv_len in ((False, None), (False, 1), (True, None), (True, (s + 1) // 2)):
+        out = flash_attention(q, k, v, kv_len, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), flash_attention_reference(q, k, v, kv_len, causal=causal).float(),
+            rtol=0, atol=2e-2)
+
+
+def test_bf16_flash_kernel_takes_head_split_and_unaligned_views(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    b, s, h, dh = 4, 197, 12, 64
+    qkv = torch.randn((b, s, 3 * h * dh), generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = _head_views(qkv, h)
+    out = flash_attention(q, k, v, 150, causal=True)
+    torch.testing.assert_close(out.float(), flash_attention_reference(
+        q, k, v, 150, causal=True).float(), rtol=0, atol=2e-2)
+    assert out.permute(0, 2, 1, 3).is_contiguous()  # heads merge back without a copy
+    launches = flash_attention.launches
+    moved = flash_attention(*_head_views(unaligned_copy(qkv), h), 150, causal=True)
+    assert flash_attention.launches == launches + 1
+    assert torch.equal(moved, out)
+
+
+def _hmma_per_kernel(source):
+    """source's kernels by name -> the HMMA instructions in their SASS."""
+    import os
+    import subprocess
+
+    from team_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+# source -> (tensor-core kernel, its instantiations, CUDA-core kernel, its instantiations)
+HMMA_SOURCES = {
+    # bf16 #1-#3: dh 32 and 64 at windows of 8, 13 and 16 blocks, dh 128 at 8;
+    # f32: 3 head widths x 3 switch sets; #4's bf16: 3 head widths x 2 switch sets
+    "mha_packed.cu": ("mha_packed_kernel_tc", 7, "mha_packed_kernel", 15),
+    "flash_attention.cu": ("flash_kernel_tc", 2, "flash_kernel", 2),  # dh 32 and 64
+}
+
+
+@pytest.mark.parametrize("source", list(HMMA_SOURCES))
+def test_tensor_core_kernels_issue_hmma_and_cuda_core_kernels_none(cuda_device, source):
+    """The explicit dispatch on the dtype: every bf16 kernel of #1-#3 and #14
+    (every head width and logits window) runs its products on the tensor
+    cores; every f32 kernel, and #4's bf16 kernel, on the CUDA cores."""
+    tms.build()
+    flash_build()
+    counts = _hmma_per_kernel(source)
+    tc_name, n_tc, cc_name, n_cc = HMMA_SOURCES[source]
+    tc = [n for fn, n in counts.items() if tc_name in fn]
+    cuda_core = [n for fn, n in counts.items() if cc_name in fn and tc_name not in fn]
+    assert len(tc) == n_tc and min(tc) > 0, counts
+    assert len(cuda_core) == n_cc and max(cuda_core) == 0, counts

@@ -139,3 +139,33 @@ def test_plain_flash_matches_xla_attention_in_float32():
         torch.testing.assert_close(flash_attention_reference(q, k, v, kv_len, causal=causal),
                                    tattn.xla_attention(q, k, v, kv_len, causal=causal),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _moved(t, elements=1):
+    """The same values, ``elements`` past the start of a fresh buffer (a fresh
+    CPU buffer starts on 64 bytes)."""
+    buf = torch.zeros(t.numel() + elements, dtype=t.dtype)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_rows_aligned_and_aligned_rows_on_cpu_tensors():
+    """The bf16 kernels' row alignment (every row on 16 bytes): tensors that
+    have it pass as they are, head views of a packed projection included;
+    others become contiguous copies on 16 bytes with the same values."""
+    from team_tpu_torch.ops.flash_attention import aligned_rows, rows_aligned
+
+    x = torch.randn(2, 3, 8, 64).to(torch.bfloat16)
+    assert rows_aligned(x) and aligned_rows(x) is x
+    qkv = torch.randn(2, 8, 3 * 4 * 64).to(torch.bfloat16)
+    for view in (t.reshape(2, 8, 4, 64).permute(0, 2, 1, 3) for t in qkv.split(256, dim=-1)):
+        assert rows_aligned(view) and aligned_rows(view) is view
+    moved = _moved(x)  # 2 bytes past a 16-byte boundary
+    wide = torch.zeros(2, 3, 8, 65, dtype=torch.bfloat16)[..., :64]  # rows 130 bytes apart
+    wide.copy_(x)
+    for t in (moved, wide):
+        assert not rows_aligned(t)
+        copy = aligned_rows(t)
+        assert copy.is_contiguous() and rows_aligned(copy) and torch.equal(copy, x)
+    assert rows_aligned(_moved(x.float(), 4)) and not rows_aligned(_moved(x.float(), 2))

@@ -75,3 +75,26 @@ def test_wrapper_rejects_dtype_and_device():
         fused_mha_packed(torch.zeros((1, 4, 12), dtype=torch.float16), 2)
     with pytest.raises(ValueError):
         fused_mha_packed(torch.zeros((1, 4, 12), device="meta"), 2)
+
+
+def test_short_operands_copy_only_what_the_kernel_cannot_read():
+    """The pre-split entries pass q, k and v as they are when they share one
+    set of strides with a unit stride along Dh (bfloat16: every row on 16
+    bytes), else contiguous copies of all three on 16 bytes."""
+    from team_tpu_torch.ops.flash_attention import rows_aligned
+    from team_tpu_torch.ops.mha_short import _short_operands
+
+    b, s, h, dh = 2, 9, 4, 32
+    qkv = torch.from_numpy(_qkv(b, s, h, dh)).to(torch.bfloat16)
+    views = tuple(t.reshape(b, s, h, dh).permute(0, 2, 1, 3) for t in qkv.split(h * dh, dim=-1))
+    assert all(a is b for a, b in zip(_short_operands(*views), views))
+    contiguous = tuple(t.contiguous() for t in views)
+    buf = torch.zeros(contiguous[1].numel() + 1, dtype=torch.bfloat16)
+    moved = buf[1:].view(contiguous[1].shape)  # 2 bytes past a 16-byte boundary
+    moved.copy_(contiguous[1])
+    for case in ((views[0], contiguous[1], contiguous[2]), (contiguous[0], moved, contiguous[2])):
+        out = _short_operands(*case)
+        assert all(t.is_contiguous() and rows_aligned(t) for t in out)
+        assert all(torch.equal(a, c) for a, c in zip(out, contiguous))
+    f32 = tuple(torch.zeros(3 * b * h * s * dh + 1)[1:].view(3, b, h, s, dh))  # 4 bytes off
+    assert all(a is c for a, c in zip(_short_operands(*f32), f32))  # the f32 kernel reads it

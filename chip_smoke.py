@@ -9,7 +9,9 @@ Phases, one line or more each:
      kernel, no spill in a tensor-core kernel; cuobjdump -sass of
      attn_block.cu, mha_packed.cu and flash_attention.cu: HMMA in every
      tensor-core (bf16, *_tc) kernel, none in the CUDA-core ones (f32; #4's
-     bf16)
+     bf16); of int8_gemm.cu and gemm_probe.cu: GMMA (IGMMA s8, HGMMA bf16) in
+     the wgmma + TMA kernels (#21 gelu_quant_kernel_wg, #27
+     probe_mm_kernel_wg), none in the mma.sync ones, and no spill in them
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -32,7 +34,8 @@ Phases, one line or more each:
      and at the gate batch's ragged M (3,152 rows): int8_linear at qkv
      768->2304 and out 768->768 (bf16 and f32, with and without the GELU,
      within one bf16 step; the [N, K] entry bit for bit), gelu_quant at fc
-     768->3072 (bn 512) and the dynamic layer norm -> int8 at most one int8
+     768->3072 (bn 512; its wgmma kernel also bit for bit the mma.sync
+     kernel, q and s) and the dynamic layer norm -> int8 at most one int8
      step apart on under 1 % of the outputs with scales within 1e-6, the
      block-scale GEMM at proj 3072->768 (6 K blocks), and the 3-D static
      producer bit for bit the 2-D one; the tensor-parallel head splits at
@@ -73,7 +76,10 @@ Phases, one line or more each:
      rate is the mma.sync ceiling), #30 against the torch composition; the
      fused kernels' TFLOP/s and share of their bound beside their times; the
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
-     kernels' ms of PERF.md, SDPA (the factor) and the bound (its share)
+     kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
+     the wgmma GEMMs (#21 at fc, #27 bf16) against their mma.sync ms of
+     PERF.md (#21's mma.sync kernel also timed in the run), the library call,
+     the bound (its share) and TOP/s or TFLOP/s
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -143,7 +149,8 @@ Phases, one line or more each:
      mha_packed_proj and mha_short); hybrid and pallas through the library API
      on the dynamic payload at full width (every kernel call held against its
      plain version on the tower's inputs, launches per encode exact, features
-     against the plain versions and the bf16 tower, encode rates), and the
+     against the plain versions and the bf16 tower, encode rates, beside
+     their rates with #21 on mma.sync), and the
      int8 text tower on the class prompts (xla, hybrid and pallas on the
      dynamic text payload, static3d_qi on the prompt-set payload) against
      the bf16 text tower and against itself with the plain versions
@@ -253,6 +260,10 @@ TIER_PER_BLOCK = {
                "int8_linear_blockscale": 1},
 }
 TIER_KERNELS = tuple(TIER_PER_BLOCK["pallas"])
+# the dynamic tiers' encode rates with #21 on mma.sync, before it moved to
+# wgmma (PERF.md §5: this script's phase 6 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), img/s
+MMA_SYNC_TIER_RATES = {"hybrid": 2780.4, "pallas": 3648.8}
 DATASET = {"num_classes": 4, "img_size": 224, "train_per_stage": 64, "test_per_stage": 32}
 EVAL_B = 128  # the learners' eval batch
 # the learner batch of exps/IIMinsects202.json: the int8 run calibrates on its
@@ -385,46 +396,64 @@ TC_SOURCES = {
 }
 
 
-def check_tensor_cores(build) -> dict:
-    """HMMA instructions in each kernel of the built attention libraries
-    (``cuobjdump -sass``): every tensor-core (bf16) kernel issues its products
-    on the tensor cores, and no CUDA-core kernel (f32; #4's bf16) does.
-    Returns source -> kernel -> the HMMA count of each of its instantiations."""
+# the GEMM sources whose wgmma kernels (TMA-fed, csrc/wgmma_gemm.cuh) issue
+# GMMA instructions and whose mma.sync kernels issue none: source -> (wgmma
+# kernels, mma.sync kernels), by name as TC_SOURCES (cuobjdump prints
+# IGMMA.64x256x32.S8.S8 for #21's s8 form and HGMMA.64x256x16.F32.BF16 for
+# #27's bf16 one; mma.sync is IMMA.16832.S8.S8 and HMMA.16816.F32.BF16)
+GMMA_SOURCES = {
+    "int8_gemm.cu": (("gelu_quant_kernel_wg",), ("gelu_quant_kernel", "gemm_kernel")),
+    "gemm_probe.cu": (("probe_mm_kernel_wg",), ("probe_mm_kernel", "ceiling_kernel",
+                                                "mlp_mega_kernel")),
+}
+
+
+def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
+    """``opcode`` instructions in each kernel of the built libraries
+    (``cuobjdump -sass``): HMMA in the attention sources, where every
+    tensor-core (bf16) kernel issues its products on the tensor cores and no
+    CUDA-core kernel (f32; #4's bf16) does; GMMA in the GEMM sources, where
+    every wgmma kernel issues it and no mma.sync kernel does. Prints the
+    mnemonics that hold ``opcode``. Returns source -> kernel -> the count of
+    each of its instantiations."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     found = {}
-    for source, (tc, cuda_core) in TC_SOURCES.items():
+    for source, (tc, other) in sources.items():
         sass = subprocess.run([cuobjdump, "-sass", str(build._target(source))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts = {}
+        mnemonics = set()
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
                 name = line.split("Function :")[1].strip()
                 counts[name] = 0
-            elif name is not None and "HMMA" in line:
+            elif name is not None and opcode in line:
                 counts[name] += 1
+                mnemonics.update(re.findall(rf"\b\w*{opcode}[.\w]*", line))
         kinds = defaultdict(list)
         for fn, n in counts.items():
             kind = next((k for k in tc if k in fn), None) or next(
-                (k for k in cuda_core if k in fn), None)
+                (k for k in other if k in fn), None)
             if kind is not None:
                 kinds[kind].append(n)
-        print(f"  cuobjdump -sass {source}, HMMA per kernel: {dict(kinds)}")
+        print(f"  cuobjdump -sass {source}, {opcode} per kernel: {dict(kinds)}; "
+              f"mnemonics {sorted(mnemonics)}")
         if any(not kinds[k] or min(kinds[k]) == 0 for k in tc):
-            raise AssertionError(f"a tensor-core kernel of {source} issues no HMMA: "
+            raise AssertionError(f"a kernel of {source} that should issue {opcode} does not: "
                                  f"{dict(kinds)}")
-        if any(not kinds[k] or max(kinds[k]) > 0 for k in cuda_core):
-            raise AssertionError(f"a CUDA-core kernel of {source} is missing or issues HMMA: "
+        if any(not kinds[k] or max(kinds[k]) > 0 for k in other):
+            raise AssertionError(f"a kernel of {source} is missing or issues {opcode}: "
                                  f"{dict(kinds)}")
         found[source] = dict(kinds)
     return found
 
 
 def check_no_spills(build) -> None:
-    """Raise if ptxas reported a spill in a tensor-core kernel (phase 2 prints
-    every kernel's registers). A library loaded from an earlier build has no
-    report in this process."""
-    for source, (tc, _) in TC_SOURCES.items():
+    """Raise if ptxas reported a spill in a tensor-core kernel or a wgmma
+    kernel (phase 2 prints every kernel's registers). A library loaded from
+    an earlier build has no report in this process."""
+    for source, (tc, _) in {**TC_SOURCES, **GMMA_SOURCES}.items():
         log = build.BUILD_LOGS.get(source)
         if log is None:
             print(f"  ptxas {source}: no report in this process (built before)")
@@ -622,6 +651,32 @@ def report_redesign(times: dict, flash_times: dict) -> None:
               f"kernel's {before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster; "
               f"{t['ms'] / t['library_ms']:.2f}x scaled_dot_product_attention; "
               f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; {tflops:.1f} TFLOP/s")
+
+
+# the GEMMs that moved from mma.sync to wgmma + TMA: their mma.sync card ms as
+# PERF.md §6 records them (this script's phase 4 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), by phase-4 key -> (kernel, ms, int8 or bf16 operations of the
+# call)
+MMA_SYNC_MS = {
+    "int8_linear_gelu_quant fc": ("int8_linear_gelu_quant (#21, bn 512)", 0.9412,
+                                  2 * 128 * 197 * FC_SHAPE[0] * FC_SHAPE[1]),
+    "probe_mm bf16": ("probe_mm bf16 (#27, M=N=K=4096)", 0.7349, 2 * 4096 ** 3),
+}
+
+
+def report_gemm_redesign(times: dict) -> None:
+    """The wgmma GEMMs' phase-4 times beside their mma.sync ms of PERF.md (and,
+    for #21, the mma.sync kernel timed in this run), the library call, the
+    bound (its share) and the rate."""
+    for key, (name, before, ops) in MMA_SYNC_MS.items():
+        t = times[key]
+        now = f", the mma.sync kernel in this run {t['mma_sync_ms']:.4f} ms" \
+            if "mma_sync_ms" in t else ""
+        print(f"  {name}: {t['ms']:.4f} ms on wgmma + TMA against the mma.sync kernel's "
+              f"{before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster{now}; "
+              f"{t['ms'] / t['library_ms']:.2f}x the library call ({t['library_ms']:.4f} ms); "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; "
+              f"{ops / t['ms'] / 1e9:.1f} T{'OP' if 'gelu' in key else 'FLOP'}/s")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -982,8 +1037,9 @@ def compare_int8_gemm(im, dev) -> dict:
     their plain versions at the vision tower's shapes and at the gate batch's
     ragged M: int8_linear at qkv and out (bf16 and f32, with and without the
     GELU; the [N, K] entry bit for bit the [K, N] one), gelu_quant at fc (bn
-    512), blockscale at proj on its output (6 K blocks), ln_quantize; and
-    ln_quantize_static3 bit for bit ln_quantize_static."""
+    512; its wgmma kernel also bit for bit the mma.sync one), blockscale at
+    proj on its output (6 K blocks), ln_quantize; and ln_quantize_static3 bit
+    for bit ln_quantize_static."""
     import torch
 
     worst = dict.fromkeys(("int8_linear", "int8_linear_gelu_quant", "int8_linear_blockscale",
@@ -1015,6 +1071,13 @@ def compare_int8_gemm(im, dev) -> dict:
         worst["int8_linear_gelu_quant"] = max(worst["int8_linear_gelu_quant"],
                                               _int8_disagreement(name, gq, rq))
         _check_scales(name, gs, rs)
+        mq, ms_ = im.int8_linear_gelu_quant_mma(xq, wq, xs, ws, bias)
+        torch_sync()
+        equal = torch.equal(gq, mq) and torch.equal(gs, ms_)
+        print(f"  {name}: the wgmma kernel vs the mma.sync kernel, q and s bit for bit {equal} "
+              "(tolerance 0)")
+        if not equal:
+            raise AssertionError(f"{name}: the wgmma kernel differs from the mma.sync kernel")
         _, w2q, _, w2s, b2 = gemm_inputs(im, m, *PROJ_SHAPE, dev, seed=2)
         for dt in (torch.bfloat16, torch.float32):
             out = im.int8_linear_blockscale(gq, w2q, gs, w2s, b2, out_dtype=dt)
@@ -1066,7 +1129,8 @@ def time_int8_gemm(im, quant, dev) -> dict:
     each output written once) and its int8 operations. The yardsticks:
     torch._int_mm alone at the same shape (the product only), and the xla
     tier's composition of the same step (torch._int_mm and the torch epilogue;
-    for ln_quantize quant._ln_quant_rows)."""
+    for ln_quantize quant._ln_quant_rows). gelu_quant's mma.sync kernel is
+    timed beside its wgmma one."""
     import torch
 
     b, s, _, _ = MAIN_SHAPES["vision"]
@@ -1098,13 +1162,19 @@ def time_int8_gemm(im, quant, dev) -> dict:
         lambda: im.int8_linear_xla(gq, w2q, gs[0], w2s, b2),
         bound(m * k2 + k2 * n2 + gs.numel() * 4 + 2 * n2 * 4 + m * n2 * 2,
               {"int8": 2 * m * k2 * n2}))
+    mma_sync = lambda: im.int8_linear_gelu_quant_mma(xq, wq, xs, ws, bias)  # noqa: E731
+    mma_sync_ms = (_time_ms(mma_sync), _time_ms(mma_sync))
     x, gamma, beta, _ = producer_inputs(m, 768, dev, seed=7)
     ln = {"scale": gamma, "bias": beta}
     pairs["ln_quantize"] = (
         lambda: im.ln_quantize(x, gamma, beta), lambda: im.ln_quantize_reference(x, gamma, beta),
         None, lambda: quant._ln_quant_rows(x, ln),
         bound(x.numel() * 2 + 2 * 768 * 4 + x.numel() + m * 4, {}))
-    return _timed_pairs(pairs)
+    times = _timed_pairs(pairs)
+    times["int8_linear_gelu_quant fc"]["mma_sync_ms"] = sum(mma_sync_ms) / 2
+    print(f"  int8_linear_gelu_quant fc on the mma.sync kernel (the one it replaced at bn 512): "
+          f"{mma_sync_ms[0]:.4f}/{mma_sync_ms[1]:.4f} ms")
+    return times
 
 
 def torch_sync() -> None:
@@ -3341,6 +3411,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: " + line.strip())
     hmma = check_tensor_cores(_build)
+    gmma = check_tensor_cores(_build, GMMA_SOURCES, "GMMA")
     check_no_spills(_build)
 
     print("phase 3: kernels vs plain versions")
@@ -3376,6 +3447,7 @@ def main() -> int:
     times.update(time_gemm_probes(gp, probe_inputs))
     del probe_inputs
     report_redesign(times, flash_times)
+    report_gemm_redesign(times)
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3395,6 +3467,9 @@ def main() -> int:
         print("phase 6: features and encode rates")
         rates, int8_runtimes, short_launches, served, tiers, text = check_features(
             im, dev, os.path.join(log_dir, "int8_cache"), os.path.join(log_dir, "int8_route_caches"))
+    for tier, before in MMA_SYNC_TIER_RATES.items():
+        print(f"  encode int8 {tier}: {tiers[tier]['rate']:.1f} img/s against {before:,.1f} with #21 "
+              f"on mma.sync (PERF.md §5), {tiers[tier]['rate'] / before:.3f}x")
     print("phase 7: profile of one encode")
     profile_encodes(int8_runtimes, tiers["pallas"]["encode"], dev)
 
@@ -3509,6 +3584,10 @@ def main() -> int:
         "launches": tier_launches("int8_linear_gelu_quant"), "launches_from": "phase 5 simplecil "
         "on hybrid and pallas (gate batch)", "max_abs_err": gemm_err["int8_linear_gelu_quant"],
         **gemm_timing(times["int8_linear_gelu_quant fc"]),
+        "kernel": "gelu_quant_kernel_wg (wgmma + TMA, csrc/wgmma_gemm.cuh) at bn 256 and 512, "
+                  "gelu_quant_kernel (mma.sync) at other bn; equal bit for bit (phase 3)",
+        "mma_sync_ms": times["int8_linear_gelu_quant fc"]["mma_sync_ms"],
+        "gmma_per_kernel": gmma["int8_gemm.cu"],
     }, {
         "name": "int8_linear_blockscale", **gemm_common,
         "replaces": "team_tpu/ops/int8_matmul.py:565",
@@ -3615,7 +3694,9 @@ def main() -> int:
         "tops": times["probe_mm int8"]["tops"], "library": "torch._int_mm",
         "bf16": {**timing(times["probe_mm bf16"]), "tops": times["probe_mm bf16"]["tops"],
                  "max_abs_err": gemm_probe_err["probe_mm bf16"],
-                 "library": "torch.matmul on the bf16 operands (bf16 out)"},
+                 "library": "torch.matmul on the bf16 operands (bf16 out)",
+                 "kernel": "probe_mm_kernel_wg (wgmma + TMA, csrc/wgmma_gemm.cuh)"},
+        "gmma_per_kernel": gmma["gemm_probe.cu"],
         "probe": gemm_probes["int8_probe"],
     }, {
         "name": "mxu_ceiling", **probe_common, "replaces": "scripts/int8_mxu_ceiling.py:50",

@@ -1,5 +1,6 @@
-// The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores through
-// mma.sync (the s8 mainloop of csrc/int8_mma.cuh, the bf16 one of
+// The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores: bf16
+// probe_mm through wgmma (csrc/wgmma_gemm.cuh), the others through mma.sync
+// (the s8 mainloop of csrc/int8_mma.cuh, the bf16 fragments of
 // csrc/bf16_mma.cuh).
 //
 // Replaces the TPU kernels of the repository's probe scripts:
@@ -10,11 +11,13 @@
 // The TPU tilings (BM/BN/BK, block_m, block_b) are not carried over.
 //
 // probe_mm: out = x [M, K] @ w, with w given as its transpose [N, K]
-// row-major. int8 -> int32 exact (the raw accumulator is stored); bf16 -> f32
-// (each bf16 product is exact in f32, the sums are f32 in the tensor cores'
-// order). A CTA computes 64 x 128 outputs. Bound on an H100 at M = N = K =
-// 4096: 137.4 G operations, 0.0695 ms in int8 at 1,979 TOP/s and 0.139 ms in
-// bf16 at 989 TFLOP/s; the bytes (101 MB int8) take 0.030 ms.
+// row-major. int8 -> int32 exact (the raw accumulator is stored), a CTA of 64
+// x 128 outputs on the s8 mma.sync mainloop; bf16 -> f32 (each bf16 product
+// is exact in f32, the sums are f32 in the tensor cores' order), a CTA of 128
+// x 256 outputs on the wgmma + TMA mainloop of csrc/wgmma_gemm.cuh. Bound on
+// an H100 at M = N = K = 4096: 137.4 G operations, 0.0695 ms in int8 at 1,979
+// TOP/s and 0.139 ms in bf16 at 989 TFLOP/s; the bytes (101 MB int8) take
+// 0.030 ms.
 //
 // mxu_ceiling: out [M, N] f32 = sum over i < reps of x[8 (i mod 64) :
 // 8 (i mod 64) + M, :] @ w, with w [K, N] given as [N, K]. Every one of the
@@ -48,11 +51,13 @@
 // Bound at the probe's shape (M = 256 x 197, K = 768, N = 3,072): 475.9 G
 // operations, 0.2405 ms; its bytes (121 MB) 0.036 ms.
 //
-// These first versions run mma.sync from a two-stage cp.async pipeline, not
-// wgmma and TMA; their times are in PERF.md.
+// probe_mm's int8 form, the ceiling and the megakernel run mma.sync from a
+// two-stage cp.async pipeline, not wgmma and TMA (the ceiling is the
+// mma.sync ceiling by design); their times are in PERF.md.
 
 #include "bf16_mma.cuh"
 #include "int8_mma.cuh"
+#include "wgmma_gemm.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,23 +115,48 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[MI][NI][4], Acc* out
 // probe_mm
 // ---------------------------------------------------------------------------
 
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads) probe_mm_kernel(const Operands p, void* out, int n) {
+// int8: the s8 mma.sync mainloop, 64 x 128 tiles
+__global__ void __launch_bounds__(kThreads) probe_mm_kernel(const Operands p, int* out, int n) {
   using T = Tile<kTileM, 2>;
   __shared__ __align__(16) Stages<kTileM> st;
   const int row0 = blockIdx.x * kTileM, col0 = blockIdx.y * kBN;
   const int warp = threadIdx.x >> 5;
   const int wrow = row0 + (warp / 2) * T::WROWS, wcol = col0 + (warp % 2) * T::WCOLS;
-  if constexpr (BF16) {
-    float acc[T::MI][T::NI][4] = {};
-    mainloop_bf16<kTileM, 2>(st, p, row0, col0, n, acc);
-    store_tile(acc, static_cast<float*>(out), wrow, wcol, p.m, n);
-  } else {
-    int acc[T::MI][T::NI][4] = {};
-    float unused[T::MI][T::NI][4];
-    mainloop<kTileM, 2, false>(st, p, row0, col0, n, acc, unused);
-    store_tile(acc, static_cast<int*>(out), wrow, wcol, p.m, n);
-  }
+  int acc[T::MI][T::NI][4] = {};
+  float unused[T::MI][T::NI][4];
+  mainloop<kTileM, 2, false>(st, p, row0, col0, n, acc, unused);
+  store_tile(acc, out, wrow, wcol, p.m, n);
+}
+
+// bf16: the wgmma + TMA mainloop of csrc/wgmma_gemm.cuh, 128 x 256 tiles (each
+// consumer warpgroup 64 rows, B shared), four stages of 16 KB of A and 32 KB
+// of B, persistent CTAs in clusters of two that multicast B (faster than
+// single CTAs at 4096^3: PERF.md); f32 stored from the registers, M and N
+// edges masked
+using ProbeBf16 = wg::Config<128, 256, 4, 2>;
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    probe_mm_kernel_wg(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb, float* out, int m, int n, int k) {
+  extern __shared__ uint8_t wg_smem[];
+  wg::run<ProbeBf16, float>(wg_smem, &ma, &mb, m, n, k, [&](float (&acc)[128], int row0, int col0,
+                                                           int cw) {
+    const int lane = threadIdx.x & 31;
+    const int r0 = row0 + cw * 64 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    const int c0 = col0 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= m) continue;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = c0 + 8 * i;  // n is a multiple of 8: col + 1 < n too
+        if (col < n)
+          store2(out + static_cast<size_t>(row) * n + col, acc[4 * i + 2 * h],
+                 acc[4 * i + 2 * h + 1]);
+      }
+    }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -398,13 +428,19 @@ extern "C" int team_probe_mm(const void* x, const void* w_t, void* out, int m, i
   if (m < 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % (bf16 ? 16 : 32) != 0)
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const Operands p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), nullptr, m,
-                   bf16 ? 2 * k : k, 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    CUtensorMap ma, mb;
+    dim3 grid;
+    const cudaError_t err = wg::prepare<ProbeBf16>(probe_mm_kernel_wg, &ma, &mb, &grid, x, w_t, m,
+                                                   n, k, 2, true);
+    if (err != cudaSuccess) return err;
+    return wg::launch<ProbeBf16>(probe_mm_kernel_wg, grid, s, ma, mb, static_cast<float*>(out), m,
+                                 n, k);
+  }
+  const Operands p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), nullptr, m, k, 0};
   const dim3 grid((m + kTileM - 1) / kTileM, (n + kBN - 1) / kBN);
-  if (bf16)
-    probe_mm_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, out, n);
-  else
-    probe_mm_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, out, n);
+  probe_mm_kernel<<<grid, kThreads, 0, s>>>(p, static_cast<int*>(out), n);
   return cudaGetLastError();
 }
 

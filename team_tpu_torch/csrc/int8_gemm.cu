@@ -33,20 +33,38 @@
 // the port's quantize_weight gives (a column-major [K, N]).
 //
 // gelu_quant needs the whole bn-column block of a row before it can scale it
-// (bn = 512 at the ViT-B/16 fc shape). Its CTA takes BM = 32 rows and loops
-// over the block 128 columns at a time, keeping y in f32 in shared memory
-// (32 x 520 floats at bn = 512), then reduces each row's amax in a warp and
-// writes the int8 block: the [M, N] f32 activation never reaches device memory.
+// (bn = 512 at the ViT-B/16 fc shape); the [M, N] f32 activation never
+// reaches device memory. Two kernels, chosen by shape in
+// team_int8_linear_gelu_quant:
+// - bn 512 and 256 (every K the entry takes): gelu_quant_kernel_wg on the
+//   persistent wgmma + TMA mainloop of csrc/wgmma_gemm.cuh (3 stages of 72 KB
+//   at 512, 4 of 48 KB at 256). A CTA tile is 64 rows x 512 or 128 rows x
+//   256, so A is read once per column block and B once per 64 or 128 rows;
+//   y lives in the accumulator registers (128 a thread) and each row's amax
+//   is met across lanes and, at 512, across the two consumer warpgroups
+//   through shared memory. q leaves through a 512-byte buffer a warp, in
+//   whole 16-byte pieces: straight from the registers a warp store would
+//   write a quarter of eight 32-byte sectors, and at K 768 those stores cost
+//   as much as the tanh.
+// - any other bn (32 ... 1024, through the wrapper's _pick_block_n):
+//   gelu_quant_kernel on mma.sync. Its CTA takes BM = 32 rows and loops over
+//   the block 128 columns at a time, keeping y in f32 in shared memory (32 x
+//   520 floats at bn = 512), then reduces each row's amax in a warp.
+// Both take dequant, gelu_tanh and the quantize step from
+// csrc/int8_epilogue.cuh, and the int32 sums are exact either way: their q
+// and s agree bit for bit.
 //
 // What bounds them on an H100: at the vision tower's shapes (M = 25,216 rows)
 // the qkv GEMM (768 -> 2304) does 89.2 G int8 operations (0.045 ms at 1,979
 // TOP/s) against 137 MB of bytes, mostly its bf16 output (0.041 ms at 3.35
 // TB/s); fc (768 -> 3072) and proj (3072 -> 768) 119 G each (0.060 ms), out
-// (768 -> 768) is bound by its 59 MB (0.0175 ms). This first version runs
-// mma.sync, not wgmma, and a two-stage cp.async pipeline, not TMA: a fraction
-// of the tensor cores' rate; its times are in PERF.md.
+// (768 -> 768) is bound by its 59 MB (0.0175 ms). int8_linear and blockscale
+// run mma.sync from a two-stage cp.async pipeline, not wgmma and TMA: a
+// fraction of the tensor cores' rate; the times are in PERF.md.
 
+#include "int8_epilogue.cuh"
 #include "int8_mma.cuh"
+#include "wgmma_gemm.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +75,6 @@
 namespace {
 
 constexpr int kMaxBlockN = 1024;  // widest gelu_quant column block
-constexpr float kInv127 = 1.0f / 127.0f;
 
 enum Epilogue { kDequant = 0, kDequantGelu = 1, kBlockScale = 2 };
 
@@ -74,19 +91,6 @@ struct Params {
   int bn;              // gelu_quant: columns per scale block
 };
 
-
-// jax.nn.gelu(approximate=True) and torch's gelu(approximate="tanh"):
-// 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float beta = 0.7978845608028654f, kappa = 0.044715f;
-  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fmul_rn(beta, __fadd_rn(x, __fmul_rn(kappa, x3)));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
-}
-
-__device__ __forceinline__ float dequant(int acc, float xs, float ws, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws), b);
-}
 
 __device__ __forceinline__ void store2(float* out, float y0, float y1) {
   *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
@@ -182,13 +186,106 @@ __global__ void __launch_bounds__(kThreads) gelu_quant_kernel(const Params p) {
     for (int c = lane; c < p.bn; c += 32) amax = fmaxf(amax, fabsf(yr[c]));
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float s = amax > 0.f ? __fmul_rn(amax, kInv127) : 1.f;
+    const float s = quant_scale(amax);
     if (lane == 0) p.scales[static_cast<size_t>(blockIdx.y) * p.m + row] = s;
     int8_t* qr = q + static_cast<size_t>(row) * p.n + blk0;
-    for (int c = lane; c < p.bn; c += 32)
-      qr[c] = static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(yr[c], s)), -127.f), 127.f));
+    for (int c = lane; c < p.bn; c += 32) qr[c] = quant_step(yr[c], s);
   }
 }
+
+// gelu_quant on the wgmma mainloop (csrc/wgmma_gemm.cuh) at bn 512 and 256.
+// A CTA tile is BM rows x one whole bn block: 64 x 512 (the two consumer
+// warpgroups share A's rows and each holds 256 columns; a row's amax is met
+// through shared memory) or 128 x 256 (each warpgroup holds 64 whole rows).
+// y is computed in the accumulator registers, so the block never leaves the
+// SM as f32; amax of a row: the thread's 64 columns, then the four lanes that
+// share the row, then the other warpgroup. The CTAs are persistent: while
+// the consumers run one tile's epilogue the producer loads the next tile.
+template <typename C>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    gelu_quant_kernel_wg(const __grid_constant__ CUtensorMap ma,
+                         const __grid_constant__ CUtensorMap mb, const Params p) {
+  extern __shared__ uint8_t wg_smem[];
+  // each warpgroup's row amax, by the parity of the CTA's tile: a warpgroup
+  // one tile ahead writes the other half
+  __shared__ float amax_other[2][2][64];
+  // a consumer warp's q, 16 rows x 32 columns at a time: each lane holds two
+  // columns of 8 bytes' span, so q leaves in whole 16-byte pieces through here
+  __shared__ __align__(16) int8_t q_stage[wg::kConsumerWarps][16][32];
+  int round = 0;
+  wg::run<C, int>(wg_smem, &ma, &mb, p.m, p.n, p.k, [&](int (&acc)[128], int row0, int col0, int cw) {
+    const int lane = threadIdx.x & 31;
+    const int r0 = (C::WM == 2 ? cw * 64 : 0) + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    const int c0 = col0 + (C::WN == 2 ? cw * wg::kInstrN : 0) + 2 * (lane & 3);
+    float xs[2], amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) xs[h] = row0 + r0 + 8 * h < p.m ? p.xs[row0 + r0 + 8 * h] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * i + e;
+        const float w = p.ws[col], b = p.bias[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int& a = acc[4 * i + 2 * h + e];
+          const float y = gelu_tanh(dequant(a, xs[h], w, b));
+          a = __float_as_int(y);
+          amax[h] = fmaxf(amax[h], fabsf(y));
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1)
+        amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], o));
+    if (C::WN == 2) {
+      float(&other)[2][64] = amax_other[round & 1];
+      if ((lane & 3) == 0) {
+        other[cw][r0] = amax[0];
+        other[cw][r0 + 8] = amax[1];
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warpgroups only
+#pragma unroll
+      for (int h = 0; h < 2; ++h) amax[h] = fmaxf(amax[h], other[cw ^ 1][r0 + 8 * h]);
+    }
+    ++round;
+
+    float s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] = quant_scale(amax[h]);
+      const int row = row0 + r0 + 8 * h;
+      if ((lane & 3) == 0 && (C::WN == 1 || cw == 0) && row < p.m)
+        p.scales[static_cast<size_t>(col0 / C::BN) * p.m + row] = s[h];
+    }
+    int8_t(&stage)[16][32] = q_stage[(threadIdx.x >> 5) - 4];  // consumer warps are 4 ... 11
+    const int g = lane >> 2, t = lane & 3;
+    const int out_row = row0 + r0 - g + (lane >> 1);  // the row a lane writes: 16 B of it
+    int8_t* q = static_cast<int8_t*>(p.out) + static_cast<size_t>(out_row) * p.n + c0 - 2 * t +
+                16 * (lane & 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // columns 32 j ... 32 j + 31 of the warpgroup's 256
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + ii;
+          *reinterpret_cast<char2*>(&stage[g + 8 * h][8 * ii + 2 * t]) =
+              make_char2(quant_step(__int_as_float(acc[4 * i + 2 * h]), s[h]),
+                         quant_step(__int_as_float(acc[4 * i + 2 * h + 1]), s[h]));
+        }
+      __syncwarp();
+      if (out_row < p.m)
+        *reinterpret_cast<int4*>(q + 32 * j) =
+            *reinterpret_cast<const int4*>(&stage[lane >> 1][16 * (lane & 1)]);
+      __syncwarp();
+    }
+  });
+}
+
+using GeluQuant512 = wg::Config<64, 512, 3, 1>;
+using GeluQuant256 = wg::Config<128, 256, 4, 1>;
 
 bool shape_ok(int m, int n, int k) { return m >= 0 && n > 0 && k > 0 && k % 32 == 0 && n % 8 == 0; }
 
@@ -197,6 +294,26 @@ int launch_gemm(const Params& p, void* stream) {
   const dim3 grid((p.m + 63) / 64, (p.n + kBN - 1) / kBN);
   gemm_kernel<EPI, Out><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+int launch_gelu_quant_mma(const Params& p, void* stream) {
+  const int smem = 32 * gelu_quant_pitch(p.bn) * static_cast<int>(sizeof(float));
+  const cudaError_t err =
+      cudaFuncSetAttribute(gelu_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.m + 31) / 32, p.n / p.bn);
+  gelu_quant_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename C>
+int launch_gelu_quant_wg(const Params& p, void* stream) {
+  CUtensorMap ma, mb;
+  dim3 grid;
+  const cudaError_t err = wg::prepare<C>(gelu_quant_kernel_wg<C>, &ma, &mb, &grid, p.a, p.b, p.m,
+                                         p.n, p.k, 1, false);
+  if (err != cudaSuccess) return err;
+  return wg::launch<C>(gelu_quant_kernel_wg<C>, grid, static_cast<cudaStream_t>(stream), ma, mb, p);
 }
 
 Params make_params(const void* a, const void* b, const void* xs, const void* ws, const void* bias,
@@ -261,11 +378,25 @@ extern "C" int team_int8_linear_gelu_quant(const void* a, const void* b, const v
   Params p = make_params(a, b, xs, ws, bias, q, m, n, k);
   p.scales = static_cast<float*>(scales);
   p.bn = bn;
-  const int smem = 32 * gelu_quant_pitch(bn) * static_cast<int>(sizeof(float));
-  const cudaError_t err =
-      cudaFuncSetAttribute(gelu_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + 31) / 32, n / bn);
-  gelu_quant_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  // the wgmma kernel takes bn 256 and 512 at every K here (a multiple of 32
+  // bytes: TMA's 16-byte row stride, the box's K edge zero-filled); other
+  // blocks keep the mma.sync kernel
+  if (bn == 512) return launch_gelu_quant_wg<GeluQuant512>(p, stream);
+  if (bn == 256) return launch_gelu_quant_wg<GeluQuant256>(p, stream);
+  return launch_gelu_quant_mma(p, stream);
+}
+
+// team_int8_linear_gelu_quant on the mma.sync kernel at every bn: the kernel
+// the wgmma one replaced at bn 256 and 512, kept callable so that the two can
+// be held against each other bit for bit.
+extern "C" int team_int8_linear_gelu_quant_mma(const void* a, const void* b, const void* xs,
+                                               const void* ws, const void* bias, void* q,
+                                               void* scales, int m, int n, int k, int bn,
+                                               void* stream) {
+  if (!shape_ok(m, n, k) || bn <= 0 || bn > kMaxBlockN || n % bn != 0) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  Params p = make_params(a, b, xs, ws, bias, q, m, n, k);
+  p.scales = static_cast<float*>(scales);
+  p.bn = bn;
+  return launch_gelu_quant_mma(p, stream);
 }

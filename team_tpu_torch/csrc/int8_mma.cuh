@@ -12,7 +12,8 @@
 //
 // The operands come in a struct P with the fields a, b (device pointers), m,
 // k (rows of A, bytes of K), and, read only when BLOCKSCALE, xs and bk.
-// csrc/bf16_mma.cuh runs the same staging with bf16 operands.
+// The ceiling's bf16 form (csrc/gemm_probe.cu) stages bf16 operands the same
+// way, with the fragments of csrc/bf16_mma.cuh.
 
 #pragma once
 

@@ -12,9 +12,11 @@ Counterparts of the TPU kernels of the repository's probe scripts, driven by
   ``:105``, kernel ``_mlp_mega_kernel``): fc -> tanh GELU -> static int8
   requantize -> proj in one kernel, the int8 intermediate kept on chip.
 
-One CUDA source, ``csrc/gemm_probe.cu``, on ``mma.sync`` (s8 and bf16; the
-mainloops of ``csrc/int8_mma.cuh`` and ``csrc/bf16_mma.cuh``), compiled with
-``nvcc`` on first use and bound with ``ctypes``. On a CPU tensor each wrapper
+One CUDA source, ``csrc/gemm_probe.cu``, compiled with ``nvcc`` on first use
+and bound with ``ctypes``: ``probe_mm`` in bf16 on ``wgmma`` fed by TMA (the
+mainloop of ``csrc/wgmma_gemm.cuh``), the rest on ``mma.sync`` (the s8
+mainloop of ``csrc/int8_mma.cuh``, the bf16 fragments of
+``csrc/bf16_mma.cuh``). On a CPU tensor each wrapper
 computes its plain version (the ``*_reference`` function beside it); on a
 CUDA tensor it launches its kernel or raises, and adds one to its
 ``launches``. The TPU tiling arguments (``block_m``, ``block_b``,

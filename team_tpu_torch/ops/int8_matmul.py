@@ -18,7 +18,8 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   kernel), ``int8_linear_gelu_quant`` (GEMM, GELU and a requantize with one
   scale per row and column block) and ``int8_linear_blockscale`` (its
   consumer, one activation scale per row and K block); CUDA kernels
-  ``csrc/int8_gemm.cu`` on the tensor cores (``mma.sync`` s8);
+  ``csrc/int8_gemm.cu`` on the tensor cores (``mma.sync`` s8; the GELU form
+  at ``bn`` 256 and 512 on ``wgmma`` fed by TMA, ``csrc/wgmma_gemm.cuh``);
   ``quantized_linear`` quantizes rows and calls ``int8_linear``.
 
 The CUDA sources are compiled with ``nvcc`` on first use and bound with
@@ -410,8 +411,10 @@ def _gemm_library() -> ctypes.CDLL:
     lib.team_int8_linear.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
     lib.team_int8_linear_blockscale.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
     lib.team_int8_linear_gelu_quant.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
+    lib.team_int8_linear_gelu_quant_mma.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
     for fn in (lib.team_int8_linear, lib.team_int8_linear_blockscale,
-               lib.team_int8_linear_gelu_quant, lib.team_int8_gemm_max_block_n):
+               lib.team_int8_linear_gelu_quant, lib.team_int8_linear_gelu_quant_mma,
+               lib.team_int8_gemm_max_block_n):
         fn.restype = ctypes.c_int
     return lib
 
@@ -545,18 +548,8 @@ def int8_linear_dma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                          out_dtype)
 
 
-def int8_linear_gelu_quant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                           w_scale: torch.Tensor, bias: torch.Tensor, *, block_m: int = 512,
-                           block_n: int = 512,
-                           interpret: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``quantize(gelu_tanh(dequant(x_q @ w_q) + bias))`` with one scale per
-    row and block of ``bn = _pick_block_n(N, block_n)`` columns
-    (``int8_matmul.py:506``): ``(q int8 [M, N], scales float32 [N/bn, M])``,
-    the input of :func:`int8_linear_blockscale`. The f32 activation stays on
-    chip. Each kernel launch adds one to ``int8_linear_gelu_quant.launches``."""
-    if x_q.device.type == "cpu":
-        return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
-    name = "int8_linear_gelu_quant"
+def _gelu_quant_kernel(name: str, entry: str, x_q, w_q, x_scale, w_scale, bias,
+                       block_n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, w_q.t(), x_scale, w_scale, bias, 1)
     m, k = x_q.shape
     n = wt_q.shape[0]
@@ -568,12 +561,45 @@ def int8_linear_gelu_quant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.
     q = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
     scales = torch.empty((n // bn, m), dtype=torch.float32, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = lib.team_int8_linear_gelu_quant(
+        err = getattr(lib, entry)(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             q.data_ptr(), scales.data_ptr(), m, n, k, bn, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
-    int8_linear_gelu_quant.launches += 1
     return q, scales
+
+
+def int8_linear_gelu_quant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, bias: torch.Tensor, *, block_m: int = 512,
+                           block_n: int = 512,
+                           interpret: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize(gelu_tanh(dequant(x_q @ w_q) + bias))`` with one scale per
+    row and block of ``bn = _pick_block_n(N, block_n)`` columns
+    (``int8_matmul.py:506``): ``(q int8 [M, N], scales float32 [N/bn, M])``,
+    the input of :func:`int8_linear_blockscale`. The f32 activation stays on
+    chip. On the card ``bn`` 256 and 512 run the ``wgmma`` kernel, any other
+    the ``mma.sync`` one (:func:`int8_linear_gelu_quant_mma`); the C entry
+    chooses by ``bn``. Each kernel launch adds one to
+    ``int8_linear_gelu_quant.launches``."""
+    if x_q.device.type == "cpu":
+        return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
+    out = _gelu_quant_kernel("int8_linear_gelu_quant", "team_int8_linear_gelu_quant", x_q, w_q,
+                             x_scale, w_scale, bias, block_n)
+    int8_linear_gelu_quant.launches += 1
+    return out
+
+
+def int8_linear_gelu_quant_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                               w_scale: torch.Tensor, bias: torch.Tensor, *,
+                               block_n: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_linear_gelu_quant` on the ``mma.sync`` kernel at every
+    ``bn``: the kernel that the ``wgmma`` one replaced at ``bn`` 256 and 512,
+    callable so that the two can be held against each other bit for bit (the
+    card tests, ``chip_smoke.py``). No path of the port calls it, and it
+    counts no launch. On a CPU tensor: the plain version."""
+    if x_q.device.type == "cpu":
+        return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
+    return _gelu_quant_kernel("int8_linear_gelu_quant_mma", "team_int8_linear_gelu_quant_mma",
+                              x_q, w_q, x_scale, w_scale, bias, block_n)
 
 
 def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,

@@ -47,6 +47,9 @@ int8 ``probe_mm`` and ``mxu_ceiling`` bit for bit, their bf16 forms within
 ``probe_mm_bf16_limit`` and ``CEILING_BF16_SHARE`` of the largest |ref|, the
 MLP megakernel within ``mlp_mega_limit`` (bit for bit on rows with no hq
 near a rounding edge) and its 2-D and 3-D entries equal bit for bit; the
+wgmma form of ``gelu_quant`` (bn 256 and 512) bit for bit its mma.sync
+form, and ``probe_mm``'s wgmma bf16 form at the tile edges within
+``probe_mm_bf16_limit``; the
 tensor-core forms of the packed and flash kernels at their tile edges, the
 longest S, with key masks and unaligned inputs, as the packed and flash
 kernels (bf16 2e-2), the pre-split and head-split entries equal to the
@@ -1335,8 +1338,8 @@ def test_bf16_flash_kernel_takes_head_split_and_unaligned_views(cuda_device):
     assert torch.equal(moved, out)
 
 
-def _hmma_per_kernel(source):
-    """source's kernels by name -> the HMMA instructions in their SASS."""
+def _opcode_per_kernel(source, opcode):
+    """source's kernels by name -> the SASS lines that hold ``opcode``."""
     import os
     import subprocess
 
@@ -1345,14 +1348,19 @@ def _hmma_per_kernel(source):
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source))], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
+    lines, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
-    return counts
+            lines[name] = []
+        elif name is not None and opcode in line:
+            lines[name].append(line)
+    return lines
+
+
+def _hmma_per_kernel(source):
+    """source's kernels by name -> the HMMA instructions in their SASS."""
+    return {fn: len(found) for fn, found in _opcode_per_kernel(source, "HMMA").items()}
 
 
 # source -> (tensor-core kernel, its instantiations, CUDA-core kernel, its instantiations)
@@ -1377,3 +1385,81 @@ def test_tensor_core_kernels_issue_hmma_and_cuda_core_kernels_none(cuda_device, 
     cuda_core = [n for fn, n in counts.items() if cc_name in fn and tc_name not in fn]
     assert len(tc) == n_tc and min(tc) > 0, counts
     assert len(cuda_core) == n_cc and max(cuda_core) == 0, counts
+
+
+# ---------------------------------------------------------------------------
+# the wgmma + TMA GEMMs (csrc/wgmma_gemm.cuh): #21 int8_linear_gelu_quant at
+# bn 256 and 512 (csrc/int8_gemm.cu) and #27 probe_mm in bf16
+# (csrc/gemm_probe.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,block_n", [
+    (128 * 197, 768, 3072, 512),   # fc at the eval batch
+    (16 * 197 + 5, 768, 3072, 512),  # the gate batch's ragged M
+    (37, 768, 3072, 512),          # fewer rows than a tile
+    (1000, 768, 1536, 256),        # bn 256: 128 x 256 tiles
+    (200, 96, 512, 512),           # K not a multiple of the 128-byte TMA box
+    (130, 96, 768, 256)])
+def test_gelu_quant_wgmma_kernel_equals_the_mma_sync_kernel(cuda_device, m, k, n, block_n):
+    """The shapes the wgmma kernel takes: q and s bit for bit the mma.sync
+    kernel's (the int32 sums are exact and the epilogue is one code), and
+    within the plain version's limits."""
+    xq, wq, xs, ws, b = gemm_inputs(m, k, n, cuda_device, seed=4)
+    assert tim._pick_block_n(n, block_n) == block_n
+    launches = tim.int8_linear_gelu_quant.launches
+    gq, gs = tim.int8_linear_gelu_quant(xq, wq, xs, ws, b, block_n=block_n)
+    mq, ms = tim.int8_linear_gelu_quant_mma(xq, wq, xs, ws, b, block_n=block_n)
+    rq, rs = tim.int8_linear_gelu_quant_reference(xq, wq, xs, ws, b, block_n=block_n)
+    torch.cuda.synchronize()
+    assert tim.int8_linear_gelu_quant.launches == launches + 1
+    assert gs.shape == (n // block_n, m)
+    assert torch.equal(gq, mq) and torch.equal(gs, ms)
+    assert_within_one_int8_step(gq, rq)
+    torch.testing.assert_close(gs, rs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("k", [16, 48, 4096])
+@pytest.mark.parametrize("m,n", [(1, 8), (127, 264), (129, 520), (300, 248)])
+def test_probe_mm_bf16_wgmma_kernel_at_the_tile_edges(cuda_device, m, n, k):
+    """M and N not multiples of the 128 x 256 tile, K under and over the
+    64-column stage: within (K/16 + 1) ulps of |x|@|w|."""
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x, w = (torch.randn(s, generator=g, device=cuda_device).to(torch.bfloat16)
+            for s in ((m, k), (k, n)))
+    launches = gp.probe_mm.launches
+    out = gp.probe_mm(x, gp.column_major(w))
+    ref = gp.probe_mm_reference(x, w)
+    torch.cuda.synchronize()
+    assert gp.probe_mm.launches == launches + 1 and tuple(out.shape) == (m, n)
+    assert bool(((out - ref).abs() <= gp.probe_mm_bf16_limit(x, w)).all())
+
+
+# source -> (wgmma kernel, its instantiations, its GMMA mnemonic as cuobjdump
+# prints it, the mma.sync kernels and their instantiations)
+GMMA_SOURCES = {
+    "int8_gemm.cu": ("gelu_quant_kernel_wg", 2, "IGMMA.64x256x32.S8.S8",
+                     {"gelu_quant_kernel": 1, "gemm_kernel": 6}),
+    "gemm_probe.cu": ("probe_mm_kernel_wg", 1, "HGMMA.64x256x16.F32.BF16",
+                      {"probe_mm_kernel": 1, "ceiling_kernel": 2, "mlp_mega_kernel": 1}),
+}
+
+
+@pytest.mark.parametrize("source", list(GMMA_SOURCES))
+def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source):
+    """#21 at bn 256 and 512 and #27 in bf16 run wgmma; the GEMMs left on
+    mma.sync (int8_linear, blockscale, gelu_quant at other bn, probe_mm int8,
+    the ceiling, the megakernel) issue no GMMA."""
+    tim.build()
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    gp.build()
+    found = _opcode_per_kernel(source, "GMMA")
+    wg_name, n_wg, mnemonic, others = GMMA_SOURCES[source]
+    wg = [lines for fn, lines in found.items() if wg_name in fn]
+    assert len(wg) == n_wg and all(lines for lines in wg), found
+    assert all(any(mnemonic in line for line in lines) for lines in wg), wg
+    for name, count in others.items():
+        plain = [len(lines) for fn, lines in found.items() if name in fn and wg_name not in fn]
+        assert len(plain) == count and max(plain) == 0, (name, plain)

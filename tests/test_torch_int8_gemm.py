@@ -136,12 +136,15 @@ def test_int8_linear_without_bias_and_quantized_linear_match_jax():
     _assert_close(got.numpy(), want, "gelu", "f32")
 
 
-@pytest.mark.parametrize("m,k,n,block_n,bn", [(40, 64, 128, 32, 32), (45, 64, 1024, 512, 512)],
-                         ids=["block_n32", "default-two-blocks"])
+@pytest.mark.parametrize("m,k,n,block_n,bn", [(40, 64, 128, 32, 32), (45, 64, 1024, 512, 512),
+                                              (70, 96, 768, 256, 256)],
+                         ids=["block_n32", "default-two-blocks", "bn256-three-blocks"])
 def test_gelu_quant_and_blockscale_match_jax(m, k, n, block_n, bn):
-    """``int8_linear_gelu_quant`` at the caller's ``block_n=32`` and at the
-    default with N=1024 (two scale blocks of 512), and ``int8_linear_blockscale``
-    fed by its output (team_tpu's, on both sides)."""
+    """``int8_linear_gelu_quant`` at the caller's ``block_n=32``, at the
+    default with N=1024 (two scale blocks of 512) and at ``block_n=256`` with
+    N=768 and K=96 (three blocks of 256; on the card ``bn`` 256 and 512 take
+    the wgmma kernel, other widths the mma.sync one), and
+    ``int8_linear_blockscale`` fed by its output (team_tpu's, on both sides)."""
     xq, wq, xs, ws, b = _gemm_inputs(m, k, n, seed=4)
     jkw = dict(block_m=32, block_n=block_n, interpret=True)
     gq, gs = jim.int8_linear_gelu_quant(xq, wq, xs, ws, b, **jkw)
@@ -197,6 +200,8 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
                                rtol=0, atol=0)
     gq, gs = tim.int8_linear_gelu_quant(*args, block_n=64)
     for got, want in zip((gq, gs), tim.int8_linear_gelu_quant_reference(*args, block_n=64)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for got, want in zip(tim.int8_linear_gelu_quant_mma(*args, block_n=64), (gq, gs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     x = torch.randn(24, 64, generator=torch.Generator().manual_seed(0))
     for got, want in zip(tim.ln_quantize(x, args[4][:64], args[4][64:]),

@@ -10,8 +10,9 @@ Phases, one line or more each:
      attn_block.cu, mha_packed.cu and flash_attention.cu: HMMA in every
      tensor-core (bf16, *_tc) kernel, none in the CUDA-core ones (f32; #4's
      bf16); of int8_gemm.cu and gemm_probe.cu: GMMA (IGMMA s8, HGMMA bf16) in
-     the wgmma + TMA kernels (#21 gelu_quant_kernel_wg, #27
-     probe_mm_kernel_wg), none in the mma.sync ones, and no spill in them
+     the wgmma + TMA kernels (#15 gemm_kernel_wg, #20 blockscale_kernel_wg,
+     #21 gelu_quant_kernel_wg, #27 probe_mm_kernel_wg), none in the mma.sync
+     ones, and no spill in them
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -33,11 +34,13 @@ Phases, one line or more each:
      affines; the int8 GEMMs of the dynamic tiers at the vision tower's shapes
      and at the gate batch's ragged M (3,152 rows): int8_linear at qkv
      768->2304 and out 768->768 (bf16 and f32, with and without the GELU,
-     within one bf16 step; the [N, K] entry bit for bit), gelu_quant at fc
+     within one bf16 step; the [N, K] entry bit for bit; its wgmma kernel
+     also bit for bit the mma.sync kernel), gelu_quant at fc
      768->3072 (bn 512; its wgmma kernel also bit for bit the mma.sync
      kernel, q and s) and the dynamic layer norm -> int8 at most one int8
      step apart on under 1 % of the outputs with scales within 1e-6, the
-     block-scale GEMM at proj 3072->768 (6 K blocks), and the 3-D static
+     block-scale GEMM at proj 3072->768 (6 K blocks; its wgmma kernel also
+     bit for bit the mma.sync kernel), and the 3-D static
      producer bit for bit the 2-D one; the tensor-parallel head splits at
      nm 2 and 4: each rank of fused_mha_packed_tp (vision and causal text,
      bf16 and f32) and of fused_mha_packed_q3i_tp (the vision shape in every
@@ -77,9 +80,10 @@ Phases, one line or more each:
      fused kernels' TFLOP/s and share of their bound beside their times; the
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
      kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
-     the wgmma GEMMs (#21 at fc, #27 bf16) against their mma.sync ms of
-     PERF.md (#21's mma.sync kernel also timed in the run), the library call,
-     the bound (its share) and TOP/s or TFLOP/s
+     the wgmma GEMMs (#15 at qkv and out, #20 at proj, #21 at fc, #27 bf16)
+     against their mma.sync ms of PERF.md (the int8 ones' mma.sync kernels
+     also timed in the run), the library call, the bound (its share) and
+     TOP/s or TFLOP/s
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -150,7 +154,7 @@ Phases, one line or more each:
      on the dynamic payload at full width (every kernel call held against its
      plain version on the tower's inputs, launches per encode exact, features
      against the plain versions and the bf16 tower, encode rates, beside
-     their rates with #21 on mma.sync), and the
+     their rates with #21 on mma.sync and with #15 and #20 on it), and the
      int8 text tower on the class prompts (xla, hybrid and pallas on the
      dynamic text payload, static3d_qi on the prompt-set payload) against
      the bf16 text tower and against itself with the plain versions
@@ -264,6 +268,9 @@ TIER_KERNELS = tuple(TIER_PER_BLOCK["pallas"])
 # wgmma (PERF.md §5: this script's phase 6 on an NVIDIA H100 80GB HBM3 at
 # 700.00 W), img/s
 MMA_SYNC_TIER_RATES = {"hybrid": 2780.4, "pallas": 3648.8}
+# the same with #15 and #20 on mma.sync, #21 on wgmma: the spread of three
+# runs (PERF.md §7), img/s
+GEMM_MMA_SYNC_TIER_RATES = {"hybrid": (3300.3, 3402.0), "pallas": (4483.9, 4790.3)}
 DATASET = {"num_classes": 4, "img_size": 224, "train_per_stage": 64, "test_per_stage": 32}
 EVAL_B = 128  # the learners' eval batch
 # the learner batch of exps/IIMinsects202.json: the int8 run calibrates on its
@@ -399,10 +406,12 @@ TC_SOURCES = {
 # the GEMM sources whose wgmma kernels (TMA-fed, csrc/wgmma_gemm.cuh) issue
 # GMMA instructions and whose mma.sync kernels issue none: source -> (wgmma
 # kernels, mma.sync kernels), by name as TC_SOURCES (cuobjdump prints
-# IGMMA.64x256x32.S8.S8 for #21's s8 form and HGMMA.64x256x16.F32.BF16 for
+# IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21),
+# IGMMA.64x128x32.S8.S8 for #20's m64n128 and HGMMA.64x256x16.F32.BF16 for
 # #27's bf16 one; mma.sync is IMMA.16832.S8.S8 and HMMA.16816.F32.BF16)
 GMMA_SOURCES = {
-    "int8_gemm.cu": (("gelu_quant_kernel_wg",), ("gelu_quant_kernel", "gemm_kernel")),
+    "int8_gemm.cu": (("gelu_quant_kernel_wg", "gemm_kernel_wg", "blockscale_kernel_wg"),
+                     ("gelu_quant_kernel", "gemm_kernel")),
     "gemm_probe.cu": (("probe_mm_kernel_wg",), ("probe_mm_kernel", "ceiling_kernel",
                                                 "mlp_mega_kernel")),
 }
@@ -451,8 +460,9 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
 
 def check_no_spills(build) -> None:
     """Raise if ptxas reported a spill in a tensor-core kernel or a wgmma
-    kernel (phase 2 prints every kernel's registers). A library loaded from
-    an earlier build has no report in this process."""
+    kernel, or serialized a kernel's wgmma (C7514: accumulators read while
+    their group may be in flight; phase 2 prints every kernel's registers).
+    A library loaded from an earlier build has no report in this process."""
     for source, (tc, _) in {**TC_SOURCES, **GMMA_SOURCES}.items():
         log = build.BUILD_LOGS.get(source)
         if log is None:
@@ -460,6 +470,8 @@ def check_no_spills(build) -> None:
             continue
         name = None
         for line in log.splitlines():
+            if "C7514" in line:
+                raise AssertionError(f"{source}: ptxas serialized a kernel's wgmma ({line.strip()})")
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
             elif name is not None and any(k in name for k in tc):
@@ -661,13 +673,17 @@ MMA_SYNC_MS = {
     "int8_linear_gelu_quant fc": ("int8_linear_gelu_quant (#21, bn 512)", 0.9412,
                                   2 * 128 * 197 * FC_SHAPE[0] * FC_SHAPE[1]),
     "probe_mm bf16": ("probe_mm bf16 (#27, M=N=K=4096)", 0.7349, 2 * 4096 ** 3),
+    "int8_linear qkv": ("int8_linear (#15) qkv", 0.3669, 2 * 128 * 197 * 768 * 2304),
+    "int8_linear out": ("int8_linear (#15) out", 0.1312, 2 * 128 * 197 * 768 * 768),
+    "int8_linear_blockscale proj": ("int8_linear_blockscale (#20) proj, 6 K blocks", 0.4344,
+                                    2 * 128 * 197 * PROJ_SHAPE[0] * PROJ_SHAPE[1]),
 }
 
 
 def report_gemm_redesign(times: dict) -> None:
     """The wgmma GEMMs' phase-4 times beside their mma.sync ms of PERF.md (and,
-    for #21, the mma.sync kernel timed in this run), the library call, the
-    bound (its share) and the rate."""
+    for the int8 ones, the mma.sync kernel timed in this run), the library
+    call, the bound (its share) and the rate."""
     for key, (name, before, ops) in MMA_SYNC_MS.items():
         t = times[key]
         now = f", the mma.sync kernel in this run {t['mma_sync_ms']:.4f} ms" \
@@ -676,7 +692,7 @@ def report_gemm_redesign(times: dict) -> None:
               f"{before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster{now}; "
               f"{t['ms'] / t['library_ms']:.2f}x the library call ({t['library_ms']:.4f} ms); "
               f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; "
-              f"{ops / t['ms'] / 1e9:.1f} T{'OP' if 'gelu' in key else 'FLOP'}/s")
+              f"{ops / t['ms'] / 1e9:.1f} T{'FLOP' if 'bf16' in key else 'OP'}/s")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -1032,14 +1048,25 @@ def _check_scales(name: str, s, ref) -> float:
     return rel
 
 
+def _check_wgmma_equal(name: str, out, mma) -> None:
+    """The wgmma kernel's output against its mma.sync kernel's, bit for bit."""
+    import torch
+
+    equal = torch.equal(out, mma)
+    print(f"  {name}: the wgmma kernel vs the mma.sync kernel, bit for bit {equal} (tolerance 0)")
+    if not equal:
+        raise AssertionError(f"{name}: the wgmma kernel differs from the mma.sync kernel "
+                             f"({(out != mma).sum().item()} outputs)")
+
+
 def compare_int8_gemm(im, dev) -> dict:
     """The int8 GEMM kernels and the dynamic layer norm -> int8 kernel against
     their plain versions at the vision tower's shapes and at the gate batch's
     ragged M: int8_linear at qkv and out (bf16 and f32, with and without the
     GELU; the [N, K] entry bit for bit the [K, N] one), gelu_quant at fc (bn
-    512; its wgmma kernel also bit for bit the mma.sync one), blockscale at
-    proj on its output (6 K blocks), ln_quantize; and ln_quantize_static3 bit
-    for bit ln_quantize_static."""
+    512), blockscale at proj on its output (6 K blocks), each wgmma kernel
+    also bit for bit its mma.sync one; ln_quantize; and ln_quantize_static3
+    bit for bit ln_quantize_static."""
     import torch
 
     worst = dict.fromkeys(("int8_linear", "int8_linear_gelu_quant", "int8_linear_blockscale",
@@ -1053,9 +1080,11 @@ def compare_int8_gemm(im, dev) -> dict:
                     kw = dict(activation=activation, out_dtype=dt)
                     out = im.int8_linear(xq, wq, xs, ws, bias, **kw)
                     ref = im.int8_linear_reference(xq, wq, xs, ws, bias, **kw)
+                    mma = im.int8_linear_mma(xq, wq, xs, ws, bias, **kw)
                     torch_sync()
-                    worst["int8_linear"] = max(worst["int8_linear"], _check_gemm(
-                        f"int8_linear {shape} M={m} K={k} N={n} {activation} {dt}", out, ref))
+                    name = f"int8_linear {shape} M={m} K={k} N={n} {activation} {dt}"
+                    worst["int8_linear"] = max(worst["int8_linear"], _check_gemm(name, out, ref))
+                    _check_wgmma_equal(name, out, mma)
             nk = im.int8_linear_nk(xq, wq.t(), xs, ws, bias)
             equal = torch.equal(nk, im.int8_linear(xq, wq, xs, ws, bias))
             print(f"  int8_linear_nk {shape} M={m} vs int8_linear: bit for bit {equal} (tolerance 0)")
@@ -1082,10 +1111,13 @@ def compare_int8_gemm(im, dev) -> dict:
         for dt in (torch.bfloat16, torch.float32):
             out = im.int8_linear_blockscale(gq, w2q, gs, w2s, b2, out_dtype=dt)
             ref = im.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2, out_dtype=dt)
+            mma = im.int8_linear_blockscale_mma(gq, w2q, gs, w2s, b2, out_dtype=dt)
             torch_sync()
-            worst["int8_linear_blockscale"] = max(worst["int8_linear_blockscale"], _check_gemm(
-                f"int8_linear_blockscale proj M={m} K={PROJ_SHAPE[0]} N={PROJ_SHAPE[1]} "
-                f"n_kb={gs.shape[0]} {dt}", out, ref))
+            name = (f"int8_linear_blockscale proj M={m} K={PROJ_SHAPE[0]} N={PROJ_SHAPE[1]} "
+                    f"n_kb={gs.shape[0]} {dt}")
+            worst["int8_linear_blockscale"] = max(worst["int8_linear_blockscale"],
+                                                  _check_gemm(name, out, ref))
+            _check_wgmma_equal(name, out, mma)
         x, gamma, beta, inv_a = producer_inputs(m, 768, dev, seed=3)
         q, sc = im.ln_quantize(x, gamma, beta)
         rq, rsc = im.ln_quantize_reference(x, gamma, beta)
@@ -1129,15 +1161,16 @@ def time_int8_gemm(im, quant, dev) -> dict:
     each output written once) and its int8 operations. The yardsticks:
     torch._int_mm alone at the same shape (the product only), and the xla
     tier's composition of the same step (torch._int_mm and the torch epilogue;
-    for ln_quantize quant._ln_quant_rows). gelu_quant's mma.sync kernel is
-    timed beside its wgmma one."""
+    for ln_quantize quant._ln_quant_rows). Each GEMM's mma.sync kernel (the
+    _mma entries) is timed beside its wgmma one."""
     import torch
 
     b, s, _, _ = MAIN_SHAPES["vision"]
     m = b * s
-    pairs = {}
+    pairs, mma_sync = {}, {}
     for shape, (k, n) in GEMM_SHAPES.items():
         xq, wq, xs, ws, bias = gemm_inputs(im, m, k, n, dev, seed=4)
+        mma_sync[f"int8_linear {shape}"] = lambda a=(xq, wq, xs, ws, bias): im.int8_linear_mma(*a)
         pairs[f"int8_linear {shape}"] = (
             lambda a=(xq, wq, xs, ws, bias): im.int8_linear(*a),
             lambda a=(xq, wq, xs, ws, bias): im.int8_linear_reference(*a),
@@ -1162,8 +1195,10 @@ def time_int8_gemm(im, quant, dev) -> dict:
         lambda: im.int8_linear_xla(gq, w2q, gs[0], w2s, b2),
         bound(m * k2 + k2 * n2 + gs.numel() * 4 + 2 * n2 * 4 + m * n2 * 2,
               {"int8": 2 * m * k2 * n2}))
-    mma_sync = lambda: im.int8_linear_gelu_quant_mma(xq, wq, xs, ws, bias)  # noqa: E731
-    mma_sync_ms = (_time_ms(mma_sync), _time_ms(mma_sync))
+    mma_sync["int8_linear_gelu_quant fc"] = lambda: im.int8_linear_gelu_quant_mma(xq, wq, xs, ws,
+                                                                                 bias)
+    mma_sync["int8_linear_blockscale proj"] = lambda: im.int8_linear_blockscale_mma(gq, w2q, gs,
+                                                                                   w2s, b2)
     x, gamma, beta, _ = producer_inputs(m, 768, dev, seed=7)
     ln = {"scale": gamma, "bias": beta}
     pairs["ln_quantize"] = (
@@ -1171,9 +1206,11 @@ def time_int8_gemm(im, quant, dev) -> dict:
         None, lambda: quant._ln_quant_rows(x, ln),
         bound(x.numel() * 2 + 2 * 768 * 4 + x.numel() + m * 4, {}))
     times = _timed_pairs(pairs)
-    times["int8_linear_gelu_quant fc"]["mma_sync_ms"] = sum(mma_sync_ms) / 2
-    print(f"  int8_linear_gelu_quant fc on the mma.sync kernel (the one it replaced at bn 512): "
-          f"{mma_sync_ms[0]:.4f}/{mma_sync_ms[1]:.4f} ms")
+    for name, fn in mma_sync.items():
+        mma_sync_ms = (_time_ms(fn), _time_ms(fn))
+        times[name]["mma_sync_ms"] = sum(mma_sync_ms) / 2
+        print(f"  {name} on the mma.sync kernel (the one the wgmma kernel replaced): "
+              f"{mma_sync_ms[0]:.4f}/{mma_sync_ms[1]:.4f} ms")
     return times
 
 
@@ -2153,7 +2190,7 @@ def _int8_kernels_on_tower_inputs(rt, images, route: str):
 
 
 def _kernel_group(name: str) -> str:
-    if "gemm_kernel" in name or "gelu_quant_kernel" in name:
+    if "gemm_kernel" in name or "gelu_quant_kernel" in name or "blockscale_kernel" in name:
         return "int8 GEMM kernels (int8_linear, gelu_quant, blockscale)"
     if "ln_qkv_kernel" in name or "mha_packed_proj_kernel" in name:
         return "fused attention kernels (layer norm + qkv GEMM; attention + out-projection)"
@@ -3470,6 +3507,10 @@ def main() -> int:
     for tier, before in MMA_SYNC_TIER_RATES.items():
         print(f"  encode int8 {tier}: {tiers[tier]['rate']:.1f} img/s against {before:,.1f} with #21 "
               f"on mma.sync (PERF.md §5), {tiers[tier]['rate'] / before:.3f}x")
+    for tier, (low, high) in GEMM_MMA_SYNC_TIER_RATES.items():
+        print(f"  encode int8 {tier}: {tiers[tier]['rate']:.1f} img/s against {low:,.1f}-{high:,.1f} "
+              f"with #15 and #20 on mma.sync (PERF.md §7), {tiers[tier]['rate'] / high:.3f}x its "
+              "high end")
     print("phase 7: profile of one encode")
     profile_encodes(int8_runtimes, tiers["pallas"]["encode"], dev)
 
@@ -3574,7 +3615,12 @@ def main() -> int:
                    "int8_linear_wres, int8_linear_dma, quantized_linear",
         "launches": tier_launches("int8_linear"), "launches_from": "phase 5 simplecil on pallas "
         "(gate batch)", "max_abs_err": gemm_err["int8_linear"],
-        **gemm_timing(times["int8_linear qkv"]), "out": gemm_timing(times["int8_linear out"]),
+        **gemm_timing(times["int8_linear qkv"]), "mma_sync_ms": times["int8_linear qkv"]["mma_sync_ms"],
+        "out": {**gemm_timing(times["int8_linear out"]),
+                "mma_sync_ms": times["int8_linear out"]["mma_sync_ms"]},
+        "kernel": "gemm_kernel_wg (wgmma + TMA, csrc/wgmma_gemm.cuh) at every shape; "
+                  "gemm_kernel (mma.sync) behind int8_linear_mma, equal bit for bit (phase 3)",
+        "gmma_per_kernel": gmma["int8_gemm.cu"],
         "encode_img_per_s": {tier: t["rate"] for tier, t in tiers.items()},
         "features_cos_bf16": {tier: t["cos_bf16"] for tier, t in tiers.items()},
         "text_tower": text,
@@ -3594,6 +3640,10 @@ def main() -> int:
         "launches": tier_launches("int8_linear_blockscale"), "launches_from": "phase 5 simplecil "
         "on hybrid and pallas (gate batch)", "max_abs_err": gemm_err["int8_linear_blockscale"],
         **gemm_timing(times["int8_linear_blockscale proj"]),
+        "mma_sync_ms": times["int8_linear_blockscale proj"]["mma_sync_ms"],
+        "kernel": "blockscale_kernel_wg (wgmma + TMA, csrc/wgmma_gemm.cuh) at bk a multiple of "
+                  "128, gemm_kernel (mma.sync) at other bk; equal bit for bit (phase 3)",
+        "gmma_per_kernel": gmma["int8_gemm.cu"],
     }, {
         "name": "row_quant_static", **quant_common,
         "replaces": "team_tpu/ops/int8_matmul.py:458",

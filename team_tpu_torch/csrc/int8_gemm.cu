@@ -25,12 +25,29 @@
 // into one FMA), so a kernel and its plain version agree to an ulp before the
 // final cast or rounding.
 //
-// Mainloop (csrc/int8_mma.cuh, shared with csrc/gemm_probe.cu). A CTA computes
-// a tile of BM rows by 128 columns with four warps; K is streamed through
-// shared memory 64 bytes at a time, two stages deep, by cp.async, and each
-// warp multiplies its share with mma.sync.m16n8k32.row.col.s32.s8.s8.s32. B is
-// the "col" operand: the weight stored [N, K] row-major, which is the layout
-// the port's quantize_weight gives (a column-major [K, N]).
+// Two mainloops. The wgmma + TMA one of csrc/wgmma_gemm.cuh (persistent
+// CTAs, a ring of TMA stages, two consumer warpgroups on wgmma) runs what
+// the entries send it:
+// - int8_linear: gemm_kernel_wg at every shape the entry takes (128 x 256
+//   tiles, four stages of 48 KB, the outputs staged through shared memory
+//   and stored in whole 32-byte sectors);
+// - blockscale: blockscale_kernel_wg where bk is a multiple of 128 (a K
+//   block is whole stages; 64 x 256 tiles on m64n128, five stages, each
+//   block's int32 sum folded into an f32 sum at the block's end);
+// - gelu_quant: gelu_quant_kernel_wg at bn 512 and 256 (below).
+// The first two take the column tiles fastest, so the CTAs in flight share
+// A's rows.
+// The mma.sync one (csrc/int8_mma.cuh, shared with csrc/gemm_probe.cu): a
+// CTA computes a tile of BM rows by 128 columns with four warps; K is
+// streamed through shared memory 64 bytes at a time, two stages deep, by
+// cp.async, and each warp multiplies its share with
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32. It runs gemm_kernel (blockscale
+// at other bk; the _mma entries, the yardsticks of the card tests) and
+// gelu_quant_kernel (other bn). B is the "col" operand: the weight stored
+// [N, K] row-major, which is the layout the port's quantize_weight gives (a
+// column-major [K, N]). Each wgmma kernel takes its arithmetic from
+// csrc/int8_epilogue.cuh and folds in its mma.sync kernel's order, on exact
+// int32 sums: the two agree bit for bit.
 //
 // gelu_quant needs the whole bn-column block of a row before it can scale it
 // (bn = 512 at the ViT-B/16 fc shape); the [M, N] f32 activation never
@@ -50,17 +67,15 @@
 //   gelu_quant_kernel on mma.sync. Its CTA takes BM = 32 rows and loops over
 //   the block 128 columns at a time, keeping y in f32 in shared memory (32 x
 //   520 floats at bn = 512), then reduces each row's amax in a warp.
-// Both take dequant, gelu_tanh and the quantize step from
-// csrc/int8_epilogue.cuh, and the int32 sums are exact either way: their q
-// and s agree bit for bit.
 //
 // What bounds them on an H100: at the vision tower's shapes (M = 25,216 rows)
 // the qkv GEMM (768 -> 2304) does 89.2 G int8 operations (0.045 ms at 1,979
 // TOP/s) against 137 MB of bytes, mostly its bf16 output (0.041 ms at 3.35
 // TB/s); fc (768 -> 3072) and proj (3072 -> 768) 119 G each (0.060 ms), out
-// (768 -> 768) is bound by its 59 MB (0.0175 ms). int8_linear and blockscale
-// run mma.sync from a two-stage cp.async pipeline, not wgmma and TMA: a
-// fraction of the tensor cores' rate; the times are in PERF.md.
+// (768 -> 768) is bound by its 59 MB (0.0175 ms). At K 768 a tile is six
+// stages, so the per-tile costs (the epilogue, the stores) weigh as much as
+// the products; at proj's K 3,072 the stages dominate. The times are in
+// PERF.md.
 
 #include "int8_epilogue.cuh"
 #include "int8_mma.cuh"
@@ -216,7 +231,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   wg::run<C, int>(wg_smem, &ma, &mb, p.m, p.n, p.k, [&](int (&acc)[128], int row0, int col0, int cw) {
     const int lane = threadIdx.x & 31;
     const int r0 = (C::WM == 2 ? cw * 64 : 0) + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-    const int c0 = col0 + (C::WN == 2 ? cw * wg::kInstrN : 0) + 2 * (lane & 3);
+    const int c0 = col0 + (C::WN == 2 ? cw * C::INSTR_N : 0) + 2 * (lane & 3);
     float xs[2], amax[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) xs[h] = row0 + r0 + 8 * h < p.m ? p.xs[row0 + r0 + 8 * h] : 0.f;
@@ -287,7 +302,198 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 using GeluQuant512 = wg::Config<64, 512, 3, 1>;
 using GeluQuant256 = wg::Config<128, 256, 4, 1>;
 
+// A consumer warp's 16 rows of a tile's output (row0 + lane / 4 + 8 h, h <
+// 2) over NI x 8 columns (col0 + 8 i + 2 (lane % 4) + e, e < 2) to out [m,
+// n]: y(i, v) gives column group i's four values, v[2 h + e]. They leave 32
+// columns at a time through the warp's buffer of 16 rows x 32 columns, so
+// each lane stores whole 16-byte pieces and each row's 32 columns fill whole
+// 32-byte sectors (straight from the registers a warp store writes 4 or 8
+// bytes a lane, in pieces of a quarter or half a sector). The buffer's
+// 16-byte chunks are swizzled by row, so neither the fragment writes nor the
+// piece reads meet a bank conflict. Rows past m and columns past n are not
+// stored (n is a multiple of 8: a piece is all in or all out).
+template <int NI, typename Out, typename Y>
+__device__ __forceinline__ void store_warp_rows(Out* out, Out* buf, int row0, int col0, int m,
+                                                int n, Y&& y) {
+  constexpr int kE = sizeof(Out);         // 2 or 4 bytes
+  constexpr int kChunks = 32 * kE / 16;   // 16-byte chunks of a buffer row: 4 or 8
+  constexpr int kPieces = 16 * kChunks / 32;  // pieces a lane stores per 32 columns
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(buf);
+  // bf16: rows r and r + 2 share banks (64-byte rows); f32: the four rows a
+  // half warp writes do (128-byte rows)
+  auto at = [&](int r, int chunk) {
+    const int swz = kE == 2 ? (r >> 1) & 3 : (r & 3) << 1;
+    return bytes + r * 32 * kE + (chunk ^ swz) * 16;
+  };
+#pragma unroll
+  for (int j = 0; j < NI / 4; ++j) {
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      float v[4];
+      y(4 * j + ii, v);
+      const int byte = (8 * ii + 2 * t) * kE;  // in the buffer's row
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(reinterpret_cast<Out*>(at(g + 8 * h, byte / 16) + byte % 16), v[2 * h],
+               v[2 * h + 1]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q) {
+      const int piece = lane + 32 * q;
+      const int r = piece / kChunks, chunk = piece % kChunks;
+      const int row = row0 + r, col = col0 + 32 * j + chunk * (16 / kE);
+      if (row < m && col < n)
+        *reinterpret_cast<int4*>(out + static_cast<size_t>(row) * n + col) =
+            *reinterpret_cast<const int4*>(at(r, chunk));
+    }
+    __syncwarp();
+  }
+}
+
+// The first row of a consumer warp's 16 and the first column of its
+// warpgroup's INSTR_N in the CTA tile at (row0, col0).
+template <typename C>
+__device__ __forceinline__ int warp_row0(int row0, int cw) {
+  return row0 + (C::WM == 2 ? cw * 64 : 0) + 16 * ((threadIdx.x >> 5) & 3);
+}
+
+template <typename C>
+__device__ __forceinline__ int warpgroup_col0(int col0, int cw) {
+  return col0 + (C::WN == 2 ? cw * C::INSTR_N : 0);
+}
+
+// ws and bias of columns col and col + 1 (col even), zeros past n
+__device__ __forceinline__ void column_pair(const Params& p, int col, float2& w, float2& b) {
+  const bool in = col < p.n;
+  w = in ? *reinterpret_cast<const float2*>(p.ws + col) : make_float2(0.f, 0.f);
+  b = in ? *reinterpret_cast<const float2*>(p.bias + col) : make_float2(0.f, 0.f);
+}
+
+// int8_linear on the wgmma mainloop (csrc/wgmma_gemm.cuh): 128 x 256 tiles,
+// each consumer warpgroup 64 whole rows (m64n256, 128 accumulators a
+// thread), four stages of 48 KB, persistent CTAs, column tiles fastest. The dequant (and GELU) is
+// dequant() and gelu_tanh() of csrc/int8_epilogue.cuh, as in gemm_kernel,
+// on exact int32 sums: the two kernels agree bit for bit.
+template <typename C, int EPI, typename Out>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    gemm_kernel_wg(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                   const Params p) {
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(16) Out out_stage[wg::kConsumerWarps][16 * 32];
+  wg::run<C, int>(wg_smem, &ma, &mb, p.m, p.n, p.k, [&](int (&acc)[C::ACC], int row0, int col0,
+                                                       int cw) {
+    const int lane = threadIdx.x & 31;
+    const int wr0 = warp_row0<C>(row0, cw), wc0 = warpgroup_col0<C>(col0, cw);
+    const int r = wr0 + (lane >> 2), c = wc0 + 2 * (lane & 3);
+    float xs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) xs[h] = r + 8 * h < p.m ? p.xs[r + 8 * h] : 0.f;
+    store_warp_rows<C::ACC / 4>(
+        static_cast<Out*>(p.out), out_stage[(threadIdx.x >> 5) - 4], wr0, wc0, p.m, p.n,
+        [&](int i, float(&v)[4]) {
+          float2 w, b;
+          column_pair(p, c + 8 * i, w, b);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            v[2 * h] = dequant(acc[4 * i + 2 * h], xs[h], w.x, b.x);
+            v[2 * h + 1] = dequant(acc[4 * i + 2 * h + 1], xs[h], w.y, b.y);
+            if (EPI == kDequantGelu) {
+              v[2 * h] = gelu_tanh(v[2 * h]);
+              v[2 * h + 1] = gelu_tanh(v[2 * h + 1]);
+            }
+          }
+        });
+  });
+}
+
+// facc += f32(acc) * x[row], each product and sum rounded on its own (the
+// fold of csrc/int8_mma.cuh's mainloop)
+template <int N>
+__device__ __forceinline__ void fold(float (&facc)[N], const int (&acc)[N], const float (&x)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    facc[i] = __fadd_rn(facc[i], __fmul_rn(__int2float_rn(acc[i]), x[(i >> 1) & 1]));
+}
+
+// int8_linear_blockscale on the wgmma mainloop, for bk a multiple of 128
+// (a K block is whole stages): 64 x 256 tiles, each consumer warpgroup the
+// tile's 64 rows by 128 columns on m64n128 (64 accumulators a thread, beside
+// the 64 of the f32 sum facc), five stages of 40 KB, persistent CTAs,
+// column tiles fastest. At a
+// block's end the warpgroup waits for its last group and folds the int32
+// sum into facc with its row scales (facc += f32(acc) * xs[kb, row], in kb
+// order); the block's first k-step then writes acc instead of adding to it.
+// A second accumulator set, to fold block kb - 1 while block kb's products
+// run, made ptxas serialize every wgmma (C7514: accumulators read inside the
+// pipeline) and was slower. The int32 sums are exact and the fold's order
+// is gemm_kernel's: the two agree bit for bit.
+template <typename C, typename Out>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    blockscale_kernel_wg(const __grid_constant__ CUtensorMap ma,
+                         const __grid_constant__ CUtensorMap mb, const Params p) {
+  using Consumer = wg::Consumer<C, int>;
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(16) Out out_stage[wg::kConsumerWarps][16 * 32];
+  wg::roles<C, int>(wg_smem, &ma, &mb, p.m, p.n, p.k, [&](const Consumer& c,
+                                                         const wg::Tiles<C>& tiles, int, int cw) {
+    const int spb = p.bk / wg::kRowBytes, n_kb = p.k / p.bk;  // stages a K block, K blocks
+    const int lane = threadIdx.x & 31;
+    int it = 0;  // stages consumed so far, over all tiles
+    for (int t = tiles.first; t < tiles.count; t += tiles.step) {
+      const int wr0 = warp_row0<C>(tiles.row0(t), cw), wc0 = warpgroup_col0<C>(tiles.col0(t), cw);
+      const int r = wr0 + (lane >> 2);
+      float facc[C::ACC];
+#pragma unroll
+      for (int i = 0; i < C::ACC; ++i) facc[i] = 0.f;
+      int acc[C::ACC];  // written by each block's first k-step
+      for (int kb = 0; kb < n_kb; ++kb) {
+        float x[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          x[h] = r + 8 * h < p.m ? p.xs[static_cast<size_t>(kb) * p.m + r + 8 * h] : 0.f;
+        for (int st = 0; st < spb; ++st, ++it) {
+          c.issue(acc, it, st > 0);
+          wg::wgmma_wait<1>();  // the previous stage's group is done: free that stage
+          if (st > 0) c.release(it - 1);
+        }
+        wg::wgmma_wait<0>();  // the block's sum is whole
+        c.release(it - 1);
+        wg::fence_operands(acc);
+        fold(facc, acc, x);
+      }
+      const int col = wc0 + 2 * (lane & 3);
+      store_warp_rows<C::ACC / 4>(
+          static_cast<Out*>(p.out), out_stage[(threadIdx.x >> 5) - 4], wr0, wc0, p.m, p.n,
+          [&](int i, float(&v)[4]) {
+            float2 w, b;
+            column_pair(p, col + 8 * i, w, b);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              v[2 * h] = __fadd_rn(__fmul_rn(facc[4 * i + 2 * h], w.x), b.x);
+              v[2 * h + 1] = __fadd_rn(__fmul_rn(facc[4 * i + 2 * h + 1], w.y), b.y);
+            }
+          });
+    }
+  });
+}
+
+// Both take the column tiles fastest, so the CTAs in flight share A's row
+// blocks (at proj A is 77 MB, more than the L2 cache holds; with row tiles
+// fastest it is read once per column block, and #20 ran far slower). The
+// stage counts and tile shapes are the fastest of those tried on an H100:
+// for #15 four stages (three and two no faster), 128 x 256 beat 64 x 256, and
+// a 2-CTA cluster multicasting B was slower; for #20 64 x 256 with five
+// stages beat 128 x 128 with three to six.
+using Linear = wg::Config<128, 256, 4, 1, 256, true>;
+using BlockScale = wg::Config<64, 256, 5, 1, 128, true>;
+
 bool shape_ok(int m, int n, int k) { return m >= 0 && n > 0 && k > 0 && k % 32 == 0 && n % 8 == 0; }
+
+bool blockscale_ok(int m, int n, int k, int bk) {
+  return shape_ok(m, n, k) && bk > 0 && bk % 32 == 0 && k % bk == 0;
+}
 
 template <int EPI, typename Out>
 int launch_gemm(const Params& p, void* stream) {
@@ -306,14 +512,15 @@ int launch_gelu_quant_mma(const Params& p, void* stream) {
   return cudaGetLastError();
 }
 
-template <typename C>
-int launch_gelu_quant_wg(const Params& p, void* stream) {
+// a kernel on the wgmma mainloop of Config C: both tensor maps, the
+// persistent grid, the launch
+template <typename C, typename Kernel>
+int launch_wg(Kernel kernel, const Params& p, void* stream) {
   CUtensorMap ma, mb;
   dim3 grid;
-  const cudaError_t err = wg::prepare<C>(gelu_quant_kernel_wg<C>, &ma, &mb, &grid, p.a, p.b, p.m,
-                                         p.n, p.k, 1, false);
+  const cudaError_t err = wg::prepare<C>(kernel, &ma, &mb, &grid, p.a, p.b, p.m, p.n, p.k, 1, false);
   if (err != cudaSuccess) return err;
-  return wg::launch<C>(gelu_quant_kernel_wg<C>, grid, static_cast<cudaStream_t>(stream), ma, mb, p);
+  return wg::launch<C>(kernel, grid, static_cast<cudaStream_t>(stream), ma, mb, p);
 }
 
 Params make_params(const void* a, const void* b, const void* xs, const void* ws, const void* bias,
@@ -340,9 +547,29 @@ extern "C" int team_int8_gemm_max_block_n() { return kMaxBlockN; }
 // 16-byte aligned; xs float32 [m]; ws, bias float32 [n]; out [m, n] bfloat16
 // (out_f32 = 0) or float32. k a multiple of 32, n a multiple of 8. gelu = 1
 // applies the tanh GELU. Returns the cudaError_t of the launch (0 on success).
+// Every shape it takes runs gemm_kernel_wg (wgmma + TMA; K a multiple of 32
+// bytes is TMA's 16-byte row stride, the box's K edge zero-filled).
 extern "C" int team_int8_linear(const void* a, const void* b, const void* xs, const void* ws,
                                 const void* bias, void* out, int m, int n, int k, int gelu,
                                 int out_f32, void* stream) {
+  if (!shape_ok(m, n, k)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
+  if (gelu) {
+    return out_f32 ? launch_wg<Linear>(gemm_kernel_wg<Linear, kDequantGelu, float>, p, stream)
+                   : launch_wg<Linear>(gemm_kernel_wg<Linear, kDequantGelu, __nv_bfloat16>, p,
+                                       stream);
+  }
+  return out_f32 ? launch_wg<Linear>(gemm_kernel_wg<Linear, kDequant, float>, p, stream)
+                 : launch_wg<Linear>(gemm_kernel_wg<Linear, kDequant, __nv_bfloat16>, p, stream);
+}
+
+// team_int8_linear on the mma.sync kernel (gemm_kernel): the kernel that
+// gemm_kernel_wg replaced, kept callable so that the two can be held against
+// each other bit for bit.
+extern "C" int team_int8_linear_mma(const void* a, const void* b, const void* xs, const void* ws,
+                                    const void* bias, void* out, int m, int n, int k, int gelu,
+                                    int out_f32, void* stream) {
   if (!shape_ok(m, n, k)) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   const Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
@@ -356,10 +583,33 @@ extern "C" int team_int8_linear(const void* a, const void* b, const void* xs, co
 
 // As team_int8_linear, with xs float32 [k / bk, m]: one scale per row and
 // block of bk columns of K (bk a multiple of 32 that divides k); no GELU.
+// bk a multiple of 128 (a K block is whole 128-byte stages: the vision
+// tower's proj, K 3,072 at bk 512, and the text tower's, K 2,048 at bk 512)
+// runs blockscale_kernel_wg (wgmma + TMA); any other bk (32, 64, 96, 160,
+// ...: a block edge inside a stage) gemm_kernel on mma.sync.
 extern "C" int team_int8_linear_blockscale(const void* a, const void* b, const void* xs,
                                            const void* ws, const void* bias, void* out, int m,
                                            int n, int k, int bk, int out_f32, void* stream) {
-  if (!shape_ok(m, n, k) || bk <= 0 || bk % 32 != 0 || k % bk != 0) return cudaErrorInvalidValue;
+  if (!blockscale_ok(m, n, k, bk)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
+  p.bk = bk;
+  if (bk % wg::kRowBytes == 0) {
+    return out_f32 ? launch_wg<BlockScale>(blockscale_kernel_wg<BlockScale, float>, p, stream)
+                   : launch_wg<BlockScale>(blockscale_kernel_wg<BlockScale, __nv_bfloat16>, p,
+                                           stream);
+  }
+  return out_f32 ? launch_gemm<kBlockScale, float>(p, stream)
+                 : launch_gemm<kBlockScale, __nv_bfloat16>(p, stream);
+}
+
+// team_int8_linear_blockscale on the mma.sync kernel at every bk: the
+// kernel that blockscale_kernel_wg replaced, kept callable so that the two
+// can be held against each other bit for bit.
+extern "C" int team_int8_linear_blockscale_mma(const void* a, const void* b, const void* xs,
+                                               const void* ws, const void* bias, void* out, int m,
+                                               int n, int k, int bk, int out_f32, void* stream) {
+  if (!blockscale_ok(m, n, k, bk)) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
   p.bk = bk;
@@ -381,8 +631,8 @@ extern "C" int team_int8_linear_gelu_quant(const void* a, const void* b, const v
   // the wgmma kernel takes bn 256 and 512 at every K here (a multiple of 32
   // bytes: TMA's 16-byte row stride, the box's K edge zero-filled); other
   // blocks keep the mma.sync kernel
-  if (bn == 512) return launch_gelu_quant_wg<GeluQuant512>(p, stream);
-  if (bn == 256) return launch_gelu_quant_wg<GeluQuant256>(p, stream);
+  if (bn == 512) return launch_wg<GeluQuant512>(gelu_quant_kernel_wg<GeluQuant512>, p, stream);
+  if (bn == 256) return launch_wg<GeluQuant256>(gelu_quant_kernel_wg<GeluQuant256>, p, stream);
   return launch_gelu_quant_mma(p, stream);
 }
 

@@ -1,23 +1,27 @@
 // The Hopper GEMM mainloop: TMA loads into a ring of shared-memory stages,
 // one producer warp, two consumer warpgroups on wgmma (sm_90a). Shared by
-// csrc/int8_gemm.cu (#21 int8_linear_gelu_quant at bn 256 and 512, s8; the
-// TPU kernel team_tpu/ops/int8_matmul.py:506) and csrc/gemm_probe.cu (#27
-// probe_mm in bf16; scripts/int8_probe.py:48 pallas_mm).
+// csrc/int8_gemm.cu (s8: #15 int8_linear and its tilings, gemm_kernel_wg;
+// #20 int8_linear_blockscale, blockscale_kernel_wg; #21
+// int8_linear_gelu_quant at bn 256 and 512, gelu_quant_kernel_wg; the TPU
+// kernels of team_tpu/ops/int8_matmul.py:54, :565 and :506) and
+// csrc/gemm_probe.cu (#27 probe_mm in bf16; scripts/int8_probe.py:48
+// pallas_mm).
 //
-// What it replaces. For these two kernels, the mma.sync mainloops of
+// What it replaces. For these kernels, the mma.sync mainloops of
 // csrc/int8_mma.cuh (s8) and the bf16 one that csrc/bf16_mma.cuh held: four
 // warps, 64 x 128 or 32 x 128 tiles, two cp.async stages. Their ceiling on
 // an H100 (#28) is about half the dense tensor-core peaks; only wgmma fed by
 // TMA reaches those peaks.
 //
 // What bounds it. The operations at the shapes that use it: #21 at the
-// ViT-B/16 fc shape (M 25,216, K 768, N 3,072) does 119 G int8 operations,
-// 0.060 ms at the dense 1,979 TOP/s; #27 at 4096^3 137.4 GFLOP, 0.139 ms at
+// ViT-B/16 fc shape (M 25,216, K 768, N 3,072) and #20 at proj (K 3,072, N
+// 768) do 119 G int8 operations each, 0.060 ms at the dense 1,979 TOP/s;
+// #15 at qkv (K 768, N 2,304) 89 G; #27 at 4096^3 137.4 GFLOP, 0.139 ms at
 // 989 TFLOP/s. A CTA tile of BM x BN takes (BM + BN) x 128 bytes into shared
-// memory for each 128 bytes of K: 72 KB at 64 x 512 (s8), 48 KB at 128 x 256
-// (bf16), for 0.56 us of tensor work either way. At K 768 a tile is only six
-// stages, so what a tile costs besides its stages (filling the ring, the
-// epilogue, the stores) weighs as much as the stages themselves.
+// memory for each 128 bytes of K: 72 KB at 64 x 512 (s8), 48 KB at 128 x 256,
+// 40 KB at 64 x 256, for 0.28-0.56 us of tensor work. At K 768 a tile is
+// only six stages, so what a tile costs besides its stages (filling the
+// ring, the epilogue, the stores) weighs as much as the stages themselves.
 //
 // Design.
 // - Operands A [M, K] and B [N, K], both K-major, as the port lays them out.
@@ -32,24 +36,34 @@
 //   consumer warp of the cluster once its products on the stage are done).
 // - 384 threads: warpgroup 0 is the producer (one thread issues every load;
 //   setmaxnreg gives its registers away, 40 a thread), warpgroups 1 and 2
-//   consume (232 a thread). A consumer warpgroup owns 64 rows x 256 columns:
-//   WM x WN = 2 warpgroups over the CTA tile, so BM x BN is 128 x 256 (A rows
-//   split, B shared) or 64 x 512 (A shared, B split).
-// - Per stage each consumer issues four wgmma.mma_async m64n256 from shared
-//   memory (k32 s8 into s32, k16 bf16 into f32: 32 bytes of K each),
-//   commits them as one group, waits until only that group is in flight
-//   and then frees the previous stage, so the tensor cores always hold one
-//   group while the next stage's barrier is polled.
+//   consume (232 a thread). A consumer warpgroup owns 64 rows x INSTR_N
+//   columns (Config: m64n256, 128 accumulators a thread, or m64n128, 64 a
+//   thread, where the kernel keeps an f32 sum beside them):
+//   WM x WN = 2 warpgroups over the CTA tile, so BM x BN is 128 x INSTR_N
+//   (A rows split, B shared) or 64 x 2 INSTR_N (A shared, B split).
+// - Per stage each consumer issues four wgmma.mma_async from shared memory
+//   (k32 s8 into s32, k16 bf16 into f32: 32 bytes of K each), commits them
+//   as one group, waits until only that group is in flight and then frees
+//   the previous stage, so the tensor cores always hold one group while the
+//   next stage's barrier is polled.
 // - Persistent CTAs, one an SM (a CTA's ring fills the SM's shared memory;
 //   with clusters, as many as the card holds at once): the ring runs on
 //   across a CTA's tiles, so the producer loads the next tile while the
 //   consumers run the kernel's epilogue on theirs.
+// - The tile order: row tiles fastest (#21, #27: the CTAs in flight share B's
+//   column block), or column tiles fastest (Config's COLS_FIRST; #15, #20:
+//   they share A's row blocks, and #20's 77 MB A, more than the L2 cache
+//   holds, is read about once).
 // - CLUSTER > 1: CTAs of neighbouring row tiles form a cluster; each loads
 //   1/CLUSTER of B's rows and multicasts them to all, and a stage is freed
 //   only when the consumers of every CTA of the cluster are done with it.
+// - run() is the plain mainloop (one accumulator set, the epilogue after the
+//   tile's last stage); roles() gives a kernel the producer and the ring and
+//   leaves its consumer loop to it (#20 folds each K block's int32 sum into
+//   an f32 sum at the block's end, Consumer::issue and release).
 // The accumulator of a consumer thread: d[4 i + 2 h + e] is row
 // 16 (warp % 4) + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e of its
-// warpgroup's 64 x 256 tile (i < 32).
+// warpgroup's 64 x INSTR_N tile (i < INSTR_N / 8).
 
 #pragma once
 
@@ -63,18 +77,23 @@ namespace wg {
 
 constexpr int kRowBytes = 128;  // bytes of K a stage holds: the span of the 128-byte swizzle
 constexpr int kThreads = 384;   // the producer warpgroup and two consumer warpgroups
-constexpr int kInstrN = 256;    // columns of one consumer warpgroup (m64n256)
 constexpr int kBoxRows = 256;   // the most rows a TMA box may have
 constexpr int kConsumerWarps = 8;
 
-// A CTA tile of BM x BN, a ring of STAGES stages, and CLUSTER CTAs of
-// neighbouring row tiles that share B: each loads BN / CLUSTER of its rows
-// and multicasts them to all
-template <int BM_, int BN_, int STAGES_, int CLUSTER_>
+// A CTA tile of BM x BN, a ring of STAGES stages, CLUSTER CTAs of
+// neighbouring row tiles that share B (each loads BN / CLUSTER of its rows
+// and multicasts them to all), consumer warpgroups of 64 x INSTR_N, the
+// width of their wgmma (m64n256 or m64n128), and the order of the tiles:
+// row tiles fastest, or with COLS_FIRST column tiles fastest (Tiles)
+template <int BM_, int BN_, int STAGES_, int CLUSTER_, int INSTR_N_ = 256, bool COLS_FIRST_ = false>
 struct Config {
   static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_, CLUSTER = CLUSTER_;
-  static constexpr int WM = BM / 64, WN = BN / kInstrN;  // consumer warpgroups along M and N
-  static_assert(WM * WN == 2, "two consumer warpgroups of 64 x 256");
+  static constexpr int INSTR_N = INSTR_N_;
+  static constexpr bool COLS_FIRST = COLS_FIRST_;
+  static constexpr int ACC = INSTR_N / 2;  // accumulators of a consumer thread
+  static constexpr int WM = BM / 64, WN = BN / INSTR_N;  // consumer warpgroups along M and N
+  static_assert(INSTR_N == 128 || INSTR_N == 256, "m64n128 or m64n256");
+  static_assert(WM * WN == 2, "two consumer warpgroups of 64 x INSTR_N");
   static constexpr int A_BYTES = BM * kRowBytes;
   static constexpr int B_BYTES = BN * kRowBytes;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
@@ -283,6 +302,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+#define WG_D64                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                  \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "           \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "           \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "           \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "           \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "           \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
 #define WG_D128                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "                  \
   "%8, %9, %10, %11, %12, %13, %14, %15, "             \
@@ -303,45 +331,62 @@ __device__ __forceinline__ void wgmma_wait() {
 #define WG_OP8(C, d, i)                                                                      \
   C(d[(i)]), C(d[(i) + 1]), C(d[(i) + 2]), C(d[(i) + 3]), C(d[(i) + 4]), C(d[(i) + 5]), \
       C(d[(i) + 6]), C(d[(i) + 7])
+#define WG_OP64(C, d)                                                                      \
+  WG_OP8(C, d, 0), WG_OP8(C, d, 8), WG_OP8(C, d, 16), WG_OP8(C, d, 24), WG_OP8(C, d, 32), \
+      WG_OP8(C, d, 40), WG_OP8(C, d, 48), WG_OP8(C, d, 56)
 #define WG_OP128(C, d)                                                                        \
   WG_OP8(C, d, 0), WG_OP8(C, d, 8), WG_OP8(C, d, 16), WG_OP8(C, d, 24), WG_OP8(C, d, 32),    \
       WG_OP8(C, d, 40), WG_OP8(C, d, 48), WG_OP8(C, d, 56), WG_OP8(C, d, 64),               \
       WG_OP8(C, d, 72), WG_OP8(C, d, 80), WG_OP8(C, d, 88), WG_OP8(C, d, 96),               \
       WG_OP8(C, d, 104), WG_OP8(C, d, 112), WG_OP8(C, d, 120)
 
-// d += A (64 x 32 s8) B^T (256 x 32 s8), exact in int32
-__device__ __forceinline__ void mma(int (&d)[128], uint64_t a, uint64_t b) {
+// d += A (64 x 32 s8) B^T (256 x 32 s8), exact in int32; d = A B^T where
+// accumulate is 0
+__device__ __forceinline__ void mma(int (&d)[128], uint64_t a, uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WG_D128 ", %128, %129, p;\n}\n"
       : WG_OP128("+r", d)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A (64 x 32 s8) B^T (128 x 32 s8), as the m64n256 form
+__device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b, int accumulate = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_D64 ", %64, %65, p;\n}\n"
+      : WG_OP64("+r", d)
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d += A (64 x 16 bf16) B^T (256 x 16 bf16) in f32
-__device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
       ", %128, %129, p, 1, 1, 0, 0;\n}\n"
       : WG_OP128("+f", d)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // the accumulators are final here: no read of them moves above this point
-__device__ __forceinline__ void fence_operands(int (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void fence_operands(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #undef WG_OP128
+#undef WG_OP64
 #undef WG_OP8
 #undef WG_D128
+#undef WG_D64
 
 // The shared ring of a CTA: STAGES stages of A's and B's boxes, then the
 // full and empty barriers.
@@ -360,35 +405,81 @@ struct Ring {
 
 // A CTA's share of the tiles: the grid holds at most one cluster of CTAs a
 // cluster's worth of SMs, and cluster c takes cluster tiles c, c + clusters,
-// ... A cluster tile is CLUSTER neighbouring row tiles of one column block;
-// row tiles run fastest, so the clusters in flight share B's column block.
+// ... A cluster tile is CLUSTER neighbouring row tiles of one column block.
+// Row tiles run fastest, so the clusters in flight share B's column block
+// and each row block of A is read once per column block; with COLS_FIRST
+// column tiles run fastest, so the clusters in flight share A's row blocks
+// and A is read about once (where A outgrows the L2 cache and B does not:
+// #20 at proj reads its 77 MB once instead of once per column block).
 template <typename C>
 struct Tiles {
-  int row_tiles, count, step, first, rank;
+  int row_tiles, col_tiles, count, step, first, rank;
   __device__ __forceinline__ Tiles(int m, int n) {
     row_tiles = ((m + C::BM - 1) / C::BM + C::CLUSTER - 1) / C::CLUSTER;  // in clusters
-    count = row_tiles * ((n + C::BN - 1) / C::BN);
+    col_tiles = (n + C::BN - 1) / C::BN;
+    count = row_tiles * col_tiles;
     step = gridDim.x / C::CLUSTER;
     first = blockIdx.x / C::CLUSTER;
     rank = C::CLUSTER > 1 ? static_cast<int>(cluster_rank()) : 0;
   }
   __device__ __forceinline__ int row0(int t) const {
-    return ((t % row_tiles) * C::CLUSTER + rank) * C::BM;
+    return ((C::COLS_FIRST ? t / col_tiles : t % row_tiles) * C::CLUSTER + rank) * C::BM;
   }
-  __device__ __forceinline__ int col0(int t) const { return t / row_tiles * C::BN; }
+  __device__ __forceinline__ int col0(int t) const {
+    return (C::COLS_FIRST ? t % col_tiles : t / row_tiles) * C::BN;
+  }
 };
 
-// The CTA's tiles of out = A [m, k] B [n, k]^T (k in elements of the operands:
-// s8 with int accumulators, bf16 with float ones). The producer warpgroup's
-// first thread streams every stage of every tile through the ring; each
-// consumer warpgroup runs the tile's products into d (64 x 256, zeroed here)
-// and then epi(d, row0, col0, cw): the CTA tile's first row and column and
-// its own index, 0 or 1. The producer runs ahead into the next tile while
-// the consumers are in their epilogue. Every thread of the CTA calls it.
-template <typename C, typename Acc, typename Epi>
-__device__ __forceinline__ void run(uint8_t* smem, const CUtensorMap* ma, const CUtensorMap* mb,
-                                    int m, int n, int k, Epi&& epi) {
-  constexpr int kStep = kRowBytes / (std::is_same<Acc, float>::value ? 2 : 1);
+// A consumer warpgroup's view of the ring (cw, 0 or 1, its index): stage it
+// counts the stages consumed so far, over all of the CTA's tiles.
+template <typename C, typename Acc>
+struct Consumer {
+  static constexpr int kStep = kRowBytes / (std::is_same<Acc, float>::value ? 2 : 1);  // K a stage
+  const Ring<C> ring;
+  int a_off, b_off;
+  bool lane0;
+  __device__ __forceinline__ Consumer(const Ring<C>& r, int cw)
+      : ring(r),
+        a_off((C::WM == 2 ? cw : 0) * 64 * kRowBytes),
+        b_off((C::WN == 2 ? cw : 0) * C::INSTR_N * kRowBytes),
+        lane0((threadIdx.x & 31) == 0) {}
+
+  // wait for stage it, then issue its products into d as one group (d +=
+  // A B^T; the first k-step writes d = A B^T where accumulate is 0)
+  __device__ __forceinline__ void issue(Acc (&d)[C::ACC], int it, int accumulate = 1) const {
+    const int s = it % C::STAGES;
+    bar_wait(ring.full(s), (it / C::STAGES) & 1);
+    const uint64_t da = desc_sw128(ring.a(s) + a_off), db = desc_sw128(ring.b(s) + b_off);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kRowBytes / 32; ++j)  // 32 bytes = 2 x 16
+      mma(d, da + 2 * j, db + 2 * j, j > 0 ? 1 : accumulate);
+    wgmma_commit();
+  }
+
+  // every consumer warp of the cluster frees stage it
+  __device__ __forceinline__ void release(int it) const {
+    if (!lane0) return;
+    const int s = it % C::STAGES;
+    if (C::CLUSTER > 1) {
+#pragma unroll
+      for (int cta = 0; cta < C::CLUSTER; ++cta) bar_arrive_at(ring.empty(s), cta);
+    } else {
+      bar_arrive(ring.empty(s));
+    }
+  }
+};
+
+// The CTA's roles over out = A [m, k] B [n, k]^T (k in elements of the
+// operands: s8 with int accumulators, bf16 with float ones). The producer
+// warpgroup's first thread streams every stage of every tile through the
+// ring; each consumer warpgroup calls consume(consumer, tiles, ktiles, cw)
+// (ktiles: the stages of a tile), which walks the CTA's tiles and consumes
+// every stage of each in order. Every thread of the CTA calls it.
+template <typename C, typename Acc, typename Consume>
+__device__ __forceinline__ void roles(uint8_t* smem, const CUtensorMap* ma, const CUtensorMap* mb,
+                                      int m, int n, int k, Consume&& consume) {
+  constexpr int kStep = Consumer<C, Acc>::kStep;
   const Ring<C> ring(smem);
   const int ktiles = (k + kStep - 1) / kStep;
   if (threadIdx.x == 0) {
@@ -434,40 +525,39 @@ __device__ __forceinline__ void run(uint8_t* smem, const CUtensorMap* ma, const 
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int cw = warpgroup - 1;
-  const int a_off = (C::WM == 2 ? cw : 0) * 64 * kRowBytes;
-  const int b_off = (C::WN == 2 ? cw : 0) * kInstrN * kRowBytes;
-  const bool lane0 = (threadIdx.x & 31) == 0;
-  auto release = [&](int s) {  // every consumer warp of the cluster frees stage s
-    if (!lane0) return;
-    if (C::CLUSTER > 1) {
-#pragma unroll
-      for (int cta = 0; cta < C::CLUSTER; ++cta) bar_arrive_at(ring.empty(s), cta);
-    } else {
-      bar_arrive(ring.empty(s));
-    }
-  };
-  int it = 0;  // stages consumed so far, over all tiles
-  for (int t = tiles.first; t < tiles.count; t += tiles.step) {
-    Acc d[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) d[i] = 0;
-    for (int kt = 0; kt < ktiles; ++kt, ++it) {
-      const int s = it % C::STAGES;
-      bar_wait(ring.full(s), (it / C::STAGES) & 1);
-      const uint64_t da = desc_sw128(ring.a(s) + a_off), db = desc_sw128(ring.b(s) + b_off);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kRowBytes / 32; ++j) mma(d, da + 2 * j, db + 2 * j);  // 32 bytes = 2 x 16
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's group is done: free that stage
-      if (kt > 0) release((it - 1) % C::STAGES);
-    }
-    wgmma_wait<0>();
-    release((it - 1) % C::STAGES);
-    fence_operands(d);
-    epi(d, tiles.row0(t), tiles.col0(t), cw);
-  }
+  const Consumer<C, Acc> consumer(ring, cw);
+  consume(consumer, tiles, ktiles, cw);
   if (C::CLUSTER > 1) cluster_sync();
+}
+
+// The CTA's tiles of out = A B^T on roles: each consumer warpgroup runs the
+// tile's products into d (64 x INSTR_N, zeroed here) and then epi(d, row0,
+// col0, cw): the CTA tile's first row and column and its own index. Each
+// stage's group is left in flight while the next stage's barrier is polled:
+// the previous stage is freed once only the newest group is outstanding.
+// The producer runs ahead into the next tile while the consumers are in
+// their epilogue.
+template <typename C, typename Acc, typename Epi>
+__device__ __forceinline__ void run(uint8_t* smem, const CUtensorMap* ma, const CUtensorMap* mb,
+                                    int m, int n, int k, Epi&& epi) {
+  roles<C, Acc>(smem, ma, mb, m, n, k, [&](const Consumer<C, Acc>& c, const Tiles<C>& tiles,
+                                           int ktiles, int cw) {
+    int it = 0;
+    for (int t = tiles.first; t < tiles.count; t += tiles.step) {
+      Acc d[C::ACC];
+#pragma unroll
+      for (int i = 0; i < C::ACC; ++i) d[i] = 0;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        c.issue(d, it);
+        wgmma_wait<1>();  // the previous stage's group is done: free that stage
+        if (kt > 0) c.release(it - 1);
+      }
+      wgmma_wait<0>();
+      c.release(it - 1);
+      fence_operands(d);
+      epi(d, tiles.row0(t), tiles.col0(t), cw);
+    }
+  });
 }
 
 }  // namespace wg

@@ -18,8 +18,11 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   kernel), ``int8_linear_gelu_quant`` (GEMM, GELU and a requantize with one
   scale per row and column block) and ``int8_linear_blockscale`` (its
   consumer, one activation scale per row and K block); CUDA kernels
-  ``csrc/int8_gemm.cu`` on the tensor cores (``mma.sync`` s8; the GELU form
-  at ``bn`` 256 and 512 on ``wgmma`` fed by TMA, ``csrc/wgmma_gemm.cuh``);
+  ``csrc/int8_gemm.cu`` on the tensor cores: ``wgmma`` fed by TMA
+  (``csrc/wgmma_gemm.cuh``) for ``int8_linear`` at every shape, for
+  ``blockscale`` where ``bk`` is a multiple of 128 and for the GELU form at
+  ``bn`` 256 and 512; ``mma.sync`` s8 for the other shapes and for the
+  ``*_mma`` entries, the yardsticks that no path calls;
   ``quantized_linear`` quantizes rows and calls ``int8_linear``.
 
 The CUDA sources are compiled with ``nvcc`` on first use and bound with
@@ -408,13 +411,14 @@ def _gemm_library() -> ctypes.CDLL:
 
     lib = load_library(_GEMM_SOURCE)
     ptrs, i = ctypes.c_void_p, ctypes.c_int
-    lib.team_int8_linear.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
-    lib.team_int8_linear_blockscale.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
-    lib.team_int8_linear_gelu_quant.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
-    lib.team_int8_linear_gelu_quant_mma.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
-    for fn in (lib.team_int8_linear, lib.team_int8_linear_blockscale,
-               lib.team_int8_linear_gelu_quant, lib.team_int8_linear_gelu_quant_mma,
-               lib.team_int8_gemm_max_block_n):
+    linear = (lib.team_int8_linear, lib.team_int8_linear_mma, lib.team_int8_linear_blockscale,
+              lib.team_int8_linear_blockscale_mma)
+    gelu_quant = (lib.team_int8_linear_gelu_quant, lib.team_int8_linear_gelu_quant_mma)
+    for fn in linear:
+        fn.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
+    for fn in gelu_quant:
+        fn.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
+    for fn in (*linear, *gelu_quant, lib.team_int8_gemm_max_block_n):
         fn.restype = ctypes.c_int
     return lib
 
@@ -461,11 +465,11 @@ def _out_f32(name: str, out_dtype: torch.dtype) -> int:
     return int(out_dtype == torch.float32)
 
 
-def _linear_kernel(name: str, x_q, wt_q, x_scale, w_scale, bias, activation,
+def _linear_kernel(name: str, entry: str, x_q, wt_q, x_scale, w_scale, bias, activation,
                    out_dtype) -> torch.Tensor:
-    """Launch K1 on ``wt_q [N, K]``: a ``[K, N]`` weight's transpose, which is
-    a view of :func:`quantize_weight`'s column-major layout (any other layout
-    is copied by :func:`_gemm_operands`)."""
+    """Launch K1 (C entry ``entry``) on ``wt_q [N, K]``: a ``[K, N]`` weight's
+    transpose, which is a view of :func:`quantize_weight`'s column-major
+    layout (any other layout is copied by :func:`_gemm_operands`)."""
     if activation not in (None, "gelu"):
         raise ValueError(f"{name}: activation must be None or 'gelu', got {activation!r}")
     f32 = _out_f32(name, out_dtype)
@@ -474,7 +478,7 @@ def _linear_kernel(name: str, x_q, wt_q, x_scale, w_scale, bias, activation,
     n = wt_q.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = _gemm_library().team_int8_linear(
+        err = getattr(_gemm_library(), entry)(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n, k, int(activation == "gelu"), f32,
             torch.cuda.current_stream().cuda_stream)
@@ -488,7 +492,8 @@ def _linear_entry(fn, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype) 
     if x_q.device.type == "cpu":
         return int8_linear_reference(x_q, wt_q.t(), x_scale, w_scale, bias,
                                      activation=activation, out_dtype=out_dtype)
-    out = _linear_kernel(fn.__name__, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype)
+    out = _linear_kernel(fn.__name__, "team_int8_linear", x_q, wt_q, x_scale, w_scale, bias,
+                         activation, out_dtype)
     fn.launches += 1
     return out
 
@@ -499,9 +504,26 @@ def int8_linear(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 block_m: int = 512, block_n: int = 512, interpret: bool = False) -> torch.Tensor:
     """``dequant(x_q @ w_q) + bias`` with an optional tanh GELU -> ``[M, N]``
     (``int8_matmul.py:233``): ``x_q [M, K]`` int8, ``w_q [K, N]`` int8,
-    ``x_scale`` ``[M, 1]`` or ``[1, M]``, ``w_scale [1, N]``. Each kernel
-    launch adds one to ``int8_linear.launches``."""
+    ``x_scale`` ``[M, 1]`` or ``[1, M]``, ``w_scale [1, N]``. On the card the
+    ``wgmma`` kernel at every shape. Each kernel launch adds one to
+    ``int8_linear.launches``."""
     return _linear_entry(int8_linear, x_q, w_q.t(), x_scale, w_scale, bias, activation, out_dtype)
+
+
+def int8_linear_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                    w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                    activation: Optional[str] = None,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`int8_linear` on the ``mma.sync`` kernel: the kernel that the
+    ``wgmma`` one replaced, callable so that the two can be held against each
+    other bit for bit (the card tests, ``chip_smoke.py``). No path of the
+    port calls it, and it counts no launch. On a CPU tensor: the plain
+    version."""
+    if x_q.device.type == "cpu":
+        return int8_linear_reference(x_q, w_q, x_scale, w_scale, bias, activation=activation,
+                                     out_dtype=out_dtype)
+    return _linear_kernel("int8_linear_mma", "team_int8_linear_mma", x_q, w_q.t(), x_scale,
+                          w_scale, bias, activation, out_dtype)
 
 
 def int8_linear_nk(x_q: torch.Tensor, wt_q: torch.Tensor, x_scale: torch.Tensor,
@@ -602,19 +624,8 @@ def int8_linear_gelu_quant_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: to
                               x_q, w_q, x_scale, w_scale, bias, block_n)
 
 
-def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
-                           w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                           out_dtype: torch.dtype = torch.bfloat16, block_m: int = 512,
-                           block_n: int = 512, interpret: bool = False) -> torch.Tensor:
-    """The product over activations with one scale per row and K block
-    (``int8_matmul.py:585``): ``x_scales [n_kb, M]``, K blocks of ``bk =
-    K/n_kb`` columns (the producer's ``bn``); each block's int32 sum is
-    dequantized with its row scale into an f32 accumulator, in block order.
-    Each kernel launch adds one to ``int8_linear_blockscale.launches``."""
-    if x_q.device.type == "cpu":
-        return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
-                                                out_dtype=out_dtype)
-    name = "int8_linear_blockscale"
+def _blockscale_kernel(name: str, entry: str, x_q, w_q, x_scales, w_scale, bias,
+                       out_dtype) -> torch.Tensor:
     f32 = _out_f32(name, out_dtype)
     n_kb = x_scales.shape[0]
     x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, w_q.t(), x_scales, w_scale, bias, n_kb)
@@ -625,12 +636,46 @@ def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch
                          "multiples of 32")
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = _gemm_library().team_int8_linear_blockscale(
+        err = getattr(_gemm_library(), entry)(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n, k, k // n_kb, f32, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
+    return out
+
+
+def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
+                           w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                           out_dtype: torch.dtype = torch.bfloat16, block_m: int = 512,
+                           block_n: int = 512, interpret: bool = False) -> torch.Tensor:
+    """The product over activations with one scale per row and K block
+    (``int8_matmul.py:585``): ``x_scales [n_kb, M]``, K blocks of ``bk =
+    K/n_kb`` columns (the producer's ``bn``); each block's int32 sum is
+    dequantized with its row scale into an f32 accumulator, in block order.
+    On the card ``bk`` a multiple of 128 runs the ``wgmma`` kernel, any other
+    the ``mma.sync`` one (:func:`int8_linear_blockscale_mma`); the C entry
+    chooses by ``bk``. Each kernel launch adds one to
+    ``int8_linear_blockscale.launches``."""
+    if x_q.device.type == "cpu":
+        return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
+                                                out_dtype=out_dtype)
+    out = _blockscale_kernel("int8_linear_blockscale", "team_int8_linear_blockscale", x_q, w_q,
+                             x_scales, w_scale, bias, out_dtype)
     int8_linear_blockscale.launches += 1
     return out
+
+
+def int8_linear_blockscale_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
+                               w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`int8_linear_blockscale` on the ``mma.sync`` kernel at every
+    ``bk``: the yardstick of the ``wgmma`` kernel, as
+    :func:`int8_linear_mma`. No path of the port calls it, and it counts no
+    launch. On a CPU tensor: the plain version."""
+    if x_q.device.type == "cpu":
+        return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
+                                                out_dtype=out_dtype)
+    return _blockscale_kernel("int8_linear_blockscale_mma", "team_int8_linear_blockscale_mma",
+                              x_q, w_q, x_scales, w_scale, bias, out_dtype)
 
 
 def quantized_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

@@ -47,9 +47,10 @@ int8 ``probe_mm`` and ``mxu_ceiling`` bit for bit, their bf16 forms within
 ``probe_mm_bf16_limit`` and ``CEILING_BF16_SHARE`` of the largest |ref|, the
 MLP megakernel within ``mlp_mega_limit`` (bit for bit on rows with no hq
 near a rounding edge) and its 2-D and 3-D entries equal bit for bit; the
-wgmma form of ``gelu_quant`` (bn 256 and 512) bit for bit its mma.sync
-form, and ``probe_mm``'s wgmma bf16 form at the tile edges within
-``probe_mm_bf16_limit``; the
+wgmma forms of ``gelu_quant`` (bn 256 and 512), ``int8_linear`` (every
+shape) and ``blockscale`` (bk a multiple of 128) bit for bit their mma.sync
+forms and within the plain versions' limits, and ``probe_mm``'s wgmma bf16
+form at the tile edges within ``probe_mm_bf16_limit``; the
 tensor-core forms of the packed and flash kernels at their tile edges, the
 longest S, with key masks and unaligned inputs, as the packed and flash
 kernels (bf16 2e-2), the pre-split and head-split entries equal to the
@@ -1436,30 +1437,90 @@ def test_probe_mm_bf16_wgmma_kernel_at_the_tile_edges(cuda_device, m, n, k):
     assert bool(((out - ref).abs() <= gp.probe_mm_bf16_limit(x, w)).all())
 
 
-# source -> (wgmma kernel, its instantiations, its GMMA mnemonic as cuobjdump
-# prints it, the mma.sync kernels and their instantiations)
+RAGGED_M = 16 * 197  # the gate batch's rows: no multiple of a tile
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (128 * 197, 768, 2304), (128 * 197, 768, 768),  # qkv and out at the eval batch
+    (RAGGED_M, 768, 2304), (RAGGED_M, 768, 768),
+    (RAGGED_M, 512, 1536), (RAGGED_M, 512, 512),    # the text tower's qkv and out
+    (1, 768, 768), (37, 96, 264), (37, 32, 8),      # fewer rows than a tile; K under a stage
+    (300, 512, 520), (129, 768, 8)])                 # N past a 256-column tile, N 8
+def test_int8_linear_wgmma_kernel_equals_the_mma_sync_kernel(cuda_device, m, k, n):
+    """Every epilogue (with and without the GELU, bf16 and f32 out): the
+    wgmma kernel's output bit for bit the mma.sync kernel's (exact int32
+    sums, one epilogue arithmetic) and within the plain version's limits;
+    int8_linear_nk bit for bit int8_linear."""
+    xq, wq, xs, ws, b = gemm_inputs(m, k, n, cuda_device, seed=6)
+    for activation in (None, "gelu"):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(activation=activation, out_dtype=out_dtype)
+            launches = tim.int8_linear.launches
+            out = tim.int8_linear(xq, wq, xs, ws, b, **kw)
+            mma = tim.int8_linear_mma(xq, wq, xs, ws, b, **kw)
+            torch.cuda.synchronize()
+            assert tim.int8_linear.launches == launches + 1
+            assert torch.equal(out, mma), (activation, out_dtype, (out != mma).sum().item())
+            assert_gemm_close(out, tim.int8_linear_reference(xq, wq, xs, ws, b, **kw))
+            assert torch.equal(tim.int8_linear_nk(xq, wq.t(), xs, ws, b, **kw), out)
+
+
+@pytest.mark.parametrize("m,k,n,n_kb", [
+    (128 * 197, 3072, 768, 6),   # proj at the eval batch, bk 512
+    (RAGGED_M, 3072, 768, 6),
+    (RAGGED_M, 2048, 512, 4),    # the text tower's proj, bk 512
+    (37, 128, 264, 1),           # one block of 128
+    (300, 256, 520, 2),          # bk 128, N past a 128-column tile
+    (1, 384, 8, 3),
+    (129, 1024, 136, 2),
+    (200, 480, 96, 3)])          # bk 160, no multiple of 128: the mma.sync kernel
+def test_blockscale_wgmma_kernel_equals_the_mma_sync_kernel(cuda_device, m, k, n, n_kb):
+    """bf16 and f32 out: bit for bit the mma.sync kernel (exact int32 block
+    sums folded in kb order) and within the plain version's limits."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+    xs = torch.rand((n_kb, m), generator=g, device=cuda_device) * 0.02 + 1e-3
+    _, wq, _, ws, b = gemm_inputs(8, k, n, cuda_device, seed=7)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        launches = tim.int8_linear_blockscale.launches
+        out = tim.int8_linear_blockscale(xq, wq, xs, ws, b, out_dtype=out_dtype)
+        mma = tim.int8_linear_blockscale_mma(xq, wq, xs, ws, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert tim.int8_linear_blockscale.launches == launches + 1
+        assert torch.equal(out, mma), (out_dtype, (out != mma).sum().item())
+        assert_gemm_close(out, tim.int8_linear_blockscale_reference(xq, wq, xs, ws, b,
+                                                                    out_dtype=out_dtype))
+
+
+# source -> ({wgmma kernel: (its instantiations, its GMMA mnemonic as
+# cuobjdump prints it)}, {mma.sync kernel: its instantiations})
 GMMA_SOURCES = {
-    "int8_gemm.cu": ("gelu_quant_kernel_wg", 2, "IGMMA.64x256x32.S8.S8",
+    "int8_gemm.cu": ({"gelu_quant_kernel_wg": (2, "IGMMA.64x256x32.S8.S8"),
+                      "gemm_kernel_wg": (4, "IGMMA.64x256x32.S8.S8"),
+                      "blockscale_kernel_wg": (2, "IGMMA.64x128x32.S8.S8")},
                      {"gelu_quant_kernel": 1, "gemm_kernel": 6}),
-    "gemm_probe.cu": ("probe_mm_kernel_wg", 1, "HGMMA.64x256x16.F32.BF16",
+    "gemm_probe.cu": ({"probe_mm_kernel_wg": (1, "HGMMA.64x256x16.F32.BF16")},
                       {"probe_mm_kernel": 1, "ceiling_kernel": 2, "mlp_mega_kernel": 1}),
 }
 
 
 @pytest.mark.parametrize("source", list(GMMA_SOURCES))
 def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source):
-    """#21 at bn 256 and 512 and #27 in bf16 run wgmma; the GEMMs left on
-    mma.sync (int8_linear, blockscale, gelu_quant at other bn, probe_mm int8,
-    the ceiling, the megakernel) issue no GMMA."""
+    """#15 (every epilogue and output type), #20 at bk a multiple of 128, #21
+    at bn 256 and 512 and #27 in bf16 run wgmma; the kernels on mma.sync
+    (gemm_kernel: the _mma entries and blockscale at other bk; gelu_quant at
+    other bn, probe_mm int8, the ceiling, the megakernel) issue no GMMA."""
     tim.build()
     from team_tpu_torch.ops import gemm_probe as gp
 
     gp.build()
     found = _opcode_per_kernel(source, "GMMA")
-    wg_name, n_wg, mnemonic, others = GMMA_SOURCES[source]
-    wg = [lines for fn, lines in found.items() if wg_name in fn]
-    assert len(wg) == n_wg and all(lines for lines in wg), found
-    assert all(any(mnemonic in line for line in lines) for lines in wg), wg
+    wgmma, others = GMMA_SOURCES[source]
+    for wg_name, (n_wg, mnemonic) in wgmma.items():
+        wg = [lines for fn, lines in found.items() if wg_name in fn]
+        assert len(wg) == n_wg and all(lines for lines in wg), (wg_name, found)
+        assert all(any(mnemonic in line for line in lines) for lines in wg), (wg_name, wg)
     for name, count in others.items():
-        plain = [len(lines) for fn, lines in found.items() if name in fn and wg_name not in fn]
+        plain = [len(lines) for fn, lines in found.items()
+                 if name in fn and not any(wg_name in fn for wg_name in wgmma)]
         assert len(plain) == count and max(plain) == 0, (name, plain)

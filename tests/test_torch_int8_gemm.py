@@ -137,14 +137,17 @@ def test_int8_linear_without_bias_and_quantized_linear_match_jax():
 
 
 @pytest.mark.parametrize("m,k,n,block_n,bn", [(40, 64, 128, 32, 32), (45, 64, 1024, 512, 512),
-                                              (70, 96, 768, 256, 256)],
-                         ids=["block_n32", "default-two-blocks", "bn256-three-blocks"])
+                                              (70, 96, 768, 256, 256), (48, 64, 384, 128, 128)],
+                         ids=["block_n32", "default-two-blocks", "bn256-three-blocks",
+                              "bk128-three-blocks"])
 def test_gelu_quant_and_blockscale_match_jax(m, k, n, block_n, bn):
     """``int8_linear_gelu_quant`` at the caller's ``block_n=32``, at the
-    default with N=1024 (two scale blocks of 512) and at ``block_n=256`` with
+    default with N=1024 (two scale blocks of 512), at ``block_n=256`` with
     N=768 and K=96 (three blocks of 256; on the card ``bn`` 256 and 512 take
-    the wgmma kernel, other widths the mma.sync one), and
-    ``int8_linear_blockscale`` fed by its output (team_tpu's, on both sides)."""
+    the wgmma kernel, other widths the mma.sync one) and at ``block_n=128``
+    with N=384, and ``int8_linear_blockscale`` fed by its output (team_tpu's,
+    on both sides): K blocks of 32, 512, 256 and 128 (three blocks of 128,
+    the smallest the blockscale wgmma kernel takes on the card)."""
     xq, wq, xs, ws, b = _gemm_inputs(m, k, n, seed=4)
     jkw = dict(block_m=32, block_n=block_n, interpret=True)
     gq, gs = jim.int8_linear_gelu_quant(xq, wq, xs, ws, b, **jkw)
@@ -203,6 +206,16 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     for got, want in zip(tim.int8_linear_gelu_quant_mma(*args, block_n=64), (gq, gs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for kw in ({}, {"activation": "gelu", "out_dtype": torch.float32}):
+        torch.testing.assert_close(tim.int8_linear_mma(*args, **kw),
+                                   tim.int8_linear_reference(*args, **kw), rtol=0, atol=0)
+    _, w2q, _, w2s, b2 = (_t(a) for a in _gemm_inputs(8, 128, 32, seed=9))
+    for kw in ({}, {"out_dtype": torch.float32}):
+        want = tim.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2, **kw)
+        torch.testing.assert_close(tim.int8_linear_blockscale(gq, w2q, gs, w2s, b2, **kw), want,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(tim.int8_linear_blockscale_mma(gq, w2q, gs, w2s, b2, **kw),
+                                   want, rtol=0, atol=0)
     x = torch.randn(24, 64, generator=torch.Generator().manual_seed(0))
     for got, want in zip(tim.ln_quantize(x, args[4][:64], args[4][64:]),
                          tim.ln_quantize_reference(x, args[4][:64], args[4][64:])):

@@ -8,11 +8,12 @@ Phases, one line or more each:
      started together (set-up); ptxas's registers and spills of each
      kernel, no spill in a tensor-core kernel; cuobjdump -sass of
      attn_block.cu, mha_packed.cu and flash_attention.cu: HMMA in every
-     tensor-core (bf16, *_tc) kernel, none in the CUDA-core ones (f32; #4's
-     bf16); of int8_gemm.cu and gemm_probe.cu: GMMA (IGMMA s8, HGMMA bf16) in
-     the wgmma + TMA kernels (#15 gemm_kernel_wg, #20 blockscale_kernel_wg,
-     #21 gelu_quant_kernel_wg, #27 probe_mm_kernel_wg), none in the mma.sync
-     ones, and no spill in them
+     tensor-core (bf16, *_tc) kernel (#4's mha_v2_kernel_tc in its PV), none
+     in the CUDA-core ones (f32); of int8_gemm.cu and gemm_probe.cu: GMMA
+     (IGMMA s8, HGMMA bf16) in the wgmma + TMA kernels (#15 gemm_kernel_wg,
+     #20 blockscale_kernel_wg, #21 gelu_quant_kernel_wg, #27
+     probe_mm_kernel_wg_s8 and probe_mm_kernel_wg), none in the mma.sync
+     ones, and no spill in them; the mnemonics by kernel
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -49,7 +50,9 @@ Phases, one line or more each:
      for bit; the v2 pre-split attention (#4) at the vision shape in bf16 and
      f32, both exp dtypes, every key and kv_len < S (f32 within 1e-5, bf16
      within two bf16 steps of |ref| plus one of its row's largest |ref| plus
-     1e-5), and on bf16 inputs its two
+     1e-5; bf16 also within one bf16 step, plus the f32 order bound, of the
+     CUDA-core kernel it replaced, the count of outputs that differ printed),
+     and on bf16 inputs its two
      switches shown to take effect (deferred normalise against #3, bf16 exp
      against f32 exp); each q3i decomposition variant (#29) on the probe's
      inputs at B=128 with o_inv 20-60 and 0.5-2, one int8 step on under 1 %
@@ -59,8 +62,8 @@ Phases, one line or more each:
      v2), each #29 variant on r4_attn_decomp's first layer; the u8
      normalize (#26) bit for bit over every u8 value and at B=128, 224^2;
      the GEMM probes' kernels at the probes' own shapes and inputs:
-     probe_mm (#27) int8 bit for bit the exact product over a whole 4096^3
-     input and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
+     probe_mm (#27) int8 bit for bit the exact product and the mma.sync
+     kernel it replaced over a whole 4096^3 input, and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
      int8 bit for bit and bf16 within 2^-10 of the largest |ref|, mlp_mega
      (#30) 2-D and 3-D bit for bit and within 127 s2 per near-edge hq (plus
      one bf16 step) of the plain version, the share of rows that differ
@@ -73,15 +76,16 @@ Phases, one line or more each:
      events over calls queued behind a device spin (device time, not the
      host's launch rate); each kernel's bound (bytes over 3.35 TB/s or operations over the
      peak of their type) computed from the same inputs; #4 (f32 and bf16 exp)
-     against SDPA, #29's variants (copy against qkv[..., :D].contiguous()),
+     against SDPA and the CUDA-core kernel it replaced, with its design's FMA
+     floor beside the byte bound, #29's variants (copy against qkv[..., :D].contiguous()),
      #26 with the torch composition of its arithmetic as context; #27
      against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
      rate is the mma.sync ceiling), #30 against the torch composition; the
      fused kernels' TFLOP/s and share of their bound beside their times; the
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
      kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
-     the wgmma GEMMs (#15 at qkv and out, #20 at proj, #21 at fc, #27 bf16)
-     against their mma.sync ms of PERF.md (the int8 ones' mma.sync kernels
+     the wgmma GEMMs (#15 at qkv and out, #20 at proj, #21 at fc, #27 int8
+     and bf16) against their mma.sync ms of PERF.md (the int8 ones' mma.sync kernels
      also timed in the run), the library call, the bound (its share) and
      TOP/s or TFLOP/s
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
@@ -391,14 +395,14 @@ def time_kernel(ms, dev) -> dict:
     return times
 
 
-# the attention sources whose bf16 kernels run on the tensor cores (mma.sync)
-# and whose f32 kernels (and #4's bf16 kernel) run on the CUDA cores: source ->
-# (tensor-core kernels, CUDA-core kernels), by name (a tensor-core name, *_tc,
-# holds its CUDA-core kernel's name, so it is matched first)
+# the attention sources whose bf16 kernels run on the tensor cores (mma.sync;
+# #4's bf16 kernel its PV alone) and whose f32 kernels run on the CUDA cores:
+# source -> (tensor-core kernels, CUDA-core kernels), by name (a tensor-core
+# name, *_tc, holds its CUDA-core kernel's name, so it is matched first)
 TC_SOURCES = {
     "attn_block.cu": (("mha_packed_proj_kernel_tc", "ln_qkv_kernel_tc"),
                       ("mha_packed_proj_kernel", "ln_qkv_kernel")),
-    "mha_packed.cu": (("mha_packed_kernel_tc",), ("mha_packed_kernel",)),
+    "mha_packed.cu": (("mha_packed_kernel_tc", "mha_v2_kernel_tc"), ("mha_packed_kernel",)),
     "flash_attention.cu": (("flash_kernel_tc",), ("flash_kernel",)),
 }
 
@@ -406,14 +410,14 @@ TC_SOURCES = {
 # the GEMM sources whose wgmma kernels (TMA-fed, csrc/wgmma_gemm.cuh) issue
 # GMMA instructions and whose mma.sync kernels issue none: source -> (wgmma
 # kernels, mma.sync kernels), by name as TC_SOURCES (cuobjdump prints
-# IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21),
+# IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21, #27 int8),
 # IGMMA.64x128x32.S8.S8 for #20's m64n128 and HGMMA.64x256x16.F32.BF16 for
 # #27's bf16 one; mma.sync is IMMA.16832.S8.S8 and HMMA.16816.F32.BF16)
 GMMA_SOURCES = {
     "int8_gemm.cu": (("gelu_quant_kernel_wg", "gemm_kernel_wg", "blockscale_kernel_wg"),
                      ("gelu_quant_kernel", "gemm_kernel")),
-    "gemm_probe.cu": (("probe_mm_kernel_wg",), ("probe_mm_kernel", "ceiling_kernel",
-                                                "mlp_mega_kernel")),
+    "gemm_probe.cu": (("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg"),
+                      ("probe_mm_kernel", "ceiling_kernel", "mlp_mega_kernel")),
 }
 
 
@@ -421,17 +425,17 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
     """``opcode`` instructions in each kernel of the built libraries
     (``cuobjdump -sass``): HMMA in the attention sources, where every
     tensor-core (bf16) kernel issues its products on the tensor cores and no
-    CUDA-core kernel (f32; #4's bf16) does; GMMA in the GEMM sources, where
-    every wgmma kernel issues it and no mma.sync kernel does. Prints the
-    mnemonics that hold ``opcode``. Returns source -> kernel -> the count of
-    each of its instantiations."""
+    CUDA-core kernel (f32) does; GMMA in the GEMM sources, where every wgmma
+    kernel issues it and no mma.sync kernel does. Prints the mnemonics that
+    hold ``opcode``, by kernel. Returns source -> kernel -> the count of each
+    of its instantiations."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     found = {}
     for source, (tc, other) in sources.items():
         sass = subprocess.run([cuobjdump, "-sass", str(build._target(source))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts = {}
-        mnemonics = set()
+        mnemonics = defaultdict(set)
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -439,15 +443,17 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
                 counts[name] = 0
             elif name is not None and opcode in line:
                 counts[name] += 1
-                mnemonics.update(re.findall(rf"\b\w*{opcode}[.\w]*", line))
+                mnemonics[name].update(re.findall(rf"\b\w*{opcode}[.\w]*", line))
         kinds = defaultdict(list)
+        kind_mnemonics = defaultdict(set)
         for fn, n in counts.items():
             kind = next((k for k in tc if k in fn), None) or next(
                 (k for k in other if k in fn), None)
             if kind is not None:
                 kinds[kind].append(n)
-        print(f"  cuobjdump -sass {source}, {opcode} per kernel: {dict(kinds)}; "
-              f"mnemonics {sorted(mnemonics)}")
+                kind_mnemonics[kind] |= mnemonics[fn]
+        print(f"  cuobjdump -sass {source}, {opcode} per kernel: {dict(kinds)}; mnemonics "
+              f"{ {k: sorted(m) for k, m in kind_mnemonics.items() if m} }")
         if any(not kinds[k] or min(kinds[k]) == 0 for k in tc):
             raise AssertionError(f"a kernel of {source} that should issue {opcode} does not: "
                                  f"{dict(kinds)}")
@@ -649,6 +655,8 @@ CUDA_CORE_MS = {
     "tp text nm=2": ("fused_mha_packed_tp, one rank", 0.0243, (32, 4, 77, True)),
     "flash vision": ("flash_attention", 1.9232, (128, 12, 197, False)),
     "flash text": ("flash_attention", 0.0480, (32, 8, 77, True)),
+    "v2 f32exp": ("fused_mha_short_v2 f32exp", 1.6021, (128, 12, 197, False)),
+    "v2 bf16exp": ("fused_mha_short_v2 bf16exp", 1.6062, (128, 12, 197, False)),
 }
 
 
@@ -659,10 +667,13 @@ def report_redesign(times: dict, flash_times: dict) -> None:
     for key, (name, before, (b, h, s, causal)) in CUDA_CORE_MS.items():
         t = measured[key]
         tflops = attention_ops(b, h, s, 64, causal) / t["ms"] / 1e9
+        now = f", {t['cuda_core_ms']:.4f} ms in this run" if "cuda_core_ms" in t else ""
+        floor = f"; {100 * t['fma_floor_ms'] / t['ms']:.1f} % of its FMA floor" \
+            if "fma_floor_ms" in t else ""
         print(f"  {name} ({key}): {t['ms']:.4f} ms on the tensor cores against the CUDA-core "
-              f"kernel's {before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster; "
+              f"kernel's {before:.4f} ms (PERF.md){now}, {before / t['ms']:.2f}x faster; "
               f"{t['ms'] / t['library_ms']:.2f}x scaled_dot_product_attention; "
-              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; {tflops:.1f} TFLOP/s")
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound{floor}; {tflops:.1f} TFLOP/s")
 
 
 # the GEMMs that moved from mma.sync to wgmma + TMA: their mma.sync card ms as
@@ -673,6 +684,7 @@ MMA_SYNC_MS = {
     "int8_linear_gelu_quant fc": ("int8_linear_gelu_quant (#21, bn 512)", 0.9412,
                                   2 * 128 * 197 * FC_SHAPE[0] * FC_SHAPE[1]),
     "probe_mm bf16": ("probe_mm bf16 (#27, M=N=K=4096)", 0.7349, 2 * 4096 ** 3),
+    "probe_mm int8": ("probe_mm int8 (#27, M=N=K=4096)", 0.3744, 2 * 4096 ** 3),
     "int8_linear qkv": ("int8_linear (#15) qkv", 0.3669, 2 * 128 * 197 * 768 * 2304),
     "int8_linear out": ("int8_linear (#15) out", 0.1312, 2 * 128 * 197 * 768 * 768),
     "int8_linear_blockscale proj": ("int8_linear_blockscale (#20) proj, 6 K blocks", 0.4344,
@@ -2761,10 +2773,33 @@ def _check_bf16_steps(name: str, out, ref) -> float:
     return worst
 
 
+def _check_one_step(name: str, out, other, magnitude, n_keys: int) -> int:
+    """#4's bfloat16 output against another kernel's output of the same p:
+    every output within one bf16 step (at the larger |value|) plus what two
+    orders of the f32 sum of the n_keys terms p_j v_j / l may differ by, 2
+    n_keys 2^-24 ``magnitude`` (sum_j p_j |v_j| / l: outputs that cancel to
+    ~1e-6 out of terms ~0.8 move by more than their own step); returns, and
+    prints, how many differ at all."""
+    import torch
+
+    a, b = out.float(), other.float()
+    step = _bf16_step(torch.maximum(a.abs(), b.abs()))
+    diff = (a - b).abs()
+    n = int((diff > 0).sum().item())
+    limit = step + 2 * n_keys * 2.0 ** -24 * magnitude.float()
+    print(f"  {name}: {n} of {out.numel()} outputs differ, {int((diff > step).sum().item())} by "
+          f"more than one bf16 step, the worst at {(diff / limit).max().item():.3f} of the limit "
+          "(one step plus the f32 order bound)")
+    if out.shape != other.shape or bool((diff > limit).any()):
+        raise AssertionError(f"{name}: past one bf16 step plus the f32 order bound")
+    return n
+
+
 def _check_switch(switch: str, out, without, ref) -> None:
-    """A template switch of ``attend_rows`` takes effect: the bf16 kernel's
-    output with it differs from its output without it, and fewer of its
-    outputs differ from the plain version of the switched arithmetic."""
+    """A switch of #4 (the deferred normalise, the bf16 exp) takes effect:
+    the bf16 kernel's output with it differs from its output without it, and
+    fewer of its outputs differ from the plain version of the switched
+    arithmetic."""
     import torch
 
     differ = (out != ref).float().mean().item()
@@ -2778,7 +2813,8 @@ def _check_switch(switch: str, out, without, ref) -> None:
 def compare_v2(ms, dev) -> float:
     """#4 against its plain version at the vision shape, bf16 and f32, both
     exp dtypes, every key and kv_len < S (f32 within 1e-5; bf16 as
-    :func:`_check_bf16_steps`). On bf16 inputs each switch
+    :func:`_check_bf16_steps`); bf16 also against the CUDA-core kernel it
+    replaced (:func:`_check_one_step`). On bf16 inputs each switch
     must show: the deferred normalise against #3 (the same kernel without
     it), the bf16 exp against the f32 exp."""
     import torch
@@ -2798,6 +2834,14 @@ def compare_v2(ms, dev) -> float:
                             else _check_close(name, out, ref, dtype))
                 outs[exp_dtype] = out, ref
             if dtype == torch.bfloat16:
+                for exp_dtype, (out, _) in outs.items():
+                    core = ms.fused_mha_short_v2_cuda_core(q, k, v, kv_len, exp_dtype=exp_dtype)
+                    magnitude = ms.mha_short_v2_reference(q, k, v.abs(), kv_len, exp_dtype)
+                    torch_sync()
+                    _check_one_step(f"fused_mha_short_v2 B={b} H={h} S={s} kv_len={kv_len} exp "
+                                    f"{exp_dtype} against the CUDA-core kernel (p bit for bit, "
+                                    "PV and l summed in another order)", out, core, magnitude,
+                                    s if kv_len is None else kv_len)
                 v1 = ms.fused_mha_short(q, k, v, kv_len)
                 torch_sync()
                 _check_switch(f"DEFER (kv_len={kv_len})", outs[torch.float32][0], v1,
@@ -2948,16 +2992,22 @@ def time_probe_kernels(ms, pp, dev) -> dict:
     times = {}
     q, k, v = v2_inputs(b, h, s, torch.bfloat16, dev, seed=1)
     v2_bound = bound(4 * q.numel() * 2, {"bf16": attention_ops(b, h, s, dh, False)})
+    # the design's floor: its logits' FMAs at the f32 rate (rows and keys padded to 16)
+    fma_floor = 2 * b * h * (-(-s // 16) * 16) ** 2 * dh / PEAK_OPS_PER_S["f32"] * 1e3
     lib = sdpa_ms(q, k, v, False)
     for exp_dtype, tag in ((torch.float32, "f32exp"), (torch.bfloat16, "bf16exp")):
         kernel = lambda e=exp_dtype: ms.fused_mha_short_v2(q, k, v, exp_dtype=e)  # noqa: E731
         plain = lambda e=exp_dtype: ms.mha_short_v2_reference(q, k, v, None, e)  # noqa: E731
-        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        core = lambda e=exp_dtype: ms.fused_mha_short_v2_cuda_core(q, k, v, exp_dtype=e)  # noqa: E731
+        p1, k1, c1, k2, c2, p2 = (_time_ms(plain), _time_ms(kernel), _time_ms(core),
+                                  _time_ms(kernel), _time_ms(core), _time_ms(plain))
         times[f"v2 {tag}"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                              "cuda_core_ms": (c1 + c2) / 2, "fma_floor_ms": fma_floor,
                               **v2_bound}
         print(f"  fused_mha_short_v2 {tag} B={b} H={h} S={s} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
-              f"plain {p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-              f"bound {v2_bound['bound_ms']:.4f} ms ({v2_bound['bound_by']})")
+              f"the CUDA-core kernel {c1:.4f}/{c2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms, bound {v2_bound['bound_ms']:.4f} ms "
+              f"({v2_bound['bound_by']}); the design's FMA floor {fma_floor:.4f} ms")
 
     qkv, qks, qkm2, oinv = _variant_inputs(r4, dev, VARIANT_OINV["script"])
     d = r4.D
@@ -3221,7 +3271,8 @@ def _probe_inputs(dev) -> dict:
 
 def compare_gemm_probes(gp, inp) -> dict:
     """#27, #28 and #30 against their plain versions at the probes' own shapes
-    and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output,
+    and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output
+    (and bit for bit the mma.sync kernel it replaced),
     bf16 within (K/16 + 1) ulps of |x|@|w|; mxu_ceiling int8 bit for bit, bf16
     within CEILING_BF16_SHARE of the largest |ref|; mlp_mega_2d and _3d equal
     bit for bit and within mlp_mega_limit of the plain version (the float
@@ -3232,11 +3283,12 @@ def compare_gemm_probes(gp, inp) -> dict:
 
     err = {}
     x, w = inp["mm"]
-    out, ref = gp.probe_mm(x, w), gp.probe_mm_reference(x, w)
+    out, ref, mma = gp.probe_mm(x, w), gp.probe_mm_reference(x, w), gp.probe_mm_int8_mma(x, w)
     torch_sync()
-    if not torch.equal(out, ref):
-        raise AssertionError("probe_mm int8 differs from the exact product")
-    print(f"  probe_mm int8 M=N=K={x.shape[0]}: bit for bit the exact product (tolerance 0)")
+    if not (torch.equal(out, ref) and torch.equal(out, mma)):
+        raise AssertionError("probe_mm int8 differs from the exact product or the mma.sync kernel")
+    print(f"  probe_mm int8 M=N=K={x.shape[0]}: bit for bit the exact product and the mma.sync "
+          "kernel (tolerance 0)")
     err["probe_mm int8"] = 0.0
     xb, wb = inp["mm_bf16"]
     out, ref = gp.probe_mm(xb, wb), gp.probe_mm_reference(xb, wb)
@@ -3300,8 +3352,8 @@ def compare_gemm_probes(gp, inp) -> dict:
 def time_gemm_probes(gp, inp) -> dict:
     """#27, #28 and #30 at the probes' shapes (plain, kernel, kernel, plain),
     each with its bound and its library call: torch._int_mm and torch.matmul
-    (bf16 out) for #27, none for #28, the torch composition (the probe's xla
-    variant) for #30."""
+    (bf16 out) for #27 (int8 also the mma.sync kernel it replaced), none for
+    #28, the torch composition (the probe's xla variant) for #30."""
     import torch
 
     from team_tpu_torch.scripts import int8_mxu_ceiling as mc
@@ -3320,6 +3372,9 @@ def time_gemm_probes(gp, inp) -> dict:
         n = w.shape[1]
         t = four(lambda: gp.probe_mm(x, w), lambda: gp.probe_mm_reference(x, w))
         t["library_ms"] = _time_ms(lambda: lib(x, w))
+        if tag == "int8":  # the mma.sync kernel that the wgmma one replaced
+            t["mma_sync_ms"] = (_time_ms(lambda: gp.probe_mm_int8_mma(x, w))
+                                + _time_ms(lambda: gp.probe_mm_int8_mma(x, w))) / 2
         esz = x.element_size()
         t.update(bound((m * k + k * n) * esz + m * n * 4, {tag: 2 * m * n * k}))
         t["tops"] = 2 * m * n * k / t["ms"] / 1e9
@@ -3720,6 +3775,11 @@ def main() -> int:
         "launches": probes["v2_launches"],
         "launches_from": "phase 5, team_tpu_torch.scripts.attn_shootout (MODE all and qpad128)",
         "max_abs_err": v2_err, **timing(times["v2 f32exp"]), "bf16exp": timing(times["v2 bf16exp"]),
+        "kernel": "mha_v2_kernel_tc (bf16: CUDA-core logits in head-dimension order, PV on "
+                  "mma.sync; f32 and fused_mha_short_v2_cuda_core on mha_packed_kernel)",
+        "cuda_core_ms": times["v2 f32exp"]["cuda_core_ms"],
+        "bf16exp_cuda_core_ms": times["v2 bf16exp"]["cuda_core_ms"],
+        "hmma_per_kernel": hmma["mha_packed.cu"],
         "shootout_ms_per_layer": probes["shootout"],
     }, *({
         "name": f"fused_mha_q3i_variant[{variant}]", **q3i_common,
@@ -3742,6 +3802,9 @@ def main() -> int:
         "launches_from": "phase 5, team_tpu_torch.scripts.int8_probe",
         "max_abs_err": gemm_probe_err["probe_mm int8"], **timing(times["probe_mm int8"]),
         "tops": times["probe_mm int8"]["tops"], "library": "torch._int_mm",
+        "kernel": "probe_mm_kernel_wg_s8 (wgmma + TMA, csrc/wgmma_gemm.cuh); probe_mm_kernel "
+                  "(mma.sync) behind probe_mm_int8_mma, equal bit for bit (phase 3)",
+        "mma_sync_ms": times["probe_mm int8"]["mma_sync_ms"],
         "bf16": {**timing(times["probe_mm bf16"]), "tops": times["probe_mm bf16"]["tops"],
                  "max_abs_err": gemm_probe_err["probe_mm bf16"],
                  "library": "torch.matmul on the bf16 operands (bf16 out)",

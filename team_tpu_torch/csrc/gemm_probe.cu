@@ -1,4 +1,4 @@
-// The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores: bf16
+// The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores:
 // probe_mm through wgmma (csrc/wgmma_gemm.cuh), the others through mma.sync
 // (the s8 mainloop of csrc/int8_mma.cuh, the bf16 fragments of
 // csrc/bf16_mma.cuh).
@@ -11,13 +11,15 @@
 // The TPU tilings (BM/BN/BK, block_m, block_b) are not carried over.
 //
 // probe_mm: out = x [M, K] @ w, with w given as its transpose [N, K]
-// row-major. int8 -> int32 exact (the raw accumulator is stored), a CTA of 64
-// x 128 outputs on the s8 mma.sync mainloop; bf16 -> f32 (each bf16 product
-// is exact in f32, the sums are f32 in the tensor cores' order), a CTA of 128
-// x 256 outputs on the wgmma + TMA mainloop of csrc/wgmma_gemm.cuh. Bound on
-// an H100 at M = N = K = 4096: 137.4 G operations, 0.0695 ms in int8 at 1,979
-// TOP/s and 0.139 ms in bf16 at 989 TFLOP/s; the bytes (101 MB int8) take
-// 0.030 ms.
+// row-major, a CTA of 128 x 256 outputs on the wgmma + TMA mainloop of
+// csrc/wgmma_gemm.cuh. int8 -> int32 exact (the raw accumulator is stored,
+// staged to whole 32-byte sectors); bf16 -> f32 (each bf16 product is exact
+// in f32, the sums are f32 in the tensor cores' order). The int8 form's
+// earlier kernel, 64 x 128 tiles on the s8 mma.sync mainloop, stays callable
+// (team_probe_mm_mma) as its yardstick: both are exact, so they agree bit for
+// bit. Bound on an H100 at M = N = K = 4096: 137.4 G operations, 0.0695 ms in
+// int8 at 1,979 TOP/s and 0.139 ms in bf16 at 989 TFLOP/s; the bytes (101 MB
+// int8) take 0.030 ms.
 //
 // mxu_ceiling: out [M, N] f32 = sum over i < reps of x[8 (i mod 64) :
 // 8 (i mod 64) + M, :] @ w, with w [K, N] given as [N, K]. Every one of the
@@ -51,9 +53,9 @@
 // Bound at the probe's shape (M = 256 x 197, K = 768, N = 3,072): 475.9 G
 // operations, 0.2405 ms; its bytes (121 MB) 0.036 ms.
 //
-// probe_mm's int8 form, the ceiling and the megakernel run mma.sync from a
-// two-stage cp.async pipeline, not wgmma and TMA (the ceiling is the
-// mma.sync ceiling by design); their times are in PERF.md.
+// The ceiling and the megakernel run mma.sync from a two-stage cp.async
+// pipeline, not wgmma and TMA (the ceiling is the mma.sync ceiling by
+// design); their times are in PERF.md.
 
 #include "bf16_mma.cuh"
 #include "int8_mma.cuh"
@@ -82,13 +84,7 @@ struct Operands {
   int m, k, bk;
 };
 
-__device__ __forceinline__ void store2(int* out, int v0, int v1) {
-  *reinterpret_cast<int2*>(out) = make_int2(v0, v1);
-}
-
-__device__ __forceinline__ void store2(float* out, float v0, float v1) {
-  *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
-}
+using wg::store2;
 
 // a warp's MI x NI accumulators of a 64-row tile, at rows wrow and columns
 // wcol of the tile, to out [m, n] (n a multiple of 8: col + 1 < n too)
@@ -115,7 +111,7 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[MI][NI][4], Acc* out
 // probe_mm
 // ---------------------------------------------------------------------------
 
-// int8: the s8 mma.sync mainloop, 64 x 128 tiles
+// int8 on the s8 mma.sync mainloop, 64 x 128 tiles (team_probe_mm_mma)
 __global__ void __launch_bounds__(kThreads) probe_mm_kernel(const Operands p, int* out, int n) {
   using T = Tile<kTileM, 2>;
   __shared__ __align__(16) Stages<kTileM> st;
@@ -156,6 +152,27 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                  acc[4 * i + 2 * h + 1]);
       }
     }
+  });
+}
+
+// int8 on the same mainloop: 128 x 256 tiles of m64n256 s8, four stages of
+// 48 KB, persistent CTAs; each consumer warp's exact int32 sums leave
+// through its 2 KB buffer in whole 32-byte sectors (wg::store_warp_rows)
+using ProbeS8 = wg::Config<128, 256, 4, 1>;
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    probe_mm_kernel_wg_s8(const __grid_constant__ CUtensorMap ma,
+                          const __grid_constant__ CUtensorMap mb, int* out, int m, int n, int k) {
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(16) int out_stage[wg::kConsumerWarps][16 * 32];
+  wg::run<ProbeS8, int>(wg_smem, &ma, &mb, m, n, k, [&](int (&acc)[128], int row0, int col0,
+                                                       int cw) {
+    const int warp = (threadIdx.x >> 5) - 4;  // among the consumer warps
+    wg::store_warp_rows<32, int>(out, out_stage[warp], row0 + cw * 64 + 16 * (warp & 3), col0, m,
+                                 n, [&](int i, int (&v)[4]) {
+#pragma unroll
+                                   for (int e = 0; e < 4; ++e) v[e] = acc[4 * i + e];
+                                 });
   });
 }
 
@@ -429,18 +446,33 @@ extern "C" int team_probe_mm(const void* x, const void* w_t, void* out, int m, i
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap ma, mb;
+  dim3 grid;
   if (bf16) {
-    CUtensorMap ma, mb;
-    dim3 grid;
     const cudaError_t err = wg::prepare<ProbeBf16>(probe_mm_kernel_wg, &ma, &mb, &grid, x, w_t, m,
                                                    n, k, 2, true);
     if (err != cudaSuccess) return err;
     return wg::launch<ProbeBf16>(probe_mm_kernel_wg, grid, s, ma, mb, static_cast<float*>(out), m,
                                  n, k);
   }
+  const cudaError_t err = wg::prepare<ProbeS8>(probe_mm_kernel_wg_s8, &ma, &mb, &grid, x, w_t, m,
+                                               n, k, 1, false);
+  if (err != cudaSuccess) return err;
+  return wg::launch<ProbeS8>(probe_mm_kernel_wg_s8, grid, s, ma, mb, static_cast<int*>(out), m, n,
+                             k);
+}
+
+// team_probe_mm's int8 form on the mma.sync kernel (probe_mm_kernel): the
+// kernel that probe_mm_kernel_wg_s8 replaced, kept callable so that the two
+// can be held against each other bit for bit.
+extern "C" int team_probe_mm_mma(const void* x, const void* w_t, void* out, int m, int n, int k,
+                                 void* stream) {
+  if (m < 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 32 != 0) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
   const Operands p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), nullptr, m, k, 0};
   const dim3 grid((m + kTileM - 1) / kTileM, (n + kBN - 1) / kBN);
-  probe_mm_kernel<<<grid, kThreads, 0, s>>>(p, static_cast<int*>(out), n);
+  probe_mm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, static_cast<int*>(out),
+                                                                             n);
   return cudaGetLastError();
 }
 

@@ -106,14 +106,7 @@ struct Params {
   int bn;              // gelu_quant: columns per scale block
 };
 
-
-__device__ __forceinline__ void store2(float* out, float y0, float y1) {
-  *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* out, float y0, float y1) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(y0, y1);
-}
+using wg::store2;
 
 // int8_linear (EPI kDequant, kDequantGelu) and int8_linear_blockscale (kBlockScale)
 template <int EPI, typename Out>
@@ -302,56 +295,6 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 using GeluQuant512 = wg::Config<64, 512, 3, 1>;
 using GeluQuant256 = wg::Config<128, 256, 4, 1>;
 
-// A consumer warp's 16 rows of a tile's output (row0 + lane / 4 + 8 h, h <
-// 2) over NI x 8 columns (col0 + 8 i + 2 (lane % 4) + e, e < 2) to out [m,
-// n]: y(i, v) gives column group i's four values, v[2 h + e]. They leave 32
-// columns at a time through the warp's buffer of 16 rows x 32 columns, so
-// each lane stores whole 16-byte pieces and each row's 32 columns fill whole
-// 32-byte sectors (straight from the registers a warp store writes 4 or 8
-// bytes a lane, in pieces of a quarter or half a sector). The buffer's
-// 16-byte chunks are swizzled by row, so neither the fragment writes nor the
-// piece reads meet a bank conflict. Rows past m and columns past n are not
-// stored (n is a multiple of 8: a piece is all in or all out).
-template <int NI, typename Out, typename Y>
-__device__ __forceinline__ void store_warp_rows(Out* out, Out* buf, int row0, int col0, int m,
-                                                int n, Y&& y) {
-  constexpr int kE = sizeof(Out);         // 2 or 4 bytes
-  constexpr int kChunks = 32 * kE / 16;   // 16-byte chunks of a buffer row: 4 or 8
-  constexpr int kPieces = 16 * kChunks / 32;  // pieces a lane stores per 32 columns
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(buf);
-  // bf16: rows r and r + 2 share banks (64-byte rows); f32: the four rows a
-  // half warp writes do (128-byte rows)
-  auto at = [&](int r, int chunk) {
-    const int swz = kE == 2 ? (r >> 1) & 3 : (r & 3) << 1;
-    return bytes + r * 32 * kE + (chunk ^ swz) * 16;
-  };
-#pragma unroll
-  for (int j = 0; j < NI / 4; ++j) {
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float v[4];
-      y(4 * j + ii, v);
-      const int byte = (8 * ii + 2 * t) * kE;  // in the buffer's row
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store2(reinterpret_cast<Out*>(at(g + 8 * h, byte / 16) + byte % 16), v[2 * h],
-               v[2 * h + 1]);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int q = 0; q < kPieces; ++q) {
-      const int piece = lane + 32 * q;
-      const int r = piece / kChunks, chunk = piece % kChunks;
-      const int row = row0 + r, col = col0 + 32 * j + chunk * (16 / kE);
-      if (row < m && col < n)
-        *reinterpret_cast<int4*>(out + static_cast<size_t>(row) * n + col) =
-            *reinterpret_cast<const int4*>(at(r, chunk));
-    }
-    __syncwarp();
-  }
-}
-
 // The first row of a consumer warp's 16 and the first column of its
 // warpgroup's INSTR_N in the CTA tile at (row0, col0).
 template <typename C>
@@ -390,7 +333,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float xs[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) xs[h] = r + 8 * h < p.m ? p.xs[r + 8 * h] : 0.f;
-    store_warp_rows<C::ACC / 4>(
+    wg::store_warp_rows<C::ACC / 4>(
         static_cast<Out*>(p.out), out_stage[(threadIdx.x >> 5) - 4], wr0, wc0, p.m, p.n,
         [&](int i, float(&v)[4]) {
           float2 w, b;
@@ -464,7 +407,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
         fold(facc, acc, x);
       }
       const int col = wc0 + 2 * (lane & 3);
-      store_warp_rows<C::ACC / 4>(
+      wg::store_warp_rows<C::ACC / 4>(
           static_cast<Out*>(p.out), out_stage[(threadIdx.x >> 5) - 4], wr0, wc0, p.m, p.n,
           [&](int i, float(&v)[4]) {
             float2 w, b;

@@ -4,8 +4,9 @@
 // #20 int8_linear_blockscale, blockscale_kernel_wg; #21
 // int8_linear_gelu_quant at bn 256 and 512, gelu_quant_kernel_wg; the TPU
 // kernels of team_tpu/ops/int8_matmul.py:54, :565 and :506) and
-// csrc/gemm_probe.cu (#27 probe_mm in bf16; scripts/int8_probe.py:48
-// pallas_mm).
+// csrc/gemm_probe.cu (#27 probe_mm, s8 and bf16; scripts/int8_probe.py:48
+// pallas_mm). Beside it, store_warp_rows: the epilogues' stores, staged to
+// whole 32-byte sectors.
 //
 // What it replaces. For these kernels, the mma.sync mainloops of
 // csrc/int8_mma.cuh (s8) and the bf16 one that csrc/bf16_mma.cuh held: four
@@ -16,8 +17,8 @@
 // What bounds it. The operations at the shapes that use it: #21 at the
 // ViT-B/16 fc shape (M 25,216, K 768, N 3,072) and #20 at proj (K 3,072, N
 // 768) do 119 G int8 operations each, 0.060 ms at the dense 1,979 TOP/s;
-// #15 at qkv (K 768, N 2,304) 89 G; #27 at 4096^3 137.4 GFLOP, 0.139 ms at
-// 989 TFLOP/s. A CTA tile of BM x BN takes (BM + BN) x 128 bytes into shared
+// #15 at qkv (K 768, N 2,304) 89 G; #27 at 4096^3 137.4 G, 0.069 ms in s8
+// at 1,979 TOP/s and 0.139 ms in bf16 at 989 TFLOP/s. A CTA tile of BM x BN takes (BM + BN) x 128 bytes into shared
 // memory for each 128 bytes of K: 72 KB at 64 x 512 (s8), 48 KB at 128 x 256,
 // 40 KB at 64 x 256, for 0.28-0.56 us of tensor work. At K 768 a tile is
 // only six stages, so what a tile costs besides its stages (filling the
@@ -68,6 +69,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -558,6 +560,74 @@ __device__ __forceinline__ void run(uint8_t* smem, const CUtensorMap* ma, const 
       epi(d, tiles.row0(t), tiles.col0(t), cw);
     }
   });
+}
+
+// ---------------------------------------------------------------------------
+// device: the epilogue's stores
+// ---------------------------------------------------------------------------
+
+// two adjacent outputs (rounded to the output type)
+__device__ __forceinline__ void store2(float* out, float y0, float y1) {
+  *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* out, float y0, float y1) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(y0, y1);
+}
+
+__device__ __forceinline__ void store2(int* out, int y0, int y1) {
+  *reinterpret_cast<int2*>(out) = make_int2(y0, y1);
+}
+
+// A consumer warp's 16 rows of a tile's output (row0 + lane / 4 + 8 h, h <
+// 2) over NI x 8 columns (col0 + 8 i + 2 (lane % 4) + e, e < 2) to out [m,
+// n]: y(i, v) gives column group i's four values, v[2 h + e] (of type V:
+// f32 for a bf16 or f32 output, int for int32). They leave 32 columns at a
+// time through the warp's buffer of 16 rows x 32 columns, so each lane
+// stores whole 16-byte pieces and each row's 32 columns fill whole 32-byte
+// sectors (straight from the registers a warp store writes 4 or 8 bytes a
+// lane, in pieces of a quarter or half a sector). The buffer's 16-byte
+// chunks are swizzled by row, so neither the fragment writes nor the piece
+// reads meet a bank conflict. Rows past m and columns past n are not stored
+// (n is a multiple of 8: a piece is all in or all out).
+template <int NI, typename V = float, typename Out, typename Y>
+__device__ __forceinline__ void store_warp_rows(Out* out, Out* buf, int row0, int col0, int m,
+                                                int n, Y&& y) {
+  constexpr int kE = sizeof(Out);         // 2 or 4 bytes
+  constexpr int kChunks = 32 * kE / 16;   // 16-byte chunks of a buffer row: 4 or 8
+  constexpr int kPieces = 16 * kChunks / 32;  // pieces a lane stores per 32 columns
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(buf);
+  // 2-byte outputs: rows r and r + 2 share banks (64-byte rows); 4-byte: the
+  // four rows a half warp writes do (128-byte rows)
+  auto at = [&](int r, int chunk) {
+    const int swz = kE == 2 ? (r >> 1) & 3 : (r & 3) << 1;
+    return bytes + r * 32 * kE + (chunk ^ swz) * 16;
+  };
+#pragma unroll
+  for (int j = 0; j < NI / 4; ++j) {
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      V v[4];
+      y(4 * j + ii, v);
+      const int byte = (8 * ii + 2 * t) * kE;  // in the buffer's row
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(reinterpret_cast<Out*>(at(g + 8 * h, byte / 16) + byte % 16), v[2 * h],
+               v[2 * h + 1]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q) {
+      const int piece = lane + 32 * q;
+      const int r = piece / kChunks, chunk = piece % kChunks;
+      const int row = row0 + r, col = col0 + 32 * j + chunk * (16 / kE);
+      if (row < m && col < n)
+        *reinterpret_cast<int4*>(out + static_cast<size_t>(row) * n + col) =
+            *reinterpret_cast<const int4*>(at(r, chunk));
+    }
+    __syncwarp();
+  }
 }
 
 }  // namespace wg

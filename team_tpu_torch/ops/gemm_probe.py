@@ -13,10 +13,11 @@ Counterparts of the TPU kernels of the repository's probe scripts, driven by
   requantize -> proj in one kernel, the int8 intermediate kept on chip.
 
 One CUDA source, ``csrc/gemm_probe.cu``, compiled with ``nvcc`` on first use
-and bound with ``ctypes``: ``probe_mm`` in bf16 on ``wgmma`` fed by TMA (the
-mainloop of ``csrc/wgmma_gemm.cuh``), the rest on ``mma.sync`` (the s8
-mainloop of ``csrc/int8_mma.cuh``, the bf16 fragments of
-``csrc/bf16_mma.cuh``). On a CPU tensor each wrapper
+and bound with ``ctypes``: ``probe_mm`` (int8 and bf16) on ``wgmma`` fed by
+TMA (the mainloop of ``csrc/wgmma_gemm.cuh``), the rest on ``mma.sync`` (the
+s8 mainloop of ``csrc/int8_mma.cuh``, the bf16 fragments of
+``csrc/bf16_mma.cuh``; ``probe_mm_int8_mma`` runs ``probe_mm``'s earlier
+int8 kernel there, the yardstick that no path calls). On a CPU tensor each wrapper
 computes its plain version (the ``*_reference`` function beside it); on a
 CUDA tensor it launches its kernel or raises, and adds one to its
 ``launches``. The TPU tiling arguments (``block_m``, ``block_b``,
@@ -68,11 +69,13 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.team_probe_mm.argtypes = [p] * 3 + [i] * 4 + [p]
+    lib.team_probe_mm_mma.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.team_mxu_ceiling.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.team_mxu_ceiling_max_k.argtypes = [i]
     lib.team_mxu_ceiling_block_n.argtypes = [i]
     lib.team_mlp_mega.argtypes = [p] * 7 + [i] * 3 + [p]
-    for fn in (lib.team_probe_mm, lib.team_mxu_ceiling, lib.team_mxu_ceiling_max_k,
+    for fn in (lib.team_probe_mm, lib.team_probe_mm_mma, lib.team_mxu_ceiling,
+               lib.team_mxu_ceiling_max_k,
                lib.team_mxu_ceiling_block_n, lib.team_mlp_mega, lib.team_mlp_mega_max_n):
         fn.restype = ctypes.c_int
     return lib
@@ -144,16 +147,10 @@ def probe_mm_bf16_limit(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (k // 16 + 1) * ulp32(s_abs)
 
 
-def probe_mm(x: torch.Tensor, w: torch.Tensor, acc_dtype: Optional[torch.dtype] = None, *,
-             block_m: int = 512, block_n: int = 512, block_k: int = 1024) -> torch.Tensor:
-    """``x [M, K] @ w [K, N]``: int8 -> int32 (exact), or bf16 -> float32
-    (``scripts/int8_probe.py:48``); ``acc_dtype``, where given, must name that
-    type. On the card K is a multiple of 32 (int8) or 16 (bf16) and N of 8.
-    Each kernel launch adds one to ``probe_mm.launches``."""
-    name = "probe_mm"
-    want = _mm_types(name, x, w, acc_dtype)
-    if x.device.type == "cpu":
-        return probe_mm_reference(x, w, acc_dtype)
+def _probe_mm_kernel(name: str, x: torch.Tensor, w: torch.Tensor, want: torch.dtype,
+                     mma: bool) -> torch.Tensor:
+    """Launch ``probe_mm``'s kernel (``mma``: the int8 ``mma.sync`` one) on
+    checked CUDA operands."""
     _on_card(name, x, w)
     bf16 = int(x.dtype == torch.bfloat16)
     m, k = x.shape
@@ -163,12 +160,44 @@ def probe_mm(x: torch.Tensor, w: torch.Tensor, acc_dtype: Optional[torch.dtype] 
                          f"8 (the mma shape), got K={k}, N={n}")
     x, wt = _aligned(x), _aligned(w.t())
     out = torch.empty((m, n), dtype=want, device=x.device)
+    lib = _library()
     with torch.cuda.device(x.device):
-        err = _library().team_probe_mm(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, bf16,
-                                       torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if mma:
+            err = lib.team_probe_mm_mma(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, stream)
+        else:
+            err = lib.team_probe_mm(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, bf16,
+                                    stream)
     _raise_on(err, name)
+    return out
+
+
+def probe_mm(x: torch.Tensor, w: torch.Tensor, acc_dtype: Optional[torch.dtype] = None, *,
+             block_m: int = 512, block_n: int = 512, block_k: int = 1024) -> torch.Tensor:
+    """``x [M, K] @ w [K, N]``: int8 -> int32 (exact), or bf16 -> float32
+    (``scripts/int8_probe.py:48``); ``acc_dtype``, where given, must name that
+    type. On the card the ``wgmma`` kernel, K a multiple of 32 (int8) or 16
+    (bf16) and N of 8. Each kernel launch adds one to ``probe_mm.launches``."""
+    want = _mm_types("probe_mm", x, w, acc_dtype)
+    if x.device.type == "cpu":
+        return probe_mm_reference(x, w, acc_dtype)
+    out = _probe_mm_kernel("probe_mm", x, w, want, False)
     probe_mm.launches += 1
     return out
+
+
+def probe_mm_int8_mma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_mm` on int8 operands through the ``mma.sync`` kernel: the
+    kernel that the ``wgmma`` one replaced, callable so that the two can be
+    held against each other bit for bit (the card tests, ``chip_smoke.py``).
+    No path of the port calls it, and it counts no launch. On a CPU tensor:
+    the plain version."""
+    want = _mm_types("probe_mm_int8_mma", x, w, None)
+    if x.dtype != torch.int8:
+        raise TypeError(f"probe_mm_int8_mma takes int8 operands, got {x.dtype}")
+    if x.device.type == "cpu":
+        return probe_mm_reference(x, w)
+    return _probe_mm_kernel("probe_mm_int8_mma", x, w, want, True)
 
 
 # ---------------------------------------------------------------------------

@@ -1122,6 +1122,28 @@ def test_probe_mm_bf16_kernel_matches_plain_version(cuda_device, m, k, n, values
     assert bool(((out - ref).abs() <= gp.probe_mm_bf16_limit(x, w)).all())
 
 
+@pytest.mark.parametrize("k", [32, 96, 4128])
+@pytest.mark.parametrize("n", [8, 264, 4096])
+@pytest.mark.parametrize("m", [1, 100, 129, 4096])
+def test_probe_mm_int8_wgmma_kernel_is_exact_at_ragged_shapes(cuda_device, m, n, k):
+    """#27 int8 on wgmma (probe_mm_kernel_wg_s8) at tile edges in every
+    dimension: bit for bit the exact product and the mma.sync kernel it
+    replaced (probe_mm_int8_mma, which counts no launch)."""
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + 7 * n + 13 * k)
+    x, w = _int8((m, k), g, cuda_device), gp.column_major(_int8((k, n), g, cuda_device))
+    launches = gp.probe_mm.launches
+    mma = gp.probe_mm_int8_mma(x, w)
+    torch.cuda.synchronize()
+    assert gp.probe_mm.launches == launches
+    out = gp.probe_mm(x, w)
+    torch.cuda.synchronize()
+    assert gp.probe_mm.launches == launches + 1
+    assert torch.equal(out, gp.probe_mm_reference(x, w))
+    assert torch.equal(out, mma)
+
+
 @pytest.mark.parametrize("m,k,n,reps", [(512, 768, 768, 100), (100, 64, 96, 70)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mxu_ceiling_kernel_matches_plain_version(cuda_device, dtype, m, k, n, reps):
@@ -1308,6 +1330,82 @@ def test_bf16_v2_switches_take_effect_at_other_widths(cuda_device, b, h, s, dh, 
         assert (out != ref).sum() < (without != ref).sum()
 
 
+# #4's bf16 kernel (mha_v2_kernel_tc) at the edges of its 16-key blocks, of
+# its logits windows (4, 7 or 8 blocks a key half; dh 128 at 4, two passes
+# past 128 keys) and of its 64-row tiles: (S, dh, kv_len)
+V2_EDGE_CASES = [(s, dh, kv) for dh in (32, 64, 128)
+                 for s in (1, 15, 16, 17, 77, 197, 208, 300, 577)
+                 for kv in dict.fromkeys((None, 1, s - 7 if s > 7 else None))]
+
+
+def _v2_fits(s, dh):
+    return tms._library().team_mha_packed_smem_bytes(1, s, dh, 1) <= tms._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("exp_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,dh,kv_len", V2_EDGE_CASES)
+def test_bf16_v2_kernel_at_the_tile_and_window_edges(cuda_device, s, dh, kv_len, exp_dtype):
+    """#4's tensor-core kernel against its plain version at the existing
+    tolerance (one output step, 2^-7 of |ref|, plus 1e-5); a shape whose K
+    and V do not fit shared memory (S=577 at dh 128) raises, as it did on the
+    CUDA-core kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(s * 131 + dh)
+    q, k, v = (torch.randn((2, 3, s, dh), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    if not _v2_fits(s, dh):
+        for fn in (tms.fused_mha_short_v2, tms.fused_mha_short_v2_cuda_core):
+            with pytest.raises(ValueError, match="shared memory"):
+                fn(q, k, v, kv_len, exp_dtype=exp_dtype)
+        return
+    launches = tms.fused_mha_short_v2.launches
+    out = tms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=exp_dtype)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_short_v2.launches == launches + 1
+    torch.testing.assert_close(out.float(), tms.mha_short_v2_reference(
+        q, k, v, kv_len, exp_dtype).float(), rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_len", [None, 150])
+@pytest.mark.parametrize("exp_dtype", [torch.float32, torch.bfloat16])
+def test_bf16_v2_kernel_against_the_cuda_core_kernel(cuda_device, exp_dtype, kv_len):
+    """The tensor-core kernel against the CUDA-core kernel it replaced
+    (fused_mha_short_v2_cuda_core, which counts no launch): p and the terms of
+    the row sum are the same bit for bit, and only the f32 order of the PV and
+    row sums differs. So each output lies within one bf16 step (at the larger
+    |value|) of the other, plus what two orders of an f32 sum of the S terms
+    p_j v_j / l may differ by, 2 S 2^-24 sum_j p_j |v_j| / l (that sum from the
+    plain version on |v|): outputs that cancel to ~1e-6 out of terms ~0.8 move
+    by more than their own step. The count that differs is printed."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (torch.randn((16, 12, 197, 64), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    launches = tms.fused_mha_short_v2.launches
+    core = tms.fused_mha_short_v2_cuda_core(q, k, v, kv_len, exp_dtype=exp_dtype)
+    torch.cuda.synchronize()
+    assert tms.fused_mha_short_v2.launches == launches
+    out = tms.fused_mha_short_v2(q, k, v, kv_len, exp_dtype=exp_dtype)
+    magnitude = tms.mha_short_v2_reference(q, k, v.abs(), kv_len, exp_dtype).float()
+    torch.cuda.synchronize()
+    a, c = out.float(), core.float()
+    step = torch.ldexp(torch.ones_like(a), torch.frexp(torch.maximum(a.abs(), c.abs())
+                                                         .clamp_min(2.0 ** -126))[1] - 8)
+    n_keys = 197 if kv_len is None else kv_len
+    differ = int((a != c).sum())
+    past_step = int(((a - c).abs() > step).sum())
+    print(f"#4 tensor-core vs CUDA-core kernel, exp {exp_dtype}, kv_len {kv_len}: {differ} of "
+          f"{a.numel()} outputs differ, {past_step} by more than one bf16 step")
+    assert bool(((a - c).abs() <= step + 2 * n_keys * 2.0 ** -24 * magnitude).all()), differ
+
+
+def test_v2_tensor_core_kernel_issues_hmma(cuda_device):
+    """Every instantiation of #4's bf16 kernel runs its PV on the tensor
+    cores: dh 32 and 64 at windows of 4, 7 and 8 blocks, dh 128 at 4, each
+    with the f32 and the bf16 exponential."""
+    tms.build()
+    counts = [n for fn, n in _hmma_per_kernel("mha_packed.cu").items() if "mha_v2_kernel_tc" in fn]
+    assert len(counts) == 14 and min(counts) > 0, counts
+
+
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 577, 1024])
 def test_bf16_flash_kernel_at_the_tile_edges(cuda_device, s, dh):
@@ -1367,7 +1465,8 @@ def _hmma_per_kernel(source):
 # source -> (tensor-core kernel, its instantiations, CUDA-core kernel, its instantiations)
 HMMA_SOURCES = {
     # bf16 #1-#3: dh 32 and 64 at windows of 8, 13 and 16 blocks, dh 128 at 8;
-    # f32: 3 head widths x 3 switch sets; #4's bf16: 3 head widths x 2 switch sets
+    # f32: 3 head widths x 3 switch sets; #4's bf16 yardstick: 3 head widths x
+    # 2 switch sets
     "mha_packed.cu": ("mha_packed_kernel_tc", 7, "mha_packed_kernel", 15),
     "flash_attention.cu": ("flash_kernel_tc", 2, "flash_kernel", 2),  # dh 32 and 64
 }
@@ -1377,7 +1476,8 @@ HMMA_SOURCES = {
 def test_tensor_core_kernels_issue_hmma_and_cuda_core_kernels_none(cuda_device, source):
     """The explicit dispatch on the dtype: every bf16 kernel of #1-#3 and #14
     (every head width and logits window) runs its products on the tensor
-    cores; every f32 kernel, and #4's bf16 kernel, on the CUDA cores."""
+    cores; every f32 kernel, and #4's bf16 yardstick (the CUDA-core kernel
+    that mha_v2_kernel_tc replaced), on the CUDA cores."""
     tms.build()
     flash_build()
     counts = _hmma_per_kernel(source)
@@ -1499,17 +1599,28 @@ GMMA_SOURCES = {
                       "gemm_kernel_wg": (4, "IGMMA.64x256x32.S8.S8"),
                       "blockscale_kernel_wg": (2, "IGMMA.64x128x32.S8.S8")},
                      {"gelu_quant_kernel": 1, "gemm_kernel": 6}),
-    "gemm_probe.cu": ({"probe_mm_kernel_wg": (1, "HGMMA.64x256x16.F32.BF16")},
+    "gemm_probe.cu": ({"probe_mm_kernel_wg": (1, "HGMMA.64x256x16.F32.BF16"),
+                       "probe_mm_kernel_wg_s8": (1, "IGMMA.64x256x32.S8.S8")},
                       {"probe_mm_kernel": 1, "ceiling_kernel": 2, "mlp_mega_kernel": 1}),
 }
+
+
+def _is_kernel(name, fn):
+    """Whether the mangled name fn is kernel ``name`` itself (its name ends
+    where a template's arguments or the parameters begin), not one whose
+    name ``name`` begins."""
+    import re
+
+    return re.search(rf"\d{name}[IE]", fn) is not None
 
 
 @pytest.mark.parametrize("source", list(GMMA_SOURCES))
 def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source):
     """#15 (every epilogue and output type), #20 at bk a multiple of 128, #21
-    at bn 256 and 512 and #27 in bf16 run wgmma; the kernels on mma.sync
-    (gemm_kernel: the _mma entries and blockscale at other bk; gelu_quant at
-    other bn, probe_mm int8, the ceiling, the megakernel) issue no GMMA."""
+    at bn 256 and 512 and #27 in int8 and bf16 run wgmma; the kernels on
+    mma.sync (gemm_kernel: the _mma entries and blockscale at other bk;
+    gelu_quant at other bn, probe_mm int8's yardstick, the ceiling, the
+    megakernel) issue no GMMA."""
     tim.build()
     from team_tpu_torch.ops import gemm_probe as gp
 
@@ -1517,7 +1628,7 @@ def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source)
     found = _opcode_per_kernel(source, "GMMA")
     wgmma, others = GMMA_SOURCES[source]
     for wg_name, (n_wg, mnemonic) in wgmma.items():
-        wg = [lines for fn, lines in found.items() if wg_name in fn]
+        wg = [lines for fn, lines in found.items() if _is_kernel(wg_name, fn)]
         assert len(wg) == n_wg and all(lines for lines in wg), (wg_name, found)
         assert all(any(mnemonic in line for line in lines) for lines in wg), (wg_name, wg)
     for name, count in others.items():

@@ -13,7 +13,12 @@ Phases, one line or more each:
      (IGMMA s8, HGMMA bf16) in the wgmma + TMA kernels (#15 gemm_kernel_wg,
      #20 blockscale_kernel_wg, #21 gelu_quant_kernel_wg, #27
      probe_mm_kernel_wg_s8 and probe_mm_kernel_wg), none in the mma.sync
-     ones, and no spill in them; the mnemonics by kernel
+     ones, and no spill in them; of mha_packed_q3i.cu: IMMA (q.k) and HMMA
+     (p.v) in q3i_kernel_tc (#7, #10, #11, #29; #29's qkonly and nopv, its
+     6 instantiations with no PV, IMMA alone), neither in q3i_kernel (the
+     CLS entries #8, #9); of
+     mha_packed_q.cu: HMMA in mha_q_kernel_tc (#5, #6); no spill in them
+     either; the mnemonics by kernel
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
      packed attention in bf16 and f32; the int8 integer-QK^T attention and
      its CLS-query variant (static and row-max softmax, causal, kv_len), at
@@ -275,6 +280,13 @@ MMA_SYNC_TIER_RATES = {"hybrid": 2780.4, "pallas": 3648.8}
 # the same with #15 and #20 on mma.sync, #21 on wgmma: the spread of three
 # runs (PERF.md §7), img/s
 GEMM_MMA_SYNC_TIER_RATES = {"hybrid": (3300.3, 3402.0), "pallas": (4483.9, 4790.3)}
+# the int8 static routes' encode rates before their attention moved to the
+# tensor cores (PERF.md §5: this script's phase 6 on an NVIDIA H100 80GB HBM3
+# at 700.00 W), img/s by phase-6 key
+INT8_CUDA_CORE_RATES = {"int8_static": 1664.6, "int8_static_static_qa": 1766.7,
+                        "int8_static_static": 2557.3, "int8_static_static3d": 1808.0,
+                        "int8_static_static3d_qa": 1423.6, "int8_static_static3d_qaf": 1465.6,
+                        "int8_static_static3d_qis": 1557.2}
 DATASET = {"num_classes": 4, "img_size": 224, "train_per_stage": 64, "test_per_stage": 32}
 EVAL_B = 128  # the learners' eval batch
 # the learner batch of exps/IIMinsects202.json: the int8 run calibrates on its
@@ -404,7 +416,22 @@ TC_SOURCES = {
                       ("mha_packed_proj_kernel", "ln_qkv_kernel")),
     "mha_packed.cu": (("mha_packed_kernel_tc", "mha_v2_kernel_tc"), ("mha_packed_kernel",)),
     "flash_attention.cu": (("flash_kernel_tc",), ("flash_kernel",)),
+    # the int8 attention: #7's kernel (p.v; also #10, #11, #29) and #5/#6's;
+    # the CLS entries (#8, #9) keep the CUDA cores
+    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_kernel",)),
+    "mha_packed_q.cu": (("mha_q_kernel_tc",), ()),
 }
+
+# the int8 attention kernels whose q.k runs on the s8 tensor cores (mma.sync
+# m16n8k32, IMMA.16832.S8.S8) and the CLS kernel, which issues none
+IMMA_SOURCES = {
+    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_kernel",)),
+}
+
+# the tensor-core kernels of TC_SOURCES some of whose instantiations run no
+# PV, so issue no HMMA: source -> kernel -> how many (#29's qkonly and nopv
+# at 3 head widths, q3i_kernel_tc's VAR kQkOnly and kNoPv)
+NO_PV_INSTANCES = {"mha_packed_q3i.cu": {"q3i_kernel_tc": 6}}
 
 
 # the GEMM sources whose wgmma kernels (TMA-fed, csrc/wgmma_gemm.cuh) issue
@@ -421,14 +448,17 @@ GMMA_SOURCES = {
 }
 
 
-def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
+def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA", without=None) -> dict:
     """``opcode`` instructions in each kernel of the built libraries
     (``cuobjdump -sass``): HMMA in the attention sources, where every
     tensor-core (bf16) kernel issues its products on the tensor cores and no
     CUDA-core kernel (f32) does; GMMA in the GEMM sources, where every wgmma
-    kernel issues it and no mma.sync kernel does. Prints the mnemonics that
-    hold ``opcode``, by kernel. Returns source -> kernel -> the count of each
-    of its instantiations."""
+    kernel issues it and no mma.sync kernel does; IMMA in the int8 attention
+    kernel whose q.k runs on the tensor cores. ``without`` (source -> kernel
+    -> n) names the tensor-core kernels of which exactly n instantiations
+    issue no ``opcode``. Prints the mnemonics that hold ``opcode``, by
+    kernel. Returns source -> kernel -> the count of each of its
+    instantiations."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     found = {}
     for source, (tc, other) in sources.items():
@@ -454,7 +484,8 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
                 kind_mnemonics[kind] |= mnemonics[fn]
         print(f"  cuobjdump -sass {source}, {opcode} per kernel: {dict(kinds)}; mnemonics "
               f"{ {k: sorted(m) for k, m in kind_mnemonics.items() if m} }")
-        if any(not kinds[k] or min(kinds[k]) == 0 for k in tc):
+        exempt = (without or {}).get(source, {})
+        if any(not kinds[k] or kinds[k].count(0) != exempt.get(k, 0) for k in tc):
             raise AssertionError(f"a kernel of {source} that should issue {opcode} does not: "
                                  f"{dict(kinds)}")
         if any(not kinds[k] or max(kinds[k]) > 0 for k in other):
@@ -465,11 +496,15 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA") -> dict:
 
 
 def check_no_spills(build) -> None:
-    """Raise if ptxas reported a spill in a tensor-core kernel or a wgmma
-    kernel, or serialized a kernel's wgmma (C7514: accumulators read while
+    """Raise if ptxas reported a spill in a tensor-core kernel (mma.sync or
+    wgmma), or serialized a kernel's wgmma (C7514: accumulators read while
     their group may be in flight; phase 2 prints every kernel's registers).
     A library loaded from an earlier build has no report in this process."""
-    for source, (tc, _) in {**TC_SOURCES, **GMMA_SOURCES}.items():
+    checked = defaultdict(set)  # source -> the kernels that may not spill
+    for table in (TC_SOURCES, GMMA_SOURCES, IMMA_SOURCES):
+        for source, (tc, _) in table.items():
+            checked[source].update(tc)
+    for source, tc in checked.items():
         log = build.BUILD_LOGS.get(source)
         if log is None:
             print(f"  ptxas {source}: no report in this process (built before)")
@@ -705,6 +740,39 @@ def report_gemm_redesign(times: dict) -> None:
               f"{t['ms'] / t['library_ms']:.2f}x the library call ({t['library_ms']:.4f} ms); "
               f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; "
               f"{ops / t['ms'] / 1e9:.1f} T{'FLOP' if 'bf16' in key else 'OP'}/s")
+
+
+# the int8 attention kernels that moved from the CUDA cores to mma.sync: their
+# CUDA-core card ms as PERF.md §6 records them (this script's phase 4 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W), by phase-4 key -> (kernel, ms)
+CUDA_CORE_INT8_MS = {
+    "fused_mha_packed_q": ("fused_mha_packed_q (#5)", 1.5950),
+    "fused_mha_packed_q3": ("fused_mha_packed_q3 (#6)", 1.6192),
+    "q3i": ("fused_mha_packed_q3i (#7), static", 1.1098),
+    "q3i[exp2i]": ("#7 exp2i", 1.1248),
+    "q3i[reduce]": ("#7 reduce", 1.1341),
+    "q3i[reduce_defer]": ("#7 reduce, deferred", 1.1189),
+    "q3i[pv_int8]": ("#7 pv_int8", 0.9749),
+    "q3i[pv_int8_defer]": ("#7 pv_int8, deferred", 0.9786),
+    "q3i_sb": ("fused_mha_packed_q3i_sb (#10)", 1.1491),
+    "q3i_tp vision nm=2": ("fused_mha_packed_q3i_tp (#11) nm 2, one rank", 0.5914),
+    "q3i_tp vision nm=4": ("fused_mha_packed_q3i_tp (#11) nm 4, one rank", 0.3130),
+    "variant full": ("#29 full", 1.1100),
+    "variant noexp": ("#29 noexp", 1.0967),
+    "variant qkonly": ("#29 qkonly", 0.2076),
+    "variant nopv": ("#29 nopv", 0.2137),
+}
+
+
+def report_int8_attention_redesign(times: dict) -> None:
+    """The int8 attention kernels' phase-4 times on the tensor cores beside
+    their CUDA-core ms of PERF.md and the bound (its share)."""
+    for key, (name, before) in CUDA_CORE_INT8_MS.items():
+        t = times[key]
+        print(f"  {name}: {t['ms']:.4f} ms on mma.sync against the CUDA-core kernel's "
+              f"{before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of it")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -3502,8 +3570,9 @@ def main() -> int:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}: " + line.strip())
-    hmma = check_tensor_cores(_build)
+    hmma = check_tensor_cores(_build, without=NO_PV_INSTANCES)
     gmma = check_tensor_cores(_build, GMMA_SOURCES, "GMMA")
+    imma = check_tensor_cores(_build, IMMA_SOURCES, "IMMA")
     check_no_spills(_build)
 
     print("phase 3: kernels vs plain versions")
@@ -3540,6 +3609,7 @@ def main() -> int:
     del probe_inputs
     report_redesign(times, flash_times)
     report_gemm_redesign(times)
+    report_int8_attention_redesign(times)
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3566,6 +3636,9 @@ def main() -> int:
         print(f"  encode int8 {tier}: {tiers[tier]['rate']:.1f} img/s against {low:,.1f}-{high:,.1f} "
               f"with #15 and #20 on mma.sync (PERF.md §7), {tiers[tier]['rate'] / high:.3f}x its "
               "high end")
+    for key, before in INT8_CUDA_CORE_RATES.items():
+        print(f"  encode {key}: {rates[key]:.1f} img/s against {before:,.1f} with the int8 "
+              f"attention on the CUDA cores (PERF.md §5), {rates[key] / before:.3f}x")
     print("phase 7: profile of one encode")
     profile_encodes(int8_runtimes, tiers["pallas"]["encode"], dev)
 
@@ -3616,6 +3689,7 @@ def main() -> int:
         "replaces": "team_tpu/ops/mha_short.py:477",
         "launches": int8["q3i"], "max_abs_err": q3i_err["q3i"], **timing(times["q3i"]),
         "gate_cosine": int8["gate_cosine"],
+        "imma_per_kernel": imma["mha_packed_q3i.cu"], "hmma_per_kernel": hmma["mha_packed_q3i.cu"],
     }, {
         "name": "fused_mha_packed_q3i_cls", **q3i_common,
         "replaces": "team_tpu/ops/mha_short.py:663",
@@ -3642,7 +3716,7 @@ def main() -> int:
         "name": "fused_mha_packed_q", **q_common, "replaces": "team_tpu/ops/mha_short.py:308",
         "launches": route_launches("fused_mha_packed_q"),
         "max_abs_err": int8_io_err["fused_mha_packed_q"], **timing(times["fused_mha_packed_q"]),
-        "gate_cosine": route_cosines("static_qa"),
+        "gate_cosine": route_cosines("static_qa"), "hmma_per_kernel": hmma["mha_packed_q.cu"],
     }, {
         "name": "fused_mha_packed_q3", **q_common, "replaces": "team_tpu/ops/mha_short.py:395",
         "launches": route_launches("fused_mha_packed_q3"),

@@ -14,11 +14,11 @@
 // reading q and writing the output. VAR's default is every other entry's
 // kernel, unchanged.
 // All four read int8 q, k and v as the qkv GEMM's requantize wrote them (q and
-// k with one scale per head, v per channel) and write int8. One kernel serves
-// them: it reads q, k and v and writes out through explicit row and sample
-// strides, so the packed [B, S, 3*D] layout, the sequence-major [S, B, 3*D]
-// layout and the split q [B, 1, D] + kv [B, S, 2*D] inputs differ only in the
-// pointers and strides each entry passes. So does the tensor-parallel head
+// k with one scale per head, v per channel) and write int8. Both kernels below
+// read q, k and v and write out through explicit row and sample strides, so
+// the packed [B, S, 3*D] layout, the sequence-major [S, B, 3*D] layout and
+// the split q [B, 1, D] + kv [B, S, 2*D] inputs differ only in the pointers
+// and strides each entry passes. So does the tensor-parallel head
 // split: rank r of nm reads heads [r*H/nm, (r+1)*H/nm) of the full packed
 // tensor in place, and its per-head and per-channel scales through pointers
 // offset to its heads (the kernel reads only v's segment of deq: q's and k's
@@ -49,30 +49,70 @@
 // Every product and difference the TPU kernel rounds separately is rounded
 // separately here too (__fmul_rn, __fsub_rn, __fdiv_rn): nvcc would contract
 // a*b - c into one FMA, which rounds once. Rounding is rint (half to even, as
-// jnp.round), never roundf. Masked keys are skipped rather than set to -1e30:
-// exp(-1e30 - max) is 0 in f32, so the sums are the same while every row
-// keeps a key (the wrapper checks kv_len >= 1). |acc| <= dh * 127^2 and the
-// int8 PV sum <= S * 127^2 stay below 2^24, so both are exact as floats.
+// jnp.round), never roundf. Masked keys are skipped rather than set to -1e30
+// (left out of the max, p = 0): exp(-1e30 - max) is 0 in f32, so the sums are
+// the same while every row keeps a key (the wrapper checks kv_len >= 1).
+// |acc| <= dh * 127^2 and the int8 PV sum <= S * 127^2 stay below 2^24, so
+// both are exact as floats.
 //
-// Layout: one block per (query tile of kRows rows, head, sample); the CLS
-// entries are the same block with only query row 0. The block stages that
-// head's K and V rows into shared memory as int8 (25 KB at S=197, dh=64),
-// rows padded by one 32-bit word so that lanes reading different keys hit
-// different banks. Each warp takes every kWarps-th query row of the tile: q
+// Two kernels: the tensor cores take every entry with more than one query row.
+//
+// q3i_kernel_tc, the packed, head-split, sequence-major and variant entries:
+// one block per (head, sample) of W warps (W = ceil(T / ceil(T / 5)) over the
+// T = ceil(S / 16) tiles of 16 query rows: 5 at S=197 and at S=77), so the
+// head's K and V are staged once: K as int8 by 16-byte cp.async (S=197,
+// dh=64: 13 KB), V as bf16 by register loads (int8 -> bf16 is exact; 26 KB),
+// both zero past the keys and swizzled in 16-byte chunks so that ldmatrix is
+// free of bank conflicts. Each warp takes every W-th row tile: its q rows are
+// the s8 A fragments of mma.sync.m16n8k32 (read straight from device memory),
+// and one ldmatrix.x4 of K gives the B fragments of a 16-key block for one
+// 32-byte k-step, so q.k is an exact int32 sum on the tensor cores, equal to
+// the dp4a sum bit for bit, and so are the logits, the row max and every p.
+// QK^T is recomputed rather than stored: each pass over the key blocks gives
+// the same logits. The static kMxu route (the default) is one pass: per
+// 16-key block QK^T, p = bf16(exp2(acc * qks2 - m2)) in the accumulator
+// layout, which is the A fragment of a k16 PV step as it stands, and PV on
+// mma.sync m16n8k16 bf16 with f32 sums (V's B fragments by ldmatrix.trans,
+// mma_attention::pv_block); p never touches shared memory. The row-max
+// softmaxes take one pass more for the max, and kReduce and kPv8, which need
+// l before PV, one more for l. kPv8 and kPv8Defer stay exact: p8 in [0, 127]
+// and v8 are exact in bf16, each product is exact in f32, and |sum| <= S *
+// 127^2 < 2^24, so the f32 sum is the int32 sum in any order. Only kMxu,
+// kReduce and kReduceDefer sum PV (and l) in another order than the plain
+// version. A thread's share of l (its keys of rows g and g + 8) is summed
+// in block order and the quad's four by two shuffles. The decomposition
+// probe's VAR switch lives here: full is the packed entry's kernel itself,
+// noexp that kernel without exp2, and qkonly and nopv the same kernel's q.k
+// (and exp2) with no V staged and no PV.
+// Its 3 * pad16(S) * dh bytes of shared memory take S up to 2416, 1200 and
+// 592 at dh 32, 64 and 128 (the CUDA-core kernel it replaced, whose formula
+// the CLS kernel keeps: 2235, 1383 and 785); an entry given a longer S
+// launches nothing and returns kErrTooLong.
+// The kernel is latency-bound (each warp's key blocks are a chain of
+// ldmatrix, mma, the per-logit ops and mma), so the geometry is set by
+// occupancy: at most 5 warps a block and registers capped for 4 blocks an SM
+// at dh 32 and 64 (96 at dh 64, no spill), 20 warps an SM, against 14 for 7
+// warps a block at 2 blocks an SM (PERF.md §6 has both times).
+//
+// q3i_kernel, the CLS entries (one query row fills no m16 tile): one block per
+// (head, sample) stages that head's K and V rows into shared memory as int8
+// (25 KB at S=197, dh=64), rows padded by one 32-bit word so that lanes
+// reading different keys hit different banks; warp 0 takes query row 0: q
 // stays in registers as dh/4 packed words, lanes split the keys and form q.k
-// with __dp4a (four int8 products and the add into the int32 sum in one
-// instruction, exact), the row max and sum are warp shuffles, and for p.v the
+// with __dp4a (exact), the row max and sum are warp shuffles, and for p.v the
 // lanes split the head dimension.
 //
-// What bounds it on an H100: this first version runs on the CUDA cores. Per
-// (sample, head) it does S^2*dh/4 dp4a for q.k and S^2*dh FMAs for p.v --
-// 3.8 G FMAs per vision layer at B=128, S=197, H=12, dh=64 -- fed from
-// shared memory, and it reads the 58 MB of int8 qkv and writes 19 MB (each
-// query tile re-reads its head's K and V, mostly from L2). The p.v loop,
-// one shared-memory broadcast of p and one byte of v per FMA, is the bound;
-// moving both products onto the int8 and bf16 tensor cores (mma.sync) is
-// the next step. In the sequence-major layout a head's 64 bytes of a row lie
-// B*3*D bytes apart, so its K/V staging is scattered rather than streamed.
+// What bounds them on an H100: the function reads the 58 MB of int8 qkv and
+// writes 19 MB per vision layer at B=128, S=197, H=12, dh=64 (0.0231 ms at
+// 3.35 TB/s), against 7.6 G int8 and 7.6 G bf16 multiply-adds (0.008 ms at
+// the dense peaks). The tensor-core kernel pads to 16 rows and keys and
+// issues mma.sync, which reaches about half the dense rate, and leaves on
+// the CUDA cores per logit one convert, two separately rounded f32 ops,
+// exp2, a bf16 round and one add: about 0.4 G ops at the vision shape. The
+// CLS kernel's p.v loop, one shared-memory broadcast of p and one byte of v
+// per FMA, bounds it; it is the next rule-2 row. In the sequence-major layout
+// a head's 64 bytes of a row lie B*3*D bytes apart, so its K/V staging is
+// scattered rather than streamed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,14 +121,26 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_attention.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 64;  // query rows per block
+using bf16 = __nv_bfloat16;
+using namespace mma_attention;
+
+constexpr int kWarps = 8;  // warps of a CLS block
+constexpr int kTcMaxWarps = 5;  // warps of a tensor-core block, at most
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kInv127 = 1.0f / 127.0f;
+// the dynamic shared memory one block may opt into on sm_90 (227 KB)
+constexpr size_t kSmemOptin = 232448;
+// what an entry returns, launching nothing, when the head's K and V need more
+// shared memory than kSmemOptin (no cudaError_t takes this value)
+constexpr int kErrTooLong = -1;
 
 enum Norm : int { kMxu = 0, kReduce = 1, kReduceDefer = 2, kPv8 = 3, kPv8Defer = 4 };
+// the normalisations whose PV is the int8 one (p8 = rint(p * 127))
+__host__ __device__ constexpr bool pv_int8(int norm) { return norm == kPv8 || norm == kPv8Defer; }
 
 // the decomposition probe's variants of the static kMxu path (template switch
 // VAR; kProduction is every entry's kernel, and the probe's "full")
@@ -107,7 +159,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// padded shared-memory row stride of K and V, in 32-bit words
+// padded shared-memory row stride of the CLS kernel's K and V, in 32-bit words
 __host__ __device__ constexpr int kv_words(int dh) { return dh / 4 + 1; }
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
@@ -115,6 +167,33 @@ __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~stat
 __host__ __device__ size_t smem_bytes(int seq, int dh) {
   return align16(2 * static_cast<size_t>(seq) * kv_words(dh) * sizeof(int)) +
          static_cast<size_t>(kWarps) * seq * sizeof(float);
+}
+
+// the tensor-core kernel's K (int8) and V (bf16), padded to 16 keys (every
+// VAR takes the same, so the probe's cuts keep the occupancy of full)
+__host__ __device__ size_t smem_bytes_tc(int seq, int dh) {
+  return 3 * static_cast<size_t>(pad16(seq)) * dh;
+}
+
+// warps of a tensor-core block: at most kTcMaxWarps, and as few as give every
+// warp the same number of 16-row tiles, or one fewer
+__host__ __device__ int tc_warps(int seq) {
+  const int tiles = (seq + 15) / 16;
+  const int per = (tiles + kTcMaxWarps - 1) / kTcMaxWarps;
+  return (tiles + per - 1) / per;
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows, 16 * CPR] int8 tile: the
+// chunks are XOR-swizzled so that the 8 rows one ldmatrix phase reads (128
+// bytes) fall on distinct banks (CPR 2, 4 or 8; mma_attention::swz for 4 and 8)
+template <int CPR>
+__device__ __forceinline__ int swz8(int r, int c) {
+  return (r * CPR + (c ^ ((r / (8 / CPR)) & (CPR - 1)))) * 16;
+}
+
+// the int8 value in byte i of w, as a float (exact)
+__device__ __forceinline__ float s8_at(uint32_t w, int i) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
 }
 
 // Where the operands lie: element (sample b, row r) of q starts at
@@ -128,7 +207,299 @@ struct Operands {
   long long q_row, q_batch, kv_row, kv_batch, o_row, o_batch;
 };
 
-template <int DH, bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
+// ---------------------------------------------------------------------------
+// the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// One warp's share of a block: rows [row_w, row_w + 16) of head h against the
+// nk keys staged in k_s (int8) and v_s (bf16)
+template <int DH, int NORM, bool EXP2I, int VAR>
+struct Q3iWarp {
+  static constexpr int KS = DH / 32;  // s8 k-steps of q.k
+  const int8_t* k_s;
+  const bf16* v_s;
+  int row_w, causal, lane, g, t, nkw, nb;
+  bool use_static;
+  float qks, qks2, m2;
+  uint32_t qa[KS][4];  // q rows g and g + 8 as s8 A fragments
+  float m[2];          // row max of rows g and g + 8 (the row-max softmaxes)
+
+  __device__ __forceinline__ Q3iWarp(const int8_t* k_s_, const bf16* v_s_, int causal_,
+                                     const float* qk_scale, const float* qk_m2, int h)
+      : k_s(k_s_), v_s(v_s_), causal(causal_) {
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    use_static = qk_m2 != nullptr;
+    qks = qk_scale[h];
+    qks2 = __fmul_rn(qks, kLog2e);
+    m2 = use_static ? qk_m2[h] : 0.f;
+  }
+
+  // the tile of rows [row_w_, row_w_ + 16): its keys and q's A fragments
+  // (read straight from device memory; zero past seq)
+  __device__ __forceinline__ void tile(int row_w_, int nk, int seq, const int8_t* q_base,
+                                       long long q_row) {
+    row_w = row_w_;
+    nkw = causal ? min(nk, row_w + 16) : nk;  // keys any row of the tile sees
+    nb = (nkw + 15) >> 4;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row_w + g + 8 * hr;
+      const int8_t* qr = q_base + (row < seq ? row : 0) * q_row + 4 * t;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int hk = 0; hk < 2; ++hk)
+          qa[ks][hr + 2 * hk] =
+              row < seq ? *reinterpret_cast<const uint32_t*>(qr + ks * 32 + hk * 16) : 0u;
+    }
+  }
+
+  // c[n] = q . k over key block kb (keys 16 kb + 8 n + 0..7), exact
+  __device__ __forceinline__ void qk(int (&c)[2][4], int kb) const {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[n][i] = 0;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t r[4];
+      ldsm_x4(r, k_s + swz8<DH / 16>(kb * 16 + (lane >> 4) * 8 + (lane & 7),
+                                       2 * ks + ((lane >> 3) & 1)));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_s8(c[0], qa[ks], b0);
+      mma_s8(c[1], qa[ks], b1);
+    }
+  }
+
+  // whether element e of block kb (e = 4 n + accumulator index: row g + 8
+  // ((e >> 1) & 1), key 16 kb + 8 n + 2t + (e & 1)) is a key the row sees
+  __device__ __forceinline__ bool keep(int kb, int e) const {
+    const int key = kb * 16 + (e >> 2) * 8 + 2 * t + (e & 1);
+    return key < nkw && (!causal || key <= row_w + g + ((e >> 1) & 1) * 8);
+  }
+
+  // no key of block kb is masked for any row of the warp (warp-uniform)
+  __device__ __forceinline__ bool whole(int kb) const {
+    return (kb + 1) * 16 <= nkw && !(causal && (kb + 1) * 16 > row_w + 1);
+  }
+
+  // the softmax numerator of one logit (the variants: their cut stage)
+  __device__ __forceinline__ float expo(int acc, int hr) const {
+    const float a = static_cast<float>(acc);
+    if constexpr (VAR == kQkOnly) {
+      return a;
+    } else if constexpr (VAR == kNoExp || VAR == kNoPv) {
+      const float t2 = __fsub_rn(__fmul_rn(a, qks2), m2);
+      return VAR == kNoExp ? t2 : exp2f(t2);
+    } else {
+      if (use_static) return exp2f(__fsub_rn(__fmul_rn(a, qks2), m2));
+      if constexpr (EXP2I) return exp2f(__fmul_rn(__fsub_rn(a, m[hr]), qks2));  // exact difference
+      return expf(__fsub_rn(__fmul_rn(a, qks), m[hr]));
+    }
+  }
+
+  // the row max over the keys each row sees: of acc (exp2i) or of the f32 logits
+  __device__ __forceinline__ void row_max() {
+    m[0] = m[1] = -CUDART_INF_F;
+    for (int kb = 0; kb < nb; ++kb) {
+      int c[2][4];
+      qk(c, kb);
+      const bool all = whole(kb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float a = static_cast<float>(c[e >> 2][e & 3]);
+        const float s = EXP2I ? a : __fmul_rn(a, qks);
+        if (all || keep(kb, e)) m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], s);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      m[hr] = fmaxf(m[hr], __shfl_xor_sync(0xffffffffu, m[hr], 1));
+      m[hr] = fmaxf(m[hr], __shfl_xor_sync(0xffffffffu, m[hr], 2));
+    }
+  }
+
+  // the numerators of block kb, 0 where masked
+  __device__ __forceinline__ void exps(int kb, float (&e8)[8]) const {
+    int c[2][4];
+    qk(c, kb);
+    const bool all = whole(kb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = expo(c[e >> 2][e & 3], (e >> 1) & 1);
+      e8[e] = all || keep(kb, e) ? x : 0.f;
+    }
+  }
+
+  // the f32 sum of the unrounded numerators of each row (kReduce, kPv8)
+  __device__ __forceinline__ void row_sum(float (&l)[2]) const {
+    l[0] = l[1] = 0.f;
+    for (int kb = 0; kb < nb; ++kb) {
+      float e8[8];
+      exps(kb, e8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) l[(e >> 1) & 1] += e8[e];
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    }
+  }
+
+  // PV over every key block: p as NORM takes it into the A fragment, the
+  // row sums that follow PV (kMxu, the deferred forms) into l
+  __device__ __forceinline__ void pv(float (&acc)[DH / 8][4], float (&l)[2]) const {
+    constexpr bool kLAfter = NORM == kMxu || NORM == kReduceDefer || NORM == kPv8Defer;
+    float lp[2] = {0.f, 0.f};
+    for (int kb = 0; kb < nb; ++kb) {
+      float p[8];
+      exps(kb, p);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int hr = (e >> 1) & 1;
+        float x = p[e];
+        if constexpr (NORM == kMxu) x = __bfloat162float(__float2bfloat16_rn(x));
+        if constexpr (kLAfter) lp[hr] += x;
+        if constexpr (NORM == kReduce || NORM == kPv8) x = __fdiv_rn(x, l[hr]);
+        if constexpr (pv_int8(NORM)) x = fminf(fmaxf(rintf(__fmul_rn(x, 127.f)), 0.f), 127.f);
+        p[e] = x;
+      }
+      const uint32_t a[1][4] = {{pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
+                                 pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])}};
+      pv_block<DH>(acc, a, v_s, kb, lane);
+    }
+    if constexpr (kLAfter) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        lp[hr] += __shfl_xor_sync(0xffffffffu, lp[hr], 1);
+        lp[hr] += __shfl_xor_sync(0xffffffffu, lp[hr], 2);
+        l[hr] = lp[hr];
+      }
+    }
+  }
+};
+
+// The head's K (int8, by cp.async) and, with STAGE_V, V (bf16, by register
+// loads: int8 -> bf16 is exact) for keys [0, nk), zero to pad16(nk) keys, each
+// in the swizzled layout its ldmatrix reads; every thread of the block takes part
+template <int DH, bool STAGE_V>
+__device__ __forceinline__ void stage_kv(const int8_t* k_base, const int8_t* v_base,
+                                         long long kv_row, int nk, int8_t* k_s, bf16* v_s) {
+  constexpr int kCpr = DH / 16;  // 16-byte chunks of a row of int8
+  const int n = pad16(nk) * kCpr;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int r = c / kCpr, ch = c - r * kCpr;
+    const bool ok = r < nk;
+    cp_async16(k_s + swz8<kCpr>(r, ch), k_base + (ok ? r * kv_row + ch * 16 : 0), ok);
+  }
+  cp_async_commit();
+  if constexpr (STAGE_V) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+      const int r = c / kCpr, ch = c - r * kCpr;
+      const uint4 raw = r < nk ? *reinterpret_cast<const uint4*>(v_base + r * kv_row + ch * 16)
+                               : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = pack_bf16(s8_at(words[i >> 1], 2 * (i & 1)), s8_at(words[i >> 1], 2 * (i & 1) + 1));
+      *reinterpret_cast<uint4*>(v_s + swz(r, 2 * ch, DH / 8)) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(v_s + swz(r, 2 * ch + 1, DH / 8)) =
+          make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+  cp_async_wait(0);
+  __syncthreads();
+}
+
+// VAR kQkOnly and kNoPv (the probe's cuts with no PV) stage no V and, for
+// each row, write clip(rint(f32(acc_j) * 2e-5)) (qkonly) or clip(rint(p_j *
+// o_inv)) (nopv) to out[., h*dh + j] for the first DH keys (the caller checks
+// seq >= DH); an empty asm keeps the other keys' values
+template <int DH, int NORM, bool EXP2I, int VAR = kProduction>
+__global__ void __launch_bounds__(kTcMaxWarps * 32, DH == 128 ? 2 : 4)
+q3i_kernel_tc(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
+              const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq,
+              int kv_len, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kDefer = NORM == kReduceDefer || NORM == kPv8Defer;
+  constexpr bool kSlice = VAR == kQkOnly || VAR == kNoPv;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nk = min(kv_len, seq);
+  int8_t* k_s = reinterpret_cast<int8_t*>(smem);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + static_cast<size_t>(pad16(nk)) * DH);
+  stage_kv<DH, !kSlice>(ops.k + b * ops.kv_batch + h * DH, ops.v + b * ops.kv_batch + h * DH,
+                        ops.kv_row, nk, k_s, v_s);
+
+  Q3iWarp<DH, NORM, EXP2I, VAR> wa(k_s, v_s, causal, qk_scale, qk_m2, h);
+  const int g = wa.g, t = wa.t;
+  const int8_t* q_base = ops.q + b * ops.q_batch + h * DH;
+  for (int row_w = (threadIdx.x >> 5) * 16; row_w < seq; row_w += 16 * (blockDim.x >> 5)) {
+    wa.tile(row_w, nk, seq, q_base, ops.q_row);
+    if constexpr (kSlice) {
+      for (int kb = 0; kb < wa.nb; ++kb) {
+        int c[2][4];
+        wa.qk(c, kb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = wa.expo(c[e >> 2][e & 3], 0);
+          const int row = row_w + g + ((e >> 1) & 1) * 8;
+          const int key = kb * 16 + (e >> 2) * 8 + 2 * t + (e & 1);
+          if (kb < DH / 16) {
+            const float o = VAR == kQkOnly ? __fmul_rn(x, kQkOnlyScale)
+                                           : __fmul_rn(x, o_inv[h * DH + key]);
+            if (row < seq)
+              ops.out[b * ops.o_batch + row * ops.o_row + h * DH + key] =
+                  static_cast<int8_t>(fminf(fmaxf(rintf(o), -127.f), 127.f));
+          } else {
+            asm volatile("" ::"f"(x));
+          }
+        }
+      }
+    } else {
+      float l[2];
+      if (!wa.use_static) wa.row_max();
+      if constexpr (NORM == kReduce || NORM == kPv8) wa.row_sum(l);
+      float acc[DH / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+      wa.pv(acc, l);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row_w + g + 8 * hr;
+        if (row >= seq) continue;
+        int8_t* dst = ops.out + b * ops.o_batch + row * ops.o_row + h * DH + 2 * t;
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd) {
+          int8_t o8[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = h * DH + nd * 8 + 2 * t + j;
+            float scale = __fmul_rn(deq_v[col], o_inv[col]);
+            if constexpr (pv_int8(NORM)) scale = __fmul_rn(scale, kInv127);
+            float o = __fmul_rn(acc[nd][2 * hr + j], scale);  // kPv8: an exact integer times scale
+            if constexpr (NORM == kMxu || kDefer) o = __fdiv_rn(o, l[hr]);
+            o8[j] = static_cast<int8_t>(fminf(fmaxf(rintf(o), -127.f), 127.f));
+          }
+          *reinterpret_cast<char2*>(dst + nd * 8) = make_char2(o8[0], o8[1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the CUDA-core kernel of the CLS entries (query row 0; the static or the f32
+// row-max softmax, the ones-column row sum)
+// ---------------------------------------------------------------------------
+
+template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)
 q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
            const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq, int heads,
@@ -137,14 +508,10 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
   constexpr int kW = DH / 4;  // packed words of one head row
   constexpr int kStride = kW + 1;
   constexpr int kPerLane = DH / 32;
-  constexpr bool kDefer = NORM == kReduceDefer || NORM == kPv8Defer;
-  constexpr bool kPvInt8 = NORM == kPv8 || NORM == kPv8Defer;
-  // qkonly and nopv write a slice of each row's first DH keys, without PV
-  constexpr bool kSliceOut = VAR == kQkOnly || VAR == kNoPv;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row0 = CLS ? 0 : blockIdx.x * kRows;
-  const int row_end = CLS ? 1 : min(row0 + kRows, seq);
+  const int row0 = 0;
+  const int row_end = 1;
   const int8_t* q_base = ops.q + b * ops.q_batch + h * DH;
   const int8_t* k_base = ops.k + b * ops.kv_batch + h * DH;
   const int8_t* v_base = ops.v + b * ops.kv_batch + h * DH;
@@ -160,7 +527,7 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
     const int r = idx / kW;
     const int w = idx - r * kW;
     k_s[r * kStride + w] = reinterpret_cast<const int*>(k_base + r * ops.kv_row)[w];
-    if constexpr (!kSliceOut) v_s[r * kStride + w] = reinterpret_cast<const int*>(v_base + r * ops.kv_row)[w];
+    v_s[r * kStride + w] = reinterpret_cast<const int*>(v_base + r * ops.kv_row)[w];
   }
   __syncthreads();
 
@@ -177,7 +544,6 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
   for (int c = 0; c < kPerLane; ++c) {
     const int col = h * DH + lane + 32 * c;
     pv_scale[c] = __fmul_rn(deq_v[col], o_inv[col]);
-    if constexpr (kPvInt8) pv_scale[c] = __fmul_rn(pv_scale[c], kInv127);
   }
 
   for (int i = row0 + warp; i < row_end; i += kWarps) {
@@ -195,34 +561,13 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
       for (int w = 0; w < kW; ++w) acc = __dp4a(q[w], k_row[w], acc);
       const float a = static_cast<float>(acc);
       float s;
-      if constexpr (VAR == kQkOnly) {
-        s = a;
-      } else if constexpr (VAR == kNoExp || VAR == kNoPv) {
-        const float t = __fsub_rn(__fmul_rn(a, qks2), m2);
-        s = VAR == kNoExp ? t : exp2f(t);
-      } else if (use_static) {
+      if (use_static) {
         s = exp2f(__fsub_rn(__fmul_rn(a, qks2), m2));
-      } else if constexpr (EXP2I) {
-        s = a;  // the integer row max comes first; a float holds acc exactly
-        m = fmaxf(m, s);
       } else {
         s = __fmul_rn(a, qks);
         m = fmaxf(m, s);
       }
       p[j] = s;
-    }
-    if constexpr (kSliceOut) {
-      // qkonly: clip(rint(f32(acc) * 2e-5)); nopv: clip(rint(p * o_inv)), for
-      // the first DH keys (the caller checks seq >= DH); each lane reads back
-      // the keys it wrote
-      int8_t* dst = ops.out + b * ops.o_batch + i * ops.o_row + h * DH;
-      for (int c = lane; c < DH; c += 32) {
-        const float o = VAR == kQkOnly ? __fmul_rn(p[c], kQkOnlyScale)
-                                       : __fmul_rn(p[c], o_inv[h * DH + c]);
-        dst[c] = static_cast<int8_t>(fminf(fmaxf(rintf(o), -127.f), 127.f));
-      }
-      __syncwarp();  // p is rewritten by the next row
-      continue;
     }
     if (!use_static) m = warp_max(m);
     float l = 0.f;
@@ -230,68 +575,36 @@ q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restric
       float e;
       if (use_static) {
         e = p[j];
-      } else if constexpr (EXP2I) {
-        e = exp2f(__fmul_rn(__fsub_rn(p[j], m), qks2));  // acc - max is exact in f32
       } else {
         e = expf(__fsub_rn(p[j], m));
       }
-      if constexpr (NORM == kMxu) e = __bfloat162float(__float2bfloat16_rn(e));
+      e = __bfloat162float(__float2bfloat16_rn(e));
       p[j] = e;
       l += e;
     }
     l = warp_sum(l);
-    if constexpr (NORM != kMxu) {
-      // the [S] probabilities as the PV product takes them: normalised
-      // unless deferred, then bf16 or, for the int8 PV, p8 = rint(p*127)
-      __syncwarp();
-      for (int j = lane; j < nk; j += 32) {
-        float pj = p[j];
-        if constexpr (!kDefer) pj = __fdiv_rn(pj, l);
-        if constexpr (kPvInt8) {
-          pj = fminf(fmaxf(rintf(__fmul_rn(pj, 127.f)), 0.f), 127.f);
-        } else {
-          pj = __bfloat162float(__float2bfloat16_rn(pj));
-        }
-        p[j] = pj;
-      }
-    }
     __syncwarp();
 
     float o[kPerLane];
-    if constexpr (kPvInt8) {
-      int acc_i[kPerLane];
+    float acc_o[kPerLane];
 #pragma unroll
-      for (int c = 0; c < kPerLane; ++c) acc_i[c] = 0;
-      for (int j = 0; j < nk; ++j) {
-        const int pj = static_cast<int>(p[j]);
-        const int8_t* v_row = v_bytes + j * kStride * 4;
+    for (int c = 0; c < kPerLane; ++c) acc_o[c] = 0.f;
+    for (int j = 0; j < nk; ++j) {
+      const float pj = p[j];
+      const int8_t* v_row = v_bytes + j * kStride * 4;
 #pragma unroll
-        for (int c = 0; c < kPerLane; ++c) acc_i[c] += pj * static_cast<int>(v_row[lane + 32 * c]);
-      }
+      for (int c = 0; c < kPerLane; ++c)
+        acc_o[c] = fmaf(pj, static_cast<float>(v_row[lane + 32 * c]), acc_o[c]);
+    }
 #pragma unroll
-      for (int c = 0; c < kPerLane; ++c) o[c] = __fmul_rn(static_cast<float>(acc_i[c]), pv_scale[c]);
-    } else {
-      float acc_o[kPerLane];
-#pragma unroll
-      for (int c = 0; c < kPerLane; ++c) acc_o[c] = 0.f;
-      for (int j = 0; j < nk; ++j) {
-        const float pj = p[j];
-        const int8_t* v_row = v_bytes + j * kStride * 4;
-#pragma unroll
-        for (int c = 0; c < kPerLane; ++c)
-          acc_o[c] = fmaf(pj, static_cast<float>(v_row[lane + 32 * c]), acc_o[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < kPerLane; ++c) {
-        o[c] = __fmul_rn(acc_o[c], pv_scale[c]);
-        if constexpr (NORM == kMxu) o[c] = __fdiv_rn(o[c], l);
-      }
+    for (int c = 0; c < kPerLane; ++c) {
+      o[c] = __fmul_rn(acc_o[c], pv_scale[c]);
+      o[c] = __fdiv_rn(o[c], l);
     }
     int8_t* dst = ops.out + b * ops.o_batch + i * ops.o_row + h * DH;
 #pragma unroll
     for (int c = 0; c < kPerLane; ++c) {
       float oc = o[c];
-      if constexpr (kDefer) oc = __fdiv_rn(oc, l);
       dst[lane + 32 * c] = static_cast<int8_t>(fminf(fmaxf(rintf(oc), -127.f), 127.f));
     }
     __syncwarp();  // p is rewritten by the next row
@@ -323,25 +636,48 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DH, bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
-cudaError_t launch(const Args& a) {
+template <int DH>
+int launch_cls(const Args& a) {
   const size_t smem = smem_bytes(a.seq, DH);
-  cudaError_t err = cudaFuncSetAttribute(q3i_kernel<DH, CLS, NORM, EXP2I, VAR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  if (smem > kSmemOptin) return kErrTooLong;
+  cudaError_t err = cudaFuncSetAttribute(
+      q3i_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(CLS ? 1 : (a.seq + kRows - 1) / kRows, a.heads, a.batch);
-  q3i_kernel<DH, CLS, NORM, EXP2I, VAR><<<grid, kWarps * 32, smem, a.stream>>>(
-      a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2, a.seq, a.heads, a.kv_len, a.causal);
+  const dim3 grid(1, a.heads, a.batch);
+  q3i_kernel<DH><<<grid, kWarps * 32, smem, a.stream>>>(a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2,
+                                                         a.seq, a.heads, a.kv_len, a.causal);
   return cudaGetLastError();
 }
 
-template <bool CLS, int NORM, bool EXP2I, int VAR = kProduction>
+int launch_cls_dh(const Args& a) {
+  switch (a.dh) {
+    case 32: return launch_cls<32>(a);
+    case 64: return launch_cls<64>(a);
+    case 128: return launch_cls<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int DH, int NORM, bool EXP2I, int VAR>
+int launch_tc(const Args& a) {
+  const size_t smem = smem_bytes_tc(a.seq, DH);
+  if (smem > kSmemOptin) return kErrTooLong;
+  cudaError_t err = cudaFuncSetAttribute(q3i_kernel_tc<DH, NORM, EXP2I, VAR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.heads, a.batch);
+  q3i_kernel_tc<DH, NORM, EXP2I, VAR><<<grid, 32 * tc_warps(a.seq), smem, a.stream>>>(
+      a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2, a.seq, a.kv_len, a.causal);
+  return cudaGetLastError();
+}
+
+template <int NORM, bool EXP2I, int VAR = kProduction>
 int launch_dh(const Args& a) {
   switch (a.dh) {
-    case 32: return launch<32, CLS, NORM, EXP2I, VAR>(a);
-    case 64: return launch<64, CLS, NORM, EXP2I, VAR>(a);
-    case 128: return launch<128, CLS, NORM, EXP2I, VAR>(a);
+    case 32: return launch_tc<32, NORM, EXP2I, VAR>(a);
+    case 64: return launch_tc<64, NORM, EXP2I, VAR>(a);
+    case 128: return launch_tc<128, NORM, EXP2I, VAR>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -349,11 +685,11 @@ int launch_dh(const Args& a) {
 template <bool EXP2I>
 int launch_norm(const Args& a, int norm) {
   switch (norm) {
-    case kMxu: return launch_dh<false, kMxu, EXP2I>(a);
-    case kReduce: return launch_dh<false, kReduce, EXP2I>(a);
-    case kReduceDefer: return launch_dh<false, kReduceDefer, EXP2I>(a);
-    case kPv8: return launch_dh<false, kPv8, EXP2I>(a);
-    case kPv8Defer: return launch_dh<false, kPv8Defer, EXP2I>(a);
+    case kMxu: return launch_dh<kMxu, EXP2I>(a);
+    case kReduce: return launch_dh<kReduce, EXP2I>(a);
+    case kReduceDefer: return launch_dh<kReduceDefer, EXP2I>(a);
+    case kPv8: return launch_dh<kPv8, EXP2I>(a);
+    case kPv8Defer: return launch_dh<kPv8Defer, EXP2I>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -384,13 +720,12 @@ Args make_args(const void* q, const void* k, const void* v, void* out, const voi
 
 }  // namespace
 
-extern "C" size_t team_mha_packed_q3i_smem_bytes(int seq, int dh) { return smem_bytes(seq, dh); }
-
 // Pointers are device pointers: qkv int8 [B, S, 3*D]; deq float [3*D]; qk_scale
 // float [H]; o_inv float [D]; qk_m2 float [H] or NULL for the row-max or
 // exp2i softmax; out int8 [B, S, D]. exp2i: 1 for the integer row-max
 // softmax (unmasked only); norm: one of Norm. Returns the cudaError_t of the
-// launch (0 on success).
+// launch (0 on success), or -1, launching nothing, when S is longer than the
+// kernel's shared memory takes (every entry below does the same).
 extern "C" int team_mha_packed_q3i_fwd(const void* qkv, const void* deq, const void* qk_scale,
                                        const void* o_inv, const void* qk_m2, void* out, int batch,
                                        int seq, int heads, int dh, int kv_len, int causal,
@@ -420,7 +755,7 @@ extern "C" int team_mha_packed_q3i_cls_fwd(const void* qkv, const void* deq, con
   a.ops.q_row = a.ops.kv_row = 3 * d;
   a.ops.q_batch = a.ops.kv_batch = 3 * d * seq;
   a.ops.o_row = a.ops.o_batch = d;
-  return launch_dh<true, kMxu, false>(a);
+  return launch_cls_dh(a);
 }
 
 // The CLS query over split inputs: q int8 [B, 1, D] (the CLS row's q) and kv
@@ -438,9 +773,8 @@ extern "C" int team_mha_packed_q3i_cls_split_fwd(const void* q, const void* kv, 
   a.ops.kv_row = 2 * d;
   a.ops.kv_batch = 2 * d * seq;
   a.ops.o_row = a.ops.o_batch = d;
-  return launch_dh<true, kMxu, false>(a);
+  return launch_cls_dh(a);
 }
-
 // The packed entry's heads split over nm tensor-parallel ranks: rank r of nm
 // reads heads [r*H/nm, (r+1)*H/nm) of the full qkv int8 [B, S, 3*D] in place
 // and writes out int8 [B, S, D/nm]; deq [3*D], qk_scale [H], o_inv [D] and
@@ -511,10 +845,10 @@ extern "C" int team_mha_q3i_variant_fwd(const void* qkv, const void* deq, const 
   a.ops.o_row = d;
   a.ops.o_batch = d * seq;
   switch (variant) {
-    case 1: return launch_dh<false, kMxu, false>(a);
-    case 2: return launch_dh<false, kMxu, false, kNoExp>(a);
-    case 3: return launch_dh<false, kMxu, false, kQkOnly>(a);
-    default: return launch_dh<false, kMxu, false, kNoPv>(a);
+    case 1: return launch_dh<kMxu, false>(a);
+    case 2: return launch_dh<kMxu, false, kNoExp>(a);
+    case 3: return launch_dh<kMxu, false, kQkOnly>(a);
+    default: return launch_dh<kMxu, false, kNoPv>(a);
   }
 }
 
@@ -531,5 +865,5 @@ extern "C" int team_mha_packed_q3i_sb_fwd(const void* qkv, const void* deq, cons
   a.ops.q_batch = a.ops.kv_batch = 3 * d;
   a.ops.o_row = d * batch;
   a.ops.o_batch = d;
-  return launch_dh<false, kReduce, false>(a);
+  return launch_dh<kReduce, false>(a);
 }

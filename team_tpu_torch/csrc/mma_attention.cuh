@@ -1,6 +1,7 @@
 // The bf16 attention tile on Hopper's tensor cores (sm_90a), shared by the
 // attention sources of this directory: attn_block.cu (#12, #13), mha_packed.cu
-// (#1, #2, #3) and flash_attention.cu (#14).
+// (#1, #2, #3), flash_attention.cu (#14), mha_packed_q.cu (#5, #6) and, for
+// its PV, mha_packed_q3i.cu (#7, #10, #11, #29).
 //   - swz: the XOR swizzle of 16-byte chunks that keeps ldmatrix free of bank
 //     conflicts without padding;
 //   - stage_rows_tc: one head's K or V rows into shared memory by cp.async;
@@ -143,6 +144,23 @@ struct WarpAttention {
     nwin = (nb + WIN - 1) / WIN;
   }
 
+  // the same with q's A fragments built by the caller (the int8-I/O kernels
+  // of mha_packed_q.cu dequantize q with their own roundings)
+  __device__ __forceinline__ WarpAttention(const uint32_t (&qf_)[KS][4], const bf16* k_s_,
+                                           const bf16* v_s_, int nk, int row_w_, int causal_)
+      : k_s(k_s_), v_s(v_s_), row_w(row_w_), causal(causal_) {
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[ks][i] = qf_[ks][i];
+    nkw = causal ? min(nk, row_w + 16) : nk;
+    nb = (nkw + 15) >> 4;
+    nwin = (nb + WIN - 1) / WIN;
+  }
+
   __device__ __forceinline__ void logits(int w) {
 #pragma unroll
     for (int j = 0; j < WIN; ++j) {
@@ -261,6 +279,27 @@ struct WarpAttention {
   // bf16 unless q lies within a few ulps of a bf16 halfway point (or is tiny),
   // and a key block that holds such a q takes the division itself
   __device__ __forceinline__ void pv_store(bf16* o, long long ld, int seq) {
+    pv_sum([&](const float (&acc)[DH / 8][4]) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row_w + g + 8 * hr;
+        if (row >= seq) continue;
+        bf16* dst = o + static_cast<long long>(row) * ld + 2 * t;
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+          *reinterpret_cast<uint32_t*>(dst + nd * 8) =
+              pack_bf16(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
+      }
+    });
+  }
+
+  // pv()'s PV sums, with p rounded as pv_store() states, handed to epi(acc)
+  // (the accumulator layout: rows g and g + 8, columns 8 nd + 2t and 8 nd +
+  // 2t + 1): pv_store's store, or a caller's own epilogue. The sums stay a
+  // local array of this function (passing one in moved the registers of
+  // #1-#3's SASS)
+  template <class Epilogue>
+  __device__ __forceinline__ void pv_sum(Epilogue&& epi) {
     const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
     float acc[DH / 8][4] = {};
     for (int w = 0; w < nwin; ++w) {
@@ -290,15 +329,7 @@ struct WarpAttention {
         pv_block<DH>(acc, a, v_s, kb, lane);
       }
     }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row_w + g + 8 * hr;
-      if (row >= seq) continue;
-      bf16* dst = o + static_cast<long long>(row) * ld + 2 * t;
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd)
-        *reinterpret_cast<uint32_t*>(dst + nd * 8) = pack_bf16(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
-    }
+    epi(acc);
   }
 };
 

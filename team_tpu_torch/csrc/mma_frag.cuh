@@ -1,5 +1,5 @@
-// Warp-level tensor-core pieces for Hopper (sm_90a): the bf16 mma, ldmatrix
-// and cp.async, with no tile or launch constants, so that any source of this
+// Warp-level tensor-core pieces for Hopper (sm_90a): the bf16 and s8 mma,
+// ldmatrix and cp.async, with no tile or launch constants, so that any source of this
 // directory can include it beside its own (csrc/attn_block.cu beside
 // attention_common.cuh, csrc/bf16_mma.cuh beside int8_mma.cuh).
 //
@@ -31,6 +31,21 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, an exact int32 sum: A (16 x
+// 32 s8) a0 = row g, cols 4t..4t+3; a1 = row g+8, the same cols; a2, a3 = rows
+// g, g+8, cols 16+4t..16+4t+3; B (32 x 8, stored [n][k]) b0 = col g, k 4t..4t+3;
+// b1 = col g, k 16+4t..16+4t+3; C as the bf16 form's, in int32. Each register
+// holds four s8, the lowest column in the low byte. ldmatrix's 8 x 8 b16
+// matrix of 8 rows of 16 bytes is one s8 B register (or A register) as it stands.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

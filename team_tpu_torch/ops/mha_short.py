@@ -32,8 +32,10 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   to int8 ``[B, S, D]`` with the TPU kernel's softmax and normalisation
   modes, the CLS row only (``[B, 1, D]``, from the packed tensor or from a
   split q ``[B, 1, D]`` and kv ``[B, S, 2*D]``), and sequence-major
-  ``[S, B, 3*D]`` to ``[S, B, D]``; one CUDA kernel over strides,
-  ``csrc/mha_packed_q3i.cu``.
+  ``[S, B, 3*D]`` to ``[S, B, D]``; CUDA kernels over strides,
+  ``csrc/mha_packed_q3i.cu``: q·k on the int8 tensor cores and p·v on the
+  bf16 ones for every entry with more than one query row, the CUDA cores for
+  the CLS row.
 - ``fused_mha_packed_tp`` and ``fused_mha_packed_q3i_tp`` (``shard_map``
   head splits of ``_mha_packed_kernel`` and ``_mha_packed_q3i_kernel``):
   under a registered tensor-parallel layout (:func:`set_tp_mesh`) rank r of
@@ -44,7 +46,9 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   ``_mha_packed_q_kernel`` and ``_mha_packed_q3_kernel``): the same tier's
   int8-in, int8-out attention with per-channel dequant (in float32 and in
   bfloat16 respectively) and bf16 products, ``[B*S, 3*D]`` to ``[B*S, D]``
-  and ``[B, S, 3*D]`` to ``[B, S, D]``; CUDA kernels ``csrc/mha_packed_q.cu``.
+  and ``[B, S, 3*D]`` to ``[B, S, D]``; CUDA kernels ``csrc/mha_packed_q.cu``
+  (K and V dequantized into the attention tile of ``csrc/mma_attention.cuh``,
+  on the bf16 tensor cores).
 
 The kernels are compiled with ``nvcc`` on first use and bound with
 ``ctypes``. Forward only: the towers that call them are frozen. On a CPU
@@ -559,6 +563,9 @@ _Q3I_SOURCE = "mha_packed_q3i.cu"
 _Q3I_HEAD_DIMS = (32, 64, 128)
 # the kernel's normalisations (``csrc/mha_packed_q3i.cu``, enum Norm)
 _NORM_MXU, _NORM_REDUCE, _NORM_PV8 = 0, 1, 3
+# what an entry returns, launching nothing, when S does not fit its kernel's
+# shared memory (``kErrTooLong``)
+_Q3I_TOO_LONG = -1
 
 
 def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
@@ -670,8 +677,6 @@ def _q3i_library() -> ctypes.CDLL:
                   "team_mha_packed_q3i_cls_split_fwd", "team_mha_packed_q3i_sb_fwd",
                   "team_mha_packed_q3i_tp_fwd", "team_mha_q3i_variant_fwd"):
         getattr(lib, entry).restype = ctypes.c_int
-    lib.team_mha_packed_q3i_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.team_mha_packed_q3i_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -776,14 +781,13 @@ def _q3i_launch(entry: str, inputs, vecs, out, batch: int, seq: int, heads: int,
     if dh not in _Q3I_HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_Q3I_HEAD_DIMS})")
     lib = _q3i_library()
-    smem = lib.team_mha_packed_q3i_smem_bytes(seq, dh)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={seq} needs {smem} bytes of shared memory for K/V "
-                         f"(limit {_SMEM_LIMIT})")
     ptrs = [None if t is None else t.data_ptr() for t in vecs]
     with torch.cuda.device(out.device):
         err = getattr(lib, entry)(*(t.data_ptr() for t in inputs), *ptrs, out.data_ptr(), batch,
                                   seq, heads, dh, *extra, torch.cuda.current_stream().cuda_stream)
+    if err == _Q3I_TOO_LONG:
+        raise ValueError(f"S={seq} at head width {dh}: {entry}'s K/V need more shared memory "
+                         f"than a block may take ({_SMEM_LIMIT} bytes)")
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 

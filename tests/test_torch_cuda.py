@@ -55,7 +55,9 @@ tensor-core forms of the packed and flash kernels at their tile edges, the
 longest S, with key masks and unaligned inputs, as the packed and flash
 kernels (bf16 2e-2), the pre-split and head-split entries equal to the
 packed one bit for bit, and an unaligned input's output equal to the
-aligned one's bit for bit."""
+aligned one's bit for bit; the int8 attention's tensor-core kernels at
+their tile edges to the int8 limits above, and bit for bit the plain
+version on inputs whose softmax sums are exact in any order."""
 
 import math
 
@@ -710,6 +712,155 @@ def test_new_q3i_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
         tms.fused_mha_packed_q3i_cls_split(q, kv.contiguous(), deq, qks, oinv, 2)
     with pytest.raises(ValueError, match="lies on"):
         tms.fused_mha_packed_q3i_cls_split(q.contiguous(), kv.contiguous(), deq, qks.cpu(), oinv, 2)
+
+
+# -- the int8 attention on the tensor cores: #7's q3i_kernel_tc (#10, #11, #29
+#  too) and #5/#6's mha_q_kernel_tc at their tile edges --
+
+# (S, causal, kv_len): S not a multiple of 16 and past one 16-row tile per
+# warp (257), one key, causal with and without kv_len, kv_len < S
+INT8_EDGES = [(s, causal, kv) for s in (37, 77, 197, 257)
+              for causal, kv in ((False, None), (False, 1), (True, None), (True, s // 2),
+                                 (False, s - 7))]
+# (TEAM_QI_SOFTMAX, TEAM_QI_ROWSUM, pv_int8, defer_norm): every normalisation
+# under each softmax the masks leave it
+Q3I_EDGE_MODES = [("static", "mxu", False, False), ("exp2i", "mxu", False, False),
+                  ("f32", "reduce", False, False), ("static", "reduce", False, True),
+                  ("static", "mxu", True, False), ("f32", "mxu", True, True)]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s,causal,kv_len", INT8_EDGES)
+def test_q3i_tensor_core_kernel_at_the_tile_edges(cuda_device, monkeypatch, s, causal, kv_len, dh):
+    qkv, deq, qks, oinv, m2 = q3i_inputs(2, s, 3, cuda_device, seed=s + dh, dh=dh)
+    for softmax, rowsum, pv_int8, defer in Q3I_EDGE_MODES:
+        monkeypatch.setenv("TEAM_QI_SOFTMAX", softmax)
+        monkeypatch.setenv("TEAM_QI_ROWSUM", rowsum)
+        kw = dict(causal=causal, kv_len=kv_len, qk_m2=m2, pv_int8=pv_int8, defer_norm=defer)
+        out = fused_mha_packed_q3i(qkv, deq, qks, oinv, 3, **kw)
+        torch.cuda.synchronize()
+        assert_within_one_int8_step(out, tms.mha_packed_q3i_plain(qkv, deq, qks, oinv, 3, **kw),
+                                    pv_int8_limit(deq, oinv) if pv_int8 else 1)
+
+
+@pytest.mark.parametrize("form", ["q", "q3"])
+@pytest.mark.parametrize("s,causal,kv_len", INT8_EDGES)
+def test_packed_q_tensor_core_kernel_at_the_tile_edges(cuda_device, form, s, causal, kv_len):
+    qkv, deq, oinv = packed_q_inputs(2, s, 3, cuda_device, seed=s)
+    want = tms.mha_packed_q_reference(qkv, deq, oinv, 3, causal, kv_len, bf16_deq=form == "q3")
+    if form == "q":
+        out = tms.fused_mha_packed_q(qkv.reshape(2 * s, -1), deq, oinv, 3, seq=s, causal=causal,
+                                     kv_len=kv_len).reshape(2, s, -1)
+    else:
+        out = tms.fused_mha_packed_q3(qkv, deq, oinv, 3, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert_within_one_int8_step(out, want)
+
+
+def exact_sum_inputs(b, s, heads, dh, device, seed=0):
+    """int8 qkv and scales with which the softmax's sums are exact in any
+    order: q and k are 0 or +-32 on two dims of each head (0 elsewhere), so
+    acc is a multiple of 1024 within +-2048; qk_scale makes qks * log2e
+    exactly 2^-10 and qk_m2 is 3, so each static exponential is a power of
+    two in [2^-5, 2^-1] and every row sum, and every sum of p * v8 with p such
+    a power, holds in f32 whatever the order."""
+    import numpy as np
+
+    log2e = np.float32(1.4426950408889634)
+    target = np.float32(2.0 ** -10)
+    qks = np.float32(target / log2e)
+    while np.float32(qks * log2e) != target:
+        up = np.float32(qks * log2e) < target
+        qks = np.nextafter(qks, np.float32(1) if up else np.float32(0))
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = heads * dh
+    qkv = torch.randint(-127, 128, (b, s, 3 * d), generator=g, device=device, dtype=torch.int8)
+    for part in range(2):  # q, then k
+        x = torch.zeros((b, s, heads, dh), dtype=torch.int8, device=device)
+        x[..., :2] = (torch.randint(-1, 2, (b, s, heads, 2), generator=g, device=device) * 32).to(
+            torch.int8)
+        qkv[..., part * d:(part + 1) * d] = x.reshape(b, s, d)
+    deq = torch.rand((1, 3 * d), generator=g, device=device) * 0.02 + 0.01
+    oinv = torch.rand((1, d), generator=g, device=device) * 40 + 20
+    return (qkv, deq, torch.full((1, heads), float(qks), device=device), oinv,
+            torch.full((1, heads), 3.0, device=device))
+
+
+@pytest.mark.parametrize("dh,s", [(64, 197), (32, 257), (128, 77)])
+def test_q3i_tensor_core_kernel_is_exact_where_its_sums_are(cuda_device, dh, s):
+    """Where every sum of the static softmax is exact in any order, the
+    default route (p = bf16(e), the ones-column row sum) and the int8 PV with
+    and without the deferred divide (p8 = rint(p * 127); its tensor-core sum
+    of p8 * v8 is the int32 sum) equal the plain version bit for bit."""
+    qkv, deq, qks, oinv, m2 = exact_sum_inputs(4, s, 3, dh, cuda_device, seed=dh + s)
+    for kw in ({}, {"pv_int8": True}, {"pv_int8": True, "defer_norm": True}):
+        out = fused_mha_packed_q3i(qkv, deq, qks, oinv, 3, qk_m2=m2, **kw)
+        torch.cuda.synchronize()
+        want = tms.mha_packed_q3i_plain(qkv, deq, qks, oinv, 3, qk_m2=m2, **kw)
+        assert torch.equal(out, want), kw
+
+
+# the longest S the q3i entries take at each head width: the tensor-core
+# kernel's 3 * pad16(S) * dh bytes and the CLS kernel's padded int8 K/V and
+# 8 warps' p rows (csrc/mha_packed_q3i.cu) within 232448 bytes
+Q3I_LONGEST_S = {32: (2416, 2235), 64: (1200, 1383), 128: (592, 785)}
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_q3i_entries_take_their_longest_s_and_reject_one_more(cuda_device, dh):
+    """Each kernel runs at its longest S (within one int8 step of the plain
+    version) and an S one longer raises before anything is launched."""
+    tc_s, cls_s = Q3I_LONGEST_S[dh]
+    qkv, deq, qks, oinv, m2 = q3i_inputs(1, tc_s, 2, cuda_device, seed=dh, dh=dh)
+    out = fused_mha_packed_q3i(qkv, deq, qks, oinv, 2, qk_m2=m2)
+    torch.cuda.synchronize()
+    assert_within_one_int8_step(out, tms.mha_packed_q3i_plain(qkv, deq, qks, oinv, 2, qk_m2=m2))
+    qkv, deq, qks, oinv, m2 = q3i_inputs(16, cls_s, 2, cuda_device, seed=dh, dh=dh)
+    out = tms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, 2, qk_m2=m2)
+    torch.cuda.synchronize()
+    assert_within_one_int8_step(out, tms.mha_packed_q3i_cls_plain(qkv, deq, qks, oinv, 2,
+                                                                  qk_m2=m2))
+    launches = (fused_mha_packed_q3i.launches, tms.fused_mha_packed_q3i_cls.launches)
+    for s, call in ((tc_s + 1, fused_mha_packed_q3i), (cls_s + 1, tms.fused_mha_packed_q3i_cls)):
+        qkv, deq, qks, oinv, m2 = q3i_inputs(1, s, 2, cuda_device, seed=dh, dh=dh)
+        with pytest.raises(ValueError, match="shared memory"):
+            call(qkv, deq, qks, oinv, 2, qk_m2=m2)
+    assert (fused_mha_packed_q3i.launches, tms.fused_mha_packed_q3i_cls.launches) == launches
+
+
+def test_q3i_variant_full_is_the_packed_q3i_kernel_at_the_vision_batch(cuda_device):
+    from team_tpu_torch.scripts import r4_attn_decomp as r4
+
+    qkv, qks, qkm2, oinv = r4.make_inputs(128, cuda_device)
+    ones = torch.ones((1, 3 * r4.D), device=cuda_device)
+    assert torch.equal(tms.fused_mha_q3i_variant(qkv, qks, qkm2, oinv, r4.H, "full"),
+                       fused_mha_packed_q3i(qkv, ones, qks, oinv, r4.H, qk_m2=qkm2))
+
+
+def test_int8_attention_kernels_issue_imma_and_hmma(cuda_device):
+    """Every instantiation of #7's kernel runs q.k on the s8 tensor cores
+    (IMMA), and p.v on the bf16 ones (HMMA) where it has a PV: 3 head widths
+    x (5 normalisations x 2 softmaxes + the probe's noexp), and the probe's
+    qkonly and nopv (VAR 2 and 3, the last template argument) at 3 head
+    widths with IMMA alone; the CLS kernel (3 head widths) neither; #5/#6's
+    kernel (2 dequants x 3 logits windows) HMMA."""
+    import re
+
+    tms.build()
+    imma = {fn: len(found) for fn, found in _opcode_per_kernel("mha_packed_q3i.cu", "IMMA").items()}
+    hmma = _hmma_per_kernel("mha_packed_q3i.cu")
+    var = {fn: int(m.group(1)) for fn in imma
+           if (m := re.search(r"q3i_kernel_tcILi\d+ELi\d+ELb[01]ELi(\d)EE", fn))}
+    tc = [fn for fn in var if var[fn] < 2]
+    sliced = [fn for fn in var if var[fn] >= 2]
+    cls = [fn for fn in imma if "q3i_kernel" in fn and "_tc" not in fn]
+    assert len(var) == len([fn for fn in imma if "q3i_kernel_tc" in fn]), imma
+    assert len(tc) == 33 and min(min(imma[f], hmma[f]) for f in tc) > 0, (imma, hmma)
+    assert len(sliced) == 6 and min(imma[f] for f in sliced) > 0, imma
+    assert max(hmma[f] for f in sliced) == 0, hmma
+    assert len(cls) == 3 and max(imma[f] + hmma[f] for f in cls) == 0, (imma, hmma)
+    q = [n for fn, n in _hmma_per_kernel("mha_packed_q.cu").items() if "mha_q_kernel_tc" in fn]
+    assert len(q) == 6 and min(q) > 0, q
 
 
 # (gemm_impl, cls_last, env, launches per encode of an L-layer tower as

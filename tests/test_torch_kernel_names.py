@@ -1,5 +1,6 @@
 """The kernel names that ``chip_smoke.py`` phase 2 checks in the SASS: every
-name of its ``TC_SOURCES`` (HMMA) and ``GMMA_SOURCES`` (wgmma) tables is a
+name of its ``TC_SOURCES`` (HMMA), ``GMMA_SOURCES`` (wgmma) and
+``IMMA_SOURCES`` (s8 mma.sync) tables is a
 ``__global__`` function of the named ``team_tpu_torch/csrc/`` source, so
 that no check passes on a name that a redesign renamed away. The tables are
 read from the script's source (importing it would set its environment), and
@@ -15,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "team_tpu_torch" / "csrc"
 
 
-def _tables() -> dict:
+def _tables(names=("TC_SOURCES", "GMMA_SOURCES", "IMMA_SOURCES")) -> dict:
     """chip_smoke.py's SASS tables by name: source -> (kernels that issue the
     opcode, kernels that issue none)."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -23,7 +24,7 @@ def _tables() -> dict:
     for node in tree.body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1:
             name = getattr(node.targets[0], "id", None)
-            if name in ("TC_SOURCES", "GMMA_SOURCES"):
+            if name in names:
                 tables[name] = ast.literal_eval(node.value)
     return tables
 
@@ -45,7 +46,7 @@ def _global_functions(source: str) -> set:
 
 
 def test_both_tables_are_read():
-    assert set(TABLES) == {"TC_SOURCES", "GMMA_SOURCES"}
+    assert set(TABLES) == {"TC_SOURCES", "GMMA_SOURCES", "IMMA_SOURCES"}
     assert all(issuing and isinstance(other, tuple)
                for sources in TABLES.values() for issuing, other in sources.values())
 
@@ -60,6 +61,33 @@ def test_every_checked_name_is_a_kernel_of_its_source(table, source, kernel, rol
 
 
 def test_the_redesigned_kernels_are_checked():
-    """#4's bf16 kernel is checked for HMMA and #27's int8 kernel for GMMA."""
+    """#4's bf16 kernel is checked for HMMA and #27's int8 kernel for GMMA;
+    the int8 attention's: #7's kernel (also #10, #11, #29) for IMMA and HMMA
+    but for the 6 instantiations of #29's qkonly and nopv, which run no PV,
+    #5/#6's for HMMA, and the CLS kernel (#8, #9) for neither."""
     assert "mha_v2_kernel_tc" in TABLES["TC_SOURCES"]["mha_packed.cu"][0]
     assert "probe_mm_kernel_wg_s8" in TABLES["GMMA_SOURCES"]["gemm_probe.cu"][0]
+    assert TABLES["TC_SOURCES"]["mha_packed_q3i.cu"] == (("q3i_kernel_tc",), ("q3i_kernel",))
+    assert TABLES["IMMA_SOURCES"]["mha_packed_q3i.cu"] == (("q3i_kernel_tc",), ("q3i_kernel",))
+    assert _tables(("NO_PV_INSTANCES",))["NO_PV_INSTANCES"] == {
+        "mha_packed_q3i.cu": {"q3i_kernel_tc": 6}}
+    assert "mha_q_kernel_tc" in TABLES["TC_SOURCES"]["mha_packed_q.cu"][0]
+
+
+def test_no_pv_instances_are_the_probe_cuts_of_a_tensor_core_kernel():
+    """Phase 2 lets exactly ``NO_PV_INSTANCES`` instantiations of a tensor-core
+    kernel issue no HMMA: each named kernel is a tensor-core kernel of
+    ``TC_SOURCES`` and a ``__global__`` function of its source, and its count
+    is the source's launches of the variants without PV (VAR kQkOnly and
+    kNoPv) times the head widths its launcher takes."""
+    no_pv = _tables(("NO_PV_INSTANCES",))["NO_PV_INSTANCES"]
+    for source, kernels in no_pv.items():
+        text = (CSRC / source).read_text()
+        launcher = text[text.index("int launch_dh(const Args& a) {"):]
+        widths = re.findall(r"case (\d+): return launch_tc<", launcher[:launcher.index("\n}")])
+        cuts = set(re.findall(r"launch_dh<kMxu, false, (kQkOnly|kNoPv)>", text))
+        for kernel, n in kernels.items():
+            assert kernel in TABLES["TC_SOURCES"][source][0], (source, kernel)
+            assert kernel in _global_functions(source), (source, kernel)
+            assert widths == ["32", "64", "128"] and cuts == {"kQkOnly", "kNoPv"}
+            assert n == len(cuts) * len(widths), (kernel, n, cuts, widths)

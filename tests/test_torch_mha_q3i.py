@@ -162,3 +162,19 @@ def test_wrappers_reject_heads_and_unported_knobs(monkeypatch):
                 assert_within_one_step(port(qkv, deq, qks, oinv, 2, qk_m2=m2).numpy(),
                                        np.asarray(want))
         jax.clear_caches()
+
+
+def test_the_too_long_code_is_the_kernel_sources():
+    """The entries of ``csrc/mha_packed_q3i.cu`` return ``kErrTooLong``,
+    launching nothing, when S outgrows their kernel's shared memory; the
+    wrapper raises ``ValueError`` on the same value (the card tests run the
+    longest S and one more)."""
+    import re
+    from pathlib import Path
+
+    import team_tpu_torch.ops.mha_short as tms
+
+    text = (Path(tms.__file__).resolve().parents[1] / "csrc" / tms._Q3I_SOURCE).read_text()
+    code = re.search(r"constexpr int kErrTooLong = (-?\d+);", text)
+    assert code and int(code.group(1)) == tms._Q3I_TOO_LONG
+    assert text.count("if (smem > kSmemOptin) return kErrTooLong;") == 2  # both launchers

@@ -12,11 +12,12 @@ Phases, one line or more each:
      in the CUDA-core ones (f32); of int8_gemm.cu and gemm_probe.cu: GMMA
      (IGMMA s8, HGMMA bf16) in the wgmma + TMA kernels (#15 gemm_kernel_wg,
      #20 blockscale_kernel_wg, #21 gelu_quant_kernel_wg, #27
-     probe_mm_kernel_wg_s8 and probe_mm_kernel_wg), none in the mma.sync
-     ones, and no spill in them; of mha_packed_q3i.cu: IMMA (q.k) and HMMA
+     probe_mm_kernel_wg_s8 and probe_mm_kernel_wg, #30 mlp_mega_kernel_wg),
+     none in the mma.sync ones (#28's ceiling_kernel), and no spill in them;
+     of mha_packed_q3i.cu: IMMA (q.k) and HMMA
      (p.v) in q3i_kernel_tc (#7, #10, #11, #29; #29's qkonly and nopv, its
-     6 instantiations with no PV, IMMA alone), neither in q3i_kernel (the
-     CLS entries #8, #9); of
+     6 instantiations with no PV, IMMA alone), neither in q3i_cls_kernel
+     (the CLS entries #8, #9), no spill in either; of
      mha_packed_q.cu: HMMA in mha_q_kernel_tc (#5, #6); no spill in them
      either; the mnemonics by kernel
   3. each kernel vs its plain PyTorch version at the main paths' shapes: the
@@ -67,8 +68,8 @@ Phases, one line or more each:
      v2), each #29 variant on r4_attn_decomp's first layer; the u8
      normalize (#26) bit for bit over every u8 value and at B=128, 224^2;
      the GEMM probes' kernels at the probes' own shapes and inputs:
-     probe_mm (#27) int8 bit for bit the exact product and the mma.sync
-     kernel it replaced over a whole 4096^3 input, and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
+     probe_mm (#27) int8 bit for bit the exact product over a whole 4096^3
+     input, and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
      int8 bit for bit and bf16 within 2^-10 of the largest |ref|, mlp_mega
      (#30) 2-D and 3-D bit for bit and within 127 s2 per near-edge hq (plus
      one bf16 step) of the plain version, the share of rows that differ
@@ -90,9 +91,10 @@ Phases, one line or more each:
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
      kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
      the wgmma GEMMs (#15 at qkv and out, #20 at proj, #21 at fc, #27 int8
-     and bf16) against their mma.sync ms of PERF.md (the int8 ones' mma.sync kernels
-     also timed in the run), the library call, the bound (its share) and
-     TOP/s or TFLOP/s
+     and bf16) against their mma.sync ms of PERF.md, the library call, the
+     bound (its share) and TOP/s or TFLOP/s; the kernels redesigned last
+     (#8 and #9 streaming on cp.async, #30 on wgmma + TMA) against their
+     earlier ms of PERF.md and the bound (its share)
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -417,15 +419,15 @@ TC_SOURCES = {
     "mha_packed.cu": (("mha_packed_kernel_tc", "mha_v2_kernel_tc"), ("mha_packed_kernel",)),
     "flash_attention.cu": (("flash_kernel_tc",), ("flash_kernel",)),
     # the int8 attention: #7's kernel (p.v; also #10, #11, #29) and #5/#6's;
-    # the CLS entries (#8, #9) keep the CUDA cores
-    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_kernel",)),
+    # the CLS entries (#8, #9) run on the CUDA cores, bound by their bytes
+    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_cls_kernel",)),
     "mha_packed_q.cu": (("mha_q_kernel_tc",), ()),
 }
 
 # the int8 attention kernels whose q.k runs on the s8 tensor cores (mma.sync
 # m16n8k32, IMMA.16832.S8.S8) and the CLS kernel, which issues none
 IMMA_SOURCES = {
-    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_kernel",)),
+    "mha_packed_q3i.cu": (("q3i_kernel_tc",), ("q3i_cls_kernel",)),
 }
 
 # the tensor-core kernels of TC_SOURCES some of whose instantiations run no
@@ -438,13 +440,14 @@ NO_PV_INSTANCES = {"mha_packed_q3i.cu": {"q3i_kernel_tc": 6}}
 # GMMA instructions and whose mma.sync kernels issue none: source -> (wgmma
 # kernels, mma.sync kernels), by name as TC_SOURCES (cuobjdump prints
 # IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21, #27 int8),
-# IGMMA.64x128x32.S8.S8 for #20's m64n128 and HGMMA.64x256x16.F32.BF16 for
-# #27's bf16 one; mma.sync is IMMA.16832.S8.S8 and HMMA.16816.F32.BF16)
+# IGMMA.64x128x32.S8.S8 for #20's and #30's m64n128 and
+# HGMMA.64x256x16.F32.BF16 for #27's bf16 one; mma.sync is IMMA.16832.S8.S8
+# and HMMA.16816.F32.BF16)
 GMMA_SOURCES = {
     "int8_gemm.cu": (("gelu_quant_kernel_wg", "gemm_kernel_wg", "blockscale_kernel_wg"),
                      ("gelu_quant_kernel", "gemm_kernel")),
-    "gemm_probe.cu": (("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg"),
-                      ("probe_mm_kernel", "ceiling_kernel", "mlp_mega_kernel")),
+    "gemm_probe.cu": (("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg", "mlp_mega_kernel_wg"),
+                      ("ceiling_kernel",)),
 }
 
 
@@ -495,15 +498,23 @@ def check_tensor_cores(build, sources=TC_SOURCES, opcode="HMMA", without=None) -
     return found
 
 
+# the CUDA-core kernels redesigned for their bytes, which may not spill
+# either: source -> kernels (#8/#9's CLS kernel)
+NO_SPILL_CUDA_CORE = {"mha_packed_q3i.cu": ("q3i_cls_kernel",)}
+
+
 def check_no_spills(build) -> None:
     """Raise if ptxas reported a spill in a tensor-core kernel (mma.sync or
-    wgmma), or serialized a kernel's wgmma (C7514: accumulators read while
-    their group may be in flight; phase 2 prints every kernel's registers).
-    A library loaded from an earlier build has no report in this process."""
+    wgmma) or one of NO_SPILL_CUDA_CORE, or serialized a kernel's wgmma
+    (C7514: accumulators read while their group may be in flight; phase 2
+    prints every kernel's registers). A library loaded from an earlier build
+    has no report in this process."""
     checked = defaultdict(set)  # source -> the kernels that may not spill
     for table in (TC_SOURCES, GMMA_SOURCES, IMMA_SOURCES):
         for source, (tc, _) in table.items():
             checked[source].update(tc)
+    for source, kernels in NO_SPILL_CUDA_CORE.items():
+        checked[source].update(kernels)
     for source, tc in checked.items():
         log = build.BUILD_LOGS.get(source)
         if log is None:
@@ -773,6 +784,27 @@ def report_int8_attention_redesign(times: dict) -> None:
               f"{before:.4f} ms (PERF.md), {before / t['ms']:.2f}x faster; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{100 * t['bound_ms'] / t['ms']:.1f} % of it")
+
+
+# the kernels redesigned last: their earlier card ms as PERF.md §6 records
+# them (this script's phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W), by
+# phase-4 key -> (kernel, ms): #8/#9 with one computing warp a block, #30 on
+# mma.sync
+EARLIER_MS = {
+    "q3i_cls": ("fused_mha_packed_q3i_cls (#8)", 0.0290),
+    "q3i_cls_split": ("fused_mha_packed_q3i_cls_split (#9)", 0.0292),
+    "mlp_mega": ("mlp_mega (#30), a pair at B=256", 3.1718),
+}
+
+
+def report_last_redesigns(times: dict) -> None:
+    """#8, #9 and #30's phase-4 times beside their earlier ms of PERF.md and
+    the bound (its share)."""
+    for key, (name, before) in EARLIER_MS.items():
+        t = times[key]
+        print(f"  {name}: {t['ms']:.4f} ms against the earlier kernel's {before:.4f} ms "
+              f"(PERF.md), {before / t['ms']:.2f}x faster; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f} % of it")
 
 
 def flash_inputs(shape, dtype, dev, seed=0):
@@ -2274,8 +2306,8 @@ def _kernel_group(name: str) -> str:
         return "int8 GEMM kernels (int8_linear, gelu_quant, blockscale)"
     if "ln_qkv_kernel" in name or "mha_packed_proj_kernel" in name:
         return "fused attention kernels (layer norm + qkv GEMM; attention + out-projection)"
-    if ("q3i_kernel" in name or "mha_packed_kernel" in name or "flash_kernel" in name
-            or "mha_q_kernel" in name):
+    if ("q3i_kernel" in name or "q3i_cls_kernel" in name or "mha_packed_kernel" in name
+            or "flash_kernel" in name or "mha_q_kernel" in name):
         return "attention kernels"
     if "quant_static_kernel" in name or "ln_quant_kernel" in name:
         return "quantize producers (ln_quantize, ln_quantize_static, row_quant_static)"
@@ -3339,8 +3371,7 @@ def _probe_inputs(dev) -> dict:
 
 def compare_gemm_probes(gp, inp) -> dict:
     """#27, #28 and #30 against their plain versions at the probes' own shapes
-    and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output
-    (and bit for bit the mma.sync kernel it replaced),
+    and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output,
     bf16 within (K/16 + 1) ulps of |x|@|w|; mxu_ceiling int8 bit for bit, bf16
     within CEILING_BF16_SHARE of the largest |ref|; mlp_mega_2d and _3d equal
     bit for bit and within mlp_mega_limit of the plain version (the float
@@ -3351,12 +3382,11 @@ def compare_gemm_probes(gp, inp) -> dict:
 
     err = {}
     x, w = inp["mm"]
-    out, ref, mma = gp.probe_mm(x, w), gp.probe_mm_reference(x, w), gp.probe_mm_int8_mma(x, w)
+    out, ref = gp.probe_mm(x, w), gp.probe_mm_reference(x, w)
     torch_sync()
-    if not (torch.equal(out, ref) and torch.equal(out, mma)):
-        raise AssertionError("probe_mm int8 differs from the exact product or the mma.sync kernel")
-    print(f"  probe_mm int8 M=N=K={x.shape[0]}: bit for bit the exact product and the mma.sync "
-          "kernel (tolerance 0)")
+    if not torch.equal(out, ref):
+        raise AssertionError("probe_mm int8 differs from the exact product")
+    print(f"  probe_mm int8 M=N=K={x.shape[0]}: bit for bit the exact product (tolerance 0)")
     err["probe_mm int8"] = 0.0
     xb, wb = inp["mm_bf16"]
     out, ref = gp.probe_mm(xb, wb), gp.probe_mm_reference(xb, wb)
@@ -3420,8 +3450,8 @@ def compare_gemm_probes(gp, inp) -> dict:
 def time_gemm_probes(gp, inp) -> dict:
     """#27, #28 and #30 at the probes' shapes (plain, kernel, kernel, plain),
     each with its bound and its library call: torch._int_mm and torch.matmul
-    (bf16 out) for #27 (int8 also the mma.sync kernel it replaced), none for
-    #28, the torch composition (the probe's xla variant) for #30."""
+    (bf16 out) for #27, none for #28, the torch composition (the probe's
+    xla variant) for #30."""
     import torch
 
     from team_tpu_torch.scripts import int8_mxu_ceiling as mc
@@ -3440,9 +3470,6 @@ def time_gemm_probes(gp, inp) -> dict:
         n = w.shape[1]
         t = four(lambda: gp.probe_mm(x, w), lambda: gp.probe_mm_reference(x, w))
         t["library_ms"] = _time_ms(lambda: lib(x, w))
-        if tag == "int8":  # the mma.sync kernel that the wgmma one replaced
-            t["mma_sync_ms"] = (_time_ms(lambda: gp.probe_mm_int8_mma(x, w))
-                                + _time_ms(lambda: gp.probe_mm_int8_mma(x, w))) / 2
         esz = x.element_size()
         t.update(bound((m * k + k * n) * esz + m * n * 4, {tag: 2 * m * n * k}))
         t["tops"] = 2 * m * n * k / t["ms"] / 1e9
@@ -3610,6 +3637,7 @@ def main() -> int:
     report_redesign(times, flash_times)
     report_gemm_redesign(times)
     report_int8_attention_redesign(times)
+    report_last_redesigns(times)
 
     print("phase 5: main paths")
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3694,6 +3722,7 @@ def main() -> int:
         "name": "fused_mha_packed_q3i_cls", **q3i_common,
         "replaces": "team_tpu/ops/mha_short.py:663",
         "launches": int8["q3i_cls"], "max_abs_err": q3i_err["q3i_cls"], **timing(times["q3i_cls"]),
+        "kernel": "q3i_cls_kernel (cp.async staging, every warp computes)",
     }, {
         "name": "fused_mha_packed_q3i_cls_split", **q3i_common,
         "replaces": "team_tpu/ops/mha_short.py:763",
@@ -3876,9 +3905,7 @@ def main() -> int:
         "launches_from": "phase 5, team_tpu_torch.scripts.int8_probe",
         "max_abs_err": gemm_probe_err["probe_mm int8"], **timing(times["probe_mm int8"]),
         "tops": times["probe_mm int8"]["tops"], "library": "torch._int_mm",
-        "kernel": "probe_mm_kernel_wg_s8 (wgmma + TMA, csrc/wgmma_gemm.cuh); probe_mm_kernel "
-                  "(mma.sync) behind probe_mm_int8_mma, equal bit for bit (phase 3)",
-        "mma_sync_ms": times["probe_mm int8"]["mma_sync_ms"],
+        "kernel": "probe_mm_kernel_wg_s8 (wgmma + TMA, csrc/wgmma_gemm.cuh)",
         "bf16": {**timing(times["probe_mm bf16"]), "tops": times["probe_mm bf16"]["tops"],
                  "max_abs_err": gemm_probe_err["probe_mm bf16"],
                  "library": "torch.matmul on the bf16 operands (bf16 out)",
@@ -3903,6 +3930,8 @@ def main() -> int:
         "max_abs_err": gemm_probe_err["mlp_mega"],
         "rows_differing": gemm_probe_err["mlp_mega rows differing"], **timing(times["mlp_mega"]),
         "tops": times["mlp_mega"]["tops"], "library": "the torch composition (xla_pair)",
+        "kernel": "mlp_mega_kernel_wg (wgmma + TMA, hq resident in shared memory, 2-CTA "
+                  "clusters multicasting the weights)",
         "probe_ms_per_pair": gemm_probes["r5_megakernel_probe"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 // The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores:
-// probe_mm through wgmma (csrc/wgmma_gemm.cuh), the others through mma.sync
-// (the s8 mainloop of csrc/int8_mma.cuh, the bf16 fragments of
-// csrc/bf16_mma.cuh).
+// probe_mm and mlp_mega through wgmma (csrc/wgmma_gemm.cuh), mxu_ceiling
+// through mma.sync (the s8 helpers of csrc/int8_mma.cuh, the bf16 fragments
+// of csrc/bf16_mma.cuh).
 //
 // Replaces the TPU kernels of the repository's probe scripts:
 //   scripts/int8_probe.py: _mm_kernel (pallas_mm, :48)          -> team_probe_mm
@@ -14,12 +14,9 @@
 // row-major, a CTA of 128 x 256 outputs on the wgmma + TMA mainloop of
 // csrc/wgmma_gemm.cuh. int8 -> int32 exact (the raw accumulator is stored,
 // staged to whole 32-byte sectors); bf16 -> f32 (each bf16 product is exact
-// in f32, the sums are f32 in the tensor cores' order). The int8 form's
-// earlier kernel, 64 x 128 tiles on the s8 mma.sync mainloop, stays callable
-// (team_probe_mm_mma) as its yardstick: both are exact, so they agree bit for
-// bit. Bound on an H100 at M = N = K = 4096: 137.4 G operations, 0.0695 ms in
-// int8 at 1,979 TOP/s and 0.139 ms in bf16 at 989 TFLOP/s; the bytes (101 MB
-// int8) take 0.030 ms.
+// in f32, the sums are f32 in the tensor cores' order). Bound on an H100 at
+// M = N = K = 4096: 137.4 G operations, 0.0695 ms in int8 at 1,979 TOP/s and
+// 0.139 ms in bf16 at 989 TFLOP/s; the bytes (101 MB int8) take 0.030 ms.
 //
 // mxu_ceiling: out [M, N] f32 = sum over i < reps of x[8 (i mod 64) :
 // 8 (i mod 64) + M, :] @ w, with w [K, N] given as [N, K]. Every one of the
@@ -41,21 +38,34 @@
 // mlp_mega: y = bf16(f32(hq @ w2) * s2[k]) with hq = clip(rint(gelu_tanh(
 // f32(x @ w1) * s1[n]) * qi[n]), +-127) int8, the whole MLP in one kernel:
 // x [M, K] int8, w1 given as [N, K], w2 as [K, N]; s1, qi [N], s2 [K] f32.
-// A CTA takes 64 rows. For each 128-column chunk of N it runs the fc product
-// on the s8 mainloop and writes hq into an int8 block [64, N] in shared
-// memory (64 x 3,088 bytes at N = 3,072: 197.6 KB, with the 30 KB of stages
-// 228 KB of the 227 KB a CTA may have); then the proj product reads A from
-// that block and streams w2 through the stages. The [M, N] intermediate
-// never reaches device memory. 64 rows rather than 32 halve what each CTA
-// re-reads of the two weights from L2 (4.7 MB a CTA). The GELU is the
-// script's _gelu_tanh in its own order, every product and sum rounded on its
-// own (__fmul_rn, __fadd_rn: nvcc would contract a*b + c into one FMA).
 // Bound at the probe's shape (M = 256 x 197, K = 768, N = 3,072): 475.9 G
-// operations, 0.2405 ms; its bytes (121 MB) 0.036 ms.
+// operations, 0.2405 ms at 1,979 TOP/s; its bytes (121 MB) 0.036 ms. What
+// limits a fused MLP here is shared memory: hq for 64 rows (wgmma's least M)
+// at N = 3,072 is 192 KB of the 227 KB a CTA may have, and each 64-row tile
+// takes both weights (4.7 MB) from L2 again.
+// Design (mlp_mega_kernel_wg): persistent CTAs of the wgmma_gemm.cuh shape
+// (one producer warp, two consumer warpgroups, setmaxnreg 40/232), each
+// taking 64-row tiles. hq is resident a slab of 1,536 columns at a time (96
+// KB, in 128-byte swizzled blocks of 128 columns: the layout wgmma reads as
+// A), which leaves a ring of three 40 KB stages of 128 bytes of K: fc's
+// stage is x's box [64, 128 B] and w1's [256, 128 B], proj's w2's [256, 128
+// B]. For each chunk of 256 hq columns of the slab the two warpgroups run
+// m64n128k32 over K (128 columns each, sharing x's box), then the epilogue
+// (the script's _gelu_tanh in its own order, every product and sum rounded
+// on its own: __fmul_rn, __fadd_rn; then the requantize) writes hq; then
+// proj runs the slab's share in passes of 256 output columns, A = hq from
+// shared memory. The first slab's int32 sums are parked in device memory,
+// each thread its own (coalesced, read back by the same thread); the second
+// slab adds them and stores bf16(f32(sum) * s2). A stage is freed as soon as
+// its products are done. CTAs of two neighbouring row tiles form a cluster:
+// each loads half of every weight box and multicasts it. Both products are
+// exact int32 sums, so the output is the mma.sync kernel's that this
+// replaced bit for bit (4 warps, the whole hq at pitch N + 16, 150 TOP/s).
+// PERF.md has its time and what was tried: the GELU epilogue overlaps no
+// product.
 //
-// The ceiling and the megakernel run mma.sync from a two-stage cp.async
-// pipeline, not wgmma and TMA (the ceiling is the mma.sync ceiling by
-// design); their times are in PERF.md.
+// The ceiling runs mma.sync from shared memory by design; its times are in
+// PERF.md.
 
 #include "bf16_mma.cuh"
 #include "int8_mma.cuh"
@@ -74,15 +84,6 @@ constexpr int kSmemMax = 232448;  // dynamic shared memory a CTA may have on an 
 constexpr int kWindows = 64;      // the ceiling's distinct windows: x rows 8 j, j < 64
 constexpr int kWindowStride = 8;
 constexpr int kTileM = 64;        // rows of every CTA tile here
-
-// the operand struct of the shared mainloops (xs and bk are read only by the
-// block-scale mainloop, which no kernel here runs)
-struct Operands {
-  const int8_t* a;
-  const int8_t* b;
-  const float* xs;
-  int m, k, bk;
-};
 
 using wg::store2;
 
@@ -110,19 +111,6 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[MI][NI][4], Acc* out
 // ---------------------------------------------------------------------------
 // probe_mm
 // ---------------------------------------------------------------------------
-
-// int8 on the s8 mma.sync mainloop, 64 x 128 tiles (team_probe_mm_mma)
-__global__ void __launch_bounds__(kThreads) probe_mm_kernel(const Operands p, int* out, int n) {
-  using T = Tile<kTileM, 2>;
-  __shared__ __align__(16) Stages<kTileM> st;
-  const int row0 = blockIdx.x * kTileM, col0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int wrow = row0 + (warp / 2) * T::WROWS, wcol = col0 + (warp % 2) * T::WCOLS;
-  int acc[T::MI][T::NI][4] = {};
-  float unused[T::MI][T::NI][4];
-  mainloop<kTileM, 2, false>(st, p, row0, col0, n, acc, unused);
-  store_tile(acc, out, wrow, wcol, p.m, n);
-}
 
 // bf16: the wgmma + TMA mainloop of csrc/wgmma_gemm.cuh, 128 x 256 tiles (each
 // consumer warpgroup 64 rows, B shared), four stages of 16 KB of A and 32 KB
@@ -309,20 +297,28 @@ __global__ void ceiling_reduce_kernel(const void* part, float* out, int groups, 
 // mlp_mega
 // ---------------------------------------------------------------------------
 
-struct MegaParams {
-  const int8_t* x;    // [m, k]
-  const int8_t* w1t;  // [n, k]: w1's transpose
-  const float* s1;    // [n]
-  const float* qi;    // [n]
-  const int8_t* w2t;  // [k, n]: w2's transpose
-  const float* s2;    // [k]
-  __nv_bfloat16* out; // [m, k]
-  int m, k, n;
+// The ring and shared memory of mlp_mega_kernel_wg. Its tiles are row tiles
+// only (BN 1: wg::Tiles and wg::grid see one column tile), CLUSTER of them
+// neighbouring, whose CTAs multicast the weights' boxes to each other.
+struct Mega {
+  static constexpr int BM = 64, BN = 1, CLUSTER = 2;
+  static constexpr bool COLS_FIRST = false;
+  static constexpr int STAGES = 3;
+  static constexpr int KB = wg::kRowBytes;        // bytes of K a stage holds: four k32 steps
+  static constexpr int BOX = 256;                 // rows of a weight box: two warpgroups of n128
+  static constexpr int HALF = BOX / 2;            // a consumer warpgroup's rows of it
+  static constexpr int B_SLICE = BOX / CLUSTER;   // rows of it a CTA loads and multicasts
+  static constexpr int A_BYTES = BM * KB;         // x's box (fc stages only)
+  static constexpr int B_BYTES = BOX * KB;        // w1's (fc) or w2's (proj) box
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SLAB = 1536;               // hq columns resident at a time
+  static constexpr int SLABS = 2;                 // at most: N <= SLABS * SLAB
+  static constexpr int HQ_BLOCK = BM * 128;       // 128 columns of hq, 128-byte swizzled
+  static constexpr int HQ_BYTES = BM * SLAB;
+  static constexpr int SMEM = 1024 + HQ_BYTES + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  // a CTA's parked proj sums of a pass: int32 [2 warpgroups][16][128 threads][4]
+  static constexpr int PARK_INTS_PER_PASS = 2 * 64 * 128;
 };
-
-__host__ __device__ constexpr int mega_pitch(int n) { return n + 16; }
-
-int mega_smem(int n) { return static_cast<int>(sizeof(Stages<kTileM>)) + kTileM * mega_pitch(n); }
 
 // the script's _gelu_tanh, in its order: 0.5 x (1 + tanh(c (x + ((0.044715 x) x) x)))
 __device__ __forceinline__ float gelu_tanh_script(float x) {
@@ -336,97 +332,204 @@ __device__ __forceinline__ int8_t requant(float h, float qi) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(h, qi)), -127.f), 127.f));
 }
 
-__global__ void __launch_bounds__(kThreads) mlp_mega_kernel(const MegaParams q) {
-  using T = Tile<kTileM, 2>;
-  extern __shared__ __align__(16) int8_t mega_smem_buf[];
-  Stages<kTileM>& st = *reinterpret_cast<Stages<kTileM>*>(mega_smem_buf);
-  int8_t* hs = mega_smem_buf + sizeof(Stages<kTileM>);  // [64][pitch]: hq of the CTA's rows
-  const int hp = mega_pitch(q.n);
-  const int row0 = blockIdx.x * kTileM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = (warp / 2) * T::WROWS, wcol = (warp % 2) * T::WCOLS;
+// A consumer warpgroup's view of the megakernel's ring (cw, 0 or 1, its
+// index; it, the stages consumed so far over all of the CTA's tiles).
+struct MegaConsumer {
+  const uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int cw;
+  bool lane0;
+  int it;
 
-  // fc: hq = requant(gelu(f32(x @ w1) * s1)) into shared memory, 128 columns at a time
-  const Operands fc{q.x, q.w1t, nullptr, q.m, q.k, 0};
-  for (int c0 = 0; c0 < q.n; c0 += kBN) {
-    int acc[T::MI][T::NI][4] = {};
-    float unused[T::MI][T::NI][4];
-    mainloop<kTileM, 2, false>(st, fc, row0, c0, q.n, acc, unused);
+  // every consumer warp of the cluster frees stage i
+  __device__ __forceinline__ void release(int i) const {
+    if (!lane0) return;
 #pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wrow + mi * 16 + g + 8 * h;
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = c0 + wcol + ni * 8 + 2 * t + e;
-            if (col < q.n) {
-              const float hv = gelu_tanh_script(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + e]), q.s1[col]));
-              hs[r * hp + col] = requant(hv, q.qi[col]);
-            }
-          }
-      }
+    for (int cta = 0; cta < Mega::CLUSTER; ++cta) wg::bar_arrive_at(empty + i % Mega::STAGES, cta);
   }
-  __syncthreads();
 
-  // proj: y = bf16(f32(hq @ w2) * s2), A from shared memory, w2 streamed
-  const int stages = (q.n + kBK - 1) / kBK;
-  for (int c0 = 0; c0 < q.k; c0 += kBN) {
-    int acc[T::MI][T::NI][4] = {};
-    load_rows<kBN>(st.b[0], q.w2t, c0, q.k, q.n, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < stages; ++kt) {
-      const int s = kt & 1;
-      if (kt + 1 < stages) load_rows<kBN>(st.b[s ^ 1], q.w2t, c0, q.k, q.n, (kt + 1) * kBK);
-      cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();
+  // the four k32 products of stage it into acc (A: the stage's x box, or
+  // hq's columns [128 ks, 128 ks + 128) where a_hq is given), issued as one
+  // group; the stage is freed as soon as they are done (a stage is 40 KB and
+  // the ring three deep: freeing it a group later would leave one load in
+  // flight)
+  __device__ __forceinline__ void step(int (&acc)[64], int ks, const uint8_t* a_hq) {
+    const int s = it % Mega::STAGES;
+    const uint8_t* st = ring + s * Mega::STAGE_BYTES;
+    wg::bar_wait(full + s, (it / Mega::STAGES) & 1);
+    const uint64_t da = wg::desc_sw128(a_hq != nullptr ? a_hq + ks * Mega::HQ_BLOCK : st);
+    const uint64_t db = wg::desc_sw128(st + Mega::A_BYTES + cw * Mega::HALF * Mega::KB);
+    wg::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 32) {
-        const int kg = kt * kBK + kk;
-        if (kg >= q.n) break;  // n is a multiple of 32
-        uint32_t af[T::MI][4], bf[T::NI][2];
-#pragma unroll
-        for (int mi = 0; mi < T::MI; ++mi) {
-          const int8_t* base = hs + (wrow + mi * 16 + g) * hp + kg + 4 * t;
-          af[mi][0] = ld32(base);
-          af[mi][1] = ld32(base + 8 * hp);
-          af[mi][2] = ld32(base + 16);
-          af[mi][3] = ld32(base + 8 * hp + 16);
-        }
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni) {
-          const int8_t* base = st.b[s] + (wcol + ni * 8 + g) * kPitch + kk + 4 * t;
-          bf[ni][0] = ld32(base);
-          bf[ni][1] = ld32(base + 16);
-        }
-#pragma unroll
-        for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-      }
-      __syncthreads();
+    for (int j = 0; j < Mega::KB / 32; ++j) wg::mma(acc, da + 2 * j, db + 2 * j, ks > 0 || j > 0);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    release(it);
+    ++it;
+  }
+};
+
+// A consumer thread's proj sums of one pass, parked in device memory between
+// the slabs of hq (each thread its own 64 values, in 16-byte pieces that
+// neighbouring threads' pieces follow: coalesced, and read back by the
+// thread that wrote them, so no other thread's order matters)
+__device__ __forceinline__ int4* parked(int* park, int passes, int pass, int cw) {
+  return reinterpret_cast<int4*>(park + (static_cast<size_t>(blockIdx.x) * passes + pass) *
+                                            Mega::PARK_INTS_PER_PASS +
+                                 cw * 64 * 128) +
+         (threadIdx.x & 127);
+}
+
+// the two consumer warpgroups (256 threads) meet; barrier 0 is __syncthreads
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    mlp_mega_kernel_wg(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw1,
+                       const __grid_constant__ CUtensorMap mw2, const float* __restrict__ s1,
+                       const float* __restrict__ qi, const float* __restrict__ s2,
+                       __nv_bfloat16* __restrict__ out, int* __restrict__ park, int m, int k, int n) {
+  using M = Mega;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* hq = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(wg_smem) + 1023) &
+                                           ~uintptr_t{1023});
+  uint8_t* ring = hq + M::HQ_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + M::STAGES * M::STAGE_BYTES);
+  uint64_t* empty = full + M::STAGES;
+  const int slabs = (n + M::SLAB - 1) / M::SLAB, fc_steps = (k + M::KB - 1) / M::KB;
+  const int passes = (k + M::BOX - 1) / M::BOX;
+  auto slab_n = [&](int sl) { return min(M::SLAB, n - sl * M::SLAB); };  // a multiple of 32
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < M::STAGES; ++s) {
+      wg::bar_init(full + s, 1);
+      wg::bar_init(empty + s, wg::kConsumerWarps * M::CLUSTER);
     }
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wrow + mi * 16 + g + 8 * h;
-        if (row >= q.m) continue;
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni) {
-          const int col = c0 + wcol + ni * 8 + 2 * t;  // k is a multiple of 32: col + 1 < k too
-          if (col >= q.k) continue;
-          const float y0 = __fmul_rn(__int2float_rn(acc[mi][ni][2 * h]), q.s2[col]);
-          const float y1 = __fmul_rn(__int2float_rn(acc[mi][ni][2 * h + 1]), q.s2[col + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(q.out + static_cast<size_t>(row) * q.k + col) =
-              __floats2bfloat162_rn(y0, y1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  wg::cluster_sync();
+  const wg::Tiles<M> tiles(m, 1);
+  const int warpgroup = threadIdx.x / 128;
+
+  if (warpgroup == 0) {  // the producer: per tile and slab, fc's x and w1 boxes, then proj's w2 boxes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const uint16_t mask = (1u << M::CLUSTER) - 1;
+      const int b0 = tiles.rank * M::B_SLICE;
+      int it = 0;
+      auto acquire = [&](int bytes) {
+        const int s = it % M::STAGES;
+        if (it >= M::STAGES) wg::bar_wait(empty + s, (it / M::STAGES - 1) & 1);
+        wg::bar_expect_bytes(full + s, bytes);
+        return ring + s * M::STAGE_BYTES;
+      };
+      for (int t = tiles.first; t < tiles.count; t += tiles.step) {
+        const int row0 = tiles.row0(t);
+        for (int sl = 0; sl < slabs; ++sl) {
+          const int n0 = sl * M::SLAB, nc = slab_n(sl);
+          for (int c = 0; c < nc; c += M::BOX)
+            for (int ks = 0; ks < fc_steps; ++ks, ++it) {
+              uint8_t* st = acquire(M::STAGE_BYTES);
+              uint64_t* bar = full + (it % M::STAGES);
+              wg::tma_load(st, &mx, bar, ks * M::KB, row0);
+              wg::tma_load_multicast(st + M::A_BYTES + b0 * M::KB, &mw1, bar, ks * M::KB,
+                                     n0 + c + b0, mask);
+            }
+          for (int p = 0; p < passes; ++p)
+            for (int ks = 0; ks < (nc + M::KB - 1) / M::KB; ++ks, ++it) {
+              uint8_t* st = acquire(M::B_BYTES);
+              wg::tma_load_multicast(st + M::A_BYTES + b0 * M::KB, &mw2, full + (it % M::STAGES),
+                                     n0 + ks * M::KB, p * M::BOX + b0, mask);
+            }
         }
       }
+    }
+    wg::cluster_sync();  // a peer's consumers still arrive on this CTA's barriers
+    return;
   }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = warpgroup - 1;
+  const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  MegaConsumer con{ring, full, empty, cw, lane == 0, 0};
+  for (int t = tiles.first; t < tiles.count; t += tiles.step) {
+    const int row0 = tiles.row0(t);
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int n0 = sl * M::SLAB, nc = slab_n(sl);
+      // fc: the slab's hq = requant(gelu(f32(x @ w1) * s1)) into shared
+      // memory, 256 columns a chunk (128 a warpgroup), in the layout proj's
+      // wgmma reads
+      for (int c = 0; c < nc; c += M::BOX) {
+        int acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0;
+        for (int ks = 0; ks < fc_steps; ++ks) con.step(acc, ks, nullptr);
+        wg::fence_operands(acc);
+        const int blk = c / 128 + cw;  // the slab's 128-column block
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wq + g + 8 * h;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int b = 8 * i + 2 * t4, col = n0 + 128 * blk + b;  // col + 1 < n too
+            if (128 * blk + b >= nc) continue;
+            const int8_t q0 = requant(
+                gelu_tanh_script(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h]), s1[col])), qi[col]);
+            const int8_t q1 = requant(
+                gelu_tanh_script(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h + 1]), s1[col + 1])),
+                qi[col + 1]);
+            *reinterpret_cast<uint16_t*>(hq + blk * M::HQ_BLOCK + r * 128 +
+                                         ((((b >> 4) ^ (r & 7)) << 4) | (b & 15))) =
+                static_cast<uint16_t>(static_cast<uint8_t>(q0) | (static_cast<uint8_t>(q1) << 8));
+          }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // hq, for wgmma's reads
+      consumers_sync();
+      // proj: the slab's share of hq @ w2, A = hq, 256 output columns a
+      // pass; the sums of every slab but the last are parked, the last adds
+      // them and stores y = bf16(f32(sum) * s2)
+      for (int p = 0; p < passes; ++p) {
+        int acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0;
+        for (int ks = 0; ks < (nc + M::KB - 1) / M::KB; ++ks) con.step(acc, ks, hq);
+        wg::fence_operands(acc);
+        int4* mine = parked(park, passes, p, cw);
+        if (sl > 0) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int4 v = mine[128 * j];
+            acc[4 * j] += v.x;
+            acc[4 * j + 1] += v.y;
+            acc[4 * j + 2] += v.z;
+            acc[4 * j + 3] += v.w;
+          }
+        }
+        if (sl + 1 < slabs) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            mine[128 * j] = make_int4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+          continue;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 16 * wq + g + 8 * h;
+          if (row >= m) continue;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int col = p * M::BOX + cw * M::HALF + 8 * i + 2 * t4;  // k is a multiple of 32
+            if (col >= k) continue;
+            const float y0 = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h]), s2[col]);
+            const float y1 = __fmul_rn(__int2float_rn(acc[4 * i + 2 * h + 1]), s2[col + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * k + col) =
+                __floats2bfloat162_rn(y0, y1);
+          }
+        }
+      }
+      consumers_sync();  // both warpgroups are done with hq before the next slab writes it
+    }
+  }
+  wg::cluster_sync();
 }
 
 int max_k_ceiling(bool bf16) {
@@ -460,20 +563,6 @@ extern "C" int team_probe_mm(const void* x, const void* w_t, void* out, int m, i
   if (err != cudaSuccess) return err;
   return wg::launch<ProbeS8>(probe_mm_kernel_wg_s8, grid, s, ma, mb, static_cast<int*>(out), m, n,
                              k);
-}
-
-// team_probe_mm's int8 form on the mma.sync kernel (probe_mm_kernel): the
-// kernel that probe_mm_kernel_wg_s8 replaced, kept callable so that the two
-// can be held against each other bit for bit.
-extern "C" int team_probe_mm_mma(const void* x, const void* w_t, void* out, int m, int n, int k,
-                                 void* stream) {
-  if (m < 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 32 != 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const Operands p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), nullptr, m, k, 0};
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + kBN - 1) / kBN);
-  probe_mm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, static_cast<int*>(out),
-                                                                             n);
-  return cudaGetLastError();
 }
 
 // The widest K the ceiling kernel keeps in shared memory (elements).
@@ -518,28 +607,52 @@ extern "C" int team_mxu_ceiling(const void* x, const void* w_t, void* part, void
   return cudaGetLastError();
 }
 
-// The widest N (hidden width) the megakernel keeps in shared memory.
-extern "C" int team_mlp_mega_max_n() {
-  return ((kSmemMax - static_cast<int>(sizeof(Stages<kTileM>))) / kTileM - 16) / 32 * 32;
+// The widest N (hidden width) the megakernel takes: SLABS slabs of hq.
+extern "C" int team_mlp_mega_max_n() { return Mega::SLABS * Mega::SLAB; }
+
+namespace {
+
+// the megakernel's persistent grid for m rows
+cudaError_t mega_grid(int m, dim3* grid) {
+  cudaError_t err = cudaFuncSetAttribute(mlp_mega_kernel_wg,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Mega::SMEM);
+  if (err == cudaSuccess) err = wg::grid<Mega>(mlp_mega_kernel_wg, m, 1, grid);
+  return err;
+}
+
+}  // namespace
+
+// The bytes of device memory a call parks its proj sums in (0 where N fits
+// one slab): the caller allocates them and passes them to team_mlp_mega.
+extern "C" long long team_mlp_mega_park_bytes(int m, int k, int n) {
+  if (m <= 0 || k <= 0 || n <= Mega::SLAB) return 0;
+  dim3 grid;
+  if (mega_grid(m, &grid) != cudaSuccess) return -1;
+  const int passes = (k + Mega::BOX - 1) / Mega::BOX;
+  return static_cast<long long>(grid.x) * passes * Mega::PARK_INTS_PER_PASS * sizeof(int);
 }
 
 // x int8 [m, k]; w1_t int8 [n, k]; s1, qi float32 [n]; w2_t int8 [k, n]; s2
 // float32 [k]; out bfloat16 [m, k]; all row-major, 16-byte aligned; k and n
-// multiples of 32, n at most team_mlp_mega_max_n().
+// multiples of 32, n at most team_mlp_mega_max_n(); park: the
+// team_mlp_mega_park_bytes(m, k, n) bytes (NULL where that is 0), 16-byte
+// aligned.
 extern "C" int team_mlp_mega(const void* x, const void* w1_t, const void* s1, const void* qi,
-                             const void* w2_t, const void* s2, void* out, int m, int k, int n,
-                             void* stream) {
+                             const void* w2_t, const void* s2, void* out, void* park, int m, int k,
+                             int n, void* stream) {
   if (m < 0 || k <= 0 || n <= 0 || k % 32 != 0 || n % 32 != 0 || n > team_mlp_mega_max_n())
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const MegaParams q{static_cast<const int8_t*>(x),  static_cast<const int8_t*>(w1_t),
-                     static_cast<const float*>(s1), static_cast<const float*>(qi),
-                     static_cast<const int8_t*>(w2_t), static_cast<const float*>(s2),
-                     static_cast<__nv_bfloat16*>(out), m, k, n};
-  const int smem = mega_smem(n);
-  const cudaError_t err =
-      cudaFuncSetAttribute(mlp_mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (n > Mega::SLAB && park == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw1, mw2;
+  cudaError_t err = wg::make_map(&mx, x, m, k, 1, Mega::BM, false);
+  if (err == cudaSuccess) err = wg::make_map(&mw1, w1_t, n, k, 1, Mega::B_SLICE, false);
+  if (err == cudaSuccess) err = wg::make_map(&mw2, w2_t, k, n, 1, Mega::B_SLICE, false);
+  dim3 grid;
+  if (err == cudaSuccess) err = mega_grid(m, &grid);
   if (err != cudaSuccess) return err;
-  mlp_mega_kernel<<<(m + kTileM - 1) / kTileM, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(q);
-  return cudaGetLastError();
+  return wg::launch<Mega>(mlp_mega_kernel_wg, grid, static_cast<cudaStream_t>(stream), mx, mw1, mw2,
+                          static_cast<const float*>(s1), static_cast<const float*>(qi),
+                          static_cast<const float*>(s2), static_cast<__nv_bfloat16*>(out),
+                          static_cast<int*>(park), m, k, n);
 }

@@ -85,34 +85,35 @@
 // noexp that kernel without exp2, and qkonly and nopv the same kernel's q.k
 // (and exp2) with no V staged and no PV.
 // Its 3 * pad16(S) * dh bytes of shared memory take S up to 2416, 1200 and
-// 592 at dh 32, 64 and 128 (the CUDA-core kernel it replaced, whose formula
-// the CLS kernel keeps: 2235, 1383 and 785); an entry given a longer S
-// launches nothing and returns kErrTooLong.
+// 592 at dh 32, 64 and 128; an entry given a longer S launches nothing and
+// returns kErrTooLong.
 // The kernel is latency-bound (each warp's key blocks are a chain of
 // ldmatrix, mma, the per-logit ops and mma), so the geometry is set by
 // occupancy: at most 5 warps a block and registers capped for 4 blocks an SM
 // at dh 32 and 64 (96 at dh 64, no spill), 20 warps an SM, against 14 for 7
 // warps a block at 2 blocks an SM (PERF.md §6 has both times).
 //
-// q3i_kernel, the CLS entries (one query row fills no m16 tile): one block per
-// (head, sample) stages that head's K and V rows into shared memory as int8
-// (25 KB at S=197, dh=64), rows padded by one 32-bit word so that lanes
-// reading different keys hit different banks; warp 0 takes query row 0: q
-// stays in registers as dh/4 packed words, lanes split the keys and form q.k
-// with __dp4a (exact), the row max and sum are warp shuffles, and for p.v the
-// lanes split the head dimension.
+// q3i_cls_kernel, the CLS entries (one query row fills no m16 tile): bound by
+// the bytes of K and V it reads once, 38.9 MB at B=128, S=197, H=12, dh=64
+// (0.0116 ms at 3.35 TB/s), against 39 M multiply-adds. One block of 8
+// warps per (head, sample), 4 to 6 blocks an SM: each stages its head's K and
+// V by 16-byte cp.async, all at once in two groups (K, then V), so the
+// block's q.k overlaps its own V loads and the other blocks' loads overlap
+// its compute; every warp computes (the keys split over the threads for q.k,
+// over key slices and head channels for p.v; the sums meet in a fixed order,
+// modelled on the CPU in tests/test_torch_int8_attention_order.py). Its
+// 2 dh S + 4 S bytes (plus 32 dh + 64) take S up to 3402, 1744 and 878 at dh
+// 32, 64 and 128.
 //
-// What bounds them on an H100: the function reads the 58 MB of int8 qkv and
-// writes 19 MB per vision layer at B=128, S=197, H=12, dh=64 (0.0231 ms at
-// 3.35 TB/s), against 7.6 G int8 and 7.6 G bf16 multiply-adds (0.008 ms at
-// the dense peaks). The tensor-core kernel pads to 16 rows and keys and
-// issues mma.sync, which reaches about half the dense rate, and leaves on
-// the CUDA cores per logit one convert, two separately rounded f32 ops,
-// exp2, a bf16 round and one add: about 0.4 G ops at the vision shape. The
-// CLS kernel's p.v loop, one shared-memory broadcast of p and one byte of v
-// per FMA, bounds it; it is the next rule-2 row. In the sequence-major layout
-// a head's 64 bytes of a row lie B*3*D bytes apart, so its K/V staging is
-// scattered rather than streamed.
+// What bounds #7: the function reads the 58 MB of int8 qkv and writes 19 MB
+// per vision layer at B=128, S=197, H=12, dh=64 (0.0231 ms at 3.35 TB/s),
+// against 7.6 G int8 and 7.6 G bf16 multiply-adds (0.008 ms at the dense
+// peaks). The tensor-core kernel pads to 16 rows and keys and issues
+// mma.sync, which reaches about half the dense rate, and leaves on the CUDA
+// cores per logit one convert, two separately rounded f32 ops, exp2, a bf16
+// round and one add: about 0.4 G ops at the vision shape. In the
+// sequence-major layout a head's 64 bytes of a row lie B*3*D bytes apart, so
+// its K/V staging is scattered rather than streamed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +129,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace mma_attention;
 
-constexpr int kWarps = 8;  // warps of a CLS block
+constexpr int kClsThreads = 256;  // threads of a CLS block
+constexpr int kClsWarps = kClsThreads / 32;
 constexpr int kTcMaxWarps = 5;  // warps of a tensor-core block, at most
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kInv127 = 1.0f / 127.0f;
@@ -159,14 +161,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// padded shared-memory row stride of the CLS kernel's K and V, in 32-bit words
-__host__ __device__ constexpr int kv_words(int dh) { return dh / 4 + 1; }
-
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
-__host__ __device__ size_t smem_bytes(int seq, int dh) {
-  return align16(2 * static_cast<size_t>(seq) * kv_words(dh) * sizeof(int)) +
-         static_cast<size_t>(kWarps) * seq * sizeof(float);
+// the CLS kernel's shared memory: K and V int8 [S, dh] each, p f32 [S], the
+// warps' p.v sums f32 [kClsWarps, dh], and a max and an l a warp
+__host__ __device__ size_t smem_bytes_cls(int seq, int dh) {
+  return 2 * align16(static_cast<size_t>(seq) * dh) + align16(4 * static_cast<size_t>(seq)) +
+         static_cast<size_t>(kClsWarps) * dh * sizeof(float) + 2 * kClsWarps * sizeof(float);
 }
 
 // the tensor-core kernel's K (int8) and V (bf16), padded to 16 keys (every
@@ -495,119 +496,137 @@ q3i_kernel_tc(Operands ops, const float* __restrict__ deq_v, const float* __rest
 }
 
 // ---------------------------------------------------------------------------
-// the CUDA-core kernel of the CLS entries (query row 0; the static or the f32
-// row-max softmax, the ones-column row sum)
+// the CLS kernel (query row 0; the static or the f32 row-max softmax, the
+// ones-column row sum)
 // ---------------------------------------------------------------------------
 
+// One block of kClsThreads per (head, sample). The head's K and V rows go to
+// shared memory by 16-byte cp.async in two groups (K, then V), so the block's
+// q.k runs while its V is still in flight and the other blocks on the SM
+// (4 to 6 at S=197) keep their own loads in flight during its compute. K's
+// chunks are swizzled (swz8) so that the 8 keys of a quarter warp's 16-byte
+// reads fall on distinct banks; V rows lie packed, so that a warp's word
+// reads cover 128 contiguous bytes.
+// q.k: thread j takes keys j, j + kClsThreads, ... (exact __dp4a sums), p is
+// formed and rounded to bf16 as the plain version does, and each thread sums
+// its own p in key order; the warps' sums meet by a shuffle tree, then in
+// warp order. p.v: thread (slice, word) takes the 4 head channels of its
+// word over keys slice, slice + kSlices, ... (an fmaf chain in key order; each
+// product of a bf16 p and an int8 v is exact in f32), the slices of a warp
+// meet by shuffles (xor kW, 2 kW, ...), the warps' sums in warp order.
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-q3i_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
-           const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq, int heads,
-           int kv_len, int causal) {
+struct Cls {
+  static constexpr int kCpr = DH / 16;                // 16-byte chunks of a row
+  static constexpr int kW = DH / 4;                   // 32-bit words of a row
+  static constexpr int kSlices = kClsThreads / kW;    // key slices of p.v
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kClsThreads, DH == 128 ? 3 : 4)
+q3i_cls_kernel(Operands ops, const float* __restrict__ deq_v, const float* __restrict__ qk_scale,
+               const float* __restrict__ o_inv, const float* __restrict__ qk_m2, int seq) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kW = DH / 4;  // packed words of one head row
-  constexpr int kStride = kW + 1;
-  constexpr int kPerLane = DH / 32;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = 0;
-  const int row_end = 1;
-  const int8_t* q_base = ops.q + b * ops.q_batch + h * DH;
+  using C = Cls<DH>;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int8_t* k_s = reinterpret_cast<int8_t*>(smem);
+  int8_t* v_s = k_s + align16(static_cast<size_t>(seq) * DH);
+  float* p_s = reinterpret_cast<float*>(v_s + align16(static_cast<size_t>(seq) * DH));
+  float* part = p_s + align16(4 * static_cast<size_t>(seq)) / 4;  // [kClsWarps][DH]
+  float* red = part + kClsWarps * DH;                               // max, then l, a warp each
+
   const int8_t* k_base = ops.k + b * ops.kv_batch + h * DH;
   const int8_t* v_base = ops.v + b * ops.kv_batch + h * DH;
-
-  int* k_s = reinterpret_cast<int*>(smem);
-  int* v_s = k_s + static_cast<size_t>(seq) * kStride;
-  float* p_all = reinterpret_cast<float*>(smem + align16(2 * static_cast<size_t>(seq) * kStride * sizeof(int)));
-
-  // keys any row of this tile may attend
-  int n_keys = min(kv_len, seq);
-  if (causal) n_keys = min(n_keys, row_end);
-  for (int idx = threadIdx.x; idx < n_keys * kW; idx += blockDim.x) {
-    const int r = idx / kW;
-    const int w = idx - r * kW;
-    k_s[r * kStride + w] = reinterpret_cast<const int*>(k_base + r * ops.kv_row)[w];
-    v_s[r * kStride + w] = reinterpret_cast<const int*>(v_base + r * ops.kv_row)[w];
+  const int n = seq * C::kCpr;
+  for (int c = tid; c < n; c += kClsThreads) {
+    const int r = c / C::kCpr, ch = c - r * C::kCpr;
+    cp_async16(k_s + swz8<C::kCpr>(r, ch), k_base + r * ops.kv_row + ch * 16, true);
   }
-  __syncthreads();
+  cp_async_commit();
+  for (int c = tid; c < n; c += kClsThreads) {
+    const int r = c / C::kCpr, ch = c - r * C::kCpr;
+    cp_async16(v_s + c * 16, v_base + r * ops.kv_row + ch * 16, true);
+  }
+  cp_async_commit();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* p = p_all + warp * seq;
-  const int8_t* v_bytes = reinterpret_cast<const int8_t*>(v_s);
+  int q[C::kW];
+  const int* q_src = reinterpret_cast<const int*>(ops.q + b * ops.q_batch + h * DH);
+#pragma unroll
+  for (int w = 0; w < C::kW; ++w) q[w] = q_src[w];
   const bool use_static = qk_m2 != nullptr;
   const float qks = qk_scale[h];
   const float qks2 = __fmul_rn(qks, kLog2e);
   const float m2 = use_static ? qk_m2[h] : 0.f;
-  float pv_scale[kPerLane];
-#pragma unroll
-  for (int c = 0; c < kPerLane; ++c) {
-    const int col = h * DH + lane + 32 * c;
-    pv_scale[c] = __fmul_rn(deq_v[col], o_inv[col]);
-  }
+  cp_async_wait(1);  // this thread's K copies
+  __syncthreads();
 
-  for (int i = row0 + warp; i < row_end; i += kWarps) {
-    int q[kW];
-    const int* q_src = reinterpret_cast<const int*>(q_base + i * ops.q_row);
+  float m = -CUDART_INF_F, l = 0.f;
+  for (int j = tid; j < seq; j += kClsThreads) {
+    int acc = 0;
 #pragma unroll
-    for (int w = 0; w < kW; ++w) q[w] = q_src[w];
-
-    const int nk = causal ? min(n_keys, i + 1) : n_keys;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < nk; j += 32) {
-      const int* k_row = k_s + j * kStride;
-      int acc = 0;
-#pragma unroll
-      for (int w = 0; w < kW; ++w) acc = __dp4a(q[w], k_row[w], acc);
-      const float a = static_cast<float>(acc);
-      float s;
-      if (use_static) {
-        s = exp2f(__fsub_rn(__fmul_rn(a, qks2), m2));
-      } else {
-        s = __fmul_rn(a, qks);
-        m = fmaxf(m, s);
-      }
-      p[j] = s;
+    for (int ch = 0; ch < C::kCpr; ++ch) {
+      const int4 k4 = *reinterpret_cast<const int4*>(k_s + swz8<C::kCpr>(j, ch));
+      acc = __dp4a(q[4 * ch], k4.x, acc);
+      acc = __dp4a(q[4 * ch + 1], k4.y, acc);
+      acc = __dp4a(q[4 * ch + 2], k4.z, acc);
+      acc = __dp4a(q[4 * ch + 3], k4.w, acc);
     }
-    if (!use_static) m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      float e;
-      if (use_static) {
-        e = p[j];
-      } else {
-        e = expf(__fsub_rn(p[j], m));
-      }
-      e = __bfloat162float(__float2bfloat16_rn(e));
-      p[j] = e;
+    const float a = static_cast<float>(acc);
+    if (use_static) {
+      const float e = __bfloat162float(__float2bfloat16_rn(exp2f(__fsub_rn(__fmul_rn(a, qks2), m2))));
+      p_s[j] = e;
+      l += e;
+    } else {
+      const float s = __fmul_rn(a, qks);
+      p_s[j] = s;
+      m = fmaxf(m, s);
+    }
+  }
+  if (!use_static) {
+    m = warp_max(m);
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    m = red[0];
+#pragma unroll
+    for (int w = 1; w < kClsWarps; ++w) m = fmaxf(m, red[w]);
+    for (int j = tid; j < seq; j += kClsThreads) {  // this thread's own keys
+      const float e = __bfloat162float(__float2bfloat16_rn(expf(__fsub_rn(p_s[j], m))));
+      p_s[j] = e;
       l += e;
     }
-    l = warp_sum(l);
-    __syncwarp();
+  }
+  l = warp_sum(l);
+  if (lane == 0) red[kClsWarps + warp] = l;
+  cp_async_wait(0);  // this thread's V copies
+  __syncthreads();   // p, the warps' sums and V, for every thread
+  l = red[kClsWarps];
+#pragma unroll
+  for (int w = 1; w < kClsWarps; ++w) l += red[kClsWarps + w];
 
-    float o[kPerLane];
-    float acc_o[kPerLane];
+  const int word = tid % C::kW, slice = tid / C::kW;
+  float o4[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = slice; j < seq; j += C::kSlices) {
+    const float pj = p_s[j];
+    const uint32_t v4 = *reinterpret_cast<const uint32_t*>(v_s + j * DH + 4 * word);
 #pragma unroll
-    for (int c = 0; c < kPerLane; ++c) acc_o[c] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float pj = p[j];
-      const int8_t* v_row = v_bytes + j * kStride * 4;
+    for (int i = 0; i < 4; ++i) o4[i] = fmaf(pj, s8_at(v4, i), o4[i]);
+  }
 #pragma unroll
-      for (int c = 0; c < kPerLane; ++c)
-        acc_o[c] = fmaf(pj, static_cast<float>(v_row[lane + 32 * c]), acc_o[c]);
-    }
+  for (int o = C::kW; o < 32; o <<= 1)
 #pragma unroll
-    for (int c = 0; c < kPerLane; ++c) {
-      o[c] = __fmul_rn(acc_o[c], pv_scale[c]);
-      o[c] = __fdiv_rn(o[c], l);
-    }
-    int8_t* dst = ops.out + b * ops.o_batch + i * ops.o_row + h * DH;
+    for (int i = 0; i < 4; ++i) o4[i] += __shfl_xor_sync(0xffffffffu, o4[i], o);
+  if (lane < C::kW)
 #pragma unroll
-    for (int c = 0; c < kPerLane; ++c) {
-      float oc = o[c];
-      dst[lane + 32 * c] = static_cast<int8_t>(fminf(fmaxf(rintf(oc), -127.f), 127.f));
-    }
-    __syncwarp();  // p is rewritten by the next row
+    for (int i = 0; i < 4; ++i) part[warp * DH + 4 * lane + i] = o4[i];
+  __syncthreads();
+  if (tid < DH) {
+    float o = part[tid];
+#pragma unroll
+    for (int w = 1; w < kClsWarps; ++w) o += part[w * DH + tid];
+    const int col = h * DH + tid;
+    o = __fdiv_rn(__fmul_rn(o, __fmul_rn(deq_v[col], o_inv[col])), l);
+    ops.out[b * ops.o_batch + h * DH + tid] =
+        static_cast<int8_t>(fminf(fmaxf(rintf(o), -127.f), 127.f));
   }
 }
 
@@ -638,14 +657,14 @@ struct Args {
 
 template <int DH>
 int launch_cls(const Args& a) {
-  const size_t smem = smem_bytes(a.seq, DH);
+  const size_t smem = smem_bytes_cls(a.seq, DH);
   if (smem > kSmemOptin) return kErrTooLong;
   cudaError_t err = cudaFuncSetAttribute(
-      q3i_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      q3i_cls_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(1, a.heads, a.batch);
-  q3i_kernel<DH><<<grid, kWarps * 32, smem, a.stream>>>(a.ops, a.deq_v, a.qks, a.o_inv, a.qk_m2,
-                                                         a.seq, a.heads, a.kv_len, a.causal);
+  const dim3 grid(a.heads, a.batch);
+  q3i_cls_kernel<DH><<<grid, kClsThreads, smem, a.stream>>>(a.ops, a.deq_v, a.qks, a.o_inv,
+                                                            a.qk_m2, a.seq);
   return cudaGetLastError();
 }
 

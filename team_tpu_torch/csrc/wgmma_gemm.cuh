@@ -5,8 +5,9 @@
 // int8_linear_gelu_quant at bn 256 and 512, gelu_quant_kernel_wg; the TPU
 // kernels of team_tpu/ops/int8_matmul.py:54, :565 and :506) and
 // csrc/gemm_probe.cu (#27 probe_mm, s8 and bf16; scripts/int8_probe.py:48
-// pallas_mm). Beside it, store_warp_rows: the epilogues' stores, staged to
-// whole 32-byte sectors.
+// pallas_mm; #30 mlp_mega takes its maps, barriers, TMA, descriptors, wgmma
+// and tile walk, with a producer and ring of its own). Beside it,
+// store_warp_rows: the epilogues' stores, staged to whole 32-byte sectors.
 //
 // What it replaces. For these kernels, the mma.sync mainloops of
 // csrc/int8_mma.cuh (s8) and the bf16 one that csrc/bf16_mma.cuh held: four

@@ -13,11 +13,13 @@ Counterparts of the TPU kernels of the repository's probe scripts, driven by
   requantize -> proj in one kernel, the int8 intermediate kept on chip.
 
 One CUDA source, ``csrc/gemm_probe.cu``, compiled with ``nvcc`` on first use
-and bound with ``ctypes``: ``probe_mm`` (int8 and bf16) on ``wgmma`` fed by
-TMA (the mainloop of ``csrc/wgmma_gemm.cuh``), the rest on ``mma.sync`` (the
-s8 mainloop of ``csrc/int8_mma.cuh``, the bf16 fragments of
-``csrc/bf16_mma.cuh``; ``probe_mm_int8_mma`` runs ``probe_mm``'s earlier
-int8 kernel there, the yardstick that no path calls). On a CPU tensor each wrapper
+and bound with ``ctypes``: ``probe_mm`` (int8 and bf16) and the megakernel on
+``wgmma`` fed by TMA (``csrc/wgmma_gemm.cuh``; the megakernel keeps hq in
+shared memory a slab of 1,536 columns at a time, streams the weights through
+a ring of its own and parks its proj sums between the slabs in device memory
+that the wrapper allocates), the
+ceiling on ``mma.sync`` (the s8 helpers of ``csrc/int8_mma.cuh``, the bf16
+fragments of ``csrc/bf16_mma.cuh``). On a CPU tensor each wrapper
 computes its plain version (the ``*_reference`` function beside it); on a
 CUDA tensor it launches its kernel or raises, and adds one to its
 ``launches``. The TPU tiling arguments (``block_m``, ``block_b``,
@@ -69,13 +71,13 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.team_probe_mm.argtypes = [p] * 3 + [i] * 4 + [p]
-    lib.team_probe_mm_mma.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.team_mxu_ceiling.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.team_mxu_ceiling_max_k.argtypes = [i]
     lib.team_mxu_ceiling_block_n.argtypes = [i]
-    lib.team_mlp_mega.argtypes = [p] * 7 + [i] * 3 + [p]
-    for fn in (lib.team_probe_mm, lib.team_probe_mm_mma, lib.team_mxu_ceiling,
-               lib.team_mxu_ceiling_max_k,
+    lib.team_mlp_mega.argtypes = [p] * 8 + [i] * 3 + [p]
+    lib.team_mlp_mega_park_bytes.argtypes = [i] * 3
+    lib.team_mlp_mega_park_bytes.restype = ctypes.c_longlong
+    for fn in (lib.team_probe_mm, lib.team_mxu_ceiling, lib.team_mxu_ceiling_max_k,
                lib.team_mxu_ceiling_block_n, lib.team_mlp_mega, lib.team_mlp_mega_max_n):
         fn.restype = ctypes.c_int
     return lib
@@ -147,10 +149,9 @@ def probe_mm_bf16_limit(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (k // 16 + 1) * ulp32(s_abs)
 
 
-def _probe_mm_kernel(name: str, x: torch.Tensor, w: torch.Tensor, want: torch.dtype,
-                     mma: bool) -> torch.Tensor:
-    """Launch ``probe_mm``'s kernel (``mma``: the int8 ``mma.sync`` one) on
-    checked CUDA operands."""
+def _probe_mm_kernel(name: str, x: torch.Tensor, w: torch.Tensor,
+                     want: torch.dtype) -> torch.Tensor:
+    """Launch ``probe_mm``'s kernel on checked CUDA operands."""
     _on_card(name, x, w)
     bf16 = int(x.dtype == torch.bfloat16)
     m, k = x.shape
@@ -162,12 +163,8 @@ def _probe_mm_kernel(name: str, x: torch.Tensor, w: torch.Tensor, want: torch.dt
     out = torch.empty((m, n), dtype=want, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if mma:
-            err = lib.team_probe_mm_mma(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, stream)
-        else:
-            err = lib.team_probe_mm(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, bf16,
-                                    stream)
+        err = lib.team_probe_mm(x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, bf16,
+                                torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     return out
 
@@ -181,23 +178,9 @@ def probe_mm(x: torch.Tensor, w: torch.Tensor, acc_dtype: Optional[torch.dtype] 
     want = _mm_types("probe_mm", x, w, acc_dtype)
     if x.device.type == "cpu":
         return probe_mm_reference(x, w, acc_dtype)
-    out = _probe_mm_kernel("probe_mm", x, w, want, False)
+    out = _probe_mm_kernel("probe_mm", x, w, want)
     probe_mm.launches += 1
     return out
-
-
-def probe_mm_int8_mma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_mm` on int8 operands through the ``mma.sync`` kernel: the
-    kernel that the ``wgmma`` one replaced, callable so that the two can be
-    held against each other bit for bit (the card tests, ``chip_smoke.py``).
-    No path of the port calls it, and it counts no launch. On a CPU tensor:
-    the plain version."""
-    want = _mm_types("probe_mm_int8_mma", x, w, None)
-    if x.dtype != torch.int8:
-        raise TypeError(f"probe_mm_int8_mma takes int8 operands, got {x.dtype}")
-    if x.device.type == "cpu":
-        return probe_mm_reference(x, w)
-    return _probe_mm_kernel("probe_mm_int8_mma", x, w, want, True)
 
 
 # ---------------------------------------------------------------------------
@@ -373,9 +356,16 @@ def _mlp_mega_kernel(name: str, x2: torch.Tensor, w1, s1, w2, s2, qi) -> torch.T
     x2, w1t, w2t = _aligned(x2), _aligned(w1.t()), _aligned(w2.t())
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x2.device)
     with torch.cuda.device(x2.device):
+        # the kernel parks its proj sums between the two slabs of hq here
+        park_bytes = lib.team_mlp_mega_park_bytes(m, k, n)
+        if park_bytes < 0:
+            raise RuntimeError(f"{name}: team_mlp_mega_park_bytes failed")
+        park = torch.empty((park_bytes // 4,), dtype=torch.int32, device=x2.device) \
+            if park_bytes else None
         err = lib.team_mlp_mega(x2.data_ptr(), w1t.data_ptr(), vec[0].data_ptr(),
                                 vec[1].data_ptr(), w2t.data_ptr(), vec[2].data_ptr(),
-                                out.data_ptr(), m, k, n, torch.cuda.current_stream().cuda_stream)
+                                out.data_ptr(), None if park is None else park.data_ptr(), m, k,
+                                n, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     return out
 

@@ -34,8 +34,10 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   split q ``[B, 1, D]`` and kv ``[B, S, 2*D]``), and sequence-major
   ``[S, B, 3*D]`` to ``[S, B, D]``; CUDA kernels over strides,
   ``csrc/mha_packed_q3i.cu``: q·k on the int8 tensor cores and p·v on the
-  bf16 ones for every entry with more than one query row, the CUDA cores for
-  the CLS row.
+  bf16 ones for every entry with more than one query row; for the CLS row,
+  bound by its bytes, a block per (head, sample) that streams K and V into
+  shared memory by ``cp.async`` with every warp computing. The CLS entries
+  take S up to :func:`q3i_cls_max_seq` and raise past it on any device.
 - ``fused_mha_packed_tp`` and ``fused_mha_packed_q3i_tp`` (``shard_map``
   head splits of ``_mha_packed_kernel`` and ``_mha_packed_q3i_kernel``):
   under a registered tensor-parallel layout (:func:`set_tp_mesh`) rank r of
@@ -566,6 +568,42 @@ _NORM_MXU, _NORM_REDUCE, _NORM_PV8 = 0, 1, 3
 # what an entry returns, launching nothing, when S does not fit its kernel's
 # shared memory (``kErrTooLong``)
 _Q3I_TOO_LONG = -1
+# threads of the CLS kernel's block (``kClsThreads``)
+_Q3I_CLS_THREADS = 256
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def q3i_cls_smem_bytes(seq: int, dh: int) -> int:
+    """The CLS kernel's shared memory (``csrc/mha_packed_q3i.cu``,
+    ``smem_bytes_cls``): K and V int8 ``[S, dh]``, p float32 ``[S]``, the
+    warps' p·v sums float32 ``[8, dh]`` and a max and a row sum a warp."""
+    warps = _Q3I_CLS_THREADS // 32
+    return 2 * _align16(seq * dh) + _align16(4 * seq) + warps * dh * 4 + 2 * warps * 4
+
+
+def q3i_cls_max_seq(dh: int) -> int:
+    """The longest S the CLS entries take at head width ``dh``: the largest
+    whose :func:`q3i_cls_smem_bytes` fits a block (3402, 1744 and 878 at dh
+    32, 64 and 128)."""
+    s = (_SMEM_LIMIT - (_Q3I_CLS_THREADS // 32) * (dh + 2) * 4) // (2 * dh + 4)
+    while q3i_cls_smem_bytes(s + 1, dh) <= _SMEM_LIMIT:
+        s += 1
+    while q3i_cls_smem_bytes(s, dh) > _SMEM_LIMIT:
+        s -= 1
+    return s
+
+
+def _check_cls_seq(s: int, d: int, heads: int) -> None:
+    """Raise, on any device, where the CLS kernel would not take S (the
+    plain version on the CPU takes what the kernel takes)."""
+    dh = d // heads
+    if dh in _Q3I_HEAD_DIMS and s > q3i_cls_max_seq(dh):
+        raise ValueError(f"S={s} at head width {dh}: the CLS kernel's K/V need more shared "
+                         f"memory than a block may take ({_SMEM_LIMIT} bytes; longest S "
+                         f"{q3i_cls_max_seq(dh)})")
 
 
 def mha_packed_q3i_reference(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
@@ -845,9 +883,10 @@ def fused_mha_packed_q3i_cls(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: t
     adds one to ``fused_mha_packed_q3i_cls.launches``."""
     static = _q3i_cls_static(qk_m2)
     vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, qk_m2 if static else None, heads)
+    b, s, d3 = qkv_q.shape
+    _check_cls_seq(s, d3 // 3, heads)
     if qkv_q.device.type == "cpu":
         return mha_packed_q3i_cls_plain(qkv_q, *vecs[:3], heads, qk_m2=vecs[3])
-    b, s, d3 = qkv_q.shape
     out = torch.empty((b, 1, d3 // 3), dtype=torch.int8, device=qkv_q.device)
     _q3i_launch("team_mha_packed_q3i_cls_fwd", [qkv_q], vecs, out, b, s, heads)
     fused_mha_packed_q3i_cls.launches += 1
@@ -874,6 +913,7 @@ def fused_mha_packed_q3i_cls_split(q_q: torch.Tensor, kv_q: torch.Tensor, deq: t
     d = d2 // 2
     if d % heads:
         raise ValueError(f"D={d} is not divisible by heads={heads}")
+    _check_cls_seq(s, d, heads)
     static = _q3i_cls_static(qk_m2)
     vecs = _q3i_vectors(kv_q.device, d, heads, deq, qk_scale, o_inv, qk_m2 if static else None)
     if kv_q.device.type == "cpu":

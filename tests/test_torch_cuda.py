@@ -801,9 +801,55 @@ def test_q3i_tensor_core_kernel_is_exact_where_its_sums_are(cuda_device, dh, s):
 
 
 # the longest S the q3i entries take at each head width: the tensor-core
-# kernel's 3 * pad16(S) * dh bytes and the CLS kernel's padded int8 K/V and
-# 8 warps' p rows (csrc/mha_packed_q3i.cu) within 232448 bytes
-Q3I_LONGEST_S = {32: (2416, 2235), 64: (1200, 1383), 128: (592, 785)}
+# kernel's 3 * pad16(S) * dh bytes and the CLS kernel's int8 K/V, f32 p and
+# 8 warps' p.v sums (csrc/mha_packed_q3i.cu) within 232448 bytes
+Q3I_LONGEST_S = {32: (2416, 3402), 64: (1200, 1744), 128: (592, 878)}
+
+
+# the CLS kernel (#8, #9, q3i_cls_kernel) at its edges: S within one pass of
+# q.k (256 keys, a thread each), on its boundary and past it, and across the
+# p.v slices; B·H one block, and 793: one more than 6 resident blocks on each
+# of 132 SMs, so the last wave holds one block
+CLS_EDGE_S = [1, 7, 31, 255, 256, 257, 513]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s", CLS_EDGE_S)
+def test_q3i_cls_kernel_at_its_edges(cuda_device, monkeypatch, s, dh):
+    """Both softmaxes: within one int8 step of the plain version (under 1 %
+    of the outputs of both shapes differing), and the split entry bit for
+    bit the packed one."""
+    for softmax in ("static", "f32"):
+        monkeypatch.setenv("TEAM_QI_SOFTMAX", softmax)
+        got, want = [], []
+        for b, h in ((1, 1), (61, 13)):
+            qkv, deq, qks, oinv, m2 = q3i_inputs(b, s, h, cuda_device, seed=s + dh + h, dh=dh)
+            d = h * dh
+            launches = (tms.fused_mha_packed_q3i_cls.launches,
+                        tms.fused_mha_packed_q3i_cls_split.launches)
+            out = tms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, h, qk_m2=m2)
+            split = tms.fused_mha_packed_q3i_cls_split(qkv[:, :1, :d].contiguous(),
+                                                       qkv[:, :, d:].contiguous(), deq, qks, oinv,
+                                                       h, qk_m2=m2)
+            torch.cuda.synchronize()
+            assert (tms.fused_mha_packed_q3i_cls.launches,
+                    tms.fused_mha_packed_q3i_cls_split.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+            assert out.shape == (b, 1, d) and torch.equal(out, split), (softmax, b, h)
+            got.append(out.reshape(-1))
+            want.append(tms.mha_packed_q3i_cls_plain(qkv, deq, qks, oinv, h, qk_m2=m2).reshape(-1))
+        assert_within_one_int8_step(torch.cat(got), torch.cat(want))
+
+
+@pytest.mark.parametrize("dh,s", [(64, 197), (32, 257), (128, 513)])
+def test_q3i_cls_kernel_is_exact_where_its_sums_are(cuda_device, dh, s):
+    """On inputs whose static softmax sums are exact in any order
+    (exact_sum_inputs), the CLS kernel's own order of l and p·v gives the
+    plain version bit for bit."""
+    qkv, deq, qks, oinv, m2 = exact_sum_inputs(61, s, 13, dh, cuda_device, seed=dh + s)
+    out = tms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, 13, qk_m2=m2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tms.mha_packed_q3i_cls_plain(qkv, deq, qks, oinv, 13, qk_m2=m2))
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
@@ -842,7 +888,8 @@ def test_int8_attention_kernels_issue_imma_and_hmma(cuda_device):
     (IMMA), and p.v on the bf16 ones (HMMA) where it has a PV: 3 head widths
     x (5 normalisations x 2 softmaxes + the probe's noexp), and the probe's
     qkonly and nopv (VAR 2 and 3, the last template argument) at 3 head
-    widths with IMMA alone; the CLS kernel (3 head widths) neither; #5/#6's
+    widths with IMMA alone; the CLS kernel q3i_cls_kernel (3 head widths)
+    neither; #5/#6's
     kernel (2 dequants x 3 logits windows) HMMA."""
     import re
 
@@ -853,7 +900,7 @@ def test_int8_attention_kernels_issue_imma_and_hmma(cuda_device):
            if (m := re.search(r"q3i_kernel_tcILi\d+ELi\d+ELb[01]ELi(\d)EE", fn))}
     tc = [fn for fn in var if var[fn] < 2]
     sliced = [fn for fn in var if var[fn] >= 2]
-    cls = [fn for fn in imma if "q3i_kernel" in fn and "_tc" not in fn]
+    cls = [fn for fn in imma if "q3i_cls_kernel" in fn]
     assert len(var) == len([fn for fn in imma if "q3i_kernel_tc" in fn]), imma
     assert len(tc) == 33 and min(min(imma[f], hmma[f]) for f in tc) > 0, (imma, hmma)
     assert len(sliced) == 6 and min(imma[f] for f in sliced) > 0, imma
@@ -1278,21 +1325,16 @@ def test_probe_mm_bf16_kernel_matches_plain_version(cuda_device, m, k, n, values
 @pytest.mark.parametrize("m", [1, 100, 129, 4096])
 def test_probe_mm_int8_wgmma_kernel_is_exact_at_ragged_shapes(cuda_device, m, n, k):
     """#27 int8 on wgmma (probe_mm_kernel_wg_s8) at tile edges in every
-    dimension: bit for bit the exact product and the mma.sync kernel it
-    replaced (probe_mm_int8_mma, which counts no launch)."""
+    dimension: bit for bit the exact product."""
     from team_tpu_torch.ops import gemm_probe as gp
 
     g = torch.Generator(device=cuda_device).manual_seed(m + 7 * n + 13 * k)
     x, w = _int8((m, k), g, cuda_device), gp.column_major(_int8((k, n), g, cuda_device))
     launches = gp.probe_mm.launches
-    mma = gp.probe_mm_int8_mma(x, w)
-    torch.cuda.synchronize()
-    assert gp.probe_mm.launches == launches
     out = gp.probe_mm(x, w)
     torch.cuda.synchronize()
     assert gp.probe_mm.launches == launches + 1
     assert torch.equal(out, gp.probe_mm_reference(x, w))
-    assert torch.equal(out, mma)
 
 
 @pytest.mark.parametrize("m,k,n,reps", [(512, 768, 768, 100), (100, 64, 96, 70)])
@@ -1318,7 +1360,13 @@ def test_mxu_ceiling_kernel_matches_plain_version(cuda_device, dtype, m, k, n, r
         assert (out - ref).abs().max().item() <= gp.CEILING_BF16_SHARE * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("b,s,k,n", [(4, 197, 768, 3072), (3, 7, 64, 256)])
+# (B, S, K, N): the probe's widths (N at team_mlp_mega_max_n()); M under one
+# 64-row tile (the cluster's second tile wholly past M); one row; K short of
+# a 256-column proj pass and N of a 256-column fc chunk (a warpgroup's half
+# wholly past N); 11 row tiles (an odd count: the last cluster's second tile
+# past M) with N not a multiple of 128
+@pytest.mark.parametrize("b,s,k,n", [(4, 197, 768, 3072), (3, 7, 64, 256), (1, 1, 32, 32),
+                                     (2, 300, 96, 288), (5, 131, 288, 3040)])
 def test_mlp_mega_kernel_matches_plain_version_and_its_3d_entry(cuda_device, b, s, k, n):
     from team_tpu_torch.ops import gemm_probe as gp
 
@@ -1353,6 +1401,36 @@ def test_gemm_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # the hidden block [64, N] does not fit
         gp.mlp_mega_2d(xm, torch.zeros((k, n), dtype=torch.int8, device=cuda_device), vn,
                        torch.zeros((n, k), dtype=torch.int8, device=cuda_device), vk, vn)
+
+
+def test_mlp_mega_takes_its_widest_n_and_rejects_the_next(cuda_device):
+    """N = team_mlp_mega_max_n() (3,072: hq [64, N] resident beside three
+    10 KB stages) runs and counts a launch; N one k32 step wider raises
+    before anything is launched."""
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    n, k = gp._library().team_mlp_mega_max_n(), 64
+    assert n == 3072
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _int8((70, k), g, cuda_device)
+    vk = torch.full((1, k), 2e-4, device=cuda_device)
+    for width, ok in ((n, True), (n + 32, False)):
+        w1 = gp.column_major(_int8((k, width), g, cuda_device))
+        w2 = gp.column_major(_int8((width, k), g, cuda_device))
+        vn, qi = torch.full((1, width), 2e-4, device=cuda_device), torch.full((1, width), 30.0,
+                                                                             device=cuda_device)
+        launches = gp.mlp_mega_2d.launches
+        if ok:
+            out = gp.mlp_mega_2d(x, w1, vn, w2, vk, qi)
+            ref = gp.mlp_mega_reference(x, w1, vn, w2, vk, qi)
+            torch.cuda.synchronize()
+            limit = gp.mlp_mega_limit(ref, gp.mlp_mega_edge_rows(x, w1, vn, qi), vk)
+            assert bool(((out.float() - ref.float()).abs() <= limit).all())
+            assert gp.mlp_mega_2d.launches == launches + 1
+        else:
+            with pytest.raises(ValueError, match="at most 3072"):
+                gp.mlp_mega_2d(x, w1, vn, w2, vk, qi)
+            assert gp.mlp_mega_2d.launches == launches
 
 
 # ---------------------------------------------------------------------------
@@ -1751,8 +1829,9 @@ GMMA_SOURCES = {
                       "blockscale_kernel_wg": (2, "IGMMA.64x128x32.S8.S8")},
                      {"gelu_quant_kernel": 1, "gemm_kernel": 6}),
     "gemm_probe.cu": ({"probe_mm_kernel_wg": (1, "HGMMA.64x256x16.F32.BF16"),
-                       "probe_mm_kernel_wg_s8": (1, "IGMMA.64x256x32.S8.S8")},
-                      {"probe_mm_kernel": 1, "ceiling_kernel": 2, "mlp_mega_kernel": 1}),
+                       "probe_mm_kernel_wg_s8": (1, "IGMMA.64x256x32.S8.S8"),
+                       "mlp_mega_kernel_wg": (1, "IGMMA.64x128x32.S8.S8")},
+                      {"ceiling_kernel": 2}),
 }
 
 
@@ -1768,10 +1847,9 @@ def _is_kernel(name, fn):
 @pytest.mark.parametrize("source", list(GMMA_SOURCES))
 def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source):
     """#15 (every epilogue and output type), #20 at bk a multiple of 128, #21
-    at bn 256 and 512 and #27 in int8 and bf16 run wgmma; the kernels on
-    mma.sync (gemm_kernel: the _mma entries and blockscale at other bk;
-    gelu_quant at other bn, probe_mm int8's yardstick, the ceiling, the
-    megakernel) issue no GMMA."""
+    at bn 256 and 512, #27 in int8 and bf16 and #30 run wgmma; the kernels
+    on mma.sync (gemm_kernel: the _mma entries and blockscale at other bk;
+    gelu_quant at other bn, the ceiling) issue no GMMA."""
     tim.build()
     from team_tpu_torch.ops import gemm_probe as gp
 

@@ -19,10 +19,6 @@ and it is bit for bit); #28 bf16 within ``CEILING_BF16_SHARE`` of the largest
 |ref|; #30 within ``mlp_mega_limit``: bit for bit on every row with no hq
 near a rounding edge, else 127·s2 per near-edge value plus one bf16 step;
 the float intermediate is checked finite before any int8 conversion.
-#27's yardstick ``probe_mm_int8_mma`` (the ``mma.sync`` kernel that the
-``wgmma`` kernel replaced, kept callable on the card) computes the same
-plain product on a CPU tensor: bit for bit the script's kernel and
-``probe_mm``, counting no launch, and int8 only.
 
 Then the three probe modules run end to end with ``--device cpu`` at tiny
 sizes, draw the scripts' inputs, and refuse the card where there is none."""
@@ -115,31 +111,6 @@ def test_probe_mm_rejects_mixed_types():
         gp.probe_mm(x, torch.zeros((32, 8), dtype=torch.int8), torch.float32)
     with pytest.raises(ValueError):
         gp.probe_mm(x, torch.zeros((16, 8), dtype=torch.int8))
-
-
-@pytest.mark.parametrize("seed", [1, 2])
-def test_probe_mm_int8_mma_yardstick_matches_the_script_kernel(monkeypatch, seed):
-    mod = _load(monkeypatch, "int8_probe")
-    rng = np.random.default_rng(seed)
-    x, w = (rng.integers(-127, 128, (MM, MM), dtype=np.int8) for _ in range(2))
-    want = _pallas_mm(mod, jnp.asarray(x), jnp.asarray(w), jnp.int32)
-    launches = gp.probe_mm.launches
-    got = gp.probe_mm_int8_mma(_t(x), gp.column_major(_t(w)))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert torch.equal(got, gp.probe_mm(_t(x), _t(w)))
-    assert gp.probe_mm.launches == launches  # the CPU launches nothing
-
-
-def test_probe_mm_int8_mma_yardstick_takes_int8_only():
-    x = torch.ones((8, 32), dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="int8"):
-        gp.probe_mm_int8_mma(x, torch.ones((32, 8), dtype=torch.bfloat16))
-    with pytest.raises(TypeError):
-        gp.probe_mm_int8_mma(torch.ones((8, 32), dtype=torch.int8), torch.ones((32, 8)))
-    with pytest.raises(ValueError, match="share K"):
-        gp.probe_mm_int8_mma(torch.ones((8, 32), dtype=torch.int8),
-                             torch.ones((16, 8), dtype=torch.int8))
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,9 @@ that the card tests and ``chip_smoke.py`` phase 3 set: at most one int8 step
 on under 1 % of the outputs (the int8 PV: ``pv_int8_limit`` steps). So the
 tolerance is known before the kernels run on a card.
 
+The CLS kernel (``q3i_cls_kernel``, #8, #9) is modelled too: its l and p·v
+sums in the order its 256 threads take them.
+
 The model: q·k in m16n8 tiles of 16 keys (int8: exact; bf16: each 16-wide
 k-step's sum rounded to f32, the steps added in order in f32); a row's sum l
 as a quad of lanes takes it (lane t adds keys 2t, 2t+1, 8+2t, 9+2t of each
@@ -16,12 +19,14 @@ its own; what the model fixes is every sum that differs from the plain
 versions' order."""
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from team_tpu_torch.ops import mha_short as tms
 from team_tpu_torch.ops.mha_short import (INV127, LOG2E, mha_packed_q3i_plain,
                                           mha_packed_q_reference)
 
@@ -257,3 +262,141 @@ def test_pv8_bf16_pv_is_the_int32_sum(s, dh):
         for j in range(kp):
             keywise = keywise + p[..., j:j + 1] * v[:, :, j:j + 1, :]
         assert torch.equal(keywise.double(), exact)
+
+
+# ---------------------------------------------------------------------------
+# the CLS kernel (#8, #9): q3i_cls_kernel's order of summation
+# ---------------------------------------------------------------------------
+
+CLS_THREADS = 256  # threads of a CLS block (csrc/mha_packed_q3i.cu, kClsThreads)
+
+
+def _xor_tree(x, lanes):
+    """``x [..., lanes]`` summed as shuffle-xor steps of 1, 2, ... lanes / 2
+    take it: each step adds lane i ^ o to lane i (all lanes end equal)."""
+    o = 1
+    while o < lanes:
+        x = x + x[..., torch.arange(lanes) ^ o]
+        o *= 2
+    return x[..., 0]
+
+
+def cls_model(qkv_q, deq, qks, oinv, heads, qk_m2=None):
+    """``q3i_cls_kernel``'s arithmetic in its order of summation: p as the
+    plain version forms it (q·k exact); l: thread t adds p of keys t, t +
+    256, ... in order, a warp's 32 sums meet by a shuffle-xor tree, the 8
+    warps' in warp order; p·v: thread (slice, word) adds p_j·v_j (exact in
+    f32) for keys j = slice, slice + slices, ... in order, a warp's slices
+    (32 / (dh / 4) of them) meet by a shuffle-xor tree, the warps' in warp
+    order; out = rint(o · (deq_v · o_inv) / l), clipped to ±127."""
+    b, s, d3 = qkv_q.shape
+    d = d3 // 3
+    dh = d // heads
+    q, k, v = (_split(t, heads) for t in qkv_q.split(d, dim=-1))
+    acc = torch.matmul(q[:, :, :1].double(), k.double().transpose(-1, -2)).float()[:, :, 0]
+    qk = qks.reshape(1, heads, 1).float()
+    if qk_m2 is not None:
+        p = torch.exp2(acc * (qk * LOG2E) - qk_m2.reshape(1, heads, 1).float())
+    else:
+        logits = acc * qk
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p.to(torch.bfloat16).float()  # [B, H, S]
+
+    sp = -(-s // CLS_THREADS) * CLS_THREADS
+    by_thread = F.pad(p, (0, sp - s)).reshape(b, heads, sp // CLS_THREADS, CLS_THREADS)
+    part = torch.zeros((b, heads, CLS_THREADS), dtype=torch.float32)
+    for i in range(by_thread.shape[2]):
+        part = part + by_thread[:, :, i]
+    warps = _xor_tree(part.reshape(b, heads, CLS_THREADS // 32, 32), 32)
+    l = warps[..., 0]
+    for w in range(1, CLS_THREADS // 32):
+        l = l + warps[..., w]
+
+    words = dh // 4
+    slices = CLS_THREADS // words
+    per_warp = 32 // words
+    sv = -(-s // slices) * slices
+    pp = F.pad(p, (0, sv - s)).reshape(b, heads, sv // slices, slices, 1)
+    vv = F.pad(v.float(), (0, 0, 0, sv - s)).reshape(b, heads, sv // slices, slices, dh)
+    prod = pp * vv  # each product exact in f32: fmaf rounds once, as the add does here
+    o = torch.zeros((b, heads, slices, dh), dtype=torch.float32)
+    for i in range(prod.shape[2]):
+        o = o + prod[:, :, i]
+    o = o.reshape(b, heads, CLS_THREADS // 32, per_warp, dh).transpose(-1, -2)
+    o = _xor_tree(o, per_warp)  # [B, H, warps, dh]
+    out = o[:, :, 0]
+    for w in range(1, CLS_THREADS // 32):
+        out = out + o[:, :, w]
+    scale = (deq.reshape(-1)[2 * d:].float() * oinv.reshape(-1).float()).reshape(1, heads, dh)
+    out = out * scale / l[..., None]
+    return _round_int8(out).reshape(b, 1, d)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 7, 197, "limit"])
+@pytest.mark.parametrize("softmax", ["static", "f32"])
+def test_cls_order_is_within_the_card_limits(monkeypatch, softmax, s, dh):
+    """The CLS kernel's order against the plain version within the card
+    tests' limit (one int8 step, under 1 % of the outputs), for both
+    softmaxes, up to the longest S the kernel takes."""
+    monkeypatch.setenv("TEAM_QI_SOFTMAX", softmax)
+    s = tms.q3i_cls_max_seq(dh) if s == "limit" else s
+    b, h = (4, 3) if s > 1000 else (8, 6)
+    qkv, deq, qks, oinv, m2 = _q3i_inputs(b, s, h, dh, seed=s + dh)
+    want = tms.mha_packed_q3i_cls_plain(qkv, deq, qks, oinv, h, qk_m2=m2)
+    got = cls_model(qkv, deq, qks, oinv, h, qk_m2=m2 if softmax == "static" else None)
+    assert_within_card_limits(got, want)
+
+
+def test_the_cls_model_takes_another_order():
+    """The CLS model's sums are not the plain version's: its l differs from
+    a sum in key order in the last bits on p spread as a softmax's are."""
+    u = torch.rand((4, 12, 197), generator=torch.Generator().manual_seed(0))
+    p = torch.exp2(-20 * u).to(torch.bfloat16).float()
+    threads = F.pad(p, (0, CLS_THREADS - 197))
+    warps = _xor_tree(threads.reshape(4, 12, 8, 32), 32)
+    l = warps[..., 0]
+    for w in range(1, 8):
+        l = l + warps[..., w]
+    in_order = torch.zeros((4, 12))
+    for j in range(197):
+        in_order = in_order + p[..., j]
+    assert not torch.equal(l, in_order)
+    assert torch.allclose(l, in_order, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dh,longest", [(32, 3402), (64, 1744), (128, 878)])
+def test_the_cls_entries_take_their_longest_s_and_raise_past_it(dh, longest):
+    """The longest S of the CLS entries (the kernel's shared memory, which
+    the wrapper computes as the source does) runs on the CPU's plain version
+    and one more raises before anything runs, from both entries."""
+    assert tms.q3i_cls_max_seq(dh) == longest
+    assert tms.q3i_cls_smem_bytes(longest, dh) <= 232448 < tms.q3i_cls_smem_bytes(longest + 1, dh)
+    for s, ok in ((longest, True), (longest + 1, False)):
+        qkv, deq, qks, oinv, m2 = _q3i_inputs(1, s, 2, dh, seed=dh)
+        d = 2 * dh
+        q, kv = qkv[:, :1, :d].contiguous(), qkv[:, :, d:].contiguous()
+        for call in (lambda: tms.fused_mha_packed_q3i_cls(qkv, deq, qks, oinv, 2, qk_m2=m2),
+                     lambda: tms.fused_mha_packed_q3i_cls_split(q, kv, deq, qks, oinv, 2,
+                                                                qk_m2=m2)):
+            if ok:
+                assert call().shape == (1, 1, d)
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    call()
+
+
+def test_the_cls_limit_is_the_kernel_sources():
+    """The wrapper's shared-memory formula is the source's smem_bytes_cls:
+    the same thread count and the same terms."""
+    text = (Path(__file__).resolve().parents[1] / "team_tpu_torch" / "csrc"
+            / "mha_packed_q3i.cu").read_text()
+    assert f"constexpr int kClsThreads = {CLS_THREADS};" in text
+    body = text[text.index("size_t smem_bytes_cls(int seq, int dh) {"):]
+    body = body[:body.index("}")]
+    for term in ("2 * align16(static_cast<size_t>(seq) * dh)",
+                 "align16(4 * static_cast<size_t>(seq))",
+                 "static_cast<size_t>(kClsWarps) * dh * sizeof(float)",
+                 "2 * kClsWarps * sizeof(float)"):
+        assert term in body, term
+    assert tms._Q3I_CLS_THREADS == CLS_THREADS

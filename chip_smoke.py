@@ -12,8 +12,9 @@ Phases, one line or more each:
      in the CUDA-core ones (f32); of int8_gemm.cu and gemm_probe.cu: GMMA
      (IGMMA s8, HGMMA bf16) in the wgmma + TMA kernels (#15 gemm_kernel_wg,
      #20 blockscale_kernel_wg, #21 gelu_quant_kernel_wg, #27
-     probe_mm_kernel_wg_s8 and probe_mm_kernel_wg, #30 mlp_mega_kernel_wg),
-     none in the mma.sync ones (#28's ceiling_kernel), and no spill in them;
+     probe_mm_kernel_wg_s8 and probe_mm_kernel_wg, #28 ceiling_kernel_wg in
+     both forms, #30 mlp_mega_kernel_wg), none in the mma.sync ones, and no
+     spill in them;
      of mha_packed_q3i.cu: IMMA (q.k) and HMMA
      (p.v) in q3i_kernel_tc (#7, #10, #11, #29; #29's qkonly and nopv, its
      6 instantiations with no PV, IMMA alone), neither in q3i_cls_kernel
@@ -70,7 +71,8 @@ Phases, one line or more each:
      the GEMM probes' kernels at the probes' own shapes and inputs:
      probe_mm (#27) int8 bit for bit the exact product over a whole 4096^3
      input, and bf16 within (K/16 + 1) ulps of |x|@|w|, mxu_ceiling (#28)
-     int8 bit for bit and bf16 within 2^-10 of the largest |ref|, mlp_mega
+     int8 bit for bit and bf16 within 2^-10 of the largest |ref|, each
+     equal bit for bit over two launches, mlp_mega
      (#30) 2-D and 3-D bit for bit and within 127 s2 per near-edge hq (plus
      one bf16 step) of the plain version, the share of rows that differ
      printed
@@ -86,15 +88,16 @@ Phases, one line or more each:
      floor beside the byte bound, #29's variants (copy against qkv[..., :D].contiguous()),
      #26 with the torch composition of its arithmetic as context; #27
      against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
-     rate is the mma.sync ceiling), #30 against the torch composition; the
+     rate is the wgmma ceiling, printed as a share of the dense peak), #30
+     against the torch composition; the
      fused kernels' TFLOP/s and share of their bound beside their times; the
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
      kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
      the wgmma GEMMs (#15 at qkv and out, #20 at proj, #21 at fc, #27 int8
      and bf16) against their mma.sync ms of PERF.md, the library call, the
      bound (its share) and TOP/s or TFLOP/s; the kernels redesigned last
-     (#8 and #9 streaming on cp.async, #30 on wgmma + TMA) against their
-     earlier ms of PERF.md and the bound (its share)
+     (#8 and #9 streaming on cp.async, #30 and #28 on wgmma + TMA) against
+     their earlier ms of PERF.md and the bound (its share)
   5. the main paths through team_tpu_torch.trainer.train at full ViT-B/16
      width, random init, each with the counts zeroed just before its run and
      read just after: SimpleCIL (bf16) and ZS-CLIP (f32), whose packed
@@ -439,15 +442,15 @@ NO_PV_INSTANCES = {"mha_packed_q3i.cu": {"q3i_kernel_tc": 6}}
 # the GEMM sources whose wgmma kernels (TMA-fed, csrc/wgmma_gemm.cuh) issue
 # GMMA instructions and whose mma.sync kernels issue none: source -> (wgmma
 # kernels, mma.sync kernels), by name as TC_SOURCES (cuobjdump prints
-# IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21, #27 int8),
-# IGMMA.64x128x32.S8.S8 for #20's and #30's m64n128 and
-# HGMMA.64x256x16.F32.BF16 for #27's bf16 one; mma.sync is IMMA.16832.S8.S8
-# and HMMA.16816.F32.BF16)
+# IGMMA.64x256x32.S8.S8 for the s8 m64n256 forms (#15, #21, #27 and #28
+# int8), IGMMA.64x128x32.S8.S8 for #20's and #30's m64n128 and
+# HGMMA.64x256x16.F32.BF16 for #27's and #28's bf16 ones; mma.sync is
+# IMMA.16832.S8.S8 and HMMA.16816.F32.BF16)
 GMMA_SOURCES = {
     "int8_gemm.cu": (("gelu_quant_kernel_wg", "gemm_kernel_wg", "blockscale_kernel_wg"),
                      ("gelu_quant_kernel", "gemm_kernel")),
-    "gemm_probe.cu": (("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg", "mlp_mega_kernel_wg"),
-                      ("ceiling_kernel",)),
+    "gemm_probe.cu": (("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg", "mlp_mega_kernel_wg",
+                       "ceiling_kernel_wg"), ()),
 }
 
 
@@ -788,12 +791,14 @@ def report_int8_attention_redesign(times: dict) -> None:
 
 # the kernels redesigned last: their earlier card ms as PERF.md §6 records
 # them (this script's phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W), by
-# phase-4 key -> (kernel, ms): #8/#9 with one computing warp a block, #30 on
-# mma.sync
+# phase-4 key -> (kernel, ms): #8/#9 with one computing warp a block, #30 and
+# #28 on mma.sync
 EARLIER_MS = {
     "q3i_cls": ("fused_mha_packed_q3i_cls (#8)", 0.0290),
     "q3i_cls_split": ("fused_mha_packed_q3i_cls_split (#9)", 0.0292),
     "mlp_mega": ("mlp_mega (#30), a pair at B=256", 3.1718),
+    "mxu_ceiling int8": ("mxu_ceiling (#28) int8, M=512 K=N=768 REPS=2000", 1.1358),
+    "mxu_ceiling bf16": ("mxu_ceiling (#28) bf16, M=512 K=N=768 REPS=2000", 2.5043),
 }
 
 
@@ -3373,7 +3378,8 @@ def compare_gemm_probes(gp, inp) -> dict:
     """#27, #28 and #30 against their plain versions at the probes' own shapes
     and inputs: probe_mm int8 bit for bit over the whole 4096 x 4096 output,
     bf16 within (K/16 + 1) ulps of |x|@|w|; mxu_ceiling int8 bit for bit, bf16
-    within CEILING_BF16_SHARE of the largest |ref|; mlp_mega_2d and _3d equal
+    within CEILING_BF16_SHARE of the largest |ref|, both equal bit for bit
+    over two launches; mlp_mega_2d and _3d equal
     bit for bit and within mlp_mega_limit of the plain version (the float
     intermediate checked finite first), with the share of rows that differ."""
     import torch
@@ -3403,7 +3409,11 @@ def compare_gemm_probes(gp, inp) -> dict:
     for dtype, (x, w) in inp["ceiling"].items():
         tag = "int8" if dtype == torch.int8 else "bf16"
         out, ref = gp.mxu_ceiling(x, w, mc.REPS, mc.M), gp.mxu_ceiling_reference(x, w, mc.REPS, mc.M)
+        again = gp.mxu_ceiling(x, w, mc.REPS, mc.M)
         torch_sync()
+        print(f"  mxu_ceiling {tag}: two launches bit for bit {torch.equal(out, again)}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"mxu_ceiling {tag} differs between two launches")
         e = (out - ref).abs().max().item()
         err[f"mxu_ceiling {tag}"] = e
         if dtype == torch.int8:
@@ -3491,7 +3501,7 @@ def time_gemm_probes(gp, inp) -> dict:
         t["peak_share"] = t["tops"] / (PEAK_OPS_PER_S[tag] / 1e12)
         times[f"mxu_ceiling {tag}"] = t
         print(f"  mxu_ceiling {tag} M={mc.M} K=N={mc.K} REPS={mc.REPS}: kernel "
-              f"{t['k'][0]:.4f}/{t['k'][1]:.4f} ms ({t['tops']:.1f} TOP/s, the mma.sync ceiling, "
+              f"{t['k'][0]:.4f}/{t['k'][1]:.4f} ms ({t['tops']:.1f} TOP/s, the wgmma ceiling, "
               f"{100 * t['peak_share']:.1f} % of the dense peak), plain "
               f"{t['p'][0]:.4f}/{t['p'][1]:.4f} ms, no single PyTorch call computes it, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
@@ -3917,8 +3927,13 @@ def main() -> int:
         "launches": gemm_probes["int8_mxu_ceiling_launches"]["mxu_ceiling"],
         "launches_from": "phase 5, team_tpu_torch.scripts.int8_mxu_ceiling",
         "max_abs_err": gemm_probe_err["mxu_ceiling int8"], **timing(times["mxu_ceiling int8"]),
-        "tops": times["mxu_ceiling int8"]["tops"], "label": "the mma.sync ceiling",
+        "tops": times["mxu_ceiling int8"]["tops"],
+        "peak_share": times["mxu_ceiling int8"]["peak_share"], "label": "the wgmma ceiling",
+        "kernel": "ceiling_kernel_wg (wgmma + TMA, csrc/wgmma_gemm.cuh; 128 x 256 tiles, one "
+                  "CTA an SM over a range of the products; ceiling_reduce_kernel adds the "
+                  "ranges in order)",
         "bf16": {**timing(times["mxu_ceiling bf16"]), "tops": times["mxu_ceiling bf16"]["tops"],
+                 "peak_share": times["mxu_ceiling bf16"]["peak_share"],
                  "max_abs_err": gemm_probe_err["mxu_ceiling bf16"]},
         "probe": gemm_probes["int8_mxu_ceiling"],
     }, {

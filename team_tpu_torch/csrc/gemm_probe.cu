@@ -1,7 +1,5 @@
-// The GEMM probes' kernels, for Hopper (sm_90a), on the tensor cores:
-// probe_mm and mlp_mega through wgmma (csrc/wgmma_gemm.cuh), mxu_ceiling
-// through mma.sync (the s8 helpers of csrc/int8_mma.cuh, the bf16 fragments
-// of csrc/bf16_mma.cuh).
+// The GEMM probes' kernels, for Hopper (sm_90a), all on wgmma fed by TMA
+// (the maps, barriers, ring and descriptors of csrc/wgmma_gemm.cuh).
 //
 // Replaces the TPU kernels of the repository's probe scripts:
 //   scripts/int8_probe.py: _mm_kernel (pallas_mm, :48)          -> team_probe_mm
@@ -21,19 +19,29 @@
 // mxu_ceiling: out [M, N] f32 = sum over i < reps of x[8 (i mod 64) :
 // 8 (i mod 64) + M, :] @ w, with w [K, N] given as [N, K]. Every one of the
 // reps products is issued on the tensor cores: nothing is multiplied by a
-// count. The products are regrouped: a CTA owns a 64-row tile, a column slice
-// of w kept in shared memory for its whole life (int8 128 columns, bf16 64:
-// 96 KB at K = 768), and a group of the 64 distinct windows. For each window
-// it stages the window's 64 x K tile of x into shared memory once, then for
-// each 32-byte k-step loads its fragments once and issues the window's 31 or
-// 32 repetitions back to back (asm volatile: none is folded away). A window's
-// repetitions sum into a fresh accumulator, added to the CTA's total when the
-// window ends. The groups' totals go to a workspace [groups, M, N] and a
-// second kernel sums them in group order, so the result is deterministic:
-// exact in int32 for int8 (then f32(acc), as the TPU kernel's output), in f32
-// for bf16. Bound at the probe's shape (M = 512, K = N = 768, reps = 2000):
-// 1.208 T operations, 0.610 ms in int8, 1.221 ms in bf16. What it measures is
-// the mma.sync ceiling of this card; wgmma's is higher.
+// count and nothing is folded. What it measures is the wgmma ceiling of this
+// card at the power limit it runs at: operands already in shared memory, no
+// device-memory traffic and no epilogue in the loop. Bound at the probe's
+// shape (M = 512, K = N = 768, reps = 2000): 1.208 T operations, 0.610 ms in
+// int8 at 1,979 TOP/s, 1.221 ms in bf16 at 989 TFLOP/s; its bytes (x and w,
+// 1.6 and 1.2 MB in bf16) stay in L2.
+// Design (ceiling_kernel_wg): the reps products are laid out window-major
+// (window j's 31 or 32 together) and cut into groups = max(1, SMs / tiles)
+// contiguous ranges whose sizes differ by at most one; a CTA takes one 128 x
+// 256 output tile and one range, so at the probe's shape 12 tiles x 11
+// groups = 132 CTAs fill the card in one wave, each with 181-182 products. A
+// CTA holds its SM alone (a 197 KB ring), in the shape of wgmma_gemm.cuh: a
+// producer warp stages, for each window of its range and each 128 bytes of
+// K, x's box [128 rows from 8 j + row0] and w's [256 rows]; each consumer
+// warpgroup issues the stage's four m64n256 wgmma (k16 bf16 into f32, k32 s8
+// into s32) once for each of the window's products in the range, back to
+// back into the one accumulator it keeps over its whole range, so a 48 KB
+// stage feeds about 31 x 4 products (some 17 us of tensor work) and the
+// copies hide behind them. (A fresh accumulator a window beside a running
+// total would need 256 registers a thread.) Each CTA writes its partial to a
+// workspace [groups, M, N]; a second kernel adds them in group order, so the
+// result is deterministic: exact in int32 for int8 (then f32, as the TPU
+// kernel's output), f32 in a fixed order for bf16.
 //
 // mlp_mega: y = bf16(f32(hq @ w2) * s2[k]) with hq = clip(rint(gelu_tanh(
 // f32(x @ w1) * s1[n]) * qi[n]), +-127) int8, the whole MLP in one kernel:
@@ -63,12 +71,7 @@
 // replaced bit for bit (4 warps, the whole hq at pitch N + 16, 150 TOP/s).
 // PERF.md has its time and what was tried: the GELU epilogue overlaps no
 // product.
-//
-// The ceiling runs mma.sync from shared memory by design; its times are in
-// PERF.md.
 
-#include "bf16_mma.cuh"
-#include "int8_mma.cuh"
 #include "wgmma_gemm.cuh"
 
 #include <cuda_bf16.h>
@@ -80,33 +83,10 @@
 
 namespace {
 
-constexpr int kSmemMax = 232448;  // dynamic shared memory a CTA may have on an H100
 constexpr int kWindows = 64;      // the ceiling's distinct windows: x rows 8 j, j < 64
 constexpr int kWindowStride = 8;
-constexpr int kTileM = 64;        // rows of every CTA tile here
 
 using wg::store2;
-
-// a warp's MI x NI accumulators of a 64-row tile, at rows wrow and columns
-// wcol of the tile, to out [m, n] (n a multiple of 8: col + 1 < n too)
-template <typename Acc, int MI, int NI>
-__device__ __forceinline__ void store_tile(const Acc (&acc)[MI][NI][4], Acc* out, int row0,
-                                           int col0, int m, int n) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + mi * 16 + g + 8 * h;
-      if (row >= m) continue;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = col0 + ni * 8 + 2 * t;
-        if (col < n)
-          store2(out + static_cast<size_t>(row) * n + col, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // probe_mm
@@ -168,129 +148,156 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 // mxu_ceiling
 // ---------------------------------------------------------------------------
 
-template <bool BF16>
-struct Ceiling {
-  static constexpr int BN = BF16 ? 64 : 128;  // columns of w resident in a CTA
-  static constexpr int WROWS = kTileM / 2;    // 2 x 2 warps
-  static constexpr int WCOLS = BN / 2;
-  static constexpr int MI = WROWS / 16;
-  static constexpr int NI = WCOLS / 8;
-  using Acc = typename std::conditional<BF16, float, int>::type;
-};
+// The ceiling's tiles: 128 x 256 outputs, each consumer warpgroup 64 rows on
+// m64n256 (one config a type, so that either form can be built at another
+// width), four 48 KB stages, single CTAs
+using CeilingBf16 = wg::Config<128, 256, 4, 1>;
+using CeilingS8 = wg::Config<128, 256, 4, 1>;
 
-__host__ __device__ constexpr int ceiling_pitch(int kb) { return kb + 16; }
-
-int ceiling_smem(bool bf16, int kb) {
-  return (kTileM + (bf16 ? Ceiling<true>::BN : Ceiling<false>::BN)) * ceiling_pitch(kb);
+// where window j's products begin among the reps laid out window-major
+// (window j's count_j = reps / 64 + (j < reps % 64) products together)
+__device__ __forceinline__ int window_start(int j, int reps) {
+  return j * (reps / kWindows) + min(j, reps % kWindows);
 }
 
-struct CeilingParams {
-  const int8_t* x;   // [m + 504 or more, K] row-major (bytes)
-  const int8_t* wt;  // [n, K] row-major (bytes)
-  void* part;        // [groups, m, n] int32 or f32
-  int m, n, kb;      // kb: bytes of a row of K
-  int reps, groups;
-};
+// One CTA: the output tile blockIdx.x (row tiles fastest) over the products
+// [g reps / groups, (g + 1) reps / groups) of group g = blockIdx.y. For each
+// window with products in that range and each 128 bytes of K, the producer
+// stages x's box (the window's rows 8 j + row0 ...) and w's; the consumers
+// issue the stage's four wgmma once for each of the window's products there,
+// into the one accumulator the CTA keeps over its whole range, and free the
+// stage once the next one's group is issued. The partial goes to part [groups,
+// m, n] (zeros where the range is empty).
+template <typename C, typename Acc>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    ceiling_kernel_wg(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                      Acc* __restrict__ part, int m, int n, int k, int reps, int groups) {
+  extern __shared__ uint8_t wg_smem[];
+  const wg::Ring<C> ring(wg_smem);
+  constexpr int kStep = wg::Consumer<C, Acc>::kStep;  // elements of K a stage holds
+  const int ktiles = (k + kStep - 1) / kStep;
+  const int row_tiles = (m + C::BM - 1) / C::BM;
+  const int row0 = (blockIdx.x % row_tiles) * C::BM, col0 = (blockIdx.x / row_tiles) * C::BN;
+  const int grp = blockIdx.y;
+  const int lo = static_cast<int>(static_cast<long long>(grp) * reps / groups);
+  const int hi = static_cast<int>(static_cast<long long>(grp + 1) * reps / groups);
+  auto share = [&](int j) {  // window j's products in [lo, hi)
+    return max(0, min(window_start(j + 1, reps), hi) - max(window_start(j, reps), lo));
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      wg::bar_init(ring.full(s), 1);
+      wg::bar_init(ring.empty(s), C::EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-__device__ __forceinline__ void mma_any(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  mma_s8(c, a, b);
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;  // stages issued so far
+      for (int j = 0; j < kWindows; ++j) {
+        if (share(j) == 0) continue;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % C::STAGES;
+          if (it >= C::STAGES) wg::bar_wait(ring.empty(s), (it / C::STAGES - 1) & 1);
+          wg::bar_expect_bytes(ring.full(s), C::STAGE_BYTES);
+          wg::tma_load(ring.a(s), &mx, ring.full(s), kt * kStep, kWindowStride * j + row0);
+#pragma unroll
+          for (int r = 0; r < C::BN; r += C::B_BOX)
+            wg::tma_load(ring.b(s) + r * wg::kRowBytes, &mw, ring.full(s), kt * kStep, col0 + r);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = warpgroup - 1;
+  const wg::Consumer<C, Acc> con(ring, cw);
+  Acc d[C::ACC];
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) d[i] = 0;
+  int it = 0;  // stages consumed so far
+  for (int j = 0; j < kWindows; ++j) {
+    const int count = share(j);
+    if (count == 0) continue;
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % C::STAGES;
+      wg::bar_wait(ring.full(s), (it / C::STAGES) & 1);
+      const uint64_t da = wg::desc_sw128(ring.a(s) + con.a_off);
+      const uint64_t db = wg::desc_sw128(ring.b(s) + con.b_off);
+      wg::wgmma_fence();
+      for (int rep = 0; rep < count; ++rep)
+#pragma unroll
+        for (int q = 0; q < wg::kRowBytes / 32; ++q) wg::mma(d, da + 2 * q, db + 2 * q);
+      wg::wgmma_commit();
+      wg::wgmma_wait<1>();  // the previous stage's products are done: free it
+      if (it > 0) con.release(it - 1);
+    }
+  }
+  wg::wgmma_wait<0>();
+  if (it > 0) con.release(it - 1);
+  wg::fence_operands(d);
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = row0 + (C::WM == 2 ? cw * 64 : 0) + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c0 = col0 + (C::WN == 2 ? cw * C::INSTR_N : 0) + 2 * (lane & 3);
+  Acc* out = part + static_cast<size_t>(grp) * m * n;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= m) continue;
+#pragma unroll
+    for (int i = 0; i < C::INSTR_N / 8; ++i) {
+      const int col = c0 + 8 * i;  // n is a multiple of 8: col + 1 < n too
+      if (col < n)
+        store2(out + static_cast<size_t>(row) * n + col, d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
+    }
+  }
 }
-
-__device__ __forceinline__ void mma_any(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  mma_bf16(c, a, b);
-}
-
-__device__ __forceinline__ int add_rn(int a, int b) { return a + b; }
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads) ceiling_kernel(const CeilingParams p) {
-  using C = Ceiling<BF16>;
-  using Acc = typename C::Acc;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int pitch = ceiling_pitch(p.kb);
-  int8_t* ws = smem;                   // [BN][pitch]: the CTA's slice of w, resident
-  int8_t* xs = smem + C::BN * pitch;   // [64][pitch]: the current window's x tile
-  const int row0 = blockIdx.x * kTileM, col0 = blockIdx.y * C::BN, grp = blockIdx.z;
-  const int chunks = p.kb / 16;        // 16-byte pieces of a row (kb is a multiple of 32)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = (warp / 2) * C::WROWS, wcol = (warp % 2) * C::WCOLS;
-
-  for (int c = threadIdx.x; c < C::BN * chunks; c += kThreads) {
-    const int r = c / chunks, kc = (c % chunks) * 16;
-    const bool ok = col0 + r < p.n;
-    cp_async16(ws + r * pitch + kc, ok ? p.wt + static_cast<size_t>(col0 + r) * p.kb + kc : p.wt, ok);
-  }
-
-  Acc total[C::MI][C::NI][4] = {};
-  const int per = kWindows / p.groups;
-  for (int j = grp * per; j < (grp + 1) * per; ++j) {
-    const int count = p.reps / kWindows + (j < p.reps % kWindows ? 1 : 0);
-    if (count == 0) continue;
-    for (int c = threadIdx.x; c < kTileM * chunks; c += kThreads) {
-      const int r = c / chunks, kc = (c % chunks) * 16;
-      const bool ok = row0 + r < p.m;
-      const int8_t* src = p.x + static_cast<size_t>(kWindowStride * j + row0 + r) * p.kb + kc;
-      cp_async16(xs + r * pitch + kc, ok ? src : p.x, ok);
-    }
-    cp_async_commit();
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    Acc acc[C::MI][C::NI][4] = {};
-    for (int kk = 0; kk < p.kb; kk += 32) {
-      uint32_t af[C::MI][4], bf[C::NI][2];
-#pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi) {
-        const int8_t* base = xs + (wrow + mi * 16 + g) * pitch + kk + 4 * t;
-        af[mi][0] = ld32(base);
-        af[mi][1] = ld32(base + 8 * pitch);
-        af[mi][2] = ld32(base + 16);
-        af[mi][3] = ld32(base + 8 * pitch + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) {
-        const int8_t* base = ws + (wcol + ni * 8 + g) * pitch + kk + 4 * t;
-        bf[ni][0] = ld32(base);
-        bf[ni][1] = ld32(base + 16);
-      }
-      for (int rep = 0; rep < count; ++rep)
-#pragma unroll
-        for (int mi = 0; mi < C::MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < C::NI; ++ni) mma_any(acc[mi][ni], af[mi], bf[ni]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < C::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) total[mi][ni][e] = add_rn(total[mi][ni][e], acc[mi][ni][e]);
-    __syncthreads();  // every warp is done with xs before the next window lands
-  }
-  asm volatile("cp.async.wait_all;\n" ::);  // w's copies, where no window ran
-
-  Acc* part = static_cast<Acc*>(p.part) + static_cast<size_t>(grp) * p.m * p.n;
-  store_tile(total, part, row0 + wrow, col0 + wcol, p.m, p.n);
-}
+__device__ __forceinline__ int add_rn(int a, int b) { return a + b; }
 
 // out = the groups' partial sums added in group order; int32 -> f32 at the end
-template <bool BF16>
-__global__ void ceiling_reduce_kernel(const void* part, float* out, int groups, size_t mn) {
+template <typename Acc>
+__global__ void ceiling_reduce_kernel(const Acc* part, float* out, int groups, size_t mn) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= mn) return;
-  if constexpr (BF16) {
-    const float* pf = static_cast<const float*>(part);
-    float s = pf[i];
-    for (int gi = 1; gi < groups; ++gi) s = __fadd_rn(s, pf[gi * mn + i]);
-    out[i] = s;
-  } else {
-    const int* pi = static_cast<const int*>(part);
-    int s = pi[i];
-    for (int gi = 1; gi < groups; ++gi) s += pi[gi * mn + i];
+  Acc s = part[i];
+  for (int gi = 1; gi < groups; ++gi) s = add_rn(s, part[gi * mn + i]);
+  if constexpr (std::is_same<Acc, int>::value)
     out[i] = __int2float_rn(s);
-  }
+  else
+    out[i] = s;
+}
+
+// Both launches of the ceiling on x's and w's maps: the products into the
+// groups' partials, then their sum in group order.
+template <typename C, typename Acc>
+cudaError_t launch_ceiling(const void* x, const void* w_t, void* part, float* out, int m, int n,
+                           int k, int reps, int groups, bool bf16, cudaStream_t s) {
+  CUtensorMap mx, mw;
+  const int esize = bf16 ? 2 : 1;
+  // rows past the last window's are zero-filled; they reach no stored output
+  cudaError_t err = wg::make_map(&mx, x, m + kWindowStride * (kWindows - 1), k, esize, C::BM, bf16);
+  if (err == cudaSuccess) err = wg::make_map(&mw, w_t, n, k, esize, C::B_BOX, bf16);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ceiling_kernel_wg<C, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((m + C::BM - 1) / C::BM) * ((n + C::BN - 1) / C::BN), groups);
+  err = wg::launch<C>(ceiling_kernel_wg<C, Acc>, grid, s, mx, mw, static_cast<Acc*>(part), m, n, k,
+                      reps, groups);
+  if (err != cudaSuccess) return err;
+  const size_t mn = static_cast<size_t>(m) * n;
+  ceiling_reduce_kernel<Acc><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const Acc*>(part), out, groups, mn);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -532,12 +539,6 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   wg::cluster_sync();
 }
 
-int max_k_ceiling(bool bf16) {
-  const int bn = bf16 ? Ceiling<true>::BN : Ceiling<false>::BN;
-  const int kb = (kSmemMax / (kTileM + bn) - 16) / 32 * 32;
-  return bf16 ? kb / 2 : kb;
-}
-
 }  // namespace
 
 // x [m, k] and w_t [n, k] row-major, 16-byte aligned; int8 (bf16 = 0, k a
@@ -565,46 +566,18 @@ extern "C" int team_probe_mm(const void* x, const void* w_t, void* out, int m, i
                              k);
 }
 
-// The widest K the ceiling kernel keeps in shared memory (elements).
-extern "C" int team_mxu_ceiling_max_k(int bf16) { return max_k_ceiling(bf16 != 0); }
-
-// The columns of w a ceiling CTA keeps (the wrapper sizes its grid with it).
-extern "C" int team_mxu_ceiling_block_n(int bf16) {
-  return bf16 ? Ceiling<true>::BN : Ceiling<false>::BN;
-}
-
 // x [m + 504 or more, k] and w_t [n, k] row-major, 16-byte aligned, int8 (bf16
-// = 0, k a multiple of 32) or bfloat16 (k a multiple of 16), k at most
-// team_mxu_ceiling_max_k; part a workspace of groups * m * n 4-byte values;
-// out float32 [m, n]; groups a power of two that divides 64; n a multiple of 8.
+// = 0, k a multiple of 32) or bfloat16 (k a multiple of 16); part a workspace
+// of groups * m * n 4-byte values; out float32 [m, n]; n a multiple of 8.
 extern "C" int team_mxu_ceiling(const void* x, const void* w_t, void* part, void* out, int m, int n,
                                 int k, int reps, int groups, int bf16, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % (bf16 ? 16 : 32) != 0 || reps < 0 ||
-      k > max_k_ceiling(bf16 != 0) || groups <= 0 || groups > kWindows || kWindows % groups != 0)
+      groups <= 0 || groups > 65535)
     return cudaErrorInvalidValue;
-  const CeilingParams p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), part, m, n,
-                        bf16 ? 2 * k : k, reps, groups};
-  const int smem = ceiling_smem(bf16 != 0, p.kb);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bn = team_mxu_ceiling_block_n(bf16);
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + bn - 1) / bn, groups);
-  const size_t mn = static_cast<size_t>(m) * n;
-  const unsigned rblocks = static_cast<unsigned>((mn + 255) / 256);
-  cudaError_t err;
-  if (bf16) {
-    err = cudaFuncSetAttribute(ceiling_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    ceiling_kernel<true><<<grid, kThreads, smem, s>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ceiling_reduce_kernel<true><<<rblocks, 256, 0, s>>>(part, static_cast<float*>(out), groups, mn);
-  } else {
-    err = cudaFuncSetAttribute(ceiling_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    ceiling_kernel<false><<<grid, kThreads, smem, s>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ceiling_reduce_kernel<false><<<rblocks, 256, 0, s>>>(part, static_cast<float*>(out), groups, mn);
-  }
-  return cudaGetLastError();
+  float* o = static_cast<float*>(out);
+  if (bf16) return launch_ceiling<CeilingBf16, float>(x, w_t, part, o, m, n, k, reps, groups, true, s);
+  return launch_ceiling<CeilingS8, int>(x, w_t, part, o, m, n, k, reps, groups, false, s);
 }
 
 // The widest N (hidden width) the megakernel takes: SLABS slabs of hq.

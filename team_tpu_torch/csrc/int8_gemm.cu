@@ -37,7 +37,7 @@
 // - gelu_quant: gelu_quant_kernel_wg at bn 512 and 256 (below).
 // The first two take the column tiles fastest, so the CTAs in flight share
 // A's rows.
-// The mma.sync one (csrc/int8_mma.cuh, shared with csrc/gemm_probe.cu): a
+// The mma.sync one (csrc/int8_mma.cuh): a
 // CTA computes a tile of BM rows by 128 columns with four warps; K is
 // streamed through shared memory 64 bytes at a time, two stages deep, by
 // cp.async, and each warp multiplies its share with

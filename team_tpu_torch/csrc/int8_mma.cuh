@@ -1,5 +1,5 @@
-// The s8 tensor-core mainloop shared by csrc/int8_gemm.cu (the dynamic int8
-// tiers' GEMMs) and csrc/gemm_probe.cu (the GEMM probes), for Hopper (sm_90a).
+// The s8 tensor-core mainloop of csrc/int8_gemm.cu (the dynamic int8 tiers'
+// mma.sync GEMMs), for Hopper (sm_90a).
 //
 // A CTA computes a tile of BM rows by kBN = 128 columns with four warps. K is
 // streamed through shared memory kBK = 64 bytes at a time, two stages deep, by
@@ -12,8 +12,6 @@
 //
 // The operands come in a struct P with the fields a, b (device pointers), m,
 // k (rows of A, bytes of K), and, read only when BLOCKSCALE, xs and bk.
-// The ceiling's bf16 form (csrc/gemm_probe.cu) stages bf16 operands the same
-// way, with the fragments of csrc/bf16_mma.cuh.
 
 #pragma once
 

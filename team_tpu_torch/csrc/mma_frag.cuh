@@ -1,7 +1,7 @@
 // Warp-level tensor-core pieces for Hopper (sm_90a): the bf16 and s8 mma,
 // ldmatrix and cp.async, with no tile or launch constants, so that any source of this
 // directory can include it beside its own (csrc/attn_block.cu beside
-// attention_common.cuh, csrc/bf16_mma.cuh beside int8_mma.cuh).
+// attention_common.cuh).
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
 // l with g = l / 4 and t = l % 4:

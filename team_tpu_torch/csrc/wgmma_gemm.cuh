@@ -6,14 +6,16 @@
 // kernels of team_tpu/ops/int8_matmul.py:54, :565 and :506) and
 // csrc/gemm_probe.cu (#27 probe_mm, s8 and bf16; scripts/int8_probe.py:48
 // pallas_mm; #30 mlp_mega takes its maps, barriers, TMA, descriptors, wgmma
-// and tile walk, with a producer and ring of its own). Beside it,
+// and tile walk, with a producer and ring of its own; #28 mxu_ceiling its
+// config, ring, barriers and consumer descriptors, with a loop of its own
+// that issues each staged pair of boxes once for every product). Beside it,
 // store_warp_rows: the epilogues' stores, staged to whole 32-byte sectors.
 //
 // What it replaces. For these kernels, the mma.sync mainloops of
-// csrc/int8_mma.cuh (s8) and the bf16 one that csrc/bf16_mma.cuh held: four
-// warps, 64 x 128 or 32 x 128 tiles, two cp.async stages. Their ceiling on
-// an H100 (#28) is about half the dense tensor-core peaks; only wgmma fed by
-// TMA reaches those peaks.
+// csrc/int8_mma.cuh (s8) and a bf16 one: four warps, 64 x 128 or 32 x 128
+// tiles, two cp.async stages. mma.sync from shared memory reached about
+// half the dense tensor-core peaks on an H100; wgmma fed by TMA reaches
+// them (#28, the ceiling probe, measures how near: PERF.md).
 //
 // What bounds it. The operations at the shapes that use it: #21 at the
 // ViT-B/16 fc shape (M 25,216, K 768, N 3,072) and #20 at proj (K 3,072, N

@@ -13,13 +13,13 @@ Counterparts of the TPU kernels of the repository's probe scripts, driven by
   requantize -> proj in one kernel, the int8 intermediate kept on chip.
 
 One CUDA source, ``csrc/gemm_probe.cu``, compiled with ``nvcc`` on first use
-and bound with ``ctypes``: ``probe_mm`` (int8 and bf16) and the megakernel on
-``wgmma`` fed by TMA (``csrc/wgmma_gemm.cuh``; the megakernel keeps hq in
-shared memory a slab of 1,536 columns at a time, streams the weights through
-a ring of its own and parks its proj sums between the slabs in device memory
-that the wrapper allocates), the
-ceiling on ``mma.sync`` (the s8 helpers of ``csrc/int8_mma.cuh``, the bf16
-fragments of ``csrc/bf16_mma.cuh``). On a CPU tensor each wrapper
+and bound with ``ctypes``: all three on ``wgmma`` fed by TMA
+(``csrc/wgmma_gemm.cuh``; the megakernel keeps hq in shared memory a slab of
+1,536 columns at a time, streams the weights through a ring of its own and
+parks its proj sums between the slabs in device memory that the wrapper
+allocates; the ceiling runs each window's products back to back from one
+staged pair of boxes, so it measures the ``wgmma`` ceiling of the card). On a
+CPU tensor each wrapper
 computes its plain version (the ``*_reference`` function beside it); on a
 CUDA tensor it launches its kernel or raises, and adds one to its
 ``launches``. The TPU tiling arguments (``block_m``, ``block_b``,
@@ -53,13 +53,16 @@ _SOURCE = "gemm_probe.cu"
 WINDOWS = 64  # the ceiling's distinct windows: x rows from 8·j, j < 64
 WINDOW_STRIDE = 8
 # mxu_ceiling bf16 against its plain version: this share of the largest |ref|.
-# The kernel sums a window's repetitions in one f32 register (1,488 mma steps
-# of 48 k-steps x 31 at the probe's shape, magnitudes under 2^5), then the
-# windows and groups in order (under 2^8); even if every mma step rounded
-# toward zero, its roundings stay under 0.1 at the probe's inputs, where this
-# share is 0.27. A repetition missing or a window out of place moves an output
-# by one window product, 0.28 rms: past the limit on about a third of them.
+# A CTA sums its range of 181-182 products in one f32 accumulator (some 8,700
+# k16 steps at the probe's shape, magnitudes under 2^7), then the 11 groups'
+# partials are added in order; the tests model that order in f32, rounding to
+# nearest and toward zero, at a small size (on an H100 the probe's worst
+# output is 0.056 off, a fifth of the limit). A product missing or a window out
+# of place moves an output by one window product, 0.28 rms at the probe's
+# inputs, where this share is 0.27: past the limit on about a third of them.
 CEILING_BF16_SHARE = 2.0 ** -10
+# rows and columns of a ceiling CTA's output tile (csrc/gemm_probe.cu)
+CEILING_TILE = (128, 256)
 # mlp_mega: ulps of tanh that the libraries (CUDA's tanhf, torch's, XLA's) and
 # the few-ulp differences of its argument may move it by
 TANH_ULPS = 16
@@ -72,13 +75,11 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.team_probe_mm.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.team_mxu_ceiling.argtypes = [p] * 4 + [i] * 6 + [p]
-    lib.team_mxu_ceiling_max_k.argtypes = [i]
-    lib.team_mxu_ceiling_block_n.argtypes = [i]
     lib.team_mlp_mega.argtypes = [p] * 8 + [i] * 3 + [p]
     lib.team_mlp_mega_park_bytes.argtypes = [i] * 3
     lib.team_mlp_mega_park_bytes.restype = ctypes.c_longlong
-    for fn in (lib.team_probe_mm, lib.team_mxu_ceiling, lib.team_mxu_ceiling_max_k,
-               lib.team_mxu_ceiling_block_n, lib.team_mlp_mega, lib.team_mlp_mega_max_n):
+    for fn in (lib.team_probe_mm, lib.team_mxu_ceiling, lib.team_mlp_mega,
+               lib.team_mlp_mega_max_n):
         fn.restype = ctypes.c_int
     return lib
 
@@ -218,13 +219,31 @@ def mxu_ceiling_reference(x: torch.Tensor, w: torch.Tensor, reps: int = 2000,
     return torch.matmul(y, w.double()).float()
 
 
+def ceiling_tiles(m: int, n: int) -> int:
+    """The ceiling's output tiles of ``CEILING_TILE`` over ``[m, n]``."""
+    return math.ceil(m / CEILING_TILE[0]) * math.ceil(n / CEILING_TILE[1])
+
+
 def ceiling_groups(tiles: int, sms: int) -> int:
-    """Window groups (a power of two that divides 64) so that the CTAs,
-    tiles x groups, fill the card's SMs at least twice over."""
-    groups = 1
-    while groups < WINDOWS and tiles * groups < 2 * sms:
-        groups *= 2
-    return groups
+    """The ranges the products are cut into: as many as leave one CTA (a tile
+    and a range) an SM in one wave, at least one."""
+    return max(1, sms // tiles)
+
+
+def ceiling_split(reps: int, groups: int) -> list:
+    """What each group's CTAs compute, as the kernel cuts it: the ``reps``
+    products laid out window-major (window j's ``window_counts`` together),
+    group g taking ``[g·reps // groups, (g + 1)·reps // groups)``; for each
+    group its ``(window, products)`` in order."""
+    starts = [0]
+    for count in window_counts(reps):
+        starts.append(starts[-1] + count)
+    split = []
+    for g in range(groups):
+        lo, hi = g * reps // groups, (g + 1) * reps // groups
+        split.append([(j, min(starts[j + 1], hi) - max(starts[j], lo)) for j in range(WINDOWS)
+                      if min(starts[j + 1], hi) > max(starts[j], lo)])
+    return split
 
 
 def mxu_ceiling(x: torch.Tensor, w: torch.Tensor, reps: int = 2000, m: int = 512) -> torch.Tensor:
@@ -232,9 +251,9 @@ def mxu_ceiling(x: torch.Tensor, w: torch.Tensor, reps: int = 2000, m: int = 512
     w`` (``scripts/int8_mxu_ceiling.py:50``): int8 operands accumulate in
     int32, bf16 in float32. x holds at least ``m + 504`` rows. Every product
     is computed; its rate is ``2·m·K·N·reps`` over the time. On the card K is
-    a multiple of 32 (int8) or 16 (bf16), at most the kernel's shared-memory
-    width, and N of 8. Each kernel launch adds one to
-    ``mxu_ceiling.launches``."""
+    a multiple of 32 (int8) or 16 (bf16) and N of 8; the products are cut
+    into ``ceiling_groups`` ranges for the card's SMs. Each kernel launch
+    adds one to ``mxu_ceiling.launches``."""
     name = "mxu_ceiling"
     if x.device.type == "cpu":
         return mxu_ceiling_reference(x, w, reps, m)
@@ -242,14 +261,12 @@ def mxu_ceiling(x: torch.Tensor, w: torch.Tensor, reps: int = 2000, m: int = 512
     _on_card(name, x, w)
     bf16 = int(x.dtype == torch.bfloat16)
     k, n = w.shape
+    if k % (16 if bf16 else 32) or n % 8:
+        raise ValueError(f"{name}: the kernel takes K divisible by {16 if bf16 else 32} and N by "
+                         f"8, got K={k}, N={n}")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    groups = ceiling_groups(ceiling_tiles(m, n), sms)
     lib = _library()
-    max_k = lib.team_mxu_ceiling_max_k(bf16)
-    if k % (16 if bf16 else 32) or n % 8 or k > max_k:
-        raise ValueError(f"{name}: the kernel takes K divisible by {16 if bf16 else 32} and at "
-                         f"most {max_k}, N by 8, got K={k}, N={n}")
-    bn = lib.team_mxu_ceiling_block_n(bf16)
-    tiles = math.ceil(m / 64) * math.ceil(n / bn)
-    groups = ceiling_groups(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
     x, wt = _aligned(x), _aligned(w.t())
     part = torch.empty((groups, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

@@ -1,12 +1,13 @@
-"""The tensor cores' mma.sync ceiling: REPS products of sliding windows of a
-resident x with a resident w, int8 and bf16.
+"""The tensor cores' wgmma ceiling: REPS products of sliding windows of an x
+and a w that stay in L2, int8 and bf16.
 
 Counterpart of ``scripts/int8_mxu_ceiling.py``:
 :func:`team_tpu_torch.ops.gemm_probe.mxu_ceiling` (``csrc/gemm_probe.cu``)
 computes ``Σ_{i<REPS} x[8(i mod 64) : 8(i mod 64) + M, :] @ w`` with
 M = 512, K = 768, REPS = 2000. Every one of the REPS products is issued on
-the tensor cores (``mma.sync``) from shared memory; the rate is
-``2·M·K·K·REPS`` over the time:
+the tensor cores (``wgmma``, each window's products back to back from one
+pair of boxes staged in shared memory); the rate is ``2·M·K·K·REPS`` over
+the time:
 
     python -m team_tpu_torch.scripts.int8_mxu_ceiling             # on the card
     python -m team_tpu_torch.scripts.int8_mxu_ceiling --device cpu --m 16 --k 32 --reps 5
@@ -56,7 +57,7 @@ def run(dtype: torch.dtype, label: str, m: int, k: int, reps: int, device: torch
     peak = (f", {100 * tops / PEAK_TOPS[dtype]:.1f} % of the dense peak "
             f"{PEAK_TOPS[dtype]:,.0f}") if device.type == "cuda" else ""
     print(f"{label}: {best * 1e3:.2f} ms for {reps} dots -> {tops:.1f} TOPS "
-          f"(mma.sync ceiling{peak}; w resident in shared memory, independent windows)",
+          f"(wgmma ceiling{peak}; operands staged in shared memory, independent windows)",
           flush=True)
     return {"ms": best * 1e3, "tops": tops}
 

@@ -1,21 +1,27 @@
-"""Hold this tree's CLS attention (#8, #9) and MLP megakernel (#30) against
-another tree's, such as a parent commit unpacked with ``git archive``, on
-one card: both trees' sources built here, run on the same inputs and timed
-in turns (other, this, this, other); the SASS of every kernel of every
-source compared over its whole listing; and the encode rates of a tree (one
-process per tree, so run it for each tree in turns).
+"""Hold this tree's CLS attention (#8, #9), MLP megakernel (#30) and
+tensor-core ceiling (#28) against another tree's, such as a parent commit
+unpacked with ``git archive``, on one card: both trees' sources built here,
+run on the same inputs and timed in turns (other, this, this, other); the
+SASS of every kernel of every source compared over its whole listing; the
+encode rates of a tree (one process per tree, so run it for each tree in
+turns); and the ceiling's int8 form at #30's instruction width (m64n128k32,
+64 x 256 tiles: this tree's source with that one line changed, built into
+``build/``) against this tree's m64n256, in turns.
 
     python3 -m team_tpu_torch.scripts.parent_ab kernels <other tree>
     python3 -m team_tpu_torch.scripts.parent_ab sass <other tree>
     python3 team_tpu_torch/scripts/parent_ab.py rates <tree>
+    python3 -m team_tpu_torch.scripts.parent_ab width
 
 Needs a CUDA card and ``nvcc``; prints the card's name and power limit
-first. ``kernels`` raises if the megakernels differ in any output bit."""
+first. ``kernels`` raises if the megakernels or the int8 ceilings differ in
+any output bit, ``width`` if the int8 ceilings do."""
 
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -54,6 +60,7 @@ def kernels(other: str) -> None:
     import chip_smoke as cs
     from team_tpu_torch.ops import gemm_probe as gp
     from team_tpu_torch.ops import mha_short as ms
+    from team_tpu_torch.scripts import int8_mxu_ceiling as mc
     from team_tpu_torch.scripts import r5_megakernel_probe as r5
 
     _card()
@@ -111,19 +118,126 @@ def kernels(other: str) -> None:
         return out
 
     pairs["mlp_mega"] = (lambda: gp.mlp_mega_2d(x2, *params), other_mega)
+    for dtype in (torch.int8, torch.bfloat16):
+        x, w = mc.make_inputs(dtype, mc.M, mc.K, dev)
+        # the other tree's grid by its own rule: the mma.sync ceiling's
+        # (64-row tiles of team_mxu_ceiling_block_n columns, groups a power of
+        # two under 64 until the CTAs fill the SMs twice), else this tree's
+        groups = _other_groups(mega, x, w, mc.M)
+        pairs[f"mxu_ceiling {'int8' if dtype == torch.int8 else 'bf16'}"] = (
+            lambda x=x, w=w: gp.mxu_ceiling(x, w, mc.REPS, mc.M),
+            lambda x=x, w=w, g=groups: _ceiling_call(mega, x, w, mc.REPS, mc.M, g))
     for name, (this, that) in pairs.items():
         a, o = this(), that()
         torch.cuda.synchronize()
         diff = (a.float() - o.float()).abs()
         print(f"  {name}: this tree vs the other: max |diff| {diff.max().item():.3e}, "
               f"{int((diff > 0).sum())} outputs differ", flush=True)
-        if name == "mlp_mega" and not torch.equal(a, o):
-            raise AssertionError("the megakernels differ")
-        iters = 10 if name == "mlp_mega" else 50
+        if name in ("mlp_mega", "mxu_ceiling int8") and not torch.equal(a, o):
+            raise AssertionError(f"the two trees' {name} differ")
+        iters = 10 if name.startswith(("mlp_mega", "mxu_ceiling")) else 50
         for _ in range(2):
             t1, k1, k2, t2 = (cs._time_ms(fn, iters) for fn in (that, this, this, that))
             print(f"  time {name}: other {t1:.4f}/{t2:.4f} ms, this {k1:.4f}/{k2:.4f} ms",
                   flush=True)
+
+
+def _ceiling_call(lib, x, w, reps: int, m: int, groups: int):
+    """team_mxu_ceiling of a library (this tree's or another's; both take the
+    same arguments) on the probe's operands, with its own groups."""
+    import torch
+
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    lib.team_mxu_ceiling.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    k, n = w.shape
+    xa, wt = gp._aligned(x), gp._aligned(w.t())
+    part = torch.empty((groups, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = lib.team_mxu_ceiling(xa.data_ptr(), wt.data_ptr(), part.data_ptr(), out.data_ptr(), m, n,
+                               k, reps, groups, int(x.dtype == torch.bfloat16),
+                               torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"team_mxu_ceiling: error {err}")
+    return out
+
+
+def _sms(x) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def _other_groups(lib, x, w, m: int) -> int:
+    import torch
+
+    from team_tpu_torch.ops import gemm_probe as gp
+
+    n = w.shape[1]
+    if not hasattr(lib, "team_mxu_ceiling_block_n"):
+        return gp.ceiling_groups(gp.ceiling_tiles(m, n), _sms(x))
+    lib.team_mxu_ceiling_block_n.argtypes = [ctypes.c_int]
+    bn = lib.team_mxu_ceiling_block_n(int(x.dtype == torch.bfloat16))
+    tiles = math.ceil(m / 64) * math.ceil(n / bn)
+    groups = 1
+    while groups < 64 and tiles * groups < 2 * _sms(x):
+        groups *= 2
+    return groups
+
+
+# the line of csrc/gemm_probe.cu that sets the ceiling's int8 tiles, and its
+# form at #30's instruction width
+CEILING_S8 = "using CeilingS8 = wg::Config<128, 256, 4, 1>;"
+CEILING_S8_N128 = "using CeilingS8 = wg::Config<64, 256, 4, 1, 128>;"
+
+
+def width() -> None:
+    """The ceiling's int8 form on m64n256k32 (this tree) and on m64n128k32
+    in 64 x 256 tiles (#30's instruction and tile), each on its own grid
+    (tiles x max(1, SMs / tiles) CTAs), timed in turns; both bit for bit."""
+    import torch
+
+    import chip_smoke as cs
+    from team_tpu_torch.ops import _build
+    from team_tpu_torch.ops import gemm_probe as gp
+    from team_tpu_torch.scripts import int8_mxu_ceiling as mc
+
+    _card()
+    src = (_build.CSRC_DIR / "gemm_probe.cu").read_text()
+    if src.count(CEILING_S8) != 1:
+        raise RuntimeError(f"csrc/gemm_probe.cu does not set the int8 ceiling by {CEILING_S8!r}")
+    out_dir = os.path.join("build", "ab_n128")
+    os.makedirs(out_dir, exist_ok=True)
+    patched, lib_path = os.path.join(out_dir, "gemm_probe.cu"), os.path.join(out_dir, "gemm_probe.so")
+    with open(patched, "w") as f:
+        f.write(src.replace(CEILING_S8, CEILING_S8_N128))
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+                           lib_path, patched], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the m64n128 ceiling:\n{proc.stdout}{proc.stderr}")
+    print("  ptxas, the m64n128 ceiling: " + "; ".join(
+        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+        if "ceiling_kernel_wg" in ln or "registers" in ln or "spill" in ln or "C75" in ln))
+    n128 = ctypes.CDLL(os.path.abspath(lib_path))
+    dev = torch.device("cuda", 0)
+    x, w = mc.make_inputs(torch.int8, mc.M, mc.K, dev)
+    tiles = math.ceil(mc.M / 64) * math.ceil(mc.K / 256)
+    groups = gp.ceiling_groups(tiles, _sms(x))
+    this = lambda: gp.mxu_ceiling(x, w, mc.REPS, mc.M)  # noqa: E731
+    that = lambda: _ceiling_call(n128, x, w, mc.REPS, mc.M, groups)  # noqa: E731
+    if not torch.equal(this(), that()):
+        raise AssertionError("the m64n128 ceiling differs from the m64n256 one")
+    ops = 2 * mc.M * mc.K * mc.K * mc.REPS
+    wide = gp.ceiling_tiles(mc.M, mc.K)
+    ctas = {"m64n256": wide * gp.ceiling_groups(wide, _sms(x)), "m64n128": tiles * groups}
+    print(f"  int8 M={mc.M} K=N={mc.K} REPS={mc.REPS}: bit for bit; CTAs {ctas} of {_sms(x)} SMs",
+          flush=True)
+    for _ in range(2):
+        t1, k1, k2, t2 = (cs._time_ms(fn, 10) for fn in (that, this, this, that))
+        print(f"  time: m64n128 {t1:.4f}/{t2:.4f} ms ({2 * ops / (t1 + t2) / 1e9:.1f} TOP/s, "
+              f"{2 * ops / (t1 + t2) / 1e9 * _sms(x) / ctas['m64n128']:.1f} a full card of such "
+              f"CTAs), m64n256 {k1:.4f}/{k2:.4f} ms ({2 * ops / (k1 + k2) / 1e9:.1f} TOP/s)",
+              flush=True)
 
 
 def _sass(cuobjdump: str, lib: str) -> dict:
@@ -206,9 +320,9 @@ def rates(tree: str) -> None:
 
 
 if __name__ == "__main__":
-    cmd, arg = sys.argv[1], sys.argv[2]
+    cmd, args = sys.argv[1], sys.argv[2:]
     if cmd == "rates":
-        rates(arg)
+        rates(*args)
     else:
         sys.path.insert(0, os.getcwd())  # chip_smoke, from the repository root
-        {"kernels": kernels, "sass": sass}[cmd](arg)
+        {"kernels": kernels, "sass": sass, "width": width}[cmd](*args)

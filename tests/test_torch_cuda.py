@@ -1337,9 +1337,16 @@ def test_probe_mm_int8_wgmma_kernel_is_exact_at_ragged_shapes(cuda_device, m, n,
     assert torch.equal(out, gp.probe_mm_reference(x, w))
 
 
-@pytest.mark.parametrize("m,k,n,reps", [(512, 768, 768, 100), (100, 64, 96, 70)])
+# (m, k, n, reps): the probe's widths, also at its full 2000 reps; one tile
+# whose 132 ranges outnumber the reps (5) or hold none (0); m and n not
+# multiples of the 128 x 256 tile, K not of a 128-byte stage
+@pytest.mark.parametrize("m,k,n,reps", [(512, 768, 768, 100), (100, 64, 96, 70),
+                                        (512, 768, 768, 2000), (100, 64, 96, 5),
+                                        (100, 64, 96, 0), (200, 96, 264, 70)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mxu_ceiling_kernel_matches_plain_version(cuda_device, dtype, m, k, n, reps):
+    """int8 bit for bit, bf16 within CEILING_BF16_SHARE of the largest |ref|;
+    two launches bit for bit (the ranges' partials are added in order)."""
     from team_tpu_torch.ops import gemm_probe as gp
 
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -1351,9 +1358,11 @@ def test_mxu_ceiling_kernel_matches_plain_version(cuda_device, dtype, m, k, n, r
                 for s in ((rows, k), (k, n)))
     launches = gp.mxu_ceiling.launches
     out = gp.mxu_ceiling(x, gp.column_major(w), reps=reps, m=m)
+    again = gp.mxu_ceiling(x, gp.column_major(w), reps=reps, m=m)
     ref = gp.mxu_ceiling_reference(x, w, reps=reps, m=m)
     torch.cuda.synchronize()
-    assert gp.mxu_ceiling.launches == launches + 1 and tuple(out.shape) == (m, n)
+    assert gp.mxu_ceiling.launches == launches + 2 and tuple(out.shape) == (m, n)
+    assert torch.equal(out, again)
     if dtype == torch.int8:
         assert torch.equal(out, ref)
     else:
@@ -1392,9 +1401,10 @@ def test_gemm_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     z8 = torch.zeros((64, 48), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):  # int8 K must be a multiple of 32
         gp.probe_mm(z8, torch.zeros((48, 8), dtype=torch.int8, device=cuda_device))
-    x = torch.zeros((16 + 512, 1280), dtype=torch.int8, device=cuda_device)
-    with pytest.raises(ValueError):  # wider than the shared-memory-resident K
-        gp.mxu_ceiling(x, torch.zeros((1280, 64), dtype=torch.int8, device=cuda_device), 4, 16)
+    for dtype, k in ((torch.int8, 48), (torch.bfloat16, 40)):
+        x = torch.zeros((16 + 512, k), dtype=dtype, device=cuda_device)
+        with pytest.raises(ValueError):  # K not a multiple of 32 (int8) or 16 (bf16)
+            gp.mxu_ceiling(x, torch.zeros((k, 64), dtype=dtype, device=cuda_device), 4, 16)
     k, n = 64, 4096
     xm = torch.zeros((2, k), dtype=torch.int8, device=cuda_device)
     vn, vk = torch.ones((1, n), device=cuda_device), torch.ones((1, k), device=cuda_device)
@@ -1821,8 +1831,9 @@ def test_blockscale_wgmma_kernel_equals_the_mma_sync_kernel(cuda_device, m, k, n
                                                                     out_dtype=out_dtype))
 
 
-# source -> ({wgmma kernel: (its instantiations, its GMMA mnemonic as
-# cuobjdump prints it)}, {mma.sync kernel: its instantiations})
+# source -> ({wgmma kernel: (its instantiations, its GMMA mnemonics as
+# cuobjdump prints them: each instantiation issues one of them, and each is
+# issued)}, {mma.sync kernel: its instantiations})
 GMMA_SOURCES = {
     "int8_gemm.cu": ({"gelu_quant_kernel_wg": (2, "IGMMA.64x256x32.S8.S8"),
                       "gemm_kernel_wg": (4, "IGMMA.64x256x32.S8.S8"),
@@ -1830,8 +1841,10 @@ GMMA_SOURCES = {
                      {"gelu_quant_kernel": 1, "gemm_kernel": 6}),
     "gemm_probe.cu": ({"probe_mm_kernel_wg": (1, "HGMMA.64x256x16.F32.BF16"),
                        "probe_mm_kernel_wg_s8": (1, "IGMMA.64x256x32.S8.S8"),
-                       "mlp_mega_kernel_wg": (1, "IGMMA.64x128x32.S8.S8")},
-                      {"ceiling_kernel": 2}),
+                       "mlp_mega_kernel_wg": (1, "IGMMA.64x128x32.S8.S8"),
+                       "ceiling_kernel_wg": (2, ("HGMMA.64x256x16.F32.BF16",
+                                                 "IGMMA.64x256x32.S8.S8"))},
+                      {}),
 }
 
 
@@ -1847,19 +1860,23 @@ def _is_kernel(name, fn):
 @pytest.mark.parametrize("source", list(GMMA_SOURCES))
 def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source):
     """#15 (every epilogue and output type), #20 at bk a multiple of 128, #21
-    at bn 256 and 512, #27 in int8 and bf16 and #30 run wgmma; the kernels
-    on mma.sync (gemm_kernel: the _mma entries and blockscale at other bk;
-    gelu_quant at other bn, the ceiling) issue no GMMA."""
+    at bn 256 and 512, #27 and #28 in int8 and bf16 and #30 run wgmma; the
+    kernels on mma.sync (gemm_kernel: the _mma entries and blockscale at
+    other bk; gelu_quant at other bn) issue no GMMA."""
     tim.build()
     from team_tpu_torch.ops import gemm_probe as gp
 
     gp.build()
     found = _opcode_per_kernel(source, "GMMA")
     wgmma, others = GMMA_SOURCES[source]
-    for wg_name, (n_wg, mnemonic) in wgmma.items():
+    for wg_name, (n_wg, mnemonics) in wgmma.items():
+        mnemonics = (mnemonics,) if isinstance(mnemonics, str) else mnemonics
         wg = [lines for fn, lines in found.items() if _is_kernel(wg_name, fn)]
         assert len(wg) == n_wg and all(lines for lines in wg), (wg_name, found)
-        assert all(any(mnemonic in line for line in lines) for lines in wg), (wg_name, wg)
+        assert all(any(mn in line for mn in mnemonics for line in lines) for lines in wg), \
+            (wg_name, wg)
+        assert all(any(mn in line for lines in wg for line in lines) for mn in mnemonics), \
+            (wg_name, wg)
     for name, count in others.items():
         plain = [len(lines) for fn, lines in found.items()
                  if name in fn and not any(wg_name in fn for wg_name in wgmma)]

@@ -25,6 +25,7 @@ sizes, draw the scripts' inputs, and refuse the card where there is none."""
 
 import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import jax
@@ -163,8 +164,92 @@ def test_mxu_ceiling_rejects_short_x():
 
 
 def test_ceiling_groups_fill_the_card():
-    assert gp.ceiling_groups(48, 132) == 8 and gp.ceiling_groups(96, 132) == 4
-    assert gp.ceiling_groups(1, 132) == 64 and gp.ceiling_groups(1000, 132) == 1
+    """One CTA (a tile and a range of the products) an SM, in one wave: the
+    probe's 12 tiles take 11 ranges, 132 CTAs on 132 SMs."""
+    assert gp.ceiling_tiles(512, 768) == 12 and gp.ceiling_groups(12, 132) == 11
+    assert gp.ceiling_groups(1, 132) == 132 and gp.ceiling_groups(66, 132) == 2
+    assert gp.ceiling_groups(132, 132) == 1 and gp.ceiling_groups(1000, 132) == 1
+
+
+# (m, n, reps): the probe's shape; no product; fewer products than ranges; m
+# not a multiple of 128; n not a multiple of 256
+SPLIT_CASES = {"probe": (512, 768, 2000), "reps_0": (512, 768, 0), "reps_below_groups": (512, 768, 5),
+               "ragged_m": (200, 768, 2000), "ragged_n": (512, 264, 70)}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_ceiling_split_covers_every_product_once_window_major(case):
+    """The ranges of ``ceiling_split`` for the grid of the shape on 132 SMs:
+    every product in exactly one range, ranges in order and window-major
+    (the groups' (window, products) joined give ``window_counts``), sizes
+    that differ by at most one; the tiles cover [m, n] and the grid is at
+    most one wave."""
+    m, n, reps = SPLIT_CASES[case]
+    tiles = gp.ceiling_tiles(m, n)
+    rows, cols = math.ceil(m / 128), math.ceil(n / 256)
+    assert tiles == rows * cols and (rows - 1) * 128 < m <= rows * 128
+    assert (cols - 1) * 256 < n <= cols * 256
+    groups = gp.ceiling_groups(tiles, 132)
+    assert tiles * groups <= 132 and tiles * (groups + 1) > 132
+    split = gp.ceiling_split(reps, groups)
+    assert len(split) == groups
+    sizes = [sum(c for _, c in ranges) for ranges in split]
+    assert sum(sizes) == reps and max(sizes) - min(sizes) <= 1
+    joined = {}
+    order = [j for ranges in split for j, c in ranges if c > 0]
+    assert order == sorted(order)
+    for ranges in split:
+        for j, c in ranges:
+            assert c > 0
+            joined[j] = joined.get(j, 0) + c
+    assert joined == {j: c for j, c in enumerate(gp.window_counts(reps)) if c}
+    if case == "probe":
+        assert groups == 11 and tiles * groups == 132 and set(sizes) == {181, 182}
+    if case == "reps_below_groups":
+        assert sizes.count(0) == groups - reps and split[0] == []
+
+
+def _ceiling_order_model(x, w, reps, m, groups, rounding):
+    """The bf16 ceiling in the kernel's order, in f32: each group's one
+    accumulator over its range, window by window, 64 elements of K a stage,
+    the stage's four k16 steps once for each of the window's products there
+    (each step's 16 products summed exactly, then added with one rounding:
+    to nearest, or toward zero as a tensor core may), then the partials
+    added in group order, rounded to nearest."""
+    k = x.shape[1]
+    xd, wd = x.double(), w.double()
+    total = None
+    for ranges in gp.ceiling_split(reps, groups):
+        acc = torch.zeros((m, w.shape[1]), dtype=torch.float32)
+        for j, count in ranges:
+            xj = xd[8 * j:8 * j + m]
+            steps = [xj[:, s:s + 16] @ wd[s:s + 16] for s in range(0, k, 16)]
+            for kc in range(0, len(steps), 4):
+                for _ in range(count):
+                    for p in steps[kc:kc + 4]:
+                        exact = acc.double() + p
+                        acc = exact.float()
+                        if rounding == "toward_zero":
+                            acc = torch.where(acc.double().abs() > exact.abs(),
+                                              torch.nextafter(acc, torch.zeros_like(acc)), acc)
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
+def test_ceiling_bf16_order_stays_within_its_share(rounding):
+    """An f32 model of the kernel's bf16 summation order (2000 products in
+    the probe's 11 ranges, at M 16, K = N 128) stays within
+    ``CEILING_BF16_SHARE`` of the plain version; the same model with one
+    product left out does not."""
+    m, k, reps, groups = 16, 128, 2000, 11
+    x, w = int8_mxu_ceiling.make_inputs(torch.bfloat16, m, k, torch.device("cpu"))
+    ref = gp.mxu_ceiling_reference(x, w, reps, m)
+    tol = gp.CEILING_BF16_SHARE * ref.abs().max().item()
+    got = _ceiling_order_model(x, w, reps, m, groups, rounding)
+    assert (got - ref).abs().max().item() <= tol, ((got - ref).abs().max().item(), tol)
+    short = _ceiling_order_model(x, w, reps - 1, m, groups, rounding)
+    assert (short - ref).abs().max().item() > tol
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +344,7 @@ def test_mxu_ceiling_probe_runs_on_the_cpu(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("# device: cpu")
     assert [ln.split()[0] for ln in lines[1:]] == ["int8", "bf16"]
-    assert all("ms for 5 dots" in ln and "mma.sync ceiling" in ln for ln in lines[1:])
+    assert all("ms for 5 dots" in ln and "wgmma ceiling" in ln for ln in lines[1:])
 
 
 def test_megakernel_probe_runs_on_the_cpu(capsys):

@@ -61,14 +61,16 @@ def test_every_checked_name_is_a_kernel_of_its_source(table, source, kernel, rol
 
 
 def test_the_redesigned_kernels_are_checked():
-    """#4's bf16 kernel is checked for HMMA, #27's int8 kernel and #30's
-    megakernel for GMMA (the ceiling, #28, alone on mma.sync); the int8
+    """#4's bf16 kernel is checked for HMMA, #27's int8 kernel, #30's
+    megakernel and #28's ceiling for GMMA (no mma.sync kernel is left in
+    gemm_probe.cu); the int8
     attention's: #7's kernel (also #10, #11, #29) for IMMA and HMMA but for
     the 6 instantiations of #29's qkonly and nopv, which run no PV, #5/#6's
     for HMMA, and the CLS kernel (#8, #9) for neither."""
     assert "mha_v2_kernel_tc" in TABLES["TC_SOURCES"]["mha_packed.cu"][0]
     assert TABLES["GMMA_SOURCES"]["gemm_probe.cu"] == (
-        ("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg", "mlp_mega_kernel_wg"), ("ceiling_kernel",))
+        ("probe_mm_kernel_wg_s8", "probe_mm_kernel_wg", "mlp_mega_kernel_wg", "ceiling_kernel_wg"),
+        ())
     assert TABLES["TC_SOURCES"]["mha_packed_q3i.cu"] == (("q3i_kernel_tc",), ("q3i_cls_kernel",))
     assert TABLES["IMMA_SOURCES"]["mha_packed_q3i.cu"] == (("q3i_kernel_tc",), ("q3i_cls_kernel",))
     assert _tables(("NO_PV_INSTANCES",))["NO_PV_INSTANCES"] == {

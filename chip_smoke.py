@@ -75,7 +75,13 @@ Phases, one line or more each:
      equal bit for bit over two launches, mlp_mega
      (#30) 2-D and 3-D bit for bit and within 127 s2 per near-edge hq (plus
      one bf16 step) of the plain version, the share of rows that differ
-     printed
+     printed; the backwards of #1, #3, #13 and #14 (their autograd
+     Functions: the kernel's forward, a recompute of the plain attention
+     differentiated) at the towers' shapes (vision B=8, S=197, H=12; text
+     S=77, H=8, causal; #3 the image tower only), f32 and bf16, against
+     autograd of their plain references (the gradients of sum(tanh(out)·w)
+     within 1e-4 of their max in f32, 2e-2 in bf16), each kernel launched
+     once a forward; and #12 refusing an input that requires grad
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
      kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
@@ -144,6 +150,16 @@ Phases, one line or more each:
      the GEMM probes at their own shapes, each with the counts zeroed before
      it: team_tpu_torch.scripts.int8_probe must launch #27, int8_mxu_ceiling
      #28, r5_megakernel_probe both entries of #30;
+     Grad-CAM at full ViT-B/16 width (random init, B=4, f32) on auto (#1),
+     mha_short (#3), attn_block (#13) and pallas (#14) against the plain
+     route, the [0, 1] maps within 1e-3 and the route's kernel launched once
+     a layer; PROOF (bf16, batch 16, tuned_epoch 2) with checkpoint_dir run
+     whole, then its last task's file deleted and resumed: the curves equal
+     bit for bit; team_tpu_torch.scripts.full_protocol in a fresh process
+     (this script with --full-protocol): PROOF in bf16, ten tasks at the
+     flagship's shape, equal to its committed golden and above its floor,
+     with its wall time, phase sums and the busy share of one profiled
+     epoch;
      then the repairs: the bicubic resize on the card against the CPU (32->224
      up, 256x320->224 down, within 1e-5) and the open_clip loader at ViT-B/16
      width (a seeded synthetic .npz through TEAM_CLIP_CHECKPOINT; the tree
@@ -175,7 +191,8 @@ Phases, one line or more each:
   7. a torch.profiler split of one B=128 encode: int8 (static3d_qi,
      static_qa and static3d_qis), the int8 pallas tier, bf16, bf16 through
      flash, bf16 on attn_block and on mha_packed_proj
-Then one JSON line of kernel results, and last the JSON status line.
+Then the script's total time, one JSON line of kernel results, and last the
+JSON status line.
 Any failure raises, and the script exits non-zero without the status line.
 """
 
@@ -3545,6 +3562,265 @@ def run_gemm_probe_paths(gp) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the backwards of #1, #3, #13 and #14, Grad-CAM, the full-protocol runner
+# and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+# the towers' shapes for the backwards: (batch, seq, heads, causal)
+BACKWARD_SHAPES = {"vision": (8, 197, 12, False), "text": (8, 77, 8, True)}
+# the gradient through a kernel's Function against autograd of its plain
+# reference, as a share of the reference gradient's largest |value|: both
+# backwards are the same recompute, so they differ only through the
+# cotangent, which depends on the forward (kernel against plain reference)
+BACKWARD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# Grad-CAM's [0, 1] maps on a kernel route against the plain route (f32)
+GRADCAM_TOL = 1e-3
+GRADCAM_ROUTES = {"auto": "fused_mha_packed", "mha_short": "fused_mha_short",
+                  "attn_block": "fused_attn_block", "pallas": "flash_attention"}
+
+
+def _grad_pair(name: str, kernel, plain, inputs: dict, dtype) -> float:
+    """d/d inputs of sum(tanh(out) * w) through ``kernel`` (the wrapper, so
+    its autograd Function) and through ``plain`` (autograd of the plain
+    reference); raises past BACKWARD_TOL or where a gradient is missing."""
+    import torch
+
+    grads = {}
+    for label, fn in (("kernel", kernel), ("plain", plain)):
+        leaves = {k: t.detach().clone().requires_grad_(True) for k, t in inputs.items()}
+        out = fn(**leaves)
+        w = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(7),
+                        device=out.device)
+        loss = (torch.tanh(out.float()) * w).sum()
+        grads[label] = torch.autograd.grad(loss, list(leaves.values()))
+    torch_sync()
+    worst = 0.0
+    for key, gk, gp in zip(inputs, grads["kernel"], grads["plain"]):
+        scale = gp.float().abs().max().item()
+        err = (gk.float() - gp.float()).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, err)
+        if not (math.isfinite(err) and scale > 0 and gk.dtype == gp.dtype
+                and err <= BACKWARD_TOL[str(dtype)]):
+            raise AssertionError(f"{name}: d{key} through the kernel disagrees with the plain "
+                                 f"reference's ({err:.3e} of max {scale:.3e})")
+    print(f"  {name} {dtype}: gradients of {', '.join(inputs)} within {worst:.3e} of their max "
+          f"(tol {BACKWARD_TOL[str(dtype)]:g})")
+    return worst
+
+
+def compare_backward(ms, fa, dev) -> dict:
+    """The backwards of #1, #3, #13 and #14 at the towers' shapes (vision
+    B=8, S=197, H=12; text S=77, H=8, causal; #3 the image tower only), f32
+    and bf16, against autograd of their plain references; each kernel
+    launched once a forward. Then #12 refuses an input that requires grad."""
+    import torch
+
+    worst = dict.fromkeys(("fused_mha_packed", "fused_mha_short", "fused_attn_block",
+                           "flash_attention"), 0.0)
+    ms.reset_launch_counts()
+    fa.reset_launch_counts()
+    for tower, (b, s, h, causal) in BACKWARD_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = fused_inputs(b, s, h, dtype, dev, seed=11)
+            tag = f"{tower} B={b} S={s} H={h} causal={causal}"
+            worst["fused_mha_packed"] = max(worst["fused_mha_packed"], _grad_pair(
+                f"fused_mha_packed backward {tag}",
+                lambda qkv: ms.fused_mha_packed(qkv, h, causal=causal),
+                lambda qkv: ms.mha_packed_backward_reference(qkv, h, causal),
+                {"qkv": inp["qkv"]}, dtype))
+            ln, attn = inp["ln"], inp["attn"]
+            block = dict(x=inp["x"], ln_scale=ln[0], ln_bias=ln[1], qkv_w=attn[0], qkv_b=attn[1],
+                         out_w=attn[2], out_b=attn[3])
+            worst["fused_attn_block"] = max(worst["fused_attn_block"], _grad_pair(
+                f"fused_attn_block backward {tag}",
+                lambda **a: ms.fused_attn_block(*a.values(), h, causal=causal),
+                lambda **a: ms.attn_block_backward_reference(*a.values(), h, causal),
+                block, dtype))
+            kv_len = s if causal else s * 3 // 4
+            q, k, v = flash_inputs((b, h, s, causal, kv_len), dtype, dev, seed=12)
+            worst["flash_attention"] = max(worst["flash_attention"], _grad_pair(
+                f"flash_attention backward {tag} kv_len={kv_len}",
+                lambda q, k, v: fa.flash_attention(q, k, v, kv_len, causal=causal),
+                lambda q, k, v: fa.xla_attention(q, k, v, kv_len, causal=causal),
+                {"q": q, "k": k, "v": v}, dtype))
+            if not causal:
+                worst["fused_mha_short"] = max(worst["fused_mha_short"], _grad_pair(
+                    f"fused_mha_short backward {tag} kv_len={kv_len}",
+                    lambda q, k, v: ms.fused_mha_short(q, k, v, kv_len),
+                    lambda q, k, v: fa.xla_attention(q, k, v, kv_len),
+                    {"q": q, "k": k, "v": v}, dtype))
+    got = {"fused_mha_packed": ms.fused_mha_packed.launches,
+           "fused_mha_short": ms.fused_mha_short.launches,
+           "fused_attn_block": ms.fused_attn_block.launches,
+           "flash_attention": fa.flash_attention.launches}
+    want = {"fused_mha_packed": 4, "fused_mha_short": 2, "fused_attn_block": 4,
+            "flash_attention": 4}
+    print(f"  kernel launches in the backward checks {got} (one a forward)")
+    if got != want:
+        raise AssertionError(f"the backward checks launched {got}, want {want}")
+    inp = fused_inputs(2, 77, 8, torch.bfloat16, dev, seed=13)
+    qkv = inp["qkv"].clone().requires_grad_(True)
+    print("  fused_mha_packed_proj (#12) on an input that requires grad:")
+    with expect_raise(RuntimeError):
+        ms.fused_mha_packed_proj(qkv, inp["attn"][2], inp["attn"][3], inp["x"], 8, causal=True)
+    return worst
+
+
+def check_gradcam(ms, fa, dev) -> dict:
+    """Grad-CAM at full ViT-B/16 width (random init from a seed, B=4
+    normalized images, float32) on each kernel route against the plain
+    route: the [0, 1] maps within GRADCAM_TOL, the route's kernel launched
+    once a layer (its forward; its backward is the plain recompute)."""
+    import torch
+
+    from team_tpu_torch.analysis.gradcam import grad_cam
+    from team_tpu_torch.backbone.clip import CLIPConfig, init_clip_params
+    from team_tpu_torch.bridge import tree_to
+
+    cfg = CLIPConfig.vit_b16()
+    params = tree_to(init_clip_params(torch.Generator().manual_seed(0), cfg), dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    size = cfg.vision.image_size
+    images = torch.randn((4, size, size, 3), generator=g, device=dev)
+    target = torch.randn((cfg.embed_dim,), generator=g, device=dev)
+    t0 = time.perf_counter()
+    want = grad_cam(params, images, target, cfg, attn_impl="xla")
+    torch_sync()
+    plain_s = time.perf_counter() - t0
+    out = {"plain_s": plain_s}
+    for route, counter in GRADCAM_ROUTES.items():
+        ms.reset_launch_counts()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        cam = grad_cam(params, images, target, cfg, attn_impl=route)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        launches = getattr(ms, counter, None) or getattr(fa, counter)
+        err = (cam - want).abs().max().item()
+        print(f"  grad_cam on {route} ({counter}, forward launches {launches.launches}): "
+              f"maps [{cam.shape[0]}, {cam.shape[1]}, {cam.shape[2]}] in [{cam.min().item():.3f}, "
+              f"{cam.max().item():.3f}], max |cam - cam_xla| {err:.3e} (tol {GRADCAM_TOL:g}); "
+              f"{wall:.2f} s (xla {plain_s:.2f} s)")
+        if (cam.shape != want.shape or not math.isfinite(err) or err > GRADCAM_TOL
+                or launches.launches != cfg.vision.layers):
+            raise AssertionError(f"grad_cam on {route} disagrees with the plain route or did not "
+                                 "go through its kernel once a layer")
+        out[route] = {"max_abs_err": err, "launches": launches.launches, "wall_s": wall}
+    return out
+
+
+# the protocol task and epoch whose wall full_protocol_worker profiles
+PROFILED = {"task": 4, "epoch": 0}
+
+
+def run_full_protocol() -> dict:
+    """team_tpu_torch.scripts.full_protocol in a fresh process (this script
+    with --full-protocol, as a user runs it): PROOF in bf16, ten tasks at the
+    flagship's shape, pinned to its committed golden; its wall time, phase
+    sums, and the device's busy share over one profiled epoch."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--full-protocol"],
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in out.stdout.splitlines() if not ln.startswith("20")]
+    print("\n".join("    " + ln for ln in lines[:-1]))
+    if out.returncode != 0:
+        raise AssertionError(f"the full protocol failed:\n{out.stdout[-3000:]}{out.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    busy = res["busy"]
+    print(f"  full protocol proof/bf16 (fresh process): {res['wall_s']:.1f} s, avg "
+          f"{res['avg']:.4f}, {res['pin']}; task {busy['task']} epoch {busy['epoch']} "
+          f"(profiled) {busy['wall_s']:.3f} s, device kernel time {busy['device_s']:.3f} s "
+          f"({100 * busy['share']:.1f} % busy, {busy['kernels']} kernels)")
+    if len(res["curve"]) != 10:
+        raise AssertionError(f"full protocol: expected ten tasks, got {res['curve']}")
+    return res
+
+
+def full_protocol_worker() -> int:
+    """The body of run_full_protocol, in its own process: the run, with
+    torch.profiler over one epoch of one task (from its first train step to
+    the next epoch's first: the steps, the test accuracy and the evolution);
+    the last line is the result as JSON."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from team_tpu_torch.learners import proof as proof_learner
+    from team_tpu_torch.scripts import full_protocol as fp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step, state, busy = proof_learner.train_step, {}, {}
+
+    def train_step(tr, opt, batch, ctx, buffers, epoch, *a, **k):
+        here = state.get("task") == PROFILED["task"]
+        if here and epoch == PROFILED["epoch"] and "prof" not in state:
+            torch.cuda.synchronize()
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].start()
+            state["t0"] = time.perf_counter()
+        elif here and epoch == PROFILED["epoch"] + 1 and not busy:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - state["t0"]
+            state["prof"].stop()
+            kernels = [e for e in state["prof"].key_averages()
+                       if str(e.device_type).endswith("CUDA")]
+            device = sum(e.self_device_time_total for e in kernels) / 1e6
+            busy.update(PROFILED, wall_s=wall, device_s=device, share=device / wall,
+                        kernels=sum(e.count for e in kernels))
+        return step(tr, opt, batch, ctx, buffers, epoch, *a, **k)
+
+    def count_tasks(learner):
+        train_task = learner.incremental_train
+
+        def incremental_train(dm):
+            state["task"] = learner._cur_task + 1
+            return train_task(dm)
+
+        learner.incremental_train = incremental_train
+
+    proof_learner.train_step = train_step
+    with tempfile.TemporaryDirectory() as log_dir, \
+            recording(proof_learner.Learner, count_tasks):
+        res = fp.run(fp.protocol_config("proof", "bf16", device=[0], log_dir=log_dir), pin="1")
+    if not busy:
+        raise AssertionError(f"task {PROFILED['task']} epoch {PROFILED['epoch']} was not profiled")
+    print(json.dumps({"wall_s": res["wall_s"], "avg": res["avg"], "curve": res["curve"],
+                      "pin": res["pin"], "phase_sums": {k: v["sum"] for k, v in
+                                                        res["phases"].items()}, "busy": busy}))
+    return 0
+
+
+def run_resume(log_dir: str) -> dict:
+    """PROOF (bf16, batch 16, tuned_epoch 2, the default route) with
+    checkpoint_dir: the whole run, then its last task's file deleted and the
+    run resumed; the resumed curves equal the whole run's bit for bit."""
+    from team_tpu_torch.trainer import train
+
+    ckpt = os.path.join(log_dir, "resume_ckpt")
+
+    def cfg(resume):
+        return smoke_config("proof", "bfloat16", os.path.join(log_dir, "resume"),
+                            batch_size=FLAGSHIP_BATCH, tuned_epoch=2, checkpoint_dir=ckpt,
+                            resume=resume)
+
+    t0 = time.perf_counter()
+    whole = train(cfg(False))
+    whole_s = time.perf_counter() - t0
+    files = sorted(os.listdir(ckpt))
+    os.remove(os.path.join(ckpt, "task_1.pt"))
+    t0 = time.perf_counter()
+    resumed = train(cfg(True))
+    resumed_s = time.perf_counter() - t0
+    keys = ("cnn_top1", "cnn_top5", "nme_top1")
+    print(f"  proof with checkpoint_dir: files {files}; whole run {whole_s:.2f} s "
+          f"{[whole[k] for k in keys]}; resumed from task 0 in {resumed_s:.2f} s "
+          f"{[resumed[k] for k in keys]}")
+    if files != ["task_0.pt", "task_1.pt"] or any(
+            [float(a) for a in whole[k]] != [float(a) for a in resumed[k]] for k in keys):
+        raise AssertionError("the resumed run's curves differ from the whole run's")
+    return {"whole_s": whole_s, "resumed_s": resumed_s, "curve": [float(a) for a in whole["cnn_top1"]]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for key in sorted(tree):
@@ -3570,6 +3846,7 @@ def expect_raise(exc):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -3629,6 +3906,7 @@ def main() -> int:
     fused_err["fused_mha_short"] = max(fused_err["fused_mha_short"], probe_err["fused_mha_short"])
     variant_err = {v: max(e, probe_err[v]) for v, e in variant_err.items()}
     norm_err = compare_normalize(pp, dev)
+    backward_err = compare_backward(ms, fa, dev)
     probe_inputs = _probe_inputs(dev)
     gemm_probe_err = compare_gemm_probes(gp, probe_inputs)
 
@@ -3658,6 +3936,10 @@ def main() -> int:
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
+        print("  Grad-CAM through the kernels' backwards, checkpoint/resume, the full protocol")
+        gradcam = check_gradcam(ms, fa, dev)
+        resume = run_resume(log_dir)
+        protocol = run_full_protocol()
         parallel = run_parallel_paths(ms, log_dir)
         probes = run_probe_paths(ms, pp, dev)
         gemm_probes = run_gemm_probe_paths(gp)
@@ -3714,6 +3996,14 @@ def main() -> int:
 
     def fused_rates(route):
         return {k: v for k, v in rates.items() if k.endswith(route)}
+
+    def backward(name, route, vjp):
+        return {"rule": f"torch.autograd.Function: the kernel's forward; the backward recomputes "
+                        f"{vjp} and differentiates it (team_tpu's custom VJP), no backward kernel",
+                "max_rel_err": backward_err[name], "tol": BACKWARD_TOL,
+                "gradcam": gradcam[route]}
+
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_mha_packed", "route": "cuda",
         "source": "team_tpu_torch/csrc/mha_packed.cu",
@@ -3722,6 +4012,9 @@ def main() -> int:
         "max_abs_err": max_err, **timing(times["vision"]),
         "text": timing(times["text"]), "encode_img_per_s": rates,
         "hmma_per_kernel": hmma["mha_packed.cu"],
+        "backward": backward("fused_mha_packed", "auto",
+                             "xla_attention in the packed layout (mha_packed_backward_reference)"),
+        "full_protocol_proof_bf16": protocol, "resume": resume,
     }, {
         "name": "fused_mha_packed_q3i", **q3i_common,
         "replaces": "team_tpu/ops/mha_short.py:477",
@@ -3828,12 +4121,14 @@ def main() -> int:
         "proof_wall_s": proof["wall_s"],
         "proof_step_ms": proof["step_ms"], "proof_step_device_ms": proof["step_device_ms"],
         "proof_loss_rel_diff": proof["loss_rel_diff"], "import_dynamo_s": proof["import_dynamo_s"],
+        "backward": backward("flash_attention", "pallas", "xla_attention"),
     }, {
         "name": "fused_mha_short", "route": "cuda", "source": "team_tpu_torch/csrc/mha_packed.cu",
         "replaces": "team_tpu/ops/mha_short.py:35",
         "launches": short_launches, "launches_from": "phase 6 image-tower encodes on mha_short",
         "max_abs_err": fused_err["fused_mha_short"], **timing(times["fused_mha_short vision bf16"]),
         "encode_img_per_s": fused_rates("mha_short"),
+        "backward": backward("fused_mha_short", "mha_short", "xla_attention, non-causal"),
     }, {
         "name": "fused_mha_packed_proj", "route": "cuda",
         "source": "team_tpu_torch/csrc/attn_block.cu", "replaces": "team_tpu/ops/mha_short.py:985",
@@ -3858,6 +4153,9 @@ def main() -> int:
         "text": fused_timing(times["fused_attn_block text bf16"]),
         "encode_img_per_s": fused_rates("attn_block"),
         "runs_wall_s": {k: r["wall_s"] for k, r in fused.items()},
+        "backward": backward("fused_attn_block", "attn_block",
+                             "the layer norm, qkv, xla_attention, out-projection and residual "
+                             "(attn_block_backward_reference)"),
     }, {
         "name": "fused_mha_packed_tp", "route": "cuda", "source": "team_tpu_torch/csrc/mha_packed.cu",
         "replaces": "team_tpu/ops/mha_short.py:1241",
@@ -3958,4 +4256,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:  # one rank of phase 5's parallel paths
         sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--full-protocol"]:  # phase 5's ten-task PROOF run
+        sys.exit(full_protocol_worker())
     sys.exit(main())

@@ -4,8 +4,8 @@ to the port's tree of tensors, and back.
 
 Leaves keep their shape, dtype and bits; weights keep the ``[in, out]``
 layout, so ``x @ W`` means the same on both sides. Every parity test carries
-the JAX init across with it: the CLIP towers' params, and PROOF's
-``trainable``, ``aux`` and ``buffers``.
+the JAX init across with it: the CLIP towers' params, PROOF's ``trainable``,
+``aux`` and ``buffers``, and the heads' and DMIG's parameter dicts.
 """
 
 from __future__ import annotations
@@ -31,6 +31,23 @@ def params_from_numpy(tree: Any, device: Optional[torch.device] = None) -> Any:
     if arr.dtype.type not in _DTYPES:
         raise TypeError(f"unsupported parameter dtype {arr.dtype}")
     return torch.tensor(arr, device=device)
+
+
+# the module parameter dicts' static ints (``init_cosine_proxy_linear``'s proxies
+# per class, ``init_connectivity_extractor``'s heads), which stay Python ints
+STATIC_INT_KEYS = ("nb_proxy", "n_heads")
+
+
+def module_params_from_numpy(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """The heads' and DMIG's parameter dicts (:mod:`team_tpu_torch.modules.heads`,
+    :mod:`team_tpu_torch.modules.dynamic_graph`) from numpy: tensors, with
+    the leaves under :data:`STATIC_INT_KEYS` as ints."""
+    if isinstance(tree, dict):
+        return {k: int(np.asarray(v)) if k in STATIC_INT_KEYS else
+                module_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [module_params_from_numpy(v, device) for v in tree]
+    return params_from_numpy(tree, device)
 
 
 def params_to_numpy(tree: Any) -> Any:

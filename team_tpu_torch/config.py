@@ -144,9 +144,9 @@ class Config:
     data_root: Optional[str] = None      # dataset root (replaces hardcoded paths, data.py:493-494)
     log_dir: str = "logs"
     results_dir: str = "results"
-    checkpoint_dir: Optional[str] = None # enable orbax per-task checkpoints when set
+    checkpoint_dir: Optional[str] = None # per-task torch.save checkpoints when set (checkpoint.py)
     resume: bool = False
-    profile_dir: Optional[str] = None    # enable jax profiler traces when set
+    profile_dir: Optional[str] = None    # torch.profiler traces when set (analysis/profiler.py)
     enable_plots: bool = False           # host-side matplotlib artifacts
     num_io_threads: int = 8              # native loader threads (reference num_workers=8)
     vision_model: str = "ViT-B-16"

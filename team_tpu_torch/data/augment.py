@@ -5,7 +5,8 @@ PIL op set; note the reference never wires these into any transform pipeline —
 they are provided here as a usable library, selectable via config
 ``extras['augment_ops']`` on the train pipeline).
 
-PIL ops (host-side, per-sample) matching the reference op semantics.
+PIL ops (host-side, per-sample) matching the reference op semantics, and
+``cutout_batch``, Cutout over a float batch on its device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from PIL import Image, ImageEnhance, ImageOps
 
 
@@ -125,3 +127,29 @@ def random_augment(img: Image.Image, rng: np.random.Generator,
             img = fn(img, float(rng.uniform(lo, hi)))
     return img
 
+
+
+def cutout_mask(height: int, width: int, ys: torch.Tensor, xs: torch.Tensor,
+                lengths) -> torch.Tensor:
+    """``[B, H, W]`` bool: for each image b the square of side
+    ``2·(lengths[b] // 2)`` centred on ``(ys[b], xs[b])``, clipped at the
+    borders (``cutout_batch``'s geometry, for given centres)."""
+    half = torch.as_tensor(lengths, device=ys.device).reshape(-1, 1, 1) // 2
+    row = torch.arange(height, device=ys.device)[None, :, None]
+    col = torch.arange(width, device=ys.device)[None, None, :]
+    y, x = ys.reshape(-1, 1, 1), xs.reshape(-1, 1, 1)
+    return (row >= y - half) & (row < y + half) & (col >= x - half) & (col < x + half)
+
+
+def cutout_batch(images: torch.Tensor, lengths, seed: int = 0) -> torch.Tensor:
+    """Cutout on a ``[B, H, W, C]`` float batch, on its device: each image's
+    square (:func:`cutout_mask`) set to 0, its centre uniform over the image.
+    The centres come from a ``torch.Generator`` seeded by ``seed`` (team_tpu
+    draws them with ``jax.random``, whose bits torch cannot reproduce)."""
+    b, h, w, _ = images.shape
+    gen = torch.Generator().manual_seed(int(seed))
+    ys = torch.randint(0, h, (b,), generator=gen).to(images.device)
+    xs = torch.randint(0, w, (b,), generator=gen).to(images.device)
+    mask = cutout_mask(h, w, ys, xs, lengths)
+    return torch.where(mask[..., None], torch.zeros((), dtype=images.dtype, device=images.device),
+                       images)

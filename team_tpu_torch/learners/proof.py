@@ -49,6 +49,7 @@ from team_tpu_torch.parallel import collectives
 from team_tpu_torch.parallel.mesh import (
     MeshContext, allgather_host_shards, host_shard_indices, make_mesh)
 from team_tpu_torch.utils.phase_timer import phase
+from team_tpu_torch.utils.toolkit import world_rank
 
 
 def _seed(cfg: Config) -> int:
@@ -119,7 +120,9 @@ class Learner(BaseLearner):
             gcn_layers=cfg.temporal_gcn_layers if not cfg.parity_mode else 2,
             # parity: the reference always builds hidden = feature_dim // 2
             gcn_hidden_dim=0 if cfg.parity_mode else int(cfg.temporal_gcn_hidden_dim))
-        if self._proof_state is not None:
+        if self.trainable is not None:  # restored from a checkpoint
+            tr, aux, buffers = self.trainable, self.aux, self.buffers
+        elif self._proof_state is not None:
             tr, aux, buffers = proof_state_from_numpy(self._proof_state, self.device)
             self._proof_state = None
         else:
@@ -206,9 +209,15 @@ class Learner(BaseLearner):
         with phase("rehearsal_memory"):
             self.build_rehearsal_memory(data_manager, self.samples_per_class)
         self.state_distance.update_counter = 0
-        if self.cfg.enable_plots:
-            logging.info("enable_plots: the state-evolution plots are not ported yet "
-                         "(ROADMAP queue 1 item 11)")
+        if self.cfg.enable_plots and world_rank() == 0:
+            try:
+                from team_tpu_torch.analysis.plots import analyze_state_evolution
+
+                analyze_state_evolution(
+                    self.buffers, data_manager._class_to_label,
+                    save_dir=f"{self.cfg.results_dir}/task_{self._cur_task}/analysis")
+            except Exception as e:  # a plot never stops training
+                logging.error("state-evolution analysis failed: %s", e)
         # the final evolution pass
         with phase("evolution"):
             self.integrate_with_state_distance()
@@ -332,9 +341,14 @@ class Learner(BaseLearner):
             # the temporal-evolution cadence; fix mode honours temporal_enabled
             if self._temporal_on:
                 with phase("epoch_evolution"):
+                    last = epoch + 1 == self.tuned_epoch
                     if (epoch + 1) % 2 == 0:
                         self.evolve_state_prototypes()  # block 1
+                        if last:
+                            self._visualize_evolution_paths()
                         self.evolve_state_prototypes()  # the reference's duplicated block 2
+                    if last:
+                        self._visualize_evolution_paths()
                     self._apply_evolution(self._evolve())
                     self.update_state_distance_matrix(self.data_manager)
 
@@ -420,6 +434,18 @@ class Learner(BaseLearner):
             return None
         return lifecycle.evolution_trajectory(self._evo_projectors, src_state, src_feat,
                                               num_steps=max(2, int(self.cfg.state_evolution_steps)))
+
+    def _visualize_evolution_paths(self) -> None:
+        """Under ``enable_plots``, each class's PCA path (rank 0 draws)."""
+        if not self.cfg.enable_plots or world_rank() != 0:
+            return
+        try:
+            from team_tpu_torch.analysis.plots import visualize_evolution_path
+
+            visualize_evolution_path(
+                self.buffers, save_dir=f"{self.cfg.results_dir}/task_{self._cur_task}/evolution")
+        except Exception as e:  # a plot never stops training
+            logging.error("evolution-path visualization failed: %s", e)
 
     # ------------------------------------------------------------------
     # evaluation

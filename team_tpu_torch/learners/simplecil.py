@@ -46,8 +46,8 @@ class Learner(BaseLearner):
         self._cur_task += 1
         self._total_classes = self._known_classes + data_manager.get_task_size(self._cur_task)
         self.data_manager = data_manager
-        if self.fc is None:
-            self.cfg.derive_capacity(data_manager.get_total_classnum(), data_manager.nb_tasks)
+        self.cfg.derive_capacity(data_manager.get_total_classnum(), data_manager.nb_tasks)
+        if self.fc is None:  # a restored head is kept
             self.fc = init_cosine_linear(torch.Generator().manual_seed(0), self.cfg.max_classes,
                                          self.feature_dim, self.backbone.device)
         logging.info("Learning on %d-%d", self._known_classes, self._total_classes)

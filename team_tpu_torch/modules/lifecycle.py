@@ -1,7 +1,7 @@
 """Lifecycle-model secondary paths (counterpart of ``team_tpu/modules/lifecycle.py``).
 
 The live evolution path is :mod:`team_tpu_torch.modules.evolution`. Here:
-the per-transition evolution projectors (their dict is never filled in the
+one class's evolution graph, the per-transition evolution projectors (their dict is never filled in the
 reference, so this path is dead there; fix mode uses it), the
 evolution-trajectory simulation, the lifecycle-type detector MLP, and the
 bias scaling by state similarity.
@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from team_tpu_torch.modules.evolution import LARVA_TO_ADULT, NYMPH_TO_ADULT
 from team_tpu_torch.utils.jmath import l2_normalize
 
 
@@ -26,6 +27,24 @@ def init_evolution_projectors(gen: torch.Generator, feature_dim: int) -> Dict[st
     """Projectors of the two supported transitions, larva→adult and nymph→adult."""
     return {"1-4": _linear(gen, feature_dim, feature_dim),
             "3-4": _linear(gen, feature_dim, feature_dim)}
+
+
+def class_evolution_graph(proto_mask_row: torch.Tensor, lifecycle_type: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One class's evolution edges as a dense ``[S, S]`` matrix (the
+    reference's ``_build_evolution_graph``): larva→adult or nymph→adult with
+    weight 1 at ``[dst, src]`` where the lifecycle type names that
+    transition and the class has both stages. Returns (adj, whether an edge
+    exists)."""
+    s = proto_mask_row.shape[0]
+    has = proto_mask_row > 0
+    lifecycle_type = torch.as_tensor(lifecycle_type, device=proto_mask_row.device)
+    larva_edge = (lifecycle_type == LARVA_TO_ADULT) & has[1] & has[4]
+    nymph_edge = (lifecycle_type == NYMPH_TO_ADULT) & has[3] & has[4]
+    adj = torch.zeros((s, s), device=proto_mask_row.device)
+    adj[4, 1] = larva_edge.float()
+    adj[4, 3] = nymph_edge.float()
+    return adj, larva_edge | nymph_edge
 
 
 def evolution_trajectory(projectors: Dict[str, Dict], src_state: int, src_feat: torch.Tensor,

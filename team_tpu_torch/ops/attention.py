@@ -1,8 +1,8 @@
 """Multi-head attention front end over ``[B, H, S, Dh]``.
 
-Counterpart of ``team_tpu/ops/attention.py:multi_head_attention`` and
-``team_tpu/ops/flash_attention.py:xla_attention``: the plain route
-(``impl="xla"``), the flash kernel (``impl="pallas"``,
+Counterpart of ``team_tpu/ops/attention.py:multi_head_attention``: the plain
+route (``impl="xla"``, :func:`team_tpu_torch.ops.flash_attention.xla_attention`,
+beside the flash kernel as in team_tpu), the flash kernel (``impl="pallas"``,
 :mod:`team_tpu_torch.ops.flash_attention`) and the pre-split kernel
 (``impl="mha_short"``, :func:`team_tpu_torch.ops.mha_short.fused_mha_short`).
 The towers reach the packed and fused kernels at the block level
@@ -15,27 +15,8 @@ from typing import Optional
 
 import torch
 
-from team_tpu_torch.ops.flash_attention import flash_attention
+from team_tpu_torch.ops.flash_attention import NEG_INF, flash_attention, xla_attention  # noqa: F401
 from team_tpu_torch.ops.mha_short import fused_mha_short
-
-NEG_INF = -1e30
-
-
-def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kv_len: Optional[int] = None, *, causal: bool = False) -> torch.Tensor:
-    """Plain attention with an f32 softmax (``xla_attention``'s numerics:
-    logits in f32, scaled after QKᵀ, probabilities cast to v's dtype)."""
-    dh = q.shape[-1]
-    s = q.shape[2]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask.tril()
-    if kv_len is not None:
-        mask = mask & (torch.arange(s, device=q.device) < kv_len)[None, :]
-    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(v.dtype), v)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,9 +14,13 @@ the JAX tests pin.
 The CUDA kernels (``csrc/flash_attention.cu``) are compiled with ``nvcc`` on
 first use and bound with ``ctypes``: bfloat16 runs on the tensor cores
 (``mma.sync``, p kept to about 2^-17 by a split PV), float32 on the CUDA
-cores (an explicit dispatch on the dtype). Forward only: the towers that call
-them are frozen, and the TPU kernel's backward is an XLA recompute, not a
-kernel. On a CPU tensor ``flash_attention`` computes the plain version; on a
+cores (an explicit dispatch on the dtype). The kernel computes the forward
+only. As in team_tpu (``jax.custom_vjp``, ``_flash_vjp``), ``flash_attention``
+is differentiable all the same: where autograd records and an input requires
+grad it goes through a ``torch.autograd.Function`` whose backward recomputes
+:func:`xla_attention` and differentiates that (no backward kernel; Grad-CAM
+on the ``pallas`` route is its user, the frozen towers' encodes never take
+it). On a CPU tensor ``flash_attention`` computes the plain version; on a
 CUDA tensor it launches the kernel or raises.
 """
 
@@ -27,9 +31,32 @@ from typing import Optional
 
 import torch
 
+from team_tpu_torch.ops._grad import recompute_vjp, wants_grad
+
+NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)  # the kernel's compiled head widths
 _SOURCE = "flash_attention.cu"
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_len: Optional[int] = None, *, causal: bool = False) -> torch.Tensor:
+    """Plain attention with an f32 softmax over ``[B, H, S, Dh]``
+    (``team_tpu/ops/flash_attention.py:xla_attention``'s numerics: logits in
+    f32, scaled after QKᵀ, masked to -1e30, probabilities cast to v's dtype).
+    The plain route of the towers, and what the backwards of the
+    differentiable kernels recompute."""
+    dh = q.shape[-1]
+    s = q.shape[2]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask.tril()
+    if kv_len is not None:
+        mask = mask & (torch.arange(s, device=q.device) < kv_len)[None, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,7 +134,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len`` masks keys ``>= kv_len``; ``causal`` the keys after each query.
     Any strides are taken for B, H and S; Dh must be contiguous (a bfloat16
     input whose rows do not start on 16 bytes is copied first,
-    :func:`aligned_rows`). Each kernel launch adds one to
+    :func:`aligned_rows`). Differentiable in q, k and v (the backward
+    recomputes :func:`xla_attention`). Each kernel launch adds one to
     ``flash_attention.launches`` (and to ``causal_launches`` when causal)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k and v must share one [B, H, S, Dh] shape, got "
@@ -119,18 +147,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = s if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= s:
         raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_len, causal=causal)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if q.device.type != "cpu" and (
+            q.device.type != "cuda" or k.device != q.device or v.device != q.device):
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors on one device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if q.device.type == "cuda" and any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dimension of q, k and v must be contiguous")
+    if wants_grad(q, k, v):
+        return _FlashFn.apply(q, k, v, kv_len, causal)
+    return _flash_call(q, k, v, kv_len, causal)
+
+
+def _flash_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
+                causal: bool) -> torch.Tensor:
+    """The plain version on a CPU tensor, else one counted kernel launch."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_len, causal=causal)
     out = _flash_forward(q, k, v, kv_len, causal)
     flash_attention.launches += 1
     if causal:
         flash_attention.causal_launches += 1
     return out
+
+
+class _FlashFn(torch.autograd.Function):
+    """#14 with ``_flash_vjp``'s rule: the kernel forward; the backward
+    differentiates :func:`xla_attention` at the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.kv_len, ctx.causal = kv_len, causal
+        return _flash_call(q, k, v, kv_len, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        grads = recompute_vjp(lambda a, b, c: xla_attention(a, b, c, ctx.kv_len, causal=ctx.causal),
+                              (q, k, v), ctx.needs_input_grad[:3], g)
+        return (*grads, None, None)
 
 
 flash_attention.launches = 0

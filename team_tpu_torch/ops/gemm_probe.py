@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from team_tpu_torch.ops._grad import refuse_grad
 from team_tpu_torch.ops.int8_matmul import _aligned, _raise_on, column_major, int8_matmul
 
 _SOURCE = "gemm_probe.cu"
@@ -93,6 +94,7 @@ def _on_card(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
+    refuse_grad(name, *tensors)
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"{name}: operands lie on {t.device} and {dev}")

@@ -42,6 +42,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from team_tpu_torch.ops._grad import refuse_grad
+
 _INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
 # 1/127 as a float32: XLA compiles ``x / 127.0`` in a jitted graph to a
 # product with this reciprocal, and the payloads must match the jitted
@@ -192,9 +194,10 @@ def _quant_operands(name: str, x: torch.Tensor, vectors) -> list:
     return out
 
 
-def _check_kernel_input(name: str, x: torch.Tensor) -> None:
+def _check_kernel_input(name: str, x: torch.Tensor, *vectors: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+    refuse_grad(name, x, *vectors)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bfloat16 x, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -210,7 +213,7 @@ def _raise_on(err: int, name: str) -> None:
 
 def _launch_ln_quantize_static(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                                a: torch.Tensor, name: str) -> torch.Tensor:
-    _check_kernel_input(name, x)
+    _check_kernel_input(name, x, g, b, a)
     lib = _quant_library()
     _check_width(name, x.shape[1], lib)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
@@ -289,7 +292,7 @@ def ln_quantize(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     g, b = _quant_operands("ln_quantize", x, (("gamma", gamma), ("beta", beta)))
     if x.device.type == "cpu":
         return ln_quantize_reference(x, g, b)
-    _check_kernel_input("ln_quantize", x)
+    _check_kernel_input("ln_quantize", x, g, b)
     lib = _quant_library()
     _check_width("ln_quantize", x.shape[1], lib)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
@@ -310,7 +313,7 @@ def row_quant_static(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
     (a,) = _quant_operands("row_quant_static", x, (("inv_a", inv_a),))
     if x.device.type == "cpu":
         return row_quant_static_reference(x, a)
-    _check_kernel_input("row_quant_static", x)
+    _check_kernel_input("row_quant_static", x, a)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         err = _quant_library().team_row_quant_static(x.data_ptr(), a.data_ptr(), out.data_ptr(),
@@ -436,6 +439,7 @@ def _gemm_operands(name: str, x_q: torch.Tensor, wt_q: torch.Tensor, x_scale: to
     (bias zeros when absent)."""
     if x_q.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x_q.device}")
+    refuse_grad(name, x_scale, w_scale, bias)
     if x_q.dtype != torch.int8 or wt_q.dtype != torch.int8:
         raise TypeError(f"{name} takes int8 operands, got {x_q.dtype} and {wt_q.dtype}")
     if x_q.dim() != 2 or wt_q.dim() != 2 or x_q.shape[1] != wt_q.shape[1]:

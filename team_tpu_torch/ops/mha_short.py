@@ -53,9 +53,14 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   on the bf16 tensor cores).
 
 The kernels are compiled with ``nvcc`` on first use and bound with
-``ctypes``. Forward only: the towers that call them are frozen. On a CPU
-tensor each wrapper computes its plain version; on a CUDA tensor it launches
-its kernel or raises.
+``ctypes``, and compute forwards only. ``fused_mha_packed``,
+``fused_mha_short`` and ``fused_attn_block`` are differentiable as in
+team_tpu (``jax.custom_vjp``): where autograd records and an input requires
+grad they go through a ``torch.autograd.Function`` whose backward recomputes
+the plain attention (:mod:`team_tpu_torch.ops._grad`); Grad-CAM is their
+user, the frozen towers' encodes never take it. Every other wrapper raises
+on such an input on the card. On a CPU tensor each wrapper computes its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from team_tpu_torch.ops.flash_attention import aligned_rows, rows_aligned
+from team_tpu_torch.ops._grad import recompute_vjp, refuse_grad, wants_grad
+from team_tpu_torch.ops.flash_attention import aligned_rows, rows_aligned, xla_attention
 from team_tpu_torch.ops.int8_matmul import INV127
 
 NEG_INF = -1e30
@@ -166,8 +172,10 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
 
     ``qkv: [B, S, 3*D]`` -> ``[B, S, D]`` in the input dtype (float32 or
     bfloat16). ``kv_len`` masks key columns ``>= kv_len``; ``causal`` applies
-    the autoregressive mask (the text tower). Each kernel launch adds one to
-    ``fused_mha_packed.launches`` (and to ``causal_launches`` when causal)."""
+    the autoregressive mask (the text tower). Differentiable in ``qkv`` (the
+    backward recomputes :func:`mha_packed_backward_reference`). Each kernel
+    launch adds one to ``fused_mha_packed.launches`` (and to
+    ``causal_launches`` when causal)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, S, 3*D], got {tuple(qkv.shape)}")
     b, s, d3 = qkv.shape
@@ -178,12 +186,22 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
         raise ValueError(f"kv_len={kv_len} outside [1, S={s}]")
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"qkv dtype {qkv.dtype} not supported (float32, bfloat16)")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mha_packed runs on CPU or CUDA tensors, got {qkv.device}")
+    if wants_grad(qkv):
+        return _MhaPackedFn.apply(qkv, heads, causal, kv_len)
+    return _mha_packed_call(qkv, heads, causal, kv_len)
+
+
+def _mha_packed_call(qkv: torch.Tensor, heads: int, causal: bool,
+                     kv_len: Optional[int]) -> torch.Tensor:
+    """#1's plain version on a CPU tensor, else one counted kernel launch."""
     if qkv.device.type == "cpu":
         return mha_packed_reference(qkv, heads, causal, kv_len)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_mha_packed runs on CPU or CUDA tensors, got {qkv.device}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    b, s, d3 = qkv.shape
+    d = d3 // 3
     dh = d // heads
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
@@ -207,6 +225,37 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int, *, causal: bool = False,
     if causal:
         fused_mha_packed.causal_launches += 1
     return out
+
+
+def mha_packed_backward_reference(qkv: torch.Tensor, heads: int, causal: bool = False,
+                                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """What #1's backward differentiates (``_xla_packed_reference``): the
+    packed layout around :func:`xla_attention`, ``kv_len`` dropped where it
+    masks nothing."""
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (_split_heads(t, heads) for t in qkv.split(d, dim=-1))
+    o = xla_attention(q, k, v, kv_len if (kv_len is not None and kv_len < s) else None,
+                      causal=causal)
+    return o.permute(0, 2, 1, 3).reshape(b, s, d)
+
+
+class _MhaPackedFn(torch.autograd.Function):
+    """#1 with ``_mha_packed_vjp``'s rule: the kernel forward; the backward
+    differentiates :func:`mha_packed_backward_reference` at the saved qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, causal, kv_len):
+        ctx.save_for_backward(qkv)
+        ctx.args = (heads, causal, kv_len)
+        return _mha_packed_call(qkv, heads, causal, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, causal, kv_len = ctx.args
+        (dqkv,) = recompute_vjp(lambda t: mha_packed_backward_reference(t, heads, causal, kv_len),
+                                ctx.saved_tensors, ctx.needs_input_grad[:1], g)
+        return dqkv, None, None, None
 
 
 fused_mha_packed.launches = 0
@@ -373,14 +422,41 @@ def fused_mha_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Non-causal attention over pre-split ``[B, H, S, Dh]`` (float32 or
     bfloat16) with keys ``>= kv_len`` masked; returns ``[B, H, S, Dh]``
     contiguous, every query row. Any strides with a unit stride along Dh
-    (shared by q, k and v) go to the kernel as they are. Each kernel launch
-    adds one to ``fused_mha_short.launches``."""
+    (shared by q, k and v) go to the kernel as they are. Differentiable in q,
+    k and v (the backward recomputes :func:`xla_attention`, non-causal). Each
+    kernel launch adds one to ``fused_mha_short.launches``."""
     _check_short("fused_mha_short", q, k, v, kv_len)
+    kv_len = q.shape[2] if kv_len is None else int(kv_len)
+    if wants_grad(q, k, v):
+        return _MhaShortFn.apply(q, k, v, kv_len)
+    return _mha_short_call(q, k, v, kv_len)
+
+
+def _mha_short_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: int) -> torch.Tensor:
+    """#3's plain version on a CPU tensor, else one counted kernel launch."""
     if q.device.type == "cpu":
         return mha_short_reference(q, k, v, kv_len)
     out = _launch_short("team_mha_short_fwd", q, k, v, kv_len)
     fused_mha_short.launches += 1
     return out
+
+
+class _MhaShortFn(torch.autograd.Function):
+    """#3 with ``_mha_short_vjp``'s rule: the kernel forward; the backward
+    differentiates :func:`xla_attention` (non-causal) at the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.kv_len = kv_len
+        return _mha_short_call(q, k, v, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = recompute_vjp(lambda a, b, c: xla_attention(a, b, c, ctx.kv_len, causal=False),
+                              ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return (*grads, None)
 
 
 _EXP_DTYPES = (torch.float32, torch.bfloat16)
@@ -394,6 +470,7 @@ def _short_v2(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_short(name, q, k, v, kv_len)
     if q.device.type == "cpu":
         return mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+    refuse_grad(f"{name} (#4)", q, k, v)
     return _launch_short("team_mha_short_v2_fwd", q, k, v, kv_len,
                          int(exp_dtype == torch.bfloat16), int(cuda_core), v2=1 + int(cuda_core))
 
@@ -487,6 +564,7 @@ def fused_mha_packed_proj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.T
     _on_card("fused_mha_packed_proj", qkv, {"out_w": out_w, "out_b": out_b, "x_resid": x_resid})
     if qkv.device.type == "cpu":
         return mha_packed_proj_reference(qkv, out_w, out_b, x_resid, heads, causal)
+    refuse_grad("fused_mha_packed_proj (#12)", qkv, out_w, out_b, x_resid)
     out = _launch_packed_proj(qkv, out_w, out_b, x_resid, heads, causal)
     fused_mha_packed_proj.launches += 1
     if causal:
@@ -505,7 +583,9 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
     ``[B, S, 3*D]`` workspace (each launch adds one to
     ``fused_attn_block.launches``, and to ``causal_launches`` when causal),
     then the attention + out-projection kernel of
-    :func:`fused_mha_packed_proj` (one to ``fused_attn_block.proj_launches``)."""
+    :func:`fused_mha_packed_proj` (one to ``fused_attn_block.proj_launches``).
+    Differentiable in x, the layer-norm affine, both weights and both biases
+    (the backward recomputes :func:`attn_block_backward_reference`)."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
     b, s, d = x.shape
@@ -519,9 +599,20 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
         raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
     _on_card("fused_attn_block", x, {"ln_scale": ln_scale, "ln_bias": ln_bias, "qkv_w": qkv_w,
                                      "qkv_b": qkv_b, "out_w": out_w, "out_b": out_b})
+    args = (x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b)
+    if wants_grad(*args):
+        return _AttnBlockFn.apply(*args, heads, causal)
+    return _attn_block_call(*args, heads, causal)
+
+
+def _attn_block_call(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                     qkv_w: torch.Tensor, qkv_b: torch.Tensor, out_w: torch.Tensor,
+                     out_b: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """#13's plain version on a CPU tensor, else its two counted launches."""
     if x.device.type == "cpu":
         return attn_block_reference(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, heads,
                                     causal)
+    b, s, d = x.shape
     dh = d // heads
     if dh not in _BLOCK_HEAD_DIMS:  # which also makes D a multiple of the 32-deep k-slice
         raise ValueError(f"head width {dh} not compiled (supported: {_BLOCK_HEAD_DIMS})")
@@ -546,6 +637,47 @@ def fused_attn_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
     out = _launch_packed_proj(qkv, out_w, out_b, x, heads, causal)
     fused_attn_block.proj_launches += 1
     return out
+
+
+def attn_block_backward_reference(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                                  qkv_w: torch.Tensor, qkv_b: torch.Tensor, out_w: torch.Tensor,
+                                  out_b: torch.Tensor, heads: int,
+                                  causal: bool = False) -> torch.Tensor:
+    """What #13's backward differentiates (``_xla_attn_block_reference``):
+    the f32 layer norm rounded to x's dtype, the qkv GEMM accumulated in f32
+    with its bias (one rounding), :func:`mha_packed_backward_reference`, the
+    out-projection in f32 with its bias and the f32 residual, one rounding."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    h = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    h = (h * ln_scale.float().reshape(-1) + ln_bias.float().reshape(-1)).to(dtype)
+    qkv = (torch.matmul(h.float(), qkv_w.to(dtype).float()) + qkv_b.float().reshape(-1)).to(dtype)
+    o = mha_packed_backward_reference(qkv, heads, causal)
+    proj = torch.matmul(o.float(), out_w.to(dtype).float()) + out_b.float().reshape(-1)
+    return (x32 + proj).to(dtype)
+
+
+class _AttnBlockFn(torch.autograd.Function):
+    """#13 with ``_attn_block_vjp``'s rule: the kernels' forward; the
+    backward differentiates :func:`attn_block_backward_reference` at the
+    saved x, layer-norm affine, weights and biases, and returns a gradient
+    to each of them."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, heads, causal):
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b)
+        ctx.args = (heads, causal)
+        return _attn_block_call(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, heads, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, causal = ctx.args
+        grads = recompute_vjp(
+            lambda *ops: attn_block_backward_reference(*ops, heads, causal),
+            ctx.saved_tensors, ctx.needs_input_grad[:7], g)
+        return (*grads, None, None)
 
 
 fused_mha_short.launches = 0
@@ -865,6 +997,7 @@ def fused_mha_packed_q3i(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: torch
     if qkv_q.device.type == "cpu":
         return mha_packed_q3i_plain(qkv_q, *vecs[:3], heads, causal=causal, kv_len=kv_len,
                                     qk_m2=vecs[3], pv_int8=pv_int8, defer_norm=defer_norm)
+    refuse_grad("fused_mha_packed_q3i (#7)", *vecs)
     norm = _q3i_norm(pv_int8, defer_norm)
     b, s, d3 = qkv_q.shape
     out = torch.empty((b, s, d3 // 3), dtype=torch.int8, device=qkv_q.device)
@@ -887,6 +1020,7 @@ def fused_mha_packed_q3i_cls(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: t
     _check_cls_seq(s, d3 // 3, heads)
     if qkv_q.device.type == "cpu":
         return mha_packed_q3i_cls_plain(qkv_q, *vecs[:3], heads, qk_m2=vecs[3])
+    refuse_grad("fused_mha_packed_q3i_cls (#8)", *vecs)
     out = torch.empty((b, 1, d3 // 3), dtype=torch.int8, device=qkv_q.device)
     _q3i_launch("team_mha_packed_q3i_cls_fwd", [qkv_q], vecs, out, b, s, heads)
     fused_mha_packed_q3i_cls.launches += 1
@@ -918,6 +1052,7 @@ def fused_mha_packed_q3i_cls_split(q_q: torch.Tensor, kv_q: torch.Tensor, deq: t
     vecs = _q3i_vectors(kv_q.device, d, heads, deq, qk_scale, o_inv, qk_m2 if static else None)
     if kv_q.device.type == "cpu":
         return mha_packed_q3i_cls_split_plain(q_q, kv_q, *vecs[:3], heads, qk_m2=vecs[3])
+    refuse_grad("fused_mha_packed_q3i_cls_split (#9)", *vecs)
     out = torch.empty((b, 1, d), dtype=torch.int8, device=kv_q.device)
     _q3i_launch("team_mha_packed_q3i_cls_split_fwd", [q_q, kv_q], vecs, out, b, s, heads)
     fused_mha_packed_q3i_cls_split.launches += 1
@@ -933,6 +1068,7 @@ def fused_mha_packed_q3i_sb(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: to
     vecs = _q3i_operands(qkv_q, deq, qk_scale, o_inv, None, heads)
     if qkv_q.device.type == "cpu":
         return mha_packed_q3i_sb_reference(qkv_q, *vecs[:3], heads)
+    refuse_grad("fused_mha_packed_q3i_sb (#10)", *vecs)
     s, b, d3 = qkv_q.shape
     out = torch.empty((s, b, d3 // 3), dtype=torch.int8, device=qkv_q.device)
     _q3i_launch("team_mha_packed_q3i_sb_fwd", [qkv_q], vecs[:3], out, b, s, heads)
@@ -1018,6 +1154,7 @@ def fused_mha_q3i_variant(qkv_q: torch.Tensor, qk_scale: torch.Tensor, qk_m2: to
         raise ValueError(f"variant {variant} writes the first Dh={dh} keys of a row: S={s} < Dh")
     if qkv_q.device.type == "cpu":
         return mha_q3i_variant_reference(qkv_q, vecs[1], vecs[3], vecs[2], heads, variant)
+    refuse_grad("fused_mha_q3i_variant (#29)", *vecs)
     vecs[0] = torch.ones(3 * d, dtype=torch.float32, device=qkv_q.device)  # v's scale 1
     out = torch.empty((b, s, d), dtype=torch.int8, device=qkv_q.device)
     _q3i_launch("team_mha_q3i_variant_fwd", [qkv_q], vecs, out, b, s, heads, Q3I_VARIANTS[variant])
@@ -1107,6 +1244,7 @@ def fused_mha_packed_tp(qkv: torch.Tensor, heads: int, *, causal: bool = False,
         raise TypeError(f"qkv dtype {qkv.dtype} not supported (float32, bfloat16)")
     if qkv.device.type == "cpu":
         return mha_packed_tp_plain(qkv, heads, rank, nm, causal=causal, kv_len=kv)
+    refuse_grad("fused_mha_packed_tp (#2)", qkv)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_mha_packed_tp runs on CPU or CUDA tensors, got {qkv.device}")
     if not qkv.is_contiguous():
@@ -1183,6 +1321,7 @@ def fused_mha_packed_q3i_tp(qkv_q: torch.Tensor, deq: torch.Tensor, qk_scale: to
         return mha_packed_q3i_tp_plain(qkv_q, *vecs[:3], heads, rank, nm, causal=causal,
                                        kv_len=kv, qk_m2=vecs[3], pv_int8=pv_int8,
                                        defer_norm=defer_norm)
+    refuse_grad("fused_mha_packed_q3i_tp (#11)", *vecs)
     b, s, d3 = qkv_q.shape
     hm = heads // nm
     out = torch.empty((b, s, d3 // 3 // nm), dtype=torch.int8, device=qkv_q.device)
@@ -1270,6 +1409,7 @@ def _packed_q(wrapper, qkv_q: torch.Tensor, deq: torch.Tensor, o_inv: torch.Tens
         vecs.append(t.reshape(-1).float().contiguous())
     if qkv_q.device.type == "cpu":
         return mha_packed_q_reference(qkv_q, *vecs, heads, causal, kv_len, bf16_deq)
+    refuse_grad(f"{wrapper.__name__} (#{6 if bf16_deq else 5})", *vecs)
     if qkv_q.device.type != "cuda":
         raise ValueError(f"the packed int8 kernels run on CPU or CUDA tensors, got {qkv_q.device}")
     if not qkv_q.is_contiguous() or qkv_q.data_ptr() % 16:

@@ -314,6 +314,9 @@ def rates(tree: str) -> None:
         routes[tier] = lambda t=tier: tquant.encode_image_int8_u8(qd, u8, cfg, gemm_impl=t)
     routes["bf16"] = lambda: tclip.encode_image(pbf, x.to(torch.bfloat16), cfg,
                                                 compute_dtype=torch.bfloat16)
+    routes["bf16_flash"] = lambda: tclip.encode_image(pbf, x.to(torch.bfloat16), cfg,
+                                                      compute_dtype=torch.bfloat16,
+                                                      attn_impl="pallas")
     # the median of three rates of ten encodes each, B=128
     print(json.dumps({"tree": tree, "img_per_s": {name: sorted(rate(fn) for _ in range(3))[1]
                                                   for name, fn in routes.items()}}), flush=True)

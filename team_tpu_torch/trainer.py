@@ -8,23 +8,26 @@ distance-matrix plot), the top-1 and top-"5" curves, the running average and
 reference does. Under ``torchrun`` (or a process group joined before) every
 rank runs the protocol on its device, the learners split their work over the
 ranks by ``mesh_shape``, and only rank 0 logs and writes ``metrics.jsonl``,
-as team_tpu's process 0 does:
+as team_tpu's process 0 does. With ``checkpoint_dir`` each finished task
+is saved (:mod:`team_tpu_torch.checkpoint`; rank 0 writes, then every rank
+waits at a barrier), after the plot and before ``metrics.jsonl``, as
+team_tpu does; with ``resume`` every rank restores the newest file and the
+loop goes on from the next task:
 
     torchrun --nproc_per_node 2 -m team_tpu_torch.main --config cfg.json  # "mesh_shape": [2]
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import logging
 import time
 from typing import Any, Dict, List, Optional
 
-import torch
-
+from team_tpu_torch.analysis.profiler import trace
 from team_tpu_torch.backbone.clip import Params
+from team_tpu_torch.checkpoint import TaskCheckpointer
 from team_tpu_torch.config import Config
 from team_tpu_torch.data import DataManager
 from team_tpu_torch.learners.factory import get_model
@@ -34,29 +37,6 @@ from team_tpu_torch.parallel.mesh import maybe_init_distributed
 from team_tpu_torch.utils.phase_timer import phase
 from team_tpu_torch.utils.toolkit import (
     count_parameters, describe_devices, set_random, setup_logging, world_rank)
-
-
-def _check_supported(cfg: Config) -> None:
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir: per-task checkpoints are not ported yet (ROADMAP queue 1 item 11)")
-
-
-@contextlib.contextmanager
-def trace(profile_dir: Optional[str], name: str):
-    """``torch.profiler`` trace of the block, written to ``profile_dir``
-    (a no-op when it is unset)."""
-    if not profile_dir:
-        yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir, worker_name=name)):
-        with torch.profiler.record_function(name):
-            yield
 
 
 def train(cfg: Config, clip_params: Optional[Params] = None,
@@ -83,7 +63,6 @@ def train(cfg: Config, clip_params: Optional[Params] = None,
 
 def _train(cfg: Config, clip_params: Optional[Params],
            proof_state: Optional[Dict[str, Any]]) -> Dict[str, List[float]]:
-    _check_supported(cfg)
     maybe_init_distributed(cfg.device)
     logs_name = setup_logging(cfg)
     set_random(cfg.seed[0])
@@ -104,8 +83,19 @@ def _train(cfg: Config, clip_params: Optional[Params],
 
     cnn_curve: Dict[str, List[float]] = {"top1": [], "top5": []}
     nme_curve: Dict[str, List[float]] = {"top1": [], "top5": []}
+    checkpointer = None
+    if cfg.checkpoint_dir:
+        # every rank restores from the one file rank 0 saved
+        checkpointer = TaskCheckpointer(cfg.checkpoint_dir)
+        if cfg.resume:
+            restored = checkpointer.restore_latest(model, cnn_curve, nme_curve)
+            if restored is not None:
+                logging.info("resumed from task %d", restored)
+
     avg_acc = 0.0
-    for task in range(data_manager.nb_tasks):
+    if cnn_curve["top1"]:
+        avg_acc = sum(cnn_curve["top1"]) / len(cnn_curve["top1"])
+    for task in range(model._cur_task + 1, data_manager.nb_tasks):
         logging.info("=" * 50)
         logging.info("task %d/%d", task + 1, data_manager.nb_tasks)
         if getattr(model, "trainable", None) is not None:
@@ -141,9 +131,7 @@ def _train(cfg: Config, clip_params: Optional[Params],
         avg_acc = sum(cnn_curve["top1"]) / len(cnn_curve["top1"])
         logging.info("average accuracy: %.4f", avg_acc)
 
-        if world_rank() != 0:  # rank 0 writes the run's files
-            continue
-        if cfg.enable_plots and hasattr(model, "state_distance"):
+        if world_rank() == 0 and cfg.enable_plots and hasattr(model, "state_distance"):
             try:
                 from team_tpu_torch.analysis.plots import visualize_distance_matrix
 
@@ -151,6 +139,14 @@ def _train(cfg: Config, clip_params: Optional[Params],
                                           f"{logs_name}/task{task}_state_distance.png")
             except Exception as e:  # a plot never stops training
                 logging.error("distance-matrix visualization failed: %s", e)
+
+        if checkpointer is not None:  # the task's state is complete on every rank
+            if world_rank() == 0:
+                checkpointer.save(task, model, cnn_curve, nme_curve)
+            collectives.barrier()
+
+        if world_rank() != 0:  # rank 0 writes the run's files
+            continue
 
         # machine-readable metrics stream (one JSON object per task)
         with open(f"{logs_name}/metrics.jsonl", "a", encoding="utf-8") as f:

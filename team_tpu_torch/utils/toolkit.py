@@ -67,6 +67,26 @@ def count_parameters(params: Any) -> int:
     return int(params.numel())
 
 
+def tensor2numpy(x) -> np.ndarray:
+    """A tensor (on any device, with or without grad), array or list -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def target2onehot(targets, n_classes: int) -> np.ndarray:
+    """Int targets -> a float32 one-hot matrix ``[N, n_classes]``."""
+    targets = tensor2numpy(targets)
+    onehot = np.zeros((targets.shape[0], n_classes), dtype=np.float32)
+    onehot[np.arange(targets.shape[0]), targets.astype(int)] = 1.0
+    return onehot
+
+
+def split_images_labels(imgs):
+    """An ImageFolder-style ``[(path, label), ...]`` list -> (paths, labels) arrays."""
+    return np.array([item[0] for item in imgs]), np.array([item[1] for item in imgs])
+
+
 def set_random(seed: int = 1) -> None:
     """Seed numpy, python and torch's default generators."""
     np.random.seed(seed)

@@ -256,6 +256,12 @@ def _run_cli_and_list_reference_modules(tmp_path, model_name: str, probes: bool 
         code += (f"for probe, args in {probe_args!r}.items():\n"
                  "    sys.argv = [probe, '--device', 'cpu', '--rounds', '1', *args]\n"
                  "    runpy.run_module('team_tpu_torch.scripts.' + probe, run_name='__main__')\n")
+        # the full-protocol runner at its tiny size, its golden written under tmp_path
+        runner_args = ["--device", "cpu", "--tiny", "--golden-dir", str(tmp_path / "goldens"),
+                       "--log-dir", str(tmp_path / "full_protocol")]
+        code += ("import os\nos.environ['TEAM_PIN'] = 'regen'\n"
+                 f"sys.argv = ['full_protocol', *{runner_args!r}]\n"
+                 "runpy.run_module('team_tpu_torch.scripts.full_protocol', run_name='__main__')\n")
     code += ("print('REFERENCE_MODULES', sorted(m for m in sys.modules if m.split('.')[0] "
              "in ('jax', 'team_tpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -269,16 +275,25 @@ def _run_cli_and_list_reference_modules(tmp_path, model_name: str, probes: bool 
 
 def test_cli_runs_the_slice_without_jax(tmp_path):
     assert _run_cli_and_list_reference_modules(tmp_path, "simplecil", probes=True) == []
+    assert [p.name for p in (tmp_path / "goldens").iterdir()] == ["h100_protocol_proof_bf16.json"]
 
 
 def test_cli_runs_proof_without_jax_or_team_tpu(tmp_path):
+    results = tmp_path / "results"
     assert _run_cli_and_list_reference_modules(
         tmp_path, "proof", memory_size=12, tuned_epoch=2, context_prompt_length_per_task=3,
-        attention_impl="pallas", enable_plots=True) == []
+        attention_impl="pallas", enable_plots=True, results_dir=str(results)) == []
     # the trainer's PROOF hook draws the state-distance matrix after each task
     run_dir = tmp_path / "proof" / "synthetic_insects" / "0" / "2"
     assert sorted(p.name for p in run_dir.glob("*.png")) == [
         f"task{t}_state_distance.png" for t in range(3)]
+    # PROOF's own plots, under results_dir: the t-SNE atlas after each task's
+    # memory, the classes' evolution paths at the last epoch (where team_tpu
+    # draws them, tests/test_torch_plots.py)
+    drawn = sorted(str(p.relative_to(results)) for p in results.rglob("*.png"))
+    assert [p for p in drawn if p.endswith("state_evolution_tsne.png")] == [
+        f"task_{t}/analysis/state_evolution_tsne.png" for t in range(3)]
+    assert any(p.startswith("task_2/evolution/class_") for p in drawn)
 
 
 def test_port_sources_import_neither_jax_nor_team_tpu():
@@ -308,7 +323,6 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
     # ported: exc None holds the trainer on the option against team_tpu
     pytest.param({"encoder_quant": "int8_static", "attention_impl": "xla",
                   "extras": {"int8_gemm_impl": "hybrid"}}, {}, None, id="int8_hybrid"),
-    pytest.param({"checkpoint_dir": "ckpt"}, {}, NotImplementedError, id="checkpoint_dir"),
     # ported: PROOF lays its mesh over the launched ranks, one device each, so a
     # 2-rank mesh in one process raises (tests/test_torch_parallel.py runs two)
     pytest.param({"model_name": "proof", "mesh_shape": [2]}, {}, ValueError, id="mesh_shape"),
@@ -319,8 +333,9 @@ def test_profile_dir_writes_a_trace(clip_params, tmp_path):
                  id="clip_checkpoint"),
 ])
 def test_unported_options_raise(kw, env, exc, tmp_path, monkeypatch):
-    """Each option the port lacks raises, and so does a mesh larger than the
-    launched world and a checkpoint file that holds none. ``int8_gemm_impl="hybrid"`` is
+    """An option the port refuses raises (the causal text tower on
+    ``mha_short``, as team_tpu), and so does a mesh larger than the launched
+    world and a checkpoint file that holds none. ``int8_gemm_impl="hybrid"`` is
     ported: SimpleCIL through both trainers on it, with ``attention_impl=
     "xla"`` on both sides (ROADMAP 3.10) and team_tpu's kernels of the tier
     in interpret mode; both gate the static payload through the tier, both

@@ -193,8 +193,31 @@ def dp_proof_case(inp):
             "sharded_feats": sharded, "labels": test_ds.labels, "stages": test_ds.stages}
 
 
+def checkpoint_case(inp):
+    """PROOF on a data mesh over the ranks through the trainer with a shared
+    checkpoint_dir: the whole run (rank 0 saves each task), then the last
+    task's file deleted and the run resumed from the file before it."""
+    from team_tpu_torch.config import Config
+    from team_tpu_torch.trainer import train
+
+    def cfg(resume):
+        return Config(**inp["cfg"], log_dir=inp["log_dir"], device=["cpu"], mesh_shape=[world],
+                      checkpoint_dir=inp["ckpt"], resume=resume)
+
+    keys = ("cnn_top1", "cnn_top5", "nme_top1")
+    whole = train(cfg(False))
+    files = sorted(os.listdir(inp["ckpt"]))
+    collectives.barrier()
+    if rank == 0:
+        os.remove(os.path.join(inp["ckpt"], files[-1]))
+    collectives.barrier()
+    resumed = train(cfg(True))
+    return {"files": files, **{f"whole_{k}": [float(a) for a in whole[k]] for k in keys},
+            **{f"resumed_{k}": [float(a) for a in resumed[k]] for k in keys}}
+
+
 CASES = {"collectives": collectives_case, "clip": clip_case, "shard": shard_case, "tp": tp_case, "int8": int8_case,
-         "dp_proof": dp_proof_case}
+         "dp_proof": dp_proof_case, "checkpoint": checkpoint_case}
 
 
 def main():

@@ -209,8 +209,6 @@ import tempfile
 import time
 from collections import defaultdict
 
-os.environ.setdefault("TEAM_PHASE_TIMES", "1")  # read when the phase timer is loaded
-
 MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch sizes
     "vision": (128, 197, 12, False),
     "text": (32, 77, 8, True),
@@ -1365,6 +1363,25 @@ def smoke_config(model_name: str, dtype: str, log_dir: str, **kw):
                   extras=extras, **kw)
 
 
+def start_span_report() -> None:
+    """Reset the program's spans and switch them on, for a protocol run whose
+    span report :func:`print_span_report` prints. Every other part of this
+    script, the timed encode rates among them, runs with them off."""
+    from team_tpu_torch.utils import phase_timer
+
+    phase_timer.reset()
+    phase_timer.enable(True)
+
+
+def print_span_report() -> None:
+    """Print the span report, indented, and switch the spans off again."""
+    from team_tpu_torch.utils import phase_timer
+
+    phase_timer.enable(False)
+    for line in phase_timer.format_report().splitlines():
+        print("    " + line)
+
+
 @contextlib.contextmanager
 def recording(cls, setup=None):
     """Collect the instances of ``cls`` the trainer builds (``setup(instance)``
@@ -1388,11 +1405,10 @@ def run_main_path(ms, log_dir: str) -> dict:
     """SimpleCIL (bf16) then ZS-CLIP (f32) through the trainer; launch counts
     are zeroed right before each run and read right after it."""
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     counts = {"launches": 0, "causal": 0}
     for model_name, dtype in (("simplecil", "bfloat16"), ("zs_clip", "float32")):
-        phase_timer.reset()
+        start_span_report()
         ms.reset_launch_counts()
         t0 = time.perf_counter()
         res = train(smoke_config(model_name, dtype, os.path.join(log_dir, model_name)))
@@ -1401,8 +1417,7 @@ def run_main_path(ms, log_dir: str) -> dict:
         print(f"  {model_name} ({dtype}): {wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}, "
               f"top4 {[float(a) for a in res['cnn_top5']]}; kernel launches {launches} "
               f"(causal {causal}, non-causal {launches - causal})")
-        for line in phase_timer.format_report().splitlines():
-            print("    " + line)
+        print_span_report()
         if causal == 0 or launches - causal == 0:
             raise AssertionError(f"{model_name}: the main path did not launch the kernel for "
                                  "both towers")
@@ -1429,7 +1444,6 @@ def run_fused_paths(ms, fa, log_dir: str) -> dict:
     with each first; the packed and flash kernels launch no time."""
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     results = {}
     for model_name, dtype, impl, kw in FUSED_RUNS:
@@ -1441,7 +1455,7 @@ def run_fused_paths(ms, fa, log_dir: str) -> dict:
 
         cfg = smoke_config(model_name, dtype, os.path.join(log_dir, f"{model_name}_{impl}"),
                            attention_impl=impl, **kw)
-        phase_timer.reset()
+        start_span_report()
         with recording(BackboneRuntime, count_towers) as made:
             ms.reset_launch_counts()
             fa.reset_launch_counts()
@@ -1468,8 +1482,7 @@ def run_fused_paths(ms, fa, log_dir: str) -> dict:
               f"top1 per task {[float(a) for a in res['cnn_top1']]}, top4 "
               f"{[float(a) for a in res['cnn_top5']]}; {calls['image']} image-tower and "
               f"{calls['text']} text-tower calls of {layers} layers; launches {got}")
-        for line in phase_timer.format_report().splitlines():
-            print("    " + line)
+        print_span_report()
         if len(made) != 1 or got != want or calls["image"] == 0 or calls["text"] == 0:
             raise AssertionError(f"{model_name} on {impl}: launches {got}, want {want} (each "
                                  "block of each tower call through the route's kernel, causal "
@@ -1488,12 +1501,11 @@ def run_int8_path(ms, log_dir: str, cache_dir: str) -> dict:
     kernel in 11 blocks and the CLS kernel in the last."""
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     cfg = smoke_config("simplecil", "bfloat16", os.path.join(log_dir, "simplecil_int8"),
                        batch_size=FLAGSHIP_BATCH, encoder_quant="int8_static",
                        extras={"int8_cache_dir": cache_dir})
-    phase_timer.reset()
+    start_span_report()
     with recording(BackboneRuntime) as made:
         ms.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1504,8 +1516,7 @@ def run_int8_path(ms, log_dir: str, cache_dir: str) -> dict:
     print(f"  simplecil (int8_static, batch {FLAGSHIP_BATCH}): {wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}, "
           f"top4 {[float(a) for a in res['cnn_top5']]}; launches q3i {q3i}, q3i_cls {cls}, "
           f"packed bf16 {packed} (calibration, gate and text)")
-    for line in phase_timer.format_report().splitlines():
-        print("    " + line)
+    print_span_report()
     if len(made) != 1:
         raise AssertionError(f"expected one backbone runtime, got {len(made)}")
     rt = made[0]
@@ -1539,7 +1550,6 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
     may launch."""
     from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     counters = {"ln_quantize_static": im.ln_quantize_static, "row_quant_static": im.row_quant_static,
                 "fused_mha_packed_q": ms.fused_mha_packed_q,
@@ -1557,7 +1567,7 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
                            batch_size=FLAGSHIP_BATCH, encoder_quant="int8_static",
                            extras={"int8_cache_dir": os.path.join(cache_root, run),
                                    "int8_gemm_impl": route})
-        phase_timer.reset()
+        start_span_report()
         with recording(BackboneRuntime, count_encodes) as made, knobs(env):
             ms.reset_launch_counts()
             im.reset_launch_counts()
@@ -1572,8 +1582,7 @@ def run_int8_routes(ms, im, log_dir: str, cache_root: str) -> dict:
               f"{wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}; held-out gate "
               f"min cosine {rt.gate_cosine} (limit 0.999), committed {rt.int8_committed}; "
               f"{calls['int8']} int8 batches, {calls['calib']} calibration forwards; launches {got}")
-        for line in phase_timer.format_report().splitlines():
-            print("    " + line)
+        print_span_report()
         if len(made) != 1 or not rt.int8_committed or rt.encoder_quant != "int8_static":
             raise AssertionError(f"{run}: the int8 path fell back to bf16: the quantized tower "
                                  "was not committed")
@@ -1604,7 +1613,6 @@ def run_int8_dynamic_tiers(ms, im, log_dir: str, cache_root: str) -> dict:
     if it committed), with no other int8 kernel."""
     from team_tpu_torch.learners.backbone_runtime import GATE_MIN_COSINE, BackboneRuntime
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     others = {"ln_quantize_static": im.ln_quantize_static, "row_quant_static": im.row_quant_static,
               **{name: getattr(ms, name) for name in Q3I_COUNTERS}}
@@ -1620,7 +1628,7 @@ def run_int8_dynamic_tiers(ms, im, log_dir: str, cache_root: str) -> dict:
                            batch_size=FLAGSHIP_BATCH, encoder_quant="int8_static",
                            extras={"int8_cache_dir": os.path.join(cache_root, tier),
                                    "int8_gemm_impl": tier})
-        phase_timer.reset()
+        start_span_report()
         with recording(BackboneRuntime, count_encodes) as made:
             ms.reset_launch_counts()
             im.reset_launch_counts()
@@ -1637,8 +1645,7 @@ def run_int8_dynamic_tiers(ms, im, log_dir: str, cache_root: str) -> dict:
               f"{'commits' if passed else 'serves bf16'}; committed {rt.int8_committed}, "
               f"serving {rt.encoder_quant}; {calls['int8']} int8 batches, {calls['calib']} "
               f"calibration forwards; launches {got}")
-        for line in phase_timer.format_report().splitlines():
-            print("    " + line)
+        print_span_report()
         served = "int8_static" if passed else "bf16"
         if len(made) != 1 or rt.int8_committed != passed or rt.encoder_quant != served \
                 or (calls["int8"] == 1) == passed:
@@ -1663,7 +1670,6 @@ def run_proof_path(ms, fa, log_dir: str) -> dict:
     on a batch of its own train features, on the card against the CPU."""
     from team_tpu_torch.learners import proof as proof_learner
     from team_tpu_torch.trainer import train
-    from team_tpu_torch.utils import phase_timer
 
     cfg = smoke_config("proof", "bfloat16", os.path.join(log_dir, "proof"),
                        batch_size=FLAGSHIP_BATCH, attention_impl="pallas", tuned_epoch=2)
@@ -1672,7 +1678,7 @@ def run_proof_path(ms, fa, log_dir: str) -> dict:
     def record_losses(learner):
         learner._epoch_stats_hook = lambda task, epoch, st: losses.append((task, epoch, st))
 
-    phase_timer.reset()
+    start_span_report()
     with recording(proof_learner.Learner, record_losses) as made:
         ms.reset_launch_counts()
         fa.reset_launch_counts()
@@ -1693,8 +1699,7 @@ def run_proof_path(ms, fa, log_dir: str) -> dict:
           f"{wall:.2f} s, top1 per task {[float(a) for a in res['cnn_top1']]}, top4 "
           f"{[float(a) for a in res['cnn_top5']]}, nme top1 {[float(a) for a in res['nme_top1']]}; "
           f"flash launches {flash} (causal {causal}, non-causal {flash - causal}), packed {packed}")
-    for line in phase_timer.format_report().splitlines():
-        print("    " + line)
+    print_span_report()
     if len(made) != 1:
         raise AssertionError(f"expected one PROOF learner, got {len(made)}")
     if causal == 0 or flash - causal == 0:
@@ -3746,7 +3751,9 @@ def full_protocol_worker() -> int:
 
     from team_tpu_torch.learners import proof as proof_learner
     from team_tpu_torch.scripts import full_protocol as fp
+    from team_tpu_torch.utils import phase_timer
 
+    phase_timer.enable(True)  # fp.run prints the span report
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     step, state, busy = proof_learner.train_step, {}, {}
@@ -3786,7 +3793,7 @@ def full_protocol_worker() -> int:
         raise AssertionError(f"task {PROFILED['task']} epoch {PROFILED['epoch']} was not profiled")
     print(json.dumps({"wall_s": res["wall_s"], "avg": res["avg"], "curve": res["curve"],
                       "pin": res["pin"], "phase_sums": {k: v["sum"] for k, v in
-                                                        res["phases"].items()}, "busy": busy}))
+                                                        res["phases"]["spans"].items()}, "busy": busy}))
     return 0
 
 

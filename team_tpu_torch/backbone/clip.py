@@ -36,6 +36,8 @@ from team_tpu_torch.ops.mha_short import (
     tp_split)
 from team_tpu_torch.parallel import collectives
 from team_tpu_torch.ops.preprocess import patch_norm_consts
+from team_tpu_torch.utils import phase_timer
+from team_tpu_torch.utils.phase_timer import phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,33 +246,29 @@ def _rank_block(t: torch.Tensor, dim: int, full: int, rank: int, nm: int) -> tor
     return t if t.shape[dim] == size else t.narrow(dim, rank * size, size)
 
 
-def _tp_block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
-                      rank: int, nm: int) -> torch.Tensor:
-    """One block split over the model ranks, computing what XLA's partitioner
-    computes from ``shard_clip_params``' layout: the qkv GEMM on this rank's
-    block of columns, an ``all_gather`` into the full packed qkv that
-    :func:`fused_mha_packed_tp` takes, the rank's heads, the out-projection
-    on the matching rows of ``out_w`` summed over the ranks, then the bias
-    once (``x + o @ out_w + out_b`` in team_tpu's order); the MLP likewise
-    (fc columns, GELU, proj rows, sum, bias)."""
-    group = tp_mesh().model_group
-    a, m = p["attn"], p["mlp"]
+def _row_parallel(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  rank: int, nm: int) -> torch.Tensor:
+    """``x + sum over the model ranks of h @ (this rank's rows of w) + b``."""
+    w = _rank_block(w, 0, h.shape[-1] * nm, rank, nm).to(x.dtype)
+    return x + collectives.all_reduce(h @ w, "sum", tp_mesh().model_group) + b.to(x.dtype)
+
+
+def _tp_attention_residual(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+                           rank: int, nm: int) -> torch.Tensor:
+    """The attention half of a block split over the model ranks, computing
+    what XLA's partitioner computes from ``shard_clip_params``' layout: the
+    qkv GEMM on this rank's block of columns, an ``all_gather`` into the full
+    packed qkv that :func:`fused_mha_packed_tp` takes, the rank's heads, the
+    out-projection on the matching rows of ``out_w`` summed over the ranks,
+    then the bias once (``x + o @ out_w + out_b`` in team_tpu's order)."""
+    a = p["attn"]
     d = x.shape[-1]
-
-    def row_parallel(x, h, w, b):
-        w = _rank_block(w, 0, h.shape[-1] * nm, rank, nm).to(x.dtype)
-        return x + collectives.all_reduce(h @ w, "sum", group) + b.to(x.dtype)
-
     h = _layer_norm(p["ln_1"], x)
     qkv = _linear(h, _rank_block(a["qkv_w"], 1, 3 * d, rank, nm),
                   _rank_block(a["qkv_b"], 0, 3 * d, rank, nm))
-    o = fused_mha_packed_tp(collectives.all_gather(qkv, group, dim=-1), heads, causal=causal,
-                            kv_len=kv_len)
-    x = row_parallel(x, o, a["out_w"], a["out_b"])
-    f = m["fc_b"].shape[-1]
-    h = _linear(_layer_norm(p["ln_2"], x), _rank_block(m["fc_w"], 1, f, rank, nm),
-                _rank_block(m["fc_b"], 0, f, rank, nm))
-    return row_parallel(x, F.gelu(h, approximate="none"), m["proj_w"], m["proj_b"])
+    o = fused_mha_packed_tp(collectives.all_gather(qkv, tp_mesh().model_group, dim=-1), heads,
+                            causal=causal, kv_len=kv_len)
+    return _row_parallel(x, o, a["out_w"], a["out_b"], rank, nm)
 
 
 def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -279,34 +277,55 @@ def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return x + h @ w.to(x.dtype) + b.to(x.dtype)
 
 
+def _attention_residual(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
+                        impl: str, shard) -> torch.Tensor:
+    """A block's attention half, LN1 to the residual. ``attn_block`` runs it
+    in :func:`fused_attn_block`, ``mha_packed_proj`` the attention,
+    out-projection and residual in :func:`fused_mha_packed_proj` after a
+    ``torch.matmul`` qkv GEMM; ``shard`` (the model rank and count of
+    :func:`tp_split`, or None): :func:`_tp_attention_residual`."""
+    a = p["attn"]
+    if shard is not None:
+        return _tp_attention_residual(p, x, heads, causal=causal, kv_len=kv_len, rank=shard[0],
+                                      nm=shard[1])
+    if impl == "attn_block":
+        return fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
+                                a["out_w"], a["out_b"], heads, causal=causal)
+    qkv = _linear(_layer_norm(p["ln_1"], x), a["qkv_w"], a["qkv_b"])
+    if impl == "mha_packed_proj":
+        return fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal)
+    o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
+    return _residual(x, o, a["out_w"], a["out_b"])
+
+
+def _mlp_residual(p: Params, x: torch.Tensor, shard) -> torch.Tensor:
+    """A block's MLP half, LN2 to the residual, ``torch.matmul`` on every
+    route as team_tpu leaves it to XLA; under ``shard`` the fc columns and
+    proj rows of the rank, summed over the ranks, then the bias."""
+    m = p["mlp"]
+    h = _layer_norm(p["ln_2"], x)
+    if shard is None:
+        h = F.gelu(_linear(h, m["fc_w"], m["fc_b"]), approximate="none")
+        return _residual(x, h, m["proj_w"], m["proj_b"])
+    rank, nm = shard
+    f = m["fc_b"].shape[-1]
+    h = _linear(h, _rank_block(m["fc_w"], 1, f, rank, nm), _rank_block(m["fc_b"], 0, f, rank, nm))
+    return _row_parallel(x, F.gelu(h, approximate="none"), m["proj_w"], m["proj_b"], rank, nm)
+
+
+def _shard(impl: str, heads: int, width: int):
+    """The model rank and count that split the heads (``mha_packed_tp``
+    under a registered layout whose model axis splits them), else None."""
+    return tp_split(heads, width) if impl == "mha_packed_tp" else None
+
+
 def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
                    impl: str) -> torch.Tensor:
-    """One transformer block (``team_tpu/backbone/clip.py:_block_forward``).
-    ``attn_block`` runs the attention sub-block in :func:`fused_attn_block`,
-    ``mha_packed_proj`` the attention, out-projection and residual in
-    :func:`fused_mha_packed_proj` after a ``torch.matmul`` qkv GEMM; the MLP
-    half is ``torch.matmul`` on every route, as team_tpu leaves it to XLA.
-    ``mha_packed_tp`` under a registered layout whose model axis splits the
-    heads: :func:`_tp_block_forward`."""
-    a = p["attn"]
-    if impl == "mha_packed_tp":
-        shard = tp_split(heads, x.shape[-1])
-        if shard is not None:
-            return _tp_block_forward(p, x, heads, causal=causal, kv_len=kv_len, rank=shard[0],
-                                     nm=shard[1])
-    if impl == "attn_block":
-        x = fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
-                             a["out_w"], a["out_b"], heads, causal=causal)
-    else:
-        qkv = _linear(_layer_norm(p["ln_1"], x), a["qkv_w"], a["qkv_b"])
-        if impl == "mha_packed_proj":
-            x = fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal)
-        else:
-            o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
-            x = _residual(x, o, a["out_w"], a["out_b"])
-    h = _layer_norm(p["ln_2"], x)
-    h = F.gelu(_linear(h, p["mlp"]["fc_w"], p["mlp"]["fc_b"]), approximate="none")
-    return _residual(x, h, p["mlp"]["proj_w"], p["mlp"]["proj_b"])
+    """One transformer block (``team_tpu/backbone/clip.py:_block_forward``):
+    :func:`_attention_residual`, then :func:`_mlp_residual`."""
+    shard = _shard(impl, heads, x.shape[-1])
+    x = _attention_residual(p, x, heads, causal=causal, kv_len=kv_len, impl=impl, shard=shard)
+    return _mlp_residual(p, x, shard)
 
 
 def patch_pixels(images: torch.Tensor, cfg: CLIPConfig, *,
@@ -328,28 +347,49 @@ def embed_patches(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
     return x @ params["vision"]["patch_w"].to(compute_dtype)
 
 
+def _embed_tokens(p: Params, patch_tokens: torch.Tensor, v: VisionConfig,
+                  compute_dtype) -> torch.Tensor:
+    """The CLS token and position embeddings, then ``ln_pre``."""
+    cls = p["cls"].to(compute_dtype).expand(patch_tokens.shape[0], 1, v.width)
+    x = torch.cat([cls, patch_tokens.to(compute_dtype)], dim=1)
+    x = x + p["pos"].to(compute_dtype)
+    return _layer_norm(p["ln_pre"], x)
+
+
+def _vision_tower(p: Params, patch_tokens, v: VisionConfig, *, compute_dtype,
+                  attn_impl: str) -> torch.Tensor:
+    """The image tower -> ``[B, embed_dim]`` float32, each stage in its span:
+    the embedding (``patch_tokens()``, the function that makes the patch
+    tokens ``[B, g*g, width]``, then :func:`_embed_tokens`), each block's
+    halves, the head. Made inside the embedding's span, the tokens'
+    intermediates are freed before the blocks run."""
+    with phase(phase_timer.EMBED):
+        x = _embed_tokens(p, patch_tokens(), v, compute_dtype)
+    shard = _shard(attn_impl, v.heads, v.width)
+    for blk in p["blocks"]:
+        with phase(phase_timer.ATTN_BLOCK):
+            x = _attention_residual(blk, x, v.heads, causal=False, kv_len=v.seq_len,
+                                    impl=attn_impl, shard=shard)
+        with phase(phase_timer.MLP_BLOCK):
+            x = _mlp_residual(blk, x, shard)
+    with phase(phase_timer.HEAD):
+        x = _layer_norm(p["ln_post"], x[:, 0])
+        return (x @ p["proj"].to(compute_dtype)).float()
+
+
 def encode_from_patches(params: Params, patch_tokens: torch.Tensor, cfg: CLIPConfig, *,
                         compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
     """Transformer stage over patch tokens -> ``[B, embed_dim]`` float32."""
-    v = cfg.vision
-    p = params["vision"]
-    b = patch_tokens.shape[0]
-    cls = p["cls"].to(compute_dtype).expand(b, 1, v.width)
-    x = torch.cat([cls, patch_tokens.to(compute_dtype)], dim=1)
-    x = x + p["pos"].to(compute_dtype)
-    x = _layer_norm(p["ln_pre"], x)
-    for blk in p["blocks"]:
-        x = _block_forward(blk, x, v.heads, causal=False, kv_len=v.seq_len, impl=attn_impl)
-    x = _layer_norm(p["ln_post"], x[:, 0])
-    return (x @ p["proj"].to(compute_dtype)).float()
+    return _vision_tower(params["vision"], lambda: patch_tokens, cfg.vision,
+                         compute_dtype=compute_dtype, attn_impl=attn_impl)
 
 
 def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
                  compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
     """Image tower: ``[B, H, W, 3]`` float (normalized) -> ``[B, embed_dim]``."""
-    tokens = embed_patches(params, images, cfg, compute_dtype=compute_dtype)
-    return encode_from_patches(params, tokens, cfg, compute_dtype=compute_dtype,
-                               attn_impl=attn_impl)
+    return _vision_tower(params["vision"],
+                         lambda: embed_patches(params, images, cfg, compute_dtype=compute_dtype),
+                         cfg.vision, compute_dtype=compute_dtype, attn_impl=attn_impl)
 
 
 def encode_image_patches_u8(params: Params, patches_u8: torch.Tensor, cfg: CLIPConfig, *,
@@ -359,11 +399,15 @@ def encode_image_patches_u8(params: Params, patches_u8: torch.Tensor, cfg: CLIPC
     per-column scale and bias before the patch GEMM."""
     if patches_u8.dtype != torch.uint8:
         raise TypeError(f"patch-major input must be uint8, got {patches_u8.dtype}")
-    scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
-    px = (patches_u8.float() * scale + bias).to(compute_dtype)
-    tokens = px @ params["vision"]["patch_w"].to(compute_dtype)
-    return encode_from_patches(params, tokens, cfg, compute_dtype=compute_dtype,
-                               attn_impl=attn_impl)
+    p = params["vision"]
+
+    def patch_tokens():
+        scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
+        px = (patches_u8.float() * scale + bias).to(compute_dtype)
+        return px @ p["patch_w"].to(compute_dtype)
+
+    return _vision_tower(p, patch_tokens, cfg.vision, compute_dtype=compute_dtype,
+                         attn_impl=attn_impl)
 
 
 def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig, *,

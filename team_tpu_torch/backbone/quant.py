@@ -13,7 +13,7 @@ scales are calibrated once, per input channel, on a batch
   :func:`team_tpu_torch.ops.int8_matmul.ln_quantize_static` (two passes; a
   kernel), or the bf16 layer norm then ``_static_quant3``.
 
-The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
+The routes (``gemm_impl``, the block table ``_BLOCKS`` of ``_tower_int8``):
 
 - ``static3d_qi`` (default): ``_ln_quant3``, integer-QKᵀ attention
   (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed_q3i`, q and k
@@ -44,12 +44,12 @@ The routes (``gemm_impl``, the block table of ``_encode_tokens_int8``):
 - ``static3d_qaf``: as ``static3d_qa`` with ``_ln_quant3``.
 
 The dynamic tiers (:func:`quantize_vision_tower`, per-row dynamic activation
-scales) are ``xla`` (``_qblock_forward_xla``, plain PyTorch), ``hybrid``
-(``_qblock_forward_hybrid``: the layer norm to int8 by the
+scales) are ``xla`` (``_attn_xla``, ``_mlp_xla``: plain PyTorch), ``hybrid``
+(``_attn_hybrid``, ``_mlp_blockscale``: the layer norm to int8 by the
 :func:`team_tpu_torch.ops.int8_matmul.ln_quantize` kernel, the qkv and out
 GEMMs ``int8_linear_xla``, the fc GEMM with its GELU and block requantize in
 the ``int8_linear_gelu_quant`` kernel, proj in ``int8_linear_blockscale``)
-and ``pallas`` (``_qblock_forward_pallas``: ``hybrid`` with the qkv and out
+and ``pallas`` (``_attn_pallas``: ``hybrid`` with the qkv and out
 GEMMs in the ``int8_linear`` kernel); both take the tanh GELU, ``xla`` the
 exact one. The int8 text tower (:func:`encode_text_int8`, causal, pooled at
 the end-of-text token) runs the same block functions on every dynamic tier
@@ -69,6 +69,7 @@ one payload serves every static route.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -85,6 +86,8 @@ from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q
                                           fused_mha_packed_q3i_cls, fused_mha_packed_q3i_cls_split,
                                           fused_mha_packed_q3i_sb, fused_mha_packed_q3i_tp, tp_mesh)
 from team_tpu_torch.ops.preprocess import patch_norm_consts
+from team_tpu_torch.utils import phase_timer
+from team_tpu_torch.utils.phase_timer import phase
 
 BF16 = torch.bfloat16
 _LOG2E = 1.4426950408889634
@@ -353,8 +356,9 @@ def _qkv_int8(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor, produce=_ln_quant3,
                   gelu: str = "gelu") -> torch.Tensor:
-    """LN2 -> int8 (``produce``) -> fc GEMM with the GELU (``gelu``, see
-    :func:`_static_linear3`), requantized -> proj GEMM -> residual."""
+    """The MLP half of the static blocks: LN2 -> int8 (``produce``) -> fc
+    GEMM with the GELU (``gelu``, see :func:`_static_linear3`), requantized ->
+    proj GEMM -> residual."""
     g = _static_linear3(produce(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
                         activation=gelu, quant_inv_a=qb["proj"]["inv_a"])
     return x + _static_linear3(g, qb["proj"])
@@ -384,47 +388,41 @@ def _q3i_attention(qb: Dict[str, Any], qkvq: torch.Tensor, heads: int, **kw) -> 
     return gather_heads(fused_mha_packed_q3i_tp(*args, **kw), qkvq.shape[-1] // 3)
 
 
-def _qblock_forward_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                                attn_impl: str = "auto", causal: bool = False,
-                                pv_int8: bool = False) -> torch.Tensor:
-    """Static-W8A8 block with integer-QKᵀ attention: one-pass LN -> int8 ->
-    qkv GEMM requantized with per-head-uniform q/k scales ->
-    :func:`_q3i_attention` (``pv_int8``: the int8 PV) -> out-projection ->
-    residual; then the MLP. ``attn_impl`` is ignored: the kernel is the
-    attention."""
+# Each block is an attention half (LN1 to the attention's residual) and an MLP
+# half (LN2 to the MLP's residual); the image tower runs each in its stage span.
+
+def _attn_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                      attn_impl: str = "auto", causal: bool = False,
+                      pv_int8: bool = False) -> torch.Tensor:
+    """Static-W8A8 attention with integer QKᵀ (``quant.py:
+    _qblock_forward_static3d_qi``): one-pass LN -> int8 -> qkv GEMM
+    requantized with per-head-uniform q/k scales -> :func:`_q3i_attention`
+    (``pv_int8``: the int8 PV, ``static3d_qi2``) -> out-projection ->
+    residual. ``attn_impl`` is ignored: the kernel is the attention."""
     oq = _q3i_attention(qb, _qkv_int8(qb, x), heads, causal=causal,
                         kv_len=_masked_kv_len(kv_len, x.shape[1]), pv_int8=pv_int8)
-    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
+    return x + _static_linear3(oq, qb["out"])
 
 
-def _qblock_forward_static3d_qi2(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``static3d_qi2``: :func:`_qblock_forward_static3d_qi` with ``pv_int8``."""
-    return _qblock_forward_static3d_qi(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
-                                       pv_int8=True)
-
-
-def _bf16_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                          attn_impl: str, causal: bool, produce, requant,
-                          two_d: bool) -> torch.Tensor:
-    """The static and static3d blocks: LN -> int8 (``produce``) -> qkv GEMM to
-    bf16 -> bf16 attention (:func:`attention_core`) -> int8 (``requant``) ->
-    out-projection -> residual; then the MLP with the same producer (the 2-D
-    ``static`` form's GELU ignores ``TEAM_GELU``)."""
+def _attn_bf16(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, produce, requant,
+               attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The static and static3d attention: LN -> int8 (``produce``) -> qkv
+    GEMM to bf16 -> bf16 attention (:func:`attention_core`) -> int8
+    (``requant``) -> out-projection -> residual."""
     site = qb["qkv"]
     qkv = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site)
     o = attention_core(qkv, heads, causal=causal, kv_len=_masked_kv_len(kv_len, x.shape[1]),
                        impl=attn_impl)
-    x = x + _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"])
-    return _mlp_residual(qb, x, produce, "gelu_tanh" if two_d else "gelu")
+    return x + _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"])
 
 
-def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                          causal: bool, produce, two_d: bool) -> torch.Tensor:
-    """The quantized-attention-I/O blocks: LN -> int8 (``produce``) -> qkv GEMM
-    requantized with the per-channel ``out_inv_a`` -> int8-in, int8-out
+def _attn_int8_io(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, produce,
+                  two_d: bool, attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The quantized-attention-I/O attention: LN -> int8 (``produce``) -> qkv
+    GEMM requantized with the per-channel ``out_inv_a`` -> int8-in, int8-out
     attention (:func:`fused_mha_packed_q` over ``[B*S, 3D]`` when ``two_d``,
-    else :func:`fused_mha_packed_q3`) -> out-projection -> residual; then the
-    MLP (the 2-D form's GELU ignores ``TEAM_GELU``)."""
+    else :func:`fused_mha_packed_q3`) -> out-projection -> residual;
+    ``attn_impl`` is ignored."""
     b, s, d = x.shape
     site = qb["qkv"]
     qkvq = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site,
@@ -435,62 +433,25 @@ def _int8_attention_block(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_le
                                 heads, seq=s, **kw).reshape(b, s, d)
     else:
         oq = fused_mha_packed_q3(qkvq, site["deq"], qb["out"]["inv_a"], heads, **kw)
-    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]), produce,
-                         "gelu_tanh" if two_d else "gelu")
+    return x + _static_linear3(oq, qb["out"])
 
 
-def _qblock_forward_static(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``quant.py:_qblock_forward_static``: the two-pass LN -> int8 kernel,
-    bf16 attention, and the static quantize kernel before the out-projection."""
-    return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
-                                 produce=_ln_quant_kernel, requant=_row_quant_kernel, two_d=True)
-
-
-def _qblock_forward_static3d(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``quant.py:_qblock_forward_static3d``: bf16 LN then elementwise
-    quantize, bf16 attention; no kernel of its own."""
-    return _bf16_attention_block(qb, x, heads, kv_len, attn_impl=attn_impl, causal=causal,
-                                 produce=_ln_then_quant, requant=_static_quant3, two_d=False)
-
-
-def _qblock_forward_static_qa(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``quant.py:_qblock_forward_static_qa``: the two-pass LN -> int8 kernel
-    and the 2-D int8-I/O attention (f32 dequant); ``attn_impl`` is ignored."""
-    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
-                                 produce=_ln_quant_kernel, two_d=True)
-
-
-def _qblock_forward_static3d_qa(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``quant.py:_qblock_forward_static3d_qa``: bf16 LN then elementwise
-    quantize, and the 3-D int8-I/O attention (bf16 dequant); ``attn_impl``
-    is ignored."""
-    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
-                                 produce=_ln_then_quant, two_d=False)
-
-
-def _qblock_forward_static3d_qaf(qb, x, heads, kv_len, *, attn_impl="auto", causal=False):
-    """``quant.py:_qblock_forward_static3d_qaf``: :func:`_qblock_forward_static3d_qa`
-    with the one-pass ``_ln_quant3`` producer."""
-    return _int8_attention_block(qb, x, heads, kv_len, causal=causal,
-                                 produce=_ln_quant3, two_d=False)
-
-
-def _qblock_forward_static3d_qi_clsmlp(qb: Dict[str, Any], x: torch.Tensor, heads: int,
-                                       attn_cls) -> torch.Tensor:
-    """The last block with the out-projection, LN2 and MLP on the CLS row only
-    (``quant.py:_qblock_forward_static3d_qi_clsmlp``): the pooled feature is
-    row 0. ``attn_cls`` picks the attention: ``"kq"``, the CLS-query kernel on
-    the full qkv GEMM (:func:`fused_mha_packed_q3i_cls`); ``"kqs"``, k and v
-    projected for every row with ``w_q[:, D:]`` and q for row 0 only with
-    ``w_q[:, :D]``, each requantized with its slice of ``out_inv_a_i``, then
-    :func:`fused_mha_packed_q3i_cls_split`; anything else (``"mlp"``), the full
-    kernel (``TEAM_QI_DEFER`` read as in every block) and its row 0. Under a
-    registered tensor-parallel layout the CLS kernels give way to the full
-    head-split kernel (``quant.py:728-740``)."""
+def _attn_cls(qb: Dict[str, Any], x: torch.Tensor, heads: int, mode: str) -> torch.Tensor:
+    """The last block's attention for the CLS row alone, ``[B, 1, D]``
+    (``quant.py:_qblock_forward_static3d_qi_clsmlp`` and ``_cls``): the
+    pooled feature is row 0. ``mode`` picks the attention: ``"kq"``, the
+    CLS-query kernel on the full qkv GEMM (:func:`fused_mha_packed_q3i_cls`);
+    ``"kqs"``, k and v projected for every row with ``w_q[:, D:]`` and q for
+    row 0 only with ``w_q[:, :D]``, each requantized with its slice of
+    ``out_inv_a_i``, then :func:`fused_mha_packed_q3i_cls_split`; ``"attn"``,
+    the full qkv GEMM and :func:`_cls_attn_q3i` in plain torch; anything else
+    (``"mlp"``), the full kernel (``TEAM_QI_DEFER`` read as in every block)
+    and its row 0. Under a registered tensor-parallel layout the CLS kernels
+    give way to the full head-split kernel (``quant.py:728-740``)."""
     site = qb["qkv"]
-    if tp_mesh() is not None:
-        attn_cls = "mlp"
-    if attn_cls == "kqs":
+    if mode != "attn" and tp_mesh() is not None:
+        mode = "mlp"
+    if mode == "kqs":
         d = x.shape[-1]
         x8 = _ln_quant3(x, qb["ln_1"], site["inv_a"])
         kv_site = {"w_q": site["w_q"][:, d:], "scale": site["scale"][..., d:],
@@ -501,12 +462,15 @@ def _qblock_forward_static3d_qi_clsmlp(qb: Dict[str, Any], x: torch.Tensor, head
         qq = _static_linear3(x8[:, :1], q_site, quant_inv_a=site["out_inv_a_i"][..., :d])
         oq = fused_mha_packed_q3i_cls_split(qq, kvq, site["deq_i"], site["qk_scale"],
                                             qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
-    elif attn_cls == "kq":
+    elif mode == "kq":
         oq = fused_mha_packed_q3i_cls(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                                       qb["out"]["inv_a"], heads, qk_m2=site.get("qk_m2"))
+    elif mode == "attn":
+        oq = _cls_attn_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"], qb["out"]["inv_a"],
+                           heads, qk_m2=site.get("qk_m2"))
     else:
         oq = _q3i_attention(qb, _qkv_int8(qb, x), heads)[:, :1]
-    return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
+    return x[:, :1] + _static_linear3(oq, qb["out"])
 
 
 def _cls_attn_q3i(qkvq: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
@@ -541,38 +505,26 @@ def _cls_attn_q3i(qkvq: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
     return torch.clamp(torch.round(out), -127, 127).to(torch.int8)
 
 
-def _qblock_forward_static3d_qi_cls(qb: Dict[str, Any], x: torch.Tensor,
-                                    heads: int) -> torch.Tensor:
-    """The last block in CLS-only form with the CLS attention in plain torch
-    (``TEAM_CLS_LAST="attn"`` or ``cls_last=True``; ``quant.py:
-    _qblock_forward_static3d_qi_cls``): the full qkv GEMM, then
-    :func:`_cls_attn_q3i`, the out-projection, LN2 and MLP on ``[B, 1, D]``."""
-    site = qb["qkv"]
-    oq = _cls_attn_q3i(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"], qb["out"]["inv_a"],
-                       heads, qk_m2=site.get("qk_m2"))
-    return _mlp_residual(qb, x[:, :1] + _static_linear3(oq, qb["out"]))
-
-
-def _qblock_forward_static3d_qis(qb: Dict[str, Any], x: torch.Tensor, heads: int) -> torch.Tensor:
-    """The sequence-major block (``quant.py:_qblock_forward_static3d_qis``):
-    ``x [S, B, D]``, the arithmetic of :func:`_qblock_forward_static3d_qi`
-    around :func:`fused_mha_packed_q3i_sb`. Non-causal, every key."""
+def _attn_static3d_qis(qb: Dict[str, Any], x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The sequence-major attention (``quant.py:_qblock_forward_static3d_qis``):
+    ``x [S, B, D]``, the arithmetic of :func:`_attn_static3d_qi` around
+    :func:`fused_mha_packed_q3i_sb`. Non-causal, every key."""
     site = qb["qkv"]
     oq = fused_mha_packed_q3i_sb(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                                  qb["out"]["inv_a"], heads)
-    return _mlp_residual(qb, x + _static_linear3(oq, qb["out"]))
+    return x + _static_linear3(oq, qb["out"])
 
 
-def _qblock_forward_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: int, b_real: int,
-                                 s_real: int) -> torch.Tensor:
-    """The flat-batch block (``quant.py:_qblock_forward_static3d_qib``): the
-    GEMMs and producers over ``xf [BF, (B/BF)*S, D]``, the same rows as
+def _attn_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: int, b_real: int,
+                       s_real: int) -> torch.Tensor:
+    """The flat-batch attention (``quant.py:_qblock_forward_static3d_qib``):
+    the GEMMs and producers over ``xf [BF, (B/BF)*S, D]``, the same rows as
     ``[B, S, D]`` (every reshape is a view: the producers and the residual
     work by row), and :func:`_q3i_attention` at the real ``[B, S, 3D]``.
     Non-causal, every key."""
     bf, m, d = xf.shape
     oq = _q3i_attention(qb, _qkv_int8(qb, xf).reshape(b_real, s_real, 3 * d), heads)
-    return _mlp_residual(qb, xf + _static_linear3(oq.reshape(bf, m, d), qb["out"]))
+    return xf + _static_linear3(oq.reshape(bf, m, d), qb["out"])
 
 
 def _ln_quant_rows(x2d: torch.Tensor, ln: Params) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -585,20 +537,25 @@ def _ln_quant_rows(x2d: torch.Tensor, ln: Params) -> Tuple[torch.Tensor, torch.T
     return quantize_rows(y * ln["scale"].float() + ln["bias"].float())
 
 
-def _qblock_forward_xla(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                        attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
-    """The dynamic tier's block (``quant.py:_qblock_forward_xla``): every GEMM
-    input quantized per row at run time (:func:`quantize_rows`), the GEMMs
-    :func:`int8_linear_xla` with the exact GELU, the bf16 attention
-    (:func:`attention_core`, with ``attn_impl``) between them."""
+def _attn_xla(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+              attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The dynamic tier's attention (``quant.py:_qblock_forward_xla``): every
+    GEMM input quantized per row at run time (:func:`quantize_rows`), the
+    GEMMs :func:`int8_linear_xla`, the bf16 attention (:func:`attention_core`,
+    with ``attn_impl``) between them."""
     b, s, d = x.shape
     hq, hs = _ln_quant_rows(x.reshape(b * s, d), qb["ln_1"])
     qkv = int8_linear_xla(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
     o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
                        kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
     oq, osc = quantize_rows(o.reshape(b * s, d))
-    x = x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
-                            qb["out"]["b"]).reshape(b, s, d)
+    return x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
+                               qb["out"]["b"]).reshape(b, s, d)
+
+
+def _mlp_xla(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The dynamic tier's MLP: per-row quantized GEMM inputs, the exact GELU."""
+    b, s, d = x.shape
     hq, hs = _ln_quant_rows(x.reshape(b * s, d), qb["ln_2"])
     h = int8_linear_xla(hq, qb["fc"]["w_q"], hs, qb["fc"]["scale"], qb["fc"]["b"],
                         activation="gelu")
@@ -626,49 +583,59 @@ def _mlp_blockscale(qb: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return x + proj.reshape(b, s, d)
 
 
-def _qblock_forward_hybrid(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                           attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
-    """The ``hybrid`` tier's block (``quant.py:_qblock_forward_hybrid``):
+def _attn_hybrid(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                 attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The ``hybrid`` tier's attention (``quant.py:_qblock_forward_hybrid``):
     :func:`ln_quantize` -> the qkv GEMM :func:`int8_linear_xla` -> bf16
     attention (:func:`attention_core`, with ``attn_impl``) -> per-row
-    quantize -> the out GEMM :func:`int8_linear_xla` -> residual; then
-    :func:`_mlp_blockscale`."""
+    quantize -> the out GEMM :func:`int8_linear_xla` -> residual."""
     b, s, d = x.shape
     hq, hs = ln_quantize(x.reshape(b * s, d), qb["ln_1"]["scale"], qb["ln_1"]["bias"])
     qkv = int8_linear_xla(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
     o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
                        kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
     oq, osc = quantize_rows(o.reshape(b * s, d))
-    x = x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
-                            qb["out"]["b"]).reshape(b, s, d)
-    return _mlp_blockscale(qb, x)
+    return x + int8_linear_xla(oq, qb["out"]["w_q"], osc, qb["out"]["scale"],
+                               qb["out"]["b"]).reshape(b, s, d)
 
 
-def _qblock_forward_pallas(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
-                           attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
-    """The ``pallas`` tier's block (``quant.py:_qblock_forward``): as
-    :func:`_qblock_forward_hybrid` with the qkv GEMM in the :func:`int8_linear`
-    kernel and the out GEMM :func:`_qlinear`."""
+def _attn_pallas(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *,
+                 attn_impl: str = "auto", causal: bool = False) -> torch.Tensor:
+    """The ``pallas`` tier's attention (``quant.py:_qblock_forward``): as
+    :func:`_attn_hybrid` with the qkv GEMM in the :func:`int8_linear` kernel
+    and the out GEMM :func:`_qlinear`."""
     b, s, d = x.shape
     hq, hs = ln_quantize(x.reshape(b * s, d), qb["ln_1"]["scale"], qb["ln_1"]["bias"])
     qkv = int8_linear(hq, qb["qkv"]["w_q"], hs, qb["qkv"]["scale"], qb["qkv"]["b"])
     o = attention_core(qkv.reshape(b, s, 3 * d), heads, causal=causal,
                        kv_len=_masked_kv_len(kv_len, s), impl=attn_impl)
-    x = x + _qlinear(o.reshape(b * s, d), qb["out"]).reshape(b, s, d)
-    return _mlp_blockscale(qb, x)
+    return x + _qlinear(o.reshape(b * s, d), qb["out"]).reshape(b, s, d)
 
 
 _GEMM_IMPLS = ("xla", "hybrid", "static", "static_qa", "static3d", "static3d_qa", "static3d_qaf",
                "static3d_qi", "static3d_qis", "static3d_qib", "static3d_qi2", "pallas")
 _DYNAMIC_TIERS = ("xla", "hybrid", "pallas")
-# the block of each route that runs one block function in every layer
-# (``quant.py:1179-1190``); static3d_qis and static3d_qib have their own loops.
-# It is also the text tower's table (``quant.py:1010-1019``).
-_BLOCKS = {"xla": _qblock_forward_xla, "hybrid": _qblock_forward_hybrid,
-           "pallas": _qblock_forward_pallas, "static": _qblock_forward_static,
-           "static_qa": _qblock_forward_static_qa, "static3d": _qblock_forward_static3d,
-           "static3d_qa": _qblock_forward_static3d_qa, "static3d_qaf": _qblock_forward_static3d_qaf,
-           "static3d_qi": _qblock_forward_static3d_qi, "static3d_qi2": _qblock_forward_static3d_qi2}
+# the (attention, MLP) halves of each route that runs one block function in
+# every layer (``quant.py:1179-1190``); static3d_qis and static3d_qib have
+# their own loops. It is also the text tower's table (``quant.py:1010-1019``).
+# The static routes' 2-D forms (``static``, ``static_qa``) take the tanh GELU
+# whatever ``TEAM_GELU`` says.
+_BLOCKS = {
+    "xla": (_attn_xla, _mlp_xla),
+    "hybrid": (_attn_hybrid, _mlp_blockscale),
+    "pallas": (_attn_pallas, _mlp_blockscale),
+    "static": (partial(_attn_bf16, produce=_ln_quant_kernel, requant=_row_quant_kernel),
+               partial(_mlp_residual, produce=_ln_quant_kernel, gelu="gelu_tanh")),
+    "static3d": (partial(_attn_bf16, produce=_ln_then_quant, requant=_static_quant3),
+                 partial(_mlp_residual, produce=_ln_then_quant)),
+    "static_qa": (partial(_attn_int8_io, produce=_ln_quant_kernel, two_d=True),
+                  partial(_mlp_residual, produce=_ln_quant_kernel, gelu="gelu_tanh")),
+    "static3d_qa": (partial(_attn_int8_io, produce=_ln_then_quant, two_d=False),
+                    partial(_mlp_residual, produce=_ln_then_quant)),
+    "static3d_qaf": (partial(_attn_int8_io, produce=_ln_quant3, two_d=False), _mlp_residual),
+    "static3d_qi": (_attn_static3d_qi, _mlp_residual),
+    "static3d_qi2": (partial(_attn_static3d_qi, pv_int8=True), _mlp_residual),
+}
 _CLS_MODES = ("attn", "mlp", "kq", "kqs")
 
 
@@ -697,10 +664,29 @@ def _cls_mode(cls_last) -> str:
     return cls_last
 
 
-def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig, *,
-                        attn_impl: str, gemm_impl: str, cls_last) -> torch.Tensor:
-    """The quantized tower over patch tokens ``[B, g*g, width]`` ->
-    ``[B, embed_dim]`` float32 (``quant.py:_encode_tokens_int8``).
+def _staged_block(qb: Dict[str, Any], x: torch.Tensor, attn, mlp, *args, **kw) -> torch.Tensor:
+    """One block of the image tower, ``attn(qb, x, *args, **kw)`` then
+    ``mlp``, each half in its stage span."""
+    with phase(phase_timer.ATTN_BLOCK):
+        x = attn(qb, x, *args, **kw)
+    with phase(phase_timer.MLP_BLOCK):
+        return mlp(qb, x)
+
+
+def _embed_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
+    """The CLS token and position embeddings over patch tokens, then ``ln_pre``."""
+    cls = _bf16(qvision["cls"]).expand(tokens.shape[0], 1, cfg.vision.width)
+    x = torch.cat([cls, _bf16(tokens)], dim=1) + _bf16(qvision["pos"])
+    return _layer_norm(qvision["ln_pre"], x)
+
+
+def _tower_int8(qvision: Dict[str, Any], patch_tokens, cfg: CLIPConfig, *,
+                attn_impl: str, gemm_impl: str, cls_last) -> torch.Tensor:
+    """The quantized tower -> ``[B, embed_dim]`` float32
+    (``quant.py:_encode_tokens_int8``), each stage in its span: the embedding
+    (``patch_tokens()``, the function that makes the bf16 patch tokens
+    ``[B, g*g, width]``, then :func:`_embed_int8`; the tokens' intermediates
+    are freed before the blocks run), the blocks' halves, the head.
     ``cls_last`` (:func:`_cls_mode`) picks the last block's CLS-only form on
     ``static3d_qi``; ``static3d_qib``'s last block is always ``"kq"``; the other
     routes run every block in full and ignore it, as in team_tpu.
@@ -709,14 +695,13 @@ def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIP
     ``_maybe_pad_seq`` is not ported (off on the CPU in team_tpu too)."""
     check_route(gemm_impl)
     v = cfg.vision
-    cls = _bf16(qvision["cls"]).expand(tokens.shape[0], 1, v.width)
-    x = torch.cat([cls, _bf16(tokens)], dim=1) + _bf16(qvision["pos"])
-    x = _layer_norm(qvision["ln_pre"], x)
+    with phase(phase_timer.EMBED):
+        x = _embed_int8(qvision, patch_tokens(), cfg)
     blocks = qvision["blocks"]
     if gemm_impl == "static3d_qis":
         x = x.transpose(0, 1).contiguous()  # [S, B, D], one transpose in
         for qb in blocks:
-            x = _qblock_forward_static3d_qis(qb, x, v.heads)
+            x = _staged_block(qb, x, _attn_static3d_qis, _mlp_residual, v.heads)
         x = x[0]
     elif gemm_impl == "static3d_qib":
         b_real, s_real = x.shape[:2]
@@ -725,23 +710,21 @@ def _encode_tokens_int8(qvision: Dict[str, Any], tokens: torch.Tensor, cfg: CLIP
             bf = 1
         xf = x.reshape(bf, (b_real // bf) * s_real, v.width)
         for qb in blocks[:-1]:
-            xf = _qblock_forward_static3d_qib(qb, xf, v.heads, b_real, s_real)
-        x = _qblock_forward_static3d_qi_clsmlp(blocks[-1], xf.reshape(b_real, s_real, v.width),
-                                               v.heads, "kq")[:, 0]
+            xf = _staged_block(qb, xf, _attn_static3d_qib, _mlp_residual, v.heads, b_real, s_real)
+        x = _staged_block(blocks[-1], xf.reshape(b_real, s_real, v.width), _attn_cls,
+                          _mlp_residual, v.heads, "kq")[:, 0]
     else:
-        block = _BLOCKS[gemm_impl]
+        attn, mlp = _BLOCKS[gemm_impl]
         mode = _cls_mode(cls_last)
         use_cls = gemm_impl == "static3d_qi" and mode in _CLS_MODES
         for qb in (blocks[:-1] if use_cls else blocks):
-            x = block(qb, x, v.heads, v.seq_len, attn_impl=attn_impl)
-        if not use_cls:
-            x = x[:, 0]
-        elif mode == "attn":
-            x = _qblock_forward_static3d_qi_cls(blocks[-1], x, v.heads)[:, 0]
-        else:
-            x = _qblock_forward_static3d_qi_clsmlp(blocks[-1], x, v.heads, mode)[:, 0]
-    x = _layer_norm(qvision["ln_post"], x)
-    return (x @ _bf16(qvision["proj"])).float()
+            x = _staged_block(qb, x, attn, mlp, v.heads, v.seq_len, attn_impl=attn_impl)
+        if use_cls:
+            x = _staged_block(blocks[-1], x, _attn_cls, _mlp_residual, v.heads, mode)
+        x = x[:, 0]
+    with phase(phase_timer.HEAD):
+        x = _layer_norm(qvision["ln_post"], x)
+        return (x @ _bf16(qvision["proj"])).float()
 
 
 def encode_image_int8(qvision: Dict[str, Any], images: torch.Tensor, cfg: CLIPConfig, *,
@@ -750,9 +733,8 @@ def encode_image_int8(qvision: Dict[str, Any], images: torch.Tensor, cfg: CLIPCo
     """Quantized image tower: ``[B, H, W, 3]`` normalized images ->
     ``[B, embed_dim]`` float32. The patch embedding stays bf16."""
     fake = {"vision": {"patch_w": qvision["patch_w"]}}
-    tokens = embed_patches(fake, images, cfg, compute_dtype=BF16)
-    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
-                               cls_last=cls_last)
+    return _tower_int8(qvision, lambda: embed_patches(fake, images, cfg, compute_dtype=BF16), cfg,
+                       attn_impl=attn_impl, gemm_impl=gemm_impl, cls_last=cls_last)
 
 
 def encode_image_int8_u8(qvision: Dict[str, Any], images_u8: torch.Tensor, cfg: CLIPConfig, *,
@@ -765,11 +747,14 @@ def encode_image_int8_u8(qvision: Dict[str, Any], images_u8: torch.Tensor, cfg: 
     if images_u8.dtype != torch.uint8 or tuple(images_u8.shape[1:3]) != (v.image_size,) * 2:
         raise ValueError(f"needs uint8 images of {v.image_size}x{v.image_size}, got "
                          f"{images_u8.dtype} {tuple(images_u8.shape)}")
-    px_u8 = patch_pixels(images_u8, cfg, compute_dtype=torch.uint8)
-    scale, bias = patch_norm_consts(v.patch_size, device=images_u8.device)
-    tokens = _bf16(px_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
-    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
-                               cls_last=cls_last)
+
+    def patch_tokens():
+        px_u8 = patch_pixels(images_u8, cfg, compute_dtype=torch.uint8)
+        scale, bias = patch_norm_consts(v.patch_size, device=images_u8.device)
+        return _bf16(px_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
+
+    return _tower_int8(qvision, patch_tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
+                       cls_last=cls_last)
 
 
 def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor, cfg: CLIPConfig,
@@ -786,16 +771,17 @@ def encode_image_int8_patches(qvision: Dict[str, Any], patches_u8: torch.Tensor,
         patch_dot = os.environ.get("TEAM_PATCH_DOT", "int8")
     if patch_dot not in ("int8", "bf16"):
         raise ValueError(f"patch_dot must be 'int8' or 'bf16', got {patch_dot!r}")
-    if patch_dot == "int8" and "patch_q" in qvision:
-        pq = qvision["patch_q"]
-        x_i8 = (patches_u8.int() - 128).to(torch.int8)
-        acc = int8_matmul(x_i8, pq["w_q"])
-        tokens = _bf16(acc.float() * pq["scale"].reshape(-1) + pq["const"].reshape(-1))
-    else:
+
+    def patch_tokens():
+        if patch_dot == "int8" and "patch_q" in qvision:
+            pq = qvision["patch_q"]
+            acc = int8_matmul((patches_u8.int() - 128).to(torch.int8), pq["w_q"])
+            return _bf16(acc.float() * pq["scale"].reshape(-1) + pq["const"].reshape(-1))
         scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
-        tokens = _bf16(patches_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
-    return _encode_tokens_int8(qvision, tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
-                               cls_last=cls_last)
+        return _bf16(patches_u8.float() * scale + bias) @ _bf16(qvision["patch_w"])
+
+    return _tower_int8(qvision, patch_tokens, cfg, attn_impl=attn_impl, gemm_impl=gemm_impl,
+                       cls_last=cls_last)
 
 
 # ---------------------------------------------------------------------------
@@ -857,12 +843,12 @@ def encode_text_int8(qtext: Dict[str, Any], tokens: torch.Tensor, cfg: CLIPConfi
     if gemm_impl not in _BLOCKS:
         raise ValueError(f"encode_text_int8 takes gemm_impl in {sorted(_BLOCKS)}, got "
                          f"{gemm_impl!r}")
-    block = _BLOCKS[gemm_impl]
+    attn, mlp = _BLOCKS[gemm_impl]
     t = cfg.text
     tokens = tokens.long()
     x = _bf16(qtext["token_embedding"][tokens]) + _bf16(qtext["pos"])
     for qb in qtext["blocks"]:
-        x = block(qb, x, t.heads, t.context_length, attn_impl=attn_impl, causal=True)
+        x = mlp(qb, attn(qb, x, t.heads, t.context_length, attn_impl=attn_impl, causal=True))
     x = _layer_norm(qtext["ln_final"], x)
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     return (x @ _bf16(qtext["proj"])).float()

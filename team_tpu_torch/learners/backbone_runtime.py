@@ -46,6 +46,8 @@ from team_tpu_torch.config import Config
 from team_tpu_torch.ops.preprocess import preprocess_batch
 from team_tpu_torch.parallel import collectives
 from team_tpu_torch.parallel.layout import resolve_device
+from team_tpu_torch.utils import phase_timer
+from team_tpu_torch.utils.phase_timer import phase
 
 _KNOWN_TYPES = ("clip", "clip_laion2b", "openai_clip")
 GATE_MIN_COSINE = 0.999
@@ -117,20 +119,23 @@ class BackboneRuntime:
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """``[B, H, W, 3]`` float or uint8, or patch-major uint8
         ``[B, g*g, 3*ps*ps]`` -> ``[B, embed_dim]`` float32."""
-        if self.encoder_quant == "int8_static":
-            if self._qvision is None and self._qvision_pending is None:
-                self._try_load_int8_cache()
-            if self._qvision is not None:
-                return self._encode_int8(self._qvision, images)
-            if self._qvision_pending is None:
-                return self._calibrate_int8(images)
-            return self._gate_int8(images)
-        kw = dict(compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
-        if self._is_patch_major(images):
-            return encode_image_patches_u8(self.params, images, self.clip_cfg, **kw)
-        if images.dtype == torch.uint8:
-            images = preprocess_batch(images, self.clip_cfg.vision.image_size)
-        return encode_image(self.params, images, self.clip_cfg, **kw)
+        with phase(phase_timer.ENCODE_IMAGE):
+            if self.encoder_quant == "int8_static":
+                if self._qvision is None and self._qvision_pending is None:
+                    self._try_load_int8_cache()
+                if self._qvision is not None:
+                    return self._encode_int8(self._qvision, images)
+                if self._qvision_pending is None:
+                    with phase(phase_timer.CALIBRATE):
+                        return self._calibrate_int8(images)
+                with phase(phase_timer.GATE):
+                    return self._gate_int8(images)
+            kw = dict(compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
+            if self._is_patch_major(images):
+                return encode_image_patches_u8(self.params, images, self.clip_cfg, **kw)
+            if images.dtype == torch.uint8:
+                images = preprocess_batch(images, self.clip_cfg.vision.image_size)
+            return encode_image(self.params, images, self.clip_cfg, **kw)
 
     # -- int8 static tier ------------------------------------------------
     @property

@@ -19,6 +19,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
+from team_tpu_torch.utils import phase_timer
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "team_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,14 +53,23 @@ def _target(source: str) -> Path:
 
 def _compile(sources: Iterable[str]) -> None:
     """Compile the sources whose library is not built yet, one ``nvcc`` each,
-    all started together; wait for every one of them."""
+    all started together; wait for every one of them (in one
+    ``kernels.build`` span; the ``kernels.built`` counter counts the sources)."""
+    todo = [(source, _target(source)) for source in dict.fromkeys(sources)
+            if source not in _LIBS]
+    todo = [(source, out) for source, out in todo if not out.exists()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    phase_timer.count(phase_timer.KERNELS_BUILT, len(todo))
+    with phase_timer.phase(phase_timer.KERNELS_BUILD):
+        _run_nvcc(todo)
+
+
+def _run_nvcc(todo) -> None:
     jobs = []
     try:
-        for source in dict.fromkeys(sources):
-            out = _target(source)
-            if source in _LIBS or out.exists():
-                continue
+        for source, out in todo:
             # build beside the target and rename: a concurrent process never loads a torn file
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)

@@ -132,7 +132,7 @@ def run(cfg: Config, golden_dir: str = GOLDEN_DIR, pin: Optional[str] = None) ->
     t0 = time.time()
     res = train(cfg)
     wall = time.time() - t0
-    if phase_timer.ENABLED:
+    if phase_timer.enabled():
         print("--- phase attribution (TEAM_PHASE_TIMES=1) ---")
         print(phase_timer.format_report())
     curve = [float(a) for a in res["cnn_top1"]]

@@ -7,11 +7,15 @@ scales are calibrated once, per input channel, on a batch
 
 - ``_static_linear3``: int8 x int8 -> int32 GEMM (``torch._int_mm`` on the
   card), then an f32 dequant and bias, tanh GELU, and a static requantize to
-  int8 or a cast to bf16;
+  int8 (:func:`team_tpu_torch.ops.int8_matmul.static_requant`) or a cast to
+  bf16 with the block's residual added
+  (:func:`team_tpu_torch.ops.int8_matmul.static_residual`); the card runs
+  each epilogue in one kernel, as team_tpu's XLA fuses it into the dot;
 - the layer norm before the qkv and fc GEMMs reaches int8 by one of three
-  producers: ``_ln_quant3`` (one pass, E[x²]−E[x]², affine folded),
-  :func:`team_tpu_torch.ops.int8_matmul.ln_quantize_static` (two passes; a
-  kernel), or the bf16 layer norm then ``_static_quant3``.
+  producers: ``_ln_quant3`` (one pass, E[x²]−E[x]², affine folded;
+  :func:`team_tpu_torch.ops.int8_matmul.ln_quant_folded`, one kernel on the
+  card), :func:`team_tpu_torch.ops.int8_matmul.ln_quantize_static` (two
+  passes; a kernel), or the bf16 layer norm then ``_static_quant3``.
 
 The routes (``gemm_impl``, the block table ``_BLOCKS`` of ``_tower_int8``):
 
@@ -80,8 +84,11 @@ from team_tpu_torch.backbone.clip import (CLIPConfig, Params, _layer_norm, atten
 from team_tpu_torch.bridge import tree_to
 from team_tpu_torch.ops.int8_matmul import (INV127, int8_linear, int8_linear_blockscale,
                                             int8_linear_gelu_quant, int8_linear_xla, int8_matmul,
+                                            ln_quant_folded, ln_quant_folded_reference,
                                             ln_quantize, ln_quantize_static, quantize_rows,
-                                            quantize_weight, row_quant_static)
+                                            quantize_weight, row_quant_static,
+                                            static_dequant_reference, static_requant,
+                                            static_residual)
 from team_tpu_torch.ops.mha_short import (fused_mha_packed_q, fused_mha_packed_q3,
                                           fused_mha_packed_q3i_cls, fused_mha_packed_q3i_cls_split,
                                           fused_mha_packed_q3i_sb, fused_mha_packed_q3i_tp, tp_mesh)
@@ -286,47 +293,64 @@ def _static_quant3(x3: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
     return _quant(x3.float(), inv_a)
 
 
+def _gelu_mode(activation: Optional[str]) -> Optional[str]:
+    """The activation of :func:`_static_linear3` as :func:`static_requant`
+    takes it. ``activation="gelu"`` reads ``TEAM_GELU``: ``"tanh"`` (the
+    default), ``"sigmoid"`` (x·σ(1.702x)), ``"none"`` (no activation: a
+    diagnostic of team_tpu's, with wrong numerics); ``"gelu_tanh"`` always
+    takes tanh."""
+    if activation not in ("gelu", "gelu_tanh"):
+        return None
+    mode = os.environ.get("TEAM_GELU", "tanh") if activation == "gelu" else "tanh"
+    if mode == "none":
+        return None
+    return "sigmoid" if mode == "sigmoid" else "tanh"
+
+
 def _static_linear3(q3: torch.Tensor, site: Dict[str, torch.Tensor], activation: Optional[str] = None,
-                    quant_inv_a: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    quant_inv_a: Optional[torch.Tensor] = None,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K] int8 @ [K, N] int8`` -> int32, then f32 dequant and bias,
     optional tanh GELU, and a static requantize to int8 (``quant_inv_a``) or
-    a cast to bf16. Both of team_tpu's forms, the 2-D ``_static_linear`` of
-    the ``static``/``static_qa`` routes and the 3-D ``_static_linear3``: the
-    arithmetic is the same, and ``int8_matmul`` takes any leading dims; only
-    the 3-D form reads ``TEAM_GELU`` (``activation="gelu"``), the 2-D one
-    always takes tanh (``activation="gelu_tanh"``)."""
+    a cast to bf16 added to ``residual`` where one is given. Both of
+    team_tpu's forms, the 2-D ``_static_linear`` of the ``static``/``static_qa``
+    routes and the 3-D ``_static_linear3``: the arithmetic is the same, and
+    ``int8_matmul`` takes any leading dims; only the 3-D form reads
+    ``TEAM_GELU`` (``activation="gelu"``), the 2-D one always takes tanh
+    (``activation="gelu_tanh"``). On the card each epilogue is one kernel
+    (:func:`static_requant`, :func:`static_residual`), which takes widths
+    divisible by 8 and a bf16 residual, and a GELU only before a requantize
+    (the fc GEMM's): the forms no route takes raise there. On the CPU the
+    composition runs and takes them all, as team_tpu's does."""
+    if quant_inv_a is not None and residual is not None:
+        raise ValueError("_static_linear3: a requantized output takes no residual")
+    act = _gelu_mode(activation)
+    on_card = q3.device.type != "cpu"
+    if on_card and quant_inv_a is None and act is not None:
+        raise ValueError("_static_linear3: on the card a GELU output is requantized (give "
+                         "quant_inv_a)")
     acc = int8_matmul(q3, site["w_q"])
-    out = acc.float() * site["scale"].reshape(-1) + site["b"].reshape(-1)
-    if activation in ("gelu", "gelu_tanh"):
-        # TEAM_GELU: "tanh" (the default), "sigmoid" (x·σ(1.702x)), "none"
-        # (no activation: a diagnostic of team_tpu's, with wrong numerics)
-        mode = os.environ.get("TEAM_GELU", "tanh") if activation == "gelu" else "tanh"
-        if mode == "sigmoid":
-            out = out * torch.sigmoid(1.702 * out)
-        elif mode != "none":
-            out = F.gelu(out, approximate="tanh")
+    if on_card:
+        if quant_inv_a is not None:
+            return static_requant(acc, site["scale"], site["b"], quant_inv_a, activation=act)
+        return static_residual(acc, site["scale"], site["b"], residual)
+    out = static_dequant_reference(acc, site["scale"], site["b"], act)
     if quant_inv_a is not None:
         return _quant(out, quant_inv_a)
-    return _bf16(out)
+    out = _bf16(out)
+    return out if residual is None else residual + out
 
 
 def _ln_quant3(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
     """Layer norm -> static int8 over ``[..., D]``, the LN affine folded into
-    the quantize constants. ``TEAM_LN_MODE`` ``1pass`` (the default): the
-    variance is max(E[x²]−E[x]², 0) in one pass (the JAX tier's form, not
+    the quantize constants: :func:`ln_quant_folded`, one kernel on the card
+    (bf16, widths divisible by 8); its composition on the CPU, which takes
+    any float width. ``TEAM_LN_MODE`` ``1pass`` (the default): the variance
+    is max(E[x²]−E[x]², 0) in one pass (the JAX tier's form, not
     ``torch.var``); any other value: the two-pass mean and variance."""
-    x32 = x3.float()
-    n = x3.shape[-1]
-    if os.environ.get("TEAM_LN_MODE", "1pass") == "1pass":
-        mean = x32.sum(dim=-1, keepdim=True) / n
-        var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / n - mean * mean, min=0.0)
-    else:
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = x32.var(dim=-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
-    inv = inv_a.reshape(-1)
-    return torch.clamp(torch.round(y * (ln["scale"].float() * inv) + ln["bias"].float() * inv),
-                       -127, 127).to(torch.int8)
+    produce = ln_quant_folded_reference if x3.device.type == "cpu" else ln_quant_folded
+    return produce(x3, ln["scale"], ln["bias"], inv_a,
+                   two_pass=os.environ.get("TEAM_LN_MODE", "1pass") != "1pass")
 
 
 def _ln_quant_kernel(x3: torch.Tensor, ln: Params, inv_a: torch.Tensor) -> torch.Tensor:
@@ -361,7 +385,7 @@ def _mlp_residual(qb: Dict[str, Any], x: torch.Tensor, produce=_ln_quant3,
     proj GEMM -> residual."""
     g = _static_linear3(produce(x, qb["ln_2"], qb["fc"]["inv_a"]), qb["fc"],
                         activation=gelu, quant_inv_a=qb["proj"]["inv_a"])
-    return x + _static_linear3(g, qb["proj"])
+    return _static_linear3(g, qb["proj"], residual=x)
 
 
 def _masked_kv_len(kv_len, s: int):
@@ -401,7 +425,7 @@ def _attn_static3d_qi(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *
     residual. ``attn_impl`` is ignored: the kernel is the attention."""
     oq = _q3i_attention(qb, _qkv_int8(qb, x), heads, causal=causal,
                         kv_len=_masked_kv_len(kv_len, x.shape[1]), pv_int8=pv_int8)
-    return x + _static_linear3(oq, qb["out"])
+    return _static_linear3(oq, qb["out"], residual=x)
 
 
 def _attn_bf16(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, produce, requant,
@@ -413,7 +437,7 @@ def _attn_bf16(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, produ
     qkv = _static_linear3(produce(x, qb["ln_1"], site["inv_a"]), site)
     o = attention_core(qkv, heads, causal=causal, kv_len=_masked_kv_len(kv_len, x.shape[1]),
                        impl=attn_impl)
-    return x + _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"])
+    return _static_linear3(requant(o, qb["out"]["inv_a"]), qb["out"], residual=x)
 
 
 def _attn_int8_io(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, produce,
@@ -433,7 +457,7 @@ def _attn_int8_io(qb: Dict[str, Any], x: torch.Tensor, heads: int, kv_len, *, pr
                                 heads, seq=s, **kw).reshape(b, s, d)
     else:
         oq = fused_mha_packed_q3(qkvq, site["deq"], qb["out"]["inv_a"], heads, **kw)
-    return x + _static_linear3(oq, qb["out"])
+    return _static_linear3(oq, qb["out"], residual=x)
 
 
 def _attn_cls(qb: Dict[str, Any], x: torch.Tensor, heads: int, mode: str) -> torch.Tensor:
@@ -470,7 +494,7 @@ def _attn_cls(qb: Dict[str, Any], x: torch.Tensor, heads: int, mode: str) -> tor
                            heads, qk_m2=site.get("qk_m2"))
     else:
         oq = _q3i_attention(qb, _qkv_int8(qb, x), heads)[:, :1]
-    return x[:, :1] + _static_linear3(oq, qb["out"])
+    return _static_linear3(oq, qb["out"], residual=x[:, :1])
 
 
 def _cls_attn_q3i(qkvq: torch.Tensor, deq: torch.Tensor, qk_scale: torch.Tensor,
@@ -512,7 +536,7 @@ def _attn_static3d_qis(qb: Dict[str, Any], x: torch.Tensor, heads: int) -> torch
     site = qb["qkv"]
     oq = fused_mha_packed_q3i_sb(_qkv_int8(qb, x), site["deq_i"], site["qk_scale"],
                                  qb["out"]["inv_a"], heads)
-    return x + _static_linear3(oq, qb["out"])
+    return _static_linear3(oq, qb["out"], residual=x)
 
 
 def _attn_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: int, b_real: int,
@@ -524,7 +548,7 @@ def _attn_static3d_qib(qb: Dict[str, Any], xf: torch.Tensor, heads: int, b_real:
     Non-causal, every key."""
     bf, m, d = xf.shape
     oq = _q3i_attention(qb, _qkv_int8(qb, xf).reshape(b_real, s_real, 3 * d), heads)
-    return xf + _static_linear3(oq.reshape(bf, m, d), qb["out"])
+    return _static_linear3(oq.reshape(bf, m, d), qb["out"], residual=xf)
 
 
 def _ln_quant_rows(x2d: torch.Tensor, ln: Params) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -13,6 +13,11 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   calibrated per-channel scale, in one read and one write; ``ln_quantize``
   (``_ln_quant_kernel``): the layer norm to int8 with a dynamic per-row
   scale; CUDA kernels ``csrc/int8_quant.cu``;
+- the static tower's epilogues, which team_tpu's XLA fuses into its dots:
+  ``static_requant`` (int32 GEMM sums to int8: dequant, bias, GELU,
+  requantize), ``static_residual`` (to bf16, plus the residual) and
+  ``ln_quant_folded`` (``_ln_quant3``'s layer norm to int8); one kernel
+  each in ``csrc/int8_quant.cu``;
 - the GEMMs of the ``hybrid`` and ``pallas`` tiers: ``int8_linear`` and its
   TPU tilings ``int8_linear_nk``, ``_kgrid``, ``_wres`` and ``_dma`` (one
   kernel), ``int8_linear_gelu_quant`` (GEMM, GELU and a requantize with one
@@ -151,7 +156,14 @@ def row_quant_static_reference(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Te
     return _quantize_static(x.float() * inv_a.reshape(-1).float())
 
 
+_QUANT_LIB: Optional[ctypes.CDLL] = None
+
+
 def _quant_library() -> ctypes.CDLL:
+    """The quantize source's library, built and bound once."""
+    global _QUANT_LIB
+    if _QUANT_LIB is not None:
+        return _QUANT_LIB
     from team_tpu_torch.ops._build import load_library
 
     lib = load_library(_QUANT_SOURCE)
@@ -161,10 +173,18 @@ def _quant_library() -> ctypes.CDLL:
                                                                   ctypes.c_void_p]
     lib.team_ln_quantize.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                                              ctypes.c_void_p]
-    lib.team_ln_quantize_static.restype = ctypes.c_int
-    lib.team_ln_quantize.restype = ctypes.c_int
-    lib.team_row_quant_static.restype = ctypes.c_int
-    lib.team_ln_quantize_static_max_width.restype = ctypes.c_int
+    lib.team_static_requant.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.team_static_residual.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                                                 ctypes.c_void_p, ctypes.c_int,
+                                                                 ctypes.c_int, ctypes.c_void_p]
+    lib.team_ln_quant_folded.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    for entry in (lib.team_ln_quantize_static, lib.team_ln_quantize, lib.team_row_quant_static,
+                  lib.team_static_requant, lib.team_static_residual, lib.team_ln_quant_folded,
+                  lib.team_ln_quantize_static_max_width):
+        entry.restype = ctypes.c_int
+    _QUANT_LIB = lib
     return lib
 
 
@@ -182,13 +202,18 @@ def _quant_operands(name: str, x: torch.Tensor, vectors) -> list:
         raise ValueError(f"{name}: x must be [M, D], got {tuple(x.shape)}")
     if not x.dtype.is_floating_point:
         raise TypeError(f"{name}: x must be a float tensor, got {x.dtype}")
-    d = x.shape[1]
+    return _flat_vectors(name, vectors, "D", x.shape[1], x.device, "x")
+
+
+def _flat_vectors(name: str, vectors, dim: str, n: int, device: torch.device, what: str) -> list:
+    """Each ``(name, vector)`` of ``vectors`` checked to hold ``n`` values on
+    ``device``, as flat float32, 16-byte aligned."""
     out = []
     for vname, t in vectors:
-        if t.numel() != d:
-            raise ValueError(f"{name}: {vname} must hold D={d} values, got {tuple(t.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"{name}: {vname} lies on {t.device}, x on {x.device}")
+        if t.numel() != n:
+            raise ValueError(f"{name}: {vname} must hold {dim}={n} values, got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: {vname} lies on {t.device}, {what} on {device}")
         t = t.reshape(-1).float().contiguous()
         out.append(t if t.data_ptr() % 16 == 0 else t.clone())
     return out
@@ -321,6 +346,174 @@ def row_quant_static(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
                                                      torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "row_quant_static")
     row_quant_static.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the static tower's epilogues: int32 GEMM sums to int8 or to bf16 (plus the
+# residual), and its layer norm to int8, each one kernel on the card
+# ---------------------------------------------------------------------------
+
+# the activations of the static requantize, as its kernel numbers them
+STATIC_ACTIVATIONS = {None: 0, "tanh": 1, "sigmoid": 2}
+
+
+def static_dequant_reference(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                             activation: Optional[str] = None) -> torch.Tensor:
+    """``f32(acc)·scale + bias`` (two roundings), then ``activation``: None;
+    ``"tanh"``, PyTorch's tanh GELU; ``"sigmoid"``, ``x·σ(1.702x)``."""
+    out = acc.float() * scale.reshape(-1) + bias.reshape(-1)
+    if activation == "sigmoid":
+        return out * torch.sigmoid(1.702 * out)
+    if activation == "tanh":
+        return F.gelu(out, approximate="tanh")
+    return out
+
+
+def static_requant_reference(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                             inv_a: torch.Tensor, activation: Optional[str] = None) -> torch.Tensor:
+    """:func:`static_dequant_reference`, then ``clip(round(v·inv_a), ±127)`` to int8."""
+    return _quantize_static(static_dequant_reference(acc, scale, bias, activation)
+                            * inv_a.reshape(-1))
+
+
+def static_residual_reference(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bf16(f32(acc)·scale + bias)``, added to ``residual`` where one is given."""
+    out = static_dequant_reference(acc, scale, bias).to(torch.bfloat16)
+    return out if residual is None else residual + out
+
+
+def ln_quant_folded_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                              inv_a: torch.Tensor, two_pass: bool = False) -> torch.Tensor:
+    """The layer norm to static int8 over ``[..., D]`` with the affine folded
+    into the quantize constants: the variance max(E[x²]−E[x]², 0) in one pass
+    (the JAX tier's form, not ``torch.var``), or with ``two_pass`` the
+    two-pass mean and variance; ``clip(round(y·(γ·inv_a) + β·inv_a), ±127)``."""
+    x32 = x.float()
+    n = x.shape[-1]
+    if two_pass:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
+    else:
+        mean = x32.sum(dim=-1, keepdim=True) / n
+        var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / n - mean * mean, min=0.0)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    inv = inv_a.reshape(-1)
+    return _quantize_static(y * (gamma.reshape(-1).float() * inv) + beta.reshape(-1).float() * inv)
+
+
+def _epilogue_vectors(name: str, t: torch.Tensor, vectors) -> list:
+    """Check the width of ``t [..., N]`` and the per-column vectors; returns
+    the vectors as flat float32 on t's device, 16-byte aligned."""
+    if t.dim() < 2:
+        raise ValueError(f"{name}: the input must be [..., M, N], got {tuple(t.shape)}")
+    n = t.shape[-1]
+    if n % 8:
+        raise ValueError(f"{name}: the kernel takes widths divisible by 8, got N={n}")
+    return _flat_vectors(name, vectors, "N", n, t.device, "the input")
+
+
+def _int32_sums(name: str, acc: torch.Tensor, vectors) -> list:
+    if acc.dtype != torch.int32:
+        raise TypeError(f"{name}: acc must be the int32 GEMM sums, got {acc.dtype}")
+    vecs = _epilogue_vectors(name, acc, vectors)
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {acc.device}")
+    return vecs
+
+
+def _kernel_rows(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous, 16-byte-aligned ``[M, N]`` for a kernel."""
+    refuse_grad(name, t)
+    t2 = t.reshape(-1, t.shape[-1])
+    return t2 if t2.is_contiguous() and t2.data_ptr() % 16 == 0 else t2.contiguous()
+
+
+def static_requant(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   inv_a: torch.Tensor, activation: Optional[str] = None) -> torch.Tensor:
+    """The static requantize epilogue: int32 ``acc [..., N]`` -> int8 ``[..., N]``
+    (:func:`static_requant_reference`); ``scale``, ``bias``, ``inv_a`` hold N
+    values, ``activation`` is a key of ``STATIC_ACTIVATIONS``. One kernel on
+    the card; each launch adds one to ``static_requant.launches``."""
+    if activation not in STATIC_ACTIVATIONS:
+        raise ValueError(f"static_requant: activation must be one of "
+                         f"{sorted(STATIC_ACTIVATIONS, key=str)}, got {activation!r}")
+    s, b, a = _int32_sums("static_requant", acc, (("scale", scale), ("bias", bias),
+                                                  ("inv_a", inv_a)))
+    if acc.device.type == "cpu":
+        return static_requant_reference(acc, s, b, a, activation)
+    acc2 = _kernel_rows("static_requant", acc)
+    out = torch.empty(acc.shape, dtype=torch.int8, device=acc.device)
+    with torch.cuda.device(acc.device):
+        err = _quant_library().team_static_requant(
+            acc2.data_ptr(), s.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(),
+            acc2.shape[0], acc2.shape[1], STATIC_ACTIVATIONS[activation],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "static_requant")
+    static_requant.launches += 1
+    return out
+
+
+def static_residual(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bf16 epilogue: int32 ``acc [..., N]`` -> ``bf16(f32(acc)·scale +
+    bias)``, added to the bf16 ``residual`` of the same shape where one is
+    given (:func:`static_residual_reference`). The residual's rows may lie
+    apart (a ``x[:, :1]`` view); another layout is copied. One kernel on the
+    card; each launch adds one to ``static_residual.launches``."""
+    s, b = _int32_sums("static_residual", acc, (("scale", scale), ("bias", bias)))
+    if residual is not None:
+        if residual.dtype != torch.bfloat16:
+            raise TypeError(f"static_residual: the residual must be bfloat16, got "
+                            f"{residual.dtype}")
+        if residual.shape != acc.shape or residual.device != acc.device:
+            raise ValueError(f"static_residual: the residual {tuple(residual.shape)} on "
+                             f"{residual.device} must match acc {tuple(acc.shape)} on {acc.device}")
+    if acc.device.type == "cpu":
+        return static_residual_reference(acc, s, b, residual)
+    acc2 = _kernel_rows("static_residual", acc)
+    n = acc2.shape[1]
+    x_ptr, ldx = None, 0
+    if residual is not None:
+        refuse_grad("static_residual", residual)
+        x2 = residual.reshape(-1, n)
+        if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16 or x2.stride(0) < n:
+            x2 = x2.contiguous()
+        x_ptr, ldx = x2.data_ptr(), x2.stride(0)
+    out = torch.empty(acc.shape, dtype=torch.bfloat16, device=acc.device)
+    with torch.cuda.device(acc.device):
+        err = _quant_library().team_static_residual(
+            acc2.data_ptr(), s.data_ptr(), b.data_ptr(), x_ptr, ldx, out.data_ptr(),
+            acc2.shape[0], n, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "static_residual")
+    static_residual.launches += 1
+    return out
+
+
+def ln_quant_folded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    inv_a: torch.Tensor, two_pass: bool = False) -> torch.Tensor:
+    """The static tower's layer norm to int8 over ``x [..., D]`` (bfloat16 on
+    the card) -> int8 ``[..., D]`` (:func:`ln_quant_folded_reference`, not
+    the arithmetic of :func:`ln_quantize_static`). One kernel on the card;
+    each launch adds one to ``ln_quant_folded.launches``."""
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"ln_quant_folded: x must be a float tensor, got {x.dtype}")
+    g, b, a = _epilogue_vectors("ln_quant_folded", x, (("gamma", gamma), ("beta", beta),
+                                                       ("inv_a", inv_a)))
+    if x.device.type == "cpu":
+        return ln_quant_folded_reference(x, g, b, a, two_pass)
+    x2 = _kernel_rows("ln_quant_folded", x)
+    _check_kernel_input("ln_quant_folded", x2, g, b, a)
+    lib = _quant_library()
+    _check_width("ln_quant_folded", x2.shape[1], lib)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.team_ln_quant_folded(x2.data_ptr(), g.data_ptr(), b.data_ptr(), a.data_ptr(),
+                                       out.data_ptr(), x2.shape[0], x2.shape[1], int(two_pass),
+                                       torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "ln_quant_folded")
+    ln_quant_folded.launches += 1
     return out
 
 
@@ -693,9 +886,10 @@ def quantized_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                        out_dtype=out_dtype)
 
 
-_COUNTED = (ln_quantize_static, ln_quantize_static3, row_quant_static, ln_quantize, int8_linear,
-            int8_linear_nk, int8_linear_kgrid, int8_linear_wres, int8_linear_dma,
-            int8_linear_gelu_quant, int8_linear_blockscale)
+_COUNTED = (ln_quantize_static, ln_quantize_static3, row_quant_static, ln_quantize,
+            static_requant, static_residual, ln_quant_folded, int8_linear, int8_linear_nk,
+            int8_linear_kgrid, int8_linear_wres, int8_linear_dma, int8_linear_gelu_quant,
+            int8_linear_blockscale)
 
 
 def reset_launch_counts() -> None:

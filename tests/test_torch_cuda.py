@@ -57,7 +57,14 @@ kernels (bf16 2e-2), the pre-split and head-split entries equal to the
 packed one bit for bit, and an unaligned input's output equal to the
 aligned one's bit for bit; the int8 attention's tensor-core kernels at
 their tile edges to the int8 limits above, and bit for bit the plain
-version on inputs whose softmax sums are exact in any order."""
+version on inputs whose softmax sums are exact in any order; the static
+tower's epilogues at its vision, CLS-row, text and ``kqs`` shapes against
+the compositions they replace, ``static_requant`` without an activation and
+``static_residual`` bit for bit, ``static_requant`` with a GELU and
+``ln_quant_folded`` at most one int8 step on under 0.1 % of the outputs, a
+12-layer ``static3d_qi`` tower launching each of them 24 times an encode
+(25 requantizes under ``kqs``) within the tower limits above of the same
+tower with the compositions."""
 
 import math
 
@@ -355,6 +362,7 @@ STATIC_ROUTES = ("static", "static_qa", "static3d", "static3d_qa", "static3d_qaf
 
 def plain_int8_kernels(monkeypatch):
     """Send the int8 tower's kernels to their plain versions (same card)."""
+    plain_epilogues(monkeypatch)
     monkeypatch.setattr(tquant, "ln_quantize_static", tim.ln_quantize_static_reference)
     monkeypatch.setattr(tquant, "row_quant_static", tim.row_quant_static_reference)
     monkeypatch.setattr(tquant, "attention_core", lambda qkv, heads, *, causal, kv_len, impl:
@@ -399,6 +407,172 @@ def test_static_routes_through_the_kernels_match_plain_versions(cuda_device, mon
         err = (got[route] - want).abs().max().item()
         rms = want.pow(2).mean().sqrt().item()
         assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (route, cos, err, rms)
+
+
+# -- the static tower's epilogues and layer norm -> int8 --------------------
+
+def plain_epilogues(monkeypatch):
+    """Send the static tower's epilogues and layer norm to their plain versions."""
+    for name in ("static_requant", "static_residual", "ln_quant_folded"):
+        monkeypatch.setattr(tquant, name, getattr(tim, name + "_reference"))
+
+
+def epilogue_inputs(lead, n, device, seed=0):
+    """int32 sums of a K=768 product, a site's vectors in a calibrated
+    tower's ranges (dequantized values of a few units, inv_a putting them at
+    tens of int8 steps) and a bf16 residual."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randint(-400_000, 400_000, (*lead, n), generator=g, device=device,
+                        dtype=torch.int32)
+    scale = torch.rand((1, n), generator=g, device=device) * 2e-5 + 1e-6
+    bias = torch.randn(n, generator=g, device=device) * 0.1
+    inv_a = torch.rand((1, n), generator=g, device=device) * 40 + 10
+    x = torch.randn((*lead, n), generator=g, device=device).to(torch.bfloat16)
+    return acc, scale, bias, inv_a, x
+
+
+def assert_rarely_one_int8_step(got, want, share: float = 1e-3) -> float:
+    """At most one int8 step, on under ``share`` of the outputs; returns the share."""
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1, diff.max().item()
+    moved = (diff > 0).float().mean().item()
+    assert moved < share, moved
+    return moved
+
+
+# (leading dims, N): the vision tower's qkv, fc and out/proj sites at B=128,
+# the CLS rows of the last block, the text tower's sites at four prompts
+EPILOGUE_SHAPES = [
+    pytest.param((128 * 197,), 2304, id="vision-qkv"),
+    pytest.param((128 * 197,), 3072, id="vision-fc"),
+    pytest.param((128 * 197,), 768, id="vision-out"),
+    pytest.param((128, 1), 768, id="cls-rows"),
+    pytest.param((4, 77), 512, id="text-out"),
+    pytest.param((4, 77), 1536, id="text-qkv"),
+    pytest.param((4, 77), 2048, id="text-fc"),
+]
+
+
+@pytest.mark.parametrize("lead,n", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("gelu", [None, "tanh", "sigmoid"])
+def test_static_requant_kernel_matches_the_composition(cuda_device, lead, n, gelu):
+    """Bit for bit without an activation; with one (PyTorch's GELU formulas,
+    contracted by another build) at most one int8 step on under 0.1 %."""
+    acc, scale, bias, inv_a, _ = epilogue_inputs(lead, n, cuda_device)
+    launches = tim.static_requant.launches
+    got = tim.static_requant(acc, scale, bias, inv_a, activation=gelu)
+    torch.cuda.synchronize()
+    assert tim.static_requant.launches == launches + 1
+    want = tim.static_requant_reference(acc, scale, bias, inv_a, gelu)
+    if gelu is None:
+        assert torch.equal(got, want)
+    else:
+        print(f"static_requant {gelu} {lead}x{n}: {assert_rarely_one_int8_step(got, want):.2e} "
+              "of the outputs one step off")
+
+
+@pytest.mark.parametrize("lead,n", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("with_residual", [True, False], ids=["residual", "bf16-out"])
+def test_static_residual_kernel_is_the_composition_bit_for_bit(cuda_device, lead, n,
+                                                               with_residual):
+    acc, scale, bias, _, x = epilogue_inputs(lead, n, cuda_device, seed=1)
+    launches = tim.static_residual.launches
+    got = tim.static_residual(acc, scale, bias, x if with_residual else None)
+    torch.cuda.synchronize()
+    assert tim.static_residual.launches == launches + 1
+    want = tim.static_residual_reference(acc, scale, bias, x if with_residual else None)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_static_epilogues_take_the_cls_view_and_a_sliced_kqs_site(cuda_device):
+    """The CLS form's residual ``x[:, :1]`` (rows S·D apart) and the ``kqs``
+    split GEMM's k/v site, whose vectors are slices of the qkv site's."""
+    b, s, d = 128, 197, 768
+    acc, scale, bias, inv_a, _ = epilogue_inputs((b, s), 3 * d, cuda_device, seed=2)
+    x = torch.randn((b, s, d), device=cuda_device).to(torch.bfloat16)
+    out_acc = acc[:, :1, :d].contiguous()
+    got = tim.static_residual(out_acc, scale[..., :d], bias[:d], x[:, :1])
+    assert torch.equal(got, tim.static_residual_reference(out_acc, scale[..., :d], bias[:d],
+                                                          x[:, :1]))
+    kv = acc[..., d:].contiguous()
+    got = tim.static_requant(kv, scale[..., d:], bias[d:], inv_a[..., d:])
+    assert torch.equal(got, tim.static_requant_reference(kv, scale[..., d:], bias[d:],
+                                                         inv_a[..., d:]))
+    q = acc[:, :1, :d].contiguous()
+    got = tim.static_requant(q, scale[..., :d], bias[:d], inv_a[..., :d])
+    assert torch.equal(got, tim.static_requant_reference(q, scale[..., :d], bias[:d],
+                                                         inv_a[..., :d]))
+
+
+@pytest.mark.parametrize("lead,d", [pytest.param((128, 197), 768, id="vision"),
+                                    pytest.param((128, 1), 768, id="cls-rows"),
+                                    pytest.param((4, 77), 512, id="text"),
+                                    pytest.param((37,), 1024, id="widest-ragged")])
+@pytest.mark.parametrize("two_pass", [False, True], ids=["1pass", "2pass"])
+def test_ln_quant_static3_kernel_matches_the_composition(cuda_device, lead, d, two_pass):
+    """At most one int8 step on under 0.1 % (the sums in another order)."""
+    x, gamma, beta, inv_a = producer_inputs(math.prod(lead), d, cuda_device)
+    x = x.reshape(*lead, d)
+    launches = tim.ln_quant_folded.launches
+    got = tim.ln_quant_folded(x, gamma, beta, inv_a, two_pass=two_pass)
+    torch.cuda.synchronize()
+    assert tim.ln_quant_folded.launches == launches + 1
+    want = tim.ln_quant_folded_reference(x, gamma, beta, inv_a, two_pass)
+    print(f"ln_quant_folded {'2pass' if two_pass else '1pass'} {lead}x{d}: "
+          f"{assert_rarely_one_int8_step(got, want):.2e} of the outputs one step off")
+
+
+def test_static_epilogue_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    acc, scale, bias, inv_a, x = epilogue_inputs((8,), 64, cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        tim.static_requant(acc.float(), scale, bias, inv_a)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tim.static_residual(acc[:, :60].contiguous(), scale[:, :60], bias[:60])
+    with pytest.raises(TypeError, match="bfloat16"):
+        tim.static_residual(acc, scale, bias, x.float())
+    with pytest.raises(ValueError, match="lies on"):
+        tim.static_requant(acc, scale.cpu(), bias, inv_a)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tim.ln_quant_folded(x.float(), scale, bias, inv_a)
+    xw, gamma, beta, inv_w = producer_inputs(8, 2048, cuda_device)
+    with pytest.raises(ValueError, match="wider"):
+        tim.ln_quant_folded(xw, gamma, beta, inv_w)
+    site = {"w_q": torch.ones((64, 64), dtype=torch.int8, device=cuda_device), "scale": scale,
+            "b": bias}
+    with pytest.raises(ValueError, match="requantized"):
+        tquant._static_linear3(acc.to(torch.int8), site, activation="gelu_tanh")
+
+
+@pytest.mark.parametrize("cls_last,per_encode", [
+    pytest.param("kq", lambda n: (2 * n, 2 * n, 2 * n), id="kq"),
+    pytest.param("kqs", lambda n: (2 * n + 1, 2 * n, 2 * n), id="kqs"),
+    pytest.param("0", lambda n: (2 * n, 2 * n, 2 * n), id="full")])
+def test_static3d_qi_encode_launches_each_epilogue_per_gemm(cuda_device, monkeypatch, cls_last,
+                                                            per_encode):
+    """A 12-layer tower (head width 64) on static3d_qi: each block runs two
+    layer norms to int8, two requantize epilogues (qkv, fc; ``kqs`` splits the
+    last qkv in two) and two residual epilogues (out, proj), 24 of each in
+    an encode; and the tower's features match the same tower with the plain
+    epilogues."""
+    cfg = tclip.CLIPConfig(vision=tclip.VisionConfig(image_size=32, patch_size=16, width=64,
+                                                     layers=12, heads=1, embed_dim=32),
+                           text=tclip.CLIPConfig.tiny().text, embed_dim=32)
+    params = tree_to(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg), cuda_device)
+    images = torch.randn((32, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    qv = tquant.quantize_vision_tower_static(params, tquant.calibrate_vision_tower(
+        params, images, cfg), heads=cfg.vision.heads)
+    counters = (tim.static_requant, tim.ln_quant_folded, tim.static_residual)
+    before = [c.launches for c in counters]
+    got = tquant.encode_image_int8(qv, images, cfg, cls_last=cls_last).double()
+    torch.cuda.synchronize()
+    assert tuple(c.launches - n for c, n in zip(counters, before)) == per_encode(12)
+    plain_epilogues(monkeypatch)
+    want = tquant.encode_image_int8(qv, images, cfg, cls_last=cls_last).double()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    err = (got - want).abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    assert cos >= 0.9999 and err <= 5e-3 * rms + 1e-6, (cos, err, rms)
 
 
 # -- the pre-split attention, and the fused out-projection and attention sub-block --

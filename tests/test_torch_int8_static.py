@@ -13,6 +13,10 @@ tests/test_torch_cuda.py. Tolerances:
   order, which can move a value across a rounding edge);
 - ``fused_mha_packed_q`` and ``fused_mha_packed_q3``: the same (the QKᵀ and
   PV sums in f32 in another order, exp in another library);
+- the static tower's epilogues (``static_requant``, ``static_residual``,
+  ``ln_quant_folded``) on the CPU: the bytes of the composition they
+  replace; ``_static_linear3(..., residual=x)`` bit for bit
+  ``x + _static_linear3(...)``;
 - tower features on the same payload: cosine >= 0.9999 and max |Δ| <=
   5e-3·rms, the bound of tests/test_torch_int8.py;
 - the runtime: the held-out gate >= 0.999 commits the tower on each route."""
@@ -138,6 +142,203 @@ def test_producers_reject_bad_input(call, exc):
     x, g, b, a = (torch.from_numpy(t) for t in _activations(8, 64, seed=4))
     with pytest.raises(exc):
         call(x.to(torch.bfloat16), g, b, a)
+
+
+# -- the static tower's epilogues (one kernel each on the card) -------------
+
+def _epilogue_inputs(lead, n, seed=5):
+    """int32 GEMM sums of a K=768 int8 product, the site's per-column vectors
+    in a calibrated tower's ranges, and a bf16 residual of the same shape."""
+    g = torch.Generator().manual_seed(seed)
+    acc = torch.randint(-400_000, 400_000, (*lead, n), generator=g, dtype=torch.int32)
+    scale = torch.rand((1, n), generator=g) * 2e-5 + 1e-6
+    bias = torch.randn(n, generator=g) * 0.1
+    inv_a = torch.rand((1, n), generator=g) * 40 + 10
+    return acc, scale, bias, inv_a, torch.randn((*lead, n), generator=g).to(torch.bfloat16)
+
+
+def _composed_dequant(acc, scale, bias, gelu):
+    """The composition the epilogues replace, pass by pass."""
+    out = acc.float() * scale.reshape(-1) + bias.reshape(-1)
+    if gelu == "sigmoid":
+        out = out * torch.sigmoid(1.702 * out)
+    elif gelu == "tanh":
+        out = torch.nn.functional.gelu(out, approximate="tanh")
+    return out
+
+
+@pytest.mark.parametrize("gelu", [None, "tanh", "sigmoid"])
+def test_static_requant_on_cpu_is_the_composition_and_counts_nothing(gelu):
+    acc, scale, bias, inv_a, _ = _epilogue_inputs((2, 9), 64)
+    before = tim.static_requant.launches
+    got = tim.static_requant(acc, scale, bias, inv_a, activation=gelu)
+    want = torch.clamp(torch.round(_composed_dequant(acc, scale, bias, gelu) * inv_a.reshape(-1)),
+                       -127, 127).to(torch.int8)
+    assert got.dtype == torch.int8 and got.shape == acc.shape
+    assert torch.equal(got, want)
+    assert tim.static_requant.launches == before
+
+
+@pytest.mark.parametrize("with_residual", [True, False], ids=["residual", "bf16-out"])
+def test_static_residual_on_cpu_is_the_composition_and_counts_nothing(with_residual):
+    acc, scale, bias, _, x = _epilogue_inputs((3, 5), 48)
+    before = tim.static_residual.launches
+    got = tim.static_residual(acc, scale, bias, x if with_residual else None)
+    want = _composed_dequant(acc, scale, bias, None).to(torch.bfloat16)
+    want = x + want if with_residual else want
+    assert got.dtype == torch.bfloat16 and got.shape == acc.shape
+    assert torch.equal(got, want)
+    assert tim.static_residual.launches == before
+
+
+@pytest.mark.parametrize("mode", ["1pass", "2pass"])
+def test_ln_quant_static3_on_cpu_is_the_composition_and_counts_nothing(mode):
+    xb, gamma, beta, inv_a = (torch.from_numpy(a) for a in _activations(18, 64, seed=6))
+    x = xb.to(torch.bfloat16).reshape(2, 9, 64)
+    before = tim.ln_quant_folded.launches
+    got = tim.ln_quant_folded(x, gamma, beta, inv_a, two_pass=mode == "2pass")
+    x32 = x.float()
+    if mode == "1pass":
+        mean = x32.sum(dim=-1, keepdim=True) / 64
+        var = torch.clamp(x32.mul(x32).sum(dim=-1, keepdim=True) / 64 - mean * mean, min=0.0)
+    else:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    inv = inv_a.reshape(-1)
+    want = torch.clamp(torch.round(y * (gamma * inv) + beta * inv), -127, 127).to(torch.int8)
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    assert torch.equal(got, want)
+    assert tim.ln_quant_folded.launches == before
+
+
+@pytest.mark.parametrize("call,exc", [
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc.float(), s, b, a), TypeError,
+                 id="requant-float-sums"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc[0, 0], s, b, a), ValueError,
+                 id="requant-1d"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc[..., :60], s[:, :60], b[:60],
+                                                            a[:, :60]), ValueError,
+                 id="requant-width-not-8"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc, s, b[:-8], a), ValueError,
+                 id="requant-bias-size"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc, s, b, a.to("meta")), ValueError,
+                 id="requant-inv_a-elsewhere"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_requant(acc, s, b, a, activation="erf"),
+                 ValueError, id="requant-unknown-activation"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc, s, b, x.float()), TypeError,
+                 id="residual-f32-residual"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc.to(torch.int8), s, b, x),
+                 TypeError, id="residual-int8-sums"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc, s, b, x[:, :1]), ValueError,
+                 id="residual-other-shape"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc, s[:, :-1], b, x), ValueError,
+                 id="residual-scale-size"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc, s.to("meta"), b, x), ValueError,
+                 id="residual-scale-elsewhere"),
+    pytest.param(lambda acc, s, b, a, x: tim.static_residual(acc.to("meta"), s.to("meta"),
+                                                             b.to("meta"), None), ValueError,
+                 id="residual-meta-device"),
+    pytest.param(lambda acc, s, b, a, x: tim.ln_quant_folded(acc, s, b, a), TypeError,
+                 id="ln3-int-input"),
+    pytest.param(lambda acc, s, b, a, x: tim.ln_quant_folded(x[0, 0], s, b, a), ValueError,
+                 id="ln3-1d"),
+    pytest.param(lambda acc, s, b, a, x: tim.ln_quant_folded(x[..., :60], s[:, :60], b[:60],
+                                                             a[:, :60]), ValueError,
+                 id="ln3-width-not-8"),
+    pytest.param(lambda acc, s, b, a, x: tim.ln_quant_folded(x, s, b, a[:, :8]), ValueError,
+                 id="ln3-inv_a-size"),
+    pytest.param(lambda acc, s, b, a, x: tim.ln_quant_folded(x, s.to("meta"), b, a), ValueError,
+                 id="ln3-gamma-elsewhere"),
+])
+def test_epilogues_reject_bad_input(call, exc):
+    with pytest.raises(exc):
+        call(*_epilogue_inputs((2, 3), 64))
+
+
+@pytest.mark.parametrize("site,lead", [("out", (2, 5)), ("proj", (2, 5)), ("out", (10,)),
+                                       ("out", "cls-view")])
+def test_static_linear3_with_a_residual_is_the_sum(setup, site, lead):
+    """``_static_linear3(..., residual=x)`` is ``x + _static_linear3(...)`` bit
+    for bit, the CLS form's row-strided ``x[:, :1]`` too."""
+    s = setup["tqv"]["blocks"][0][site]
+    k, n = s["w_q"].shape
+    g = torch.Generator().manual_seed(7)
+    if lead == "cls-view":
+        x = torch.randn((2, 5, n), generator=g).to(torch.bfloat16)[:, :1]
+        q = torch.randint(-127, 128, (2, 1, k), generator=g, dtype=torch.int8)
+    else:
+        x = torch.randn((*lead, n), generator=g).to(torch.bfloat16)
+        q = torch.randint(-127, 128, (*lead, k), generator=g, dtype=torch.int8)
+    got = tq._static_linear3(q, s, residual=x)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, x + tq._static_linear3(q, s))
+    with pytest.raises(ValueError, match="residual"):
+        tq._static_linear3(q, s, quant_inv_a=torch.ones((1, n)), residual=x)
+
+
+def _site(k, n, seed):
+    """A static site of any width: int8 weight [K, N], scale and bias."""
+    rng = np.random.default_rng(seed)
+    return {"w_q": rng.integers(-127, 128, (k, n)).astype(np.int8),
+            "scale": (rng.random((1, n)) * 2e-3 + 1e-4).astype(np.float32),
+            "b": (rng.standard_normal(n) * 0.1).astype(np.float32)}
+
+
+@pytest.mark.parametrize("form", ["gelu-to-bf16", "width-12-requant", "width-12-bf16",
+                                  "f32-residual", "ln-width-12", "ln-f32-input"])
+def test_static_forms_on_cpu_take_what_team_tpu_takes(form):
+    """On the CPU ``_static_linear3`` and ``_ln_quant3`` run the composition,
+    pass by pass, and take every form team_tpu's take: a GELU to bf16, any
+    width, any float input; the card's kernels take widths divisible by 8, a
+    bf16 residual and a GELU only before a requantize
+    (tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(8)
+    if form.startswith("ln-"):
+        d = 12 if form == "ln-width-12" else 64
+        x = (rng.standard_normal((2, 3, d)) * 3 + 0.5).astype(np.float32)
+        ln = {"scale": rng.standard_normal(d).astype(np.float32),
+              "bias": rng.standard_normal(d).astype(np.float32)}
+        inv_a = np.full((1, d), 11.7, np.float32)
+        xt = torch.from_numpy(x)
+        xj = jnp.asarray(x)
+        if form == "ln-width-12":
+            xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+        got = tq._ln_quant3(xt, params_from_numpy(ln), torch.from_numpy(inv_a))
+        assert got.dtype == torch.int8 and torch.equal(got, tim.ln_quant_folded_reference(
+            xt, torch.from_numpy(ln["scale"]), torch.from_numpy(ln["bias"]),
+            torch.from_numpy(inv_a)))
+        assert_within_one_step(got, jq._ln_quant3(xj, jax.tree_util.tree_map(jnp.asarray, ln),
+                                                  jnp.asarray(inv_a)))
+        return
+    site = _site(64, 48 if form in ("gelu-to-bf16", "f32-residual") else 12, seed=9)
+    n = site["w_q"].shape[1]
+    q3 = rng.integers(-127, 128, (2, 5, 64)).astype(np.int8)
+    ts, tq3 = params_from_numpy(site), torch.from_numpy(q3)
+    acc = tim.int8_matmul(tq3, ts["w_q"])
+    activation = "gelu" if form == "gelu-to-bf16" else None
+    inv = np.full((1, n), 9.5, np.float32) if form == "width-12-requant" else None
+    if form == "f32-residual":
+        x = torch.from_numpy(rng.standard_normal((2, 5, n)).astype(np.float32))
+        got = tq._static_linear3(tq3, ts, residual=x)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, x + _composed_dequant(acc, ts["scale"], ts["b"], None)
+                           .to(torch.bfloat16))
+        return
+    got = tq._static_linear3(tq3, ts, activation=activation,
+                             quant_inv_a=None if inv is None else torch.from_numpy(inv))
+    want = np.asarray(jq._static_linear3(jnp.asarray(q3), jax.tree_util.tree_map(jnp.asarray, site),
+                                         activation=activation,
+                                         quant_inv_a=None if inv is None else jnp.asarray(inv)
+                                         ).astype(jnp.float32))
+    composed = _composed_dequant(acc, ts["scale"], ts["b"], "tanh" if activation else None)
+    if inv is not None:
+        assert torch.equal(got, torch.clamp(torch.round(composed * torch.from_numpy(inv)),
+                                            -127, 127).to(torch.int8))
+        assert_within_one_step(got.numpy(), want)
+    else:
+        assert torch.equal(got, composed.to(torch.bfloat16))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=1e-6)
 
 
 # -- the int8-I/O attention -------------------------------------------------

@@ -95,3 +95,25 @@ def test_no_pv_instances_are_the_probe_cuts_of_a_tensor_core_kernel():
             assert kernel in _global_functions(source), (source, kernel)
             assert widths == ["32", "64", "128"] and cuts == {"kQkOnly", "kNoPv"}
             assert n == len(cuts) * len(widths), (kernel, n, cuts, widths)
+
+
+def _family_patterns(prefixes=("gemm-", "attention-")) -> dict:
+    """The benchmark's kernel families that claim GEMM or attention work: file
+    name -> the name patterns that put a device kernel in it."""
+    import json
+
+    families = ROOT / "teambench" / "kernels"
+    return {p.name: json.loads(p.read_text())["patterns"]
+            for p in sorted(families.glob("*.json")) if p.name.startswith(prefixes)}
+
+
+@pytest.mark.parametrize("kernel", sorted(_global_functions("int8_quant.cu")))
+def test_the_quantize_and_epilogue_kernels_are_elementwise_work(kernel):
+    """No kernel of ``int8_quant.cu`` (the producers and the static tower's
+    epilogues) carries a pattern of a GEMM or attention family: the
+    benchmark counts them as elementwise work, not in a roofline or in
+    ``off_precision_share``."""
+    families = _family_patterns()
+    assert families, "no GEMM or attention family found"
+    for name, patterns in families.items():
+        assert not [p for p in patterns if p in kernel], (kernel, name)

@@ -220,10 +220,12 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
 SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
            "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu", "gemm_probe.cu")
-# flash attention: (batch, heads, seq, causal, kv_len); vision and text are
-# the towers' shapes on the main path, S=577 a shape the auto route sends to it
-FLASH_SHAPES = {"vision": (128, 12, 197, False, None), "text": (32, 8, 77, True, 77),
-                "s577": (8, 12, 577, False, None)}
+# flash attention: (batch, heads, seq, causal, kv_len, head width); vision
+# and text are the towers' shapes on the main path, S=577 a shape the auto
+# route sends to it, siglip SigLIP So400m/14-384's blocks at the learners'
+# batch (head width 72, bf16 only)
+FLASH_SHAPES = {"vision": (128, 12, 197, False, None, 64), "text": (32, 8, 77, True, 77, 64),
+                "s577": (8, 12, 577, False, None, 64), "siglip": (128, 16, 729, False, None, 72)}
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense rates; "f32" is the
 # float32 rate outside the tensor cores, which is what a float32 product with
 # TF32 off gets); they assume 700 W
@@ -846,52 +848,77 @@ def report_last_redesigns(times: dict) -> None:
               f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f} % of it")
 
 
-def flash_inputs(shape, dtype, dev, seed=0):
+def flash_inputs(shape, dtype, dev, seed=0, dh=64):
+    """q, k and v ``[B, H, S, dh]`` for a shape whose first three are B, H, S."""
     import torch
 
-    b, h, s, _, _ = shape
+    b, h, s = shape[:3]
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn((b, h, s, 64), generator=g, device=dev).to(dtype) for _ in range(3)]
+    return [torch.randn((b, h, s, dh), generator=g, device=dev).to(dtype) for _ in range(3)]
+
+
+def _check_flash(label: str, out, ref, want_shape, dtype) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[str(dtype)]
+    print(f"  flash {label} {dtype}: max_abs_err={err:.3e} (tol {tol:g})")
+    if tuple(out.shape) != tuple(want_shape) or not math.isfinite(err) or err > tol:
+        raise AssertionError(f"flash kernel disagrees with its plain version: {err} > {tol}")
+    return err
 
 
 def compare_flash(fa, dev) -> float:
+    """Every FLASH_SHAPES entry in each dtype compiled at its head width, then
+    SigLIP's attention-pool query: one row of q, expanded over the batch
+    (batch stride 0), against k and v of its 729 tokens."""
     import torch
 
     worst = 0.0
     for name, shape in FLASH_SHAPES.items():
-        b, h, s, causal, kv_len = shape
+        b, h, s, causal, kv_len, dh = shape
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = flash_inputs(shape, dtype, dev)
+            if dh not in fa._HEAD_DIMS[dtype]:
+                continue
+            q, k, v = flash_inputs(shape, dtype, dev, dh=dh)
             out = fa.flash_attention(q, k, v, kv_len, causal=causal)
             ref = fa.flash_attention_reference(q, k, v, kv_len, causal=causal)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL[str(dtype)]
-            print(f"  flash {name} B={b} H={h} S={s} causal={causal} kv_len={kv_len} {dtype}: "
-                  f"max_abs_err={err:.3e} (tol {tol:g})")
-            if out.shape != q.shape or not math.isfinite(err) or err > tol:
-                raise AssertionError(f"flash kernel disagrees with its plain version: {err} > {tol}")
-            worst = max(worst, err)
-    return worst
+            worst = max(worst, _check_flash(
+                f"{name} B={b} H={h} S={s} dh={dh} causal={causal} kv_len={kv_len}", out, ref,
+                q.shape, dtype))
+    b, h, s, _, _, dh = FLASH_SHAPES["siglip"]
+    _, k, v = flash_inputs(FLASH_SHAPES["siglip"], torch.bfloat16, dev, seed=2, dh=dh)
+    g = torch.Generator(device=dev).manual_seed(4)
+    probe = torch.randn((1, h, 1, dh), generator=g, device=dev).to(torch.bfloat16)
+    q = probe.expand(b, h, 1, dh)
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_reference(q, k, v)
+    return max(worst, _check_flash(f"pooling query B={b} H={h} Sq=1 S={s} dh={dh} (q batch "
+                                   "stride 0)", out, ref, (b, h, 1, dh), torch.bfloat16))
 
 
 def time_flash(fa, dev) -> dict:
-    """The flash kernel at the towers' shapes in bf16 (PROOF's main path)."""
+    """The flash kernel at the towers' shapes in bf16 (PROOF's main path) and
+    at SigLIP's blocks (the learners' encode on that backbone)."""
     import torch
 
     times = {}
-    for name in ("vision", "text"):
-        b, h, s, causal, kv_len = FLASH_SHAPES[name]
-        q, k, v = flash_inputs(FLASH_SHAPES[name], torch.bfloat16, dev, seed=1)
+    for name in ("vision", "text", "siglip"):
+        b, h, s, causal, kv_len, dh = FLASH_SHAPES[name]
+        q, k, v = flash_inputs(FLASH_SHAPES[name], torch.bfloat16, dev, seed=1, dh=dh)
         kernel = lambda: fa.flash_attention(q, k, v, kv_len, causal=causal)  # noqa: E731
         plain = lambda: fa.flash_attention_reference(q, k, v, kv_len, causal=causal)  # noqa: E731
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
         lib = sdpa_ms(q, k, v, causal)
         times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
-                       **bound(4 * q.numel() * 2, {"bf16": attention_ops(b, h, s, 64, causal)})}
-        print(f"  flash {name} B={b} H={h} S={s} causal={causal} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
-              f"plain {p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-              f"bound {times[name]['bound_ms']:.4f} ms ({times[name]['bound_by']})")
+                       **bound(4 * q.numel() * 2, {"bf16": attention_ops(b, h, s, dh, causal)})}
+        t = times[name]
+        print(f"  flash {name} B={b} H={h} S={s} dh={dh} causal={causal} bf16: kernel "
+              f"{k1:.4f}/{k2:.4f} ms ({attention_ops(b, h, s, dh, causal) / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {100 * t['bound_ms'] / t['ms']:.1f} % of the bound), plain "
+              f"{p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return times
 
 
@@ -1469,7 +1496,8 @@ def smoke_config(model_name: str, dtype: str, log_dir: str, **kw):
 
     extras = {"tiny_backbone": False, "dataset_kwargs": dict(DATASET), **kw.pop("extras", {})}
     return Config(prefix="chip_smoke", dataset="synthetic_insects", model_name=model_name,
-                  convnet_type="clip", init_cls=2, increment=2, batch_size=kw.pop("batch_size", 128),
+                  convnet_type=kw.pop("convnet_type", "clip"), init_cls=2, increment=2,
+                  batch_size=kw.pop("batch_size", 128),
                   seed=[1], shuffle=True, device=kw.pop("device", [0]), compute_dtype=dtype,
                   log_dir=log_dir,
                   extras=extras, **kw)
@@ -1545,6 +1573,63 @@ def run_main_path(ms, log_dir: str) -> dict:
 FUSED_RUNS = (("proof", "bfloat16", "attn_block", {"batch_size": FLAGSHIP_BATCH, "tuned_epoch": 2}),
               ("simplecil", "bfloat16", "mha_packed_proj", {}),
               ("zs_clip", "float32", "attn_block", {}))
+
+
+SIGLIP_FLASH_CALLS = 28  # a SigLIP encode: its 27 blocks and the attention-pool query
+
+
+def run_siglip_path(fa, dev) -> dict:
+    """SigLIP So400m/14-384 through the learners' entry: ``BackboneRuntime``
+    with ``convnet_type`` siglip_so400m14_384, bf16, ``attention_impl`` auto.
+    One B=128 encode of 384 px uint8 images, with the counters set to 0 just
+    before it, must count 28 flash calls (``attention.flash_calls``) and add
+    28 to ``flash_attention.launches``: no block and not the head fell back
+    to the plain route. Its features are held to the same tower on the plain
+    route (``xla``) as the bf16 towers in phase 6."""
+    import numpy as np
+    import torch
+
+    from team_tpu_torch.backbone.clip import CLIPConfig, init_clip_params
+    from team_tpu_torch.learners.backbone_runtime import SIGLIP, BackboneRuntime
+    from team_tpu_torch.utils import phase_timer
+
+    params = init_clip_params(torch.Generator().manual_seed(0), CLIPConfig.siglip_so400m14_384())
+    runtimes = {route: BackboneRuntime(smoke_config("simplecil", "bfloat16", "",
+                                                    convnet_type=SIGLIP, attention_impl=route),
+                                       params=params)
+                for route in ("auto", "xla")}
+    del params
+    rt = runtimes["auto"]
+    size = rt.clip_cfg.vision.image_size
+    u8 = np.random.default_rng(0).integers(0, 256, (EVAL_B, size, size, 3), dtype=np.uint8)
+    batch = rt.to_device(u8)
+    rt.encode_image(batch)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    start_span_report()
+    t0 = time.perf_counter()
+    feats = rt.encode_image(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = phase_timer.report()["counters"].get(phase_timer.FLASH_CALLS)
+    launches = fa.flash_attention.launches
+    print_span_report()
+    plain = runtimes["xla"].encode_image(batch)
+    torch.cuda.synchronize()
+    cos = torch.nn.functional.cosine_similarity(feats, plain, dim=-1).min().item()
+    print(f"  SigLIP So400m/14-384, bf16, auto: one B={EVAL_B} encode (spans on) {1e3 * wall:.1f} "
+          f"ms; attention.flash_calls {calls}, flash launches {launches} (want "
+          f"{SIGLIP_FLASH_CALLS}); features {tuple(feats.shape)}, min cosine to the plain "
+          f"route {cos:.6f}")
+    if calls != SIGLIP_FLASH_CALLS or launches != SIGLIP_FLASH_CALLS:
+        raise AssertionError(f"SigLIP encode: {calls} flash calls and {launches} launches, "
+                             f"not {SIGLIP_FLASH_CALLS}: an attention left the flash kernel")
+    if (tuple(feats.shape) != (EVAL_B, rt.out_dim) or feats.dtype != torch.float32
+            or not torch.isfinite(feats).all() or cos < 0.99):
+        raise AssertionError(f"SigLIP features: shape {tuple(feats.shape)}, {feats.dtype}, "
+                             f"min cosine to the plain route {cos}")
+    return {"flash_calls": calls, "launches": launches, "wall_ms": 1e3 * wall,
+            "cos_plain_min": cos}
 
 
 def run_fused_paths(ms, fa, log_dir: str) -> dict:
@@ -4115,6 +4200,7 @@ def main() -> int:
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
+        siglip = run_siglip_path(fa, dev)
         print("  Grad-CAM through the kernels' backwards, checkpoint/resume, the full protocol")
         gradcam = check_gradcam(ms, fa, dev)
         resume = run_resume(log_dir)
@@ -4296,7 +4382,8 @@ def main() -> int:
         "replaces": "team_tpu/ops/flash_attention.py:35",
         "launches": proof["flash"], "causal_launches": proof["causal"],
         "max_abs_err": flash_err, **timing(flash_times["vision"]),
-        "text": timing(flash_times["text"]), "hmma_per_kernel": hmma["flash_attention.cu"],
+        "text": timing(flash_times["text"]), "siglip": timing(flash_times["siglip"]),
+        "siglip_encode": siglip, "hmma_per_kernel": hmma["flash_attention.cu"],
         "proof_wall_s": proof["wall_s"],
         "proof_step_ms": proof["step_ms"], "proof_step_device_ms": proof["step_device_ms"],
         "proof_loss_rel_diff": proof["loss_rel_diff"], "import_dynamo_s": proof["import_dynamo_s"],

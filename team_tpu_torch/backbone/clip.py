@@ -1,7 +1,19 @@
-"""CLIP ViT-B/16 image and text towers in PyTorch.
+"""CLIP ViT-B/16 image and text towers in PyTorch, and SigLIP So400m/14's
+image tower.
 
-Counterpart of ``team_tpu/backbone/clip.py``. Parameters are the same nested
-dict as the JAX pytree (:mod:`team_tpu_torch.bridge` carries it across), with
+Counterpart of ``team_tpu/backbone/clip.py``. The image tower's kind is
+configuration (:class:`VisionConfig`): its ``pool``, a head that pools the
+class token and projects it (``cls_proj``, open_clip's, with a class token
+and ``ln_pre``) or attends a learned probe over every token (``map``,
+SigLIP's attention-pool head, :func:`_attention_pool`, with neither and a
+patch bias); the exact or the tanh GELU, the layer norms' eps, the MLP
+width, and the pixels' mean and std. ``CLIPConfig.siglip_so400m14_384()`` is SigLIP So400m/14 at 384 px
+(``google/siglip-so400m-patch14-384``'s ``vision_config``): 27 blocks 1152
+wide, 16 heads of 72, MLP 4304, 729 tokens from a stride-14 patch GEMM that
+drops the last 6 pixel rows and columns; it has no text tower here (its
+32,000-piece SentencePiece vocabulary is not in the repository).
+
+Parameters are the same nested dict as the JAX pytree (:mod:`team_tpu_torch.bridge` carries it across), with
 weights in ``[in, out]`` layout; every forward is a plain function of
 ``(params, inputs, cfg)``. The blocks' attention runs through the packed
 Hopper kernel (:func:`team_tpu_torch.ops.mha_short.fused_mha_packed`) under
@@ -25,37 +37,74 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from team_tpu_torch.ops.attention import multi_head_attention
+from team_tpu_torch.ops.flash_attention import flash_attention, xla_attention
 from team_tpu_torch.ops.mha_short import (
-    fused_attn_block, fused_mha_packed, fused_mha_packed_proj, fused_mha_packed_tp, tp_mesh,
-    tp_split)
+    PACKED_HEAD_DIMS, fused_attn_block, fused_mha_packed, fused_mha_packed_proj,
+    fused_mha_packed_tp, tp_mesh, tp_split)
 from team_tpu_torch.parallel import collectives
-from team_tpu_torch.ops.preprocess import patch_norm_consts
+from team_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, patch_norm_consts
 from team_tpu_torch.utils import phase_timer
 from team_tpu_torch.utils.phase_timer import phase
 
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
+    """The image tower. The defaults are open_clip's ViT-B/16. ``pool`` is
+    the tower's kind: ``cls_proj`` (open_clip's) has a class token, ``ln_pre``
+    and a patch GEMM without bias, and pools the class token through
+    ``ln_post`` and ``proj``; ``map`` (SigLIP's) has none of those but a
+    patch bias, and runs ``ln_post`` over every token and the attention-pool
+    head (no projection: ``embed_dim`` is ``width``). ``gelu`` is
+    ``F.gelu``'s ``approximate`` (``none``: the exact erf GELU); ``mlp_width``
+    0 means 4 × ``width``. A stride-``patch_size`` patch GEMM over an
+    ``image_size`` that the patch does not divide drops the trailing pixel
+    rows and columns, as the convolution does."""
     image_size: int = 224
     patch_size: int = 16
     width: int = 768
     layers: int = 12
     heads: int = 12
     embed_dim: int = 512
+    gelu: str = "none"
+    ln_eps: float = 1e-5
+    mlp_width: int = 0
+    pool: str = "cls_proj"
+    pixel_mean: Tuple[float, float, float] = CLIP_MEAN
+    pixel_std: Tuple[float, float, float] = CLIP_STD
 
     @property
     def grid(self) -> int:
         return self.image_size // self.patch_size
 
     @property
+    def class_token(self) -> bool:
+        return self.pool == "cls_proj"
+
+    @property
+    def ln_pre(self) -> bool:
+        return self.pool == "cls_proj"
+
+    @property
+    def patch_bias(self) -> bool:
+        return self.pool == "map"
+
+    @property
     def seq_len(self) -> int:
-        return self.grid * self.grid + 1
+        return self.grid * self.grid + int(self.class_token)
+
+    @property
+    def mlp(self) -> int:
+        return self.mlp_width or 4 * self.width
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,13 +119,32 @@ class TextConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
+    """The towers; ``text_tower`` False: ``text`` states the published text
+    tower's sizes, which is neither built nor run."""
     vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
     text: TextConfig = dataclasses.field(default_factory=TextConfig)
     embed_dim: int = 512
+    text_tower: bool = True
 
     @staticmethod
     def vit_b16() -> "CLIPConfig":
         return CLIPConfig()
+
+    @staticmethod
+    def siglip_so400m14_384() -> "CLIPConfig":
+        """SigLIP So400m/14 at 384 px, the ``vision_config`` of
+        ``google/siglip-so400m-patch14-384``: width 1152, 27 layers, 16 heads,
+        MLP 4304, ``gelu_pytorch_tanh``, LN eps 1e-6, (384 // 14)² = 729
+        tokens, no class token and no pre-LN, the attention-pool head, pixels
+        ``(x/255 − 0.5)/0.5``. Its text tower (1152 wide, 27 layers, 16
+        heads, context 64, vocabulary 32,000) is stated, not built."""
+        return CLIPConfig(
+            vision=VisionConfig(image_size=384, patch_size=14, width=1152, layers=27, heads=16,
+                                embed_dim=1152, gelu="tanh", ln_eps=1e-6, mlp_width=4304, pool="map",
+                                pixel_mean=(0.5, 0.5, 0.5), pixel_std=(0.5, 0.5, 0.5)),
+            text=TextConfig(context_length=64, vocab_size=32000, width=1152, layers=27, heads=16,
+                            embed_dim=1152),
+            embed_dim=1152, text_tower=False)
 
     @staticmethod
     def tiny(embed_dim: int = 32) -> "CLIPConfig":
@@ -94,7 +162,8 @@ Params = Dict[str, Any]
 # affines and logit_scale stay float32 there, and so they do here
 _CAST_LEAVES = frozenset({
     "qkv_w", "qkv_b", "out_w", "out_b", "fc_w", "fc_b", "proj_w", "proj_b",
-    "patch_w", "cls", "pos", "proj", "token_embedding"})
+    "patch_w", "cls", "pos", "proj", "token_embedding",
+    "patch_b", "probe", "q_w", "q_b", "kv_w", "kv_b"})
 # the block-level routes whose kernels take the attention biases in float32
 # (``mha_short.py:1056``, ``:1145-1148``): their towers keep those two leaves
 FUSED_ROUTES = ("attn_block", "mha_packed_proj")
@@ -113,11 +182,13 @@ def _ln(width: int) -> Params:
     return {"scale": torch.ones(width), "bias": torch.zeros(width)}
 
 
-def _init_block(gen: torch.Generator, width: int) -> Params:
-    proj_std = (width ** -0.5) * ((2 * 12) ** -0.5)
+def _init_block(gen: torch.Generator, width: int, mlp_width: int = 0, depth: int = 12) -> Params:
+    """One block; ``depth`` sets the residual projections' standard deviation
+    (open_clip's init, which team_tpu keeps at 12 for every tower)."""
+    proj_std = (width ** -0.5) * ((2 * depth) ** -0.5)
     attn_std = width ** -0.5
     fc_std = (2 * width) ** -0.5
-    mlp_width = width * 4
+    mlp_width = mlp_width or width * 4
     return {
         "ln_1": _ln(width),
         "attn": {
@@ -127,12 +198,17 @@ def _init_block(gen: torch.Generator, width: int) -> Params:
             "out_b": torch.zeros(width),
         },
         "ln_2": _ln(width),
-        "mlp": {
-            "fc_w": _normal(gen, (width, mlp_width), fc_std),
-            "fc_b": torch.zeros(mlp_width),
-            "proj_w": _normal(gen, (mlp_width, width), proj_std),
-            "proj_b": torch.zeros(width),
-        },
+        "mlp": _init_mlp(gen, width, mlp_width, fc_std, proj_std),
+    }
+
+
+def _init_mlp(gen: torch.Generator, width: int, mlp_width: int, fc_std: float,
+              proj_std: float) -> Params:
+    return {
+        "fc_w": _normal(gen, (width, mlp_width), fc_std),
+        "fc_b": torch.zeros(mlp_width),
+        "proj_w": _normal(gen, (mlp_width, width), proj_std),
+        "proj_b": torch.zeros(width),
     }
 
 
@@ -141,6 +217,9 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
     init (``team_tpu/backbone/clip.py:init_clip_params``); the bits differ,
     since torch and JAX draw differently."""
     v, t = cfg.vision, cfg.text
+    if v.pool == "map":
+        return {"vision": _init_siglip_vision(gen, v),
+                "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)}
     patch_dim = 3 * v.patch_size * v.patch_size
     vision = {
         "patch_w": _normal(gen, (patch_dim, v.width), v.width ** -0.5),
@@ -160,6 +239,32 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
     }
     return {"vision": vision, "text": text,
             "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)}
+
+
+def _init_siglip_vision(gen: torch.Generator, v: VisionConfig) -> Params:
+    """SigLIP's image tower: the patch GEMM with its bias, the positions,
+    the blocks, ``ln_post`` and the attention-pool head (``probe``; ``q_w``
+    over the probe, ``kv_w`` over the tokens, ``out_w``; its layer norm and
+    MLP). Weights ``[in, out]``; standard deviations as open_clip's init at
+    this depth (the published checkpoint's are not needed for a frozen
+    tower of random weights)."""
+    d, f = v.width, v.mlp
+    patch_dim = 3 * v.patch_size * v.patch_size
+    return {
+        "patch_w": _normal(gen, (patch_dim, d), patch_dim ** -0.5),
+        "patch_b": torch.zeros(d),
+        "pos": _normal(gen, (v.seq_len, d), d ** -0.5),
+        "blocks": [_init_block(gen, d, f, v.layers) for _ in range(v.layers)],
+        "ln_post": _ln(d),
+        "head": {
+            "probe": _normal(gen, (d,), d ** -0.5),
+            "attn": {"q_w": _normal(gen, (d, d), d ** -0.5), "q_b": torch.zeros(d),
+                     "kv_w": _normal(gen, (d, 2 * d), d ** -0.5), "kv_b": torch.zeros(2 * d),
+                     "out_w": _normal(gen, (d, d), d ** -0.5), "out_b": torch.zeros(d)},
+            "ln": _ln(d),
+            "mlp": _init_mlp(gen, d, f, (2 * d) ** -0.5, d ** -0.5 * (2 * v.layers) ** -0.5),
+        },
+    }
 
 
 def cast_frozen_params(params: Params, compute_dtype: torch.dtype, device: torch.device,
@@ -186,12 +291,12 @@ def cast_frozen_params(params: Params, compute_dtype: torch.dtype, device: torch
 # forward
 # ---------------------------------------------------------------------------
 
-def _layer_norm(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Layer norm in float32 (population variance, eps 1e-5), back to x's dtype."""
+def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (population variance), back to x's dtype."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
@@ -202,7 +307,9 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
                    impl: str) -> torch.Tensor:
     """Attention over the packed qkv projection ``[B, S, 3D]`` -> ``[B, S, D]``:
-    ``auto`` (S < 512) and ``mha_packed`` take the packed kernel, the rest go
+    ``auto`` (S < 512 at a head width the packed kernel compiles) and
+    ``mha_packed`` take the packed kernel; ``auto`` at another head width
+    (SigLIP's 72) takes the flash kernel on every device; the rest go
     through :func:`multi_head_attention` (``pallas``: the flash kernel, which
     takes the head-split views without copying them; ``mha_short``: the
     pre-split kernel; the block-level ``attn_block`` and ``mha_packed_proj``,
@@ -216,7 +323,9 @@ def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
     dh = d // heads
     if impl == "mha_packed_tp":
         return gather_heads(fused_mha_packed_tp(qkv, heads, causal=causal, kv_len=kv_len), d)
-    if impl == "auto" and s < 512:
+    if impl == "auto" and dh not in PACKED_HEAD_DIMS:
+        impl = "pallas"
+    elif impl == "auto" and s < 512:
         impl = "mha_packed"
     if impl == "mha_packed":
         return fused_mha_packed(qkv, heads, causal=causal,
@@ -278,12 +387,13 @@ def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def _attention_residual(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
-                        impl: str, shard) -> torch.Tensor:
+                        impl: str, shard, eps: float = 1e-5) -> torch.Tensor:
     """A block's attention half, LN1 to the residual. ``attn_block`` runs it
     in :func:`fused_attn_block`, ``mha_packed_proj`` the attention,
     out-projection and residual in :func:`fused_mha_packed_proj` after a
     ``torch.matmul`` qkv GEMM; ``shard`` (the model rank and count of
-    :func:`tp_split`, or None): :func:`_tp_attention_residual`."""
+    :func:`tp_split`, or None): :func:`_tp_attention_residual`. ``eps``: LN1's
+    (the plain GEMM routes'; the fused and split ones are CLIP's, 1e-5)."""
     a = p["attn"]
     if shard is not None:
         return _tp_attention_residual(p, x, heads, causal=causal, kv_len=kv_len, rank=shard[0],
@@ -291,21 +401,23 @@ def _attention_residual(p: Params, x: torch.Tensor, heads: int, *, causal: bool,
     if impl == "attn_block":
         return fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
                                 a["out_w"], a["out_b"], heads, causal=causal)
-    qkv = _linear(_layer_norm(p["ln_1"], x), a["qkv_w"], a["qkv_b"])
+    qkv = _linear(_layer_norm(p["ln_1"], x, eps), a["qkv_w"], a["qkv_b"])
     if impl == "mha_packed_proj":
         return fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal)
     o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
     return _residual(x, o, a["out_w"], a["out_b"])
 
 
-def _mlp_residual(p: Params, x: torch.Tensor, shard) -> torch.Tensor:
-    """A block's MLP half, LN2 to the residual, ``torch.matmul`` on every
-    route as team_tpu leaves it to XLA; under ``shard`` the fc columns and
-    proj rows of the rank, summed over the ranks, then the bias."""
+def _mlp_residual(p: Params, x: torch.Tensor, shard, *, eps: float = 1e-5, gelu: str = "none",
+                  ln: str = "ln_2") -> torch.Tensor:
+    """A block's MLP half, LN2 (``p[ln]``, ``eps``) to the residual, the GELU
+    ``F.gelu``'s ``approximate=gelu``, ``torch.matmul`` on every route as
+    team_tpu leaves it to XLA; under ``shard`` (CLIP's tower only) the fc
+    columns and proj rows of the rank, summed over the ranks, then the bias."""
     m = p["mlp"]
-    h = _layer_norm(p["ln_2"], x)
+    h = _layer_norm(p[ln], x, eps)
     if shard is None:
-        h = F.gelu(_linear(h, m["fc_w"], m["fc_b"]), approximate="none")
+        h = F.gelu(_linear(h, m["fc_w"], m["fc_b"]), approximate=gelu)
         return _residual(x, h, m["proj_w"], m["proj_b"])
     rank, nm = shard
     f = m["fc_b"].shape[-1]
@@ -331,11 +443,13 @@ def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_l
 def patch_pixels(images: torch.Tensor, cfg: CLIPConfig, *,
                  compute_dtype=torch.float32) -> torch.Tensor:
     """``[B, H, W, 3]`` -> the patch-pixel matrix ``[B, g*g, 3*ps*ps]``
-    (channel-major inside a patch, the torch conv weight order)."""
+    (channel-major inside a patch, the torch conv weight order); pixels past
+    the last whole patch (384 at patch 14: the last 6 rows and columns) are
+    dropped, as a stride-``ps`` convolution drops them."""
     v = cfg.vision
     b = images.shape[0]
     g, ps = v.grid, v.patch_size
-    x = images.to(compute_dtype).reshape(b, g, ps, g, ps, 3)
+    x = images[:, :g * ps, :g * ps].to(compute_dtype).reshape(b, g, ps, g, ps, 3)
     x = x.permute(0, 1, 3, 5, 2, 4)  # B, gh, gw, C, ph, pw
     return x.reshape(b, g * g, 3 * ps * ps)
 
@@ -349,11 +463,40 @@ def embed_patches(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
 
 def _embed_tokens(p: Params, patch_tokens: torch.Tensor, v: VisionConfig,
                   compute_dtype) -> torch.Tensor:
-    """The CLS token and position embeddings, then ``ln_pre``."""
-    cls = p["cls"].to(compute_dtype).expand(patch_tokens.shape[0], 1, v.width)
-    x = torch.cat([cls, patch_tokens.to(compute_dtype)], dim=1)
+    """The patch GEMM's bias, the CLS token and ``ln_pre``, each where the
+    tower's kind has it (:class:`VisionConfig`), and the position embeddings."""
+    x = patch_tokens.to(compute_dtype)
+    if v.patch_bias:
+        x = x + p["patch_b"].to(compute_dtype)
+    if v.class_token:
+        cls = p["cls"].to(compute_dtype).expand(patch_tokens.shape[0], 1, v.width)
+        x = torch.cat([cls, x], dim=1)
     x = x + p["pos"].to(compute_dtype)
-    return _layer_norm(p["ln_pre"], x)
+    return _layer_norm(p["ln_pre"], x, v.ln_eps) if v.ln_pre else x
+
+
+def _attention_pool(p: Params, x: torch.Tensor, v: VisionConfig, *, attn_impl: str) -> torch.Tensor:
+    """SigLIP's attention-pool head over ``ln_post``'s tokens ``[B, S, D]`` ->
+    ``[B, D]``: the learned probe's query (one row, shared by the batch),
+    keys and values from one GEMM over every token, the heads' attention of
+    the one query (the flash kernel, its plain version on the CPU, under
+    ``auto`` and ``pallas``; the plain route under ``xla``), the
+    out-projection, then ``h + MLP(LN(h))`` with the tower's eps and GELU."""
+    if attn_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"the attention-pool head runs on auto, pallas or xla, not {attn_impl!r}")
+    a = p["attn"]
+    b, _, d = x.shape
+    h, dh = v.heads, v.head_dim
+    q = _linear(p["probe"].to(x.dtype)[None], a["q_w"], a["q_b"])
+    kv = _linear(x, a["kv_w"], a["kv_b"])
+
+    def split_heads(t):
+        return t.reshape(t.shape[0], -1, h, dh).permute(0, 2, 1, 3)
+
+    attend = xla_attention if attn_impl == "xla" else flash_attention
+    o = attend(split_heads(q).expand(b, h, 1, dh), *map(split_heads, kv.split(d, dim=-1)))
+    o = _linear(o.reshape(b, d), a["out_w"], a["out_b"])
+    return _mlp_residual(p, o, None, eps=v.ln_eps, gelu=v.gelu, ln="ln")
 
 
 def _vision_tower(p: Params, patch_tokens, v: VisionConfig, *, compute_dtype,
@@ -369,11 +512,14 @@ def _vision_tower(p: Params, patch_tokens, v: VisionConfig, *, compute_dtype,
     for blk in p["blocks"]:
         with phase(phase_timer.ATTN_BLOCK):
             x = _attention_residual(blk, x, v.heads, causal=False, kv_len=v.seq_len,
-                                    impl=attn_impl, shard=shard)
+                                    impl=attn_impl, shard=shard, eps=v.ln_eps)
         with phase(phase_timer.MLP_BLOCK):
-            x = _mlp_residual(blk, x, shard)
+            x = _mlp_residual(blk, x, shard, eps=v.ln_eps, gelu=v.gelu)
     with phase(phase_timer.HEAD):
-        x = _layer_norm(p["ln_post"], x[:, 0])
+        if v.pool == "map":
+            x = _layer_norm(p["ln_post"], x, v.ln_eps)
+            return _attention_pool(p["head"], x, v, attn_impl=attn_impl).float()
+        x = _layer_norm(p["ln_post"], x[:, 0], v.ln_eps)
         return (x @ p["proj"].to(compute_dtype)).float()
 
 
@@ -395,14 +541,16 @@ def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig, *,
 def encode_image_patches_u8(params: Params, patches_u8: torch.Tensor, cfg: CLIPConfig, *,
                             compute_dtype=torch.float32, attn_impl: str = "auto") -> torch.Tensor:
     """Image tower over patch-major uint8 input ``[B, g*g, 3*ps*ps]`` (the
-    order of :func:`patch_pixels`); /255 and the CLIP normalize are a
-    per-column scale and bias before the patch GEMM."""
+    order of :func:`patch_pixels`); /255 and the tower's pixel mean and std
+    are a per-column scale and bias before the patch GEMM."""
     if patches_u8.dtype != torch.uint8:
         raise TypeError(f"patch-major input must be uint8, got {patches_u8.dtype}")
     p = params["vision"]
+    v = cfg.vision
 
     def patch_tokens():
-        scale, bias = patch_norm_consts(cfg.vision.patch_size, device=patches_u8.device)
+        scale, bias = patch_norm_consts(v.patch_size, device=patches_u8.device,
+                                        mean=v.pixel_mean, std=v.pixel_std)
         px = (patches_u8.float() * scale + bias).to(compute_dtype)
         return px @ p["patch_w"].to(compute_dtype)
 

@@ -12,11 +12,13 @@
 // checks), so the sums are the same. A tile that lies wholly above a row's
 // diagonal is skipped for that row, as the TPU kernel skips such blocks.
 //
-// Layout: q, k, v and out are [B, H, S, Dh] views with any strides for B, H
-// and S and a unit stride for Dh, so the towers pass head-split views of the
-// packed qkv projection without copying them, and the output is written
-// straight into the [B, S, H, Dh] order the out-projection reads. The TPU pads
-// S to a multiple of its block; here positions past S are masked instead, and
+// Layout: q and out are [B, H, Sq, Dh], k and v [B, H, S, Dh] views with any
+// strides for B, H and S and a unit stride for Dh, so the towers pass
+// head-split views of the packed qkv projection without copying them, and the
+// output is written straight into the [B, S, H, Dh] order the out-projection
+// reads. Sq is S but for a pooling query (SigLIP's attention-pool head: one
+// learned query over every token, Sq = 1, non-causal). The TPU pads S to a
+// multiple of its block; here positions past S are masked instead, and
 // nothing is padded in memory.
 //
 // float32 runs on the CUDA cores: one block per (b*h, tile of kRows query
@@ -30,7 +32,8 @@
 //
 // bfloat16 (the towers' dtype) runs both products on the tensor cores
 // (mma.sync m16n8k16 bf16 -> f32, the fragment helpers of
-// csrc/mma_attention.cuh), FA2-style: one block of kTcWarps warps per (b*h,
+// csrc/mma_attention.cuh; head widths 32, 64 and 72, the last SigLIP's: QK^T
+// contracts over 4 k16 steps and one of 8, PV writes 9 n8 tiles), FA2-style: one block of kTcWarps warps per (b*h,
 // tile of 16 * kTcWarps query rows), 16 rows a warp, streams K and V in tiles
 // of kTcKeys keys through a double-buffered cp.async ring (16-byte chunks
 // XOR-swizzled), so S has no shared-memory limit. QK^T takes the unscaled
@@ -48,9 +51,11 @@
 // What bounds it on an H100: about 4*S^2*dh flops per (sample, head) --
 // 15.3 GFLOP at B=128, H=12, S=197, dh=64 (the split PV makes the tensor
 // cores do 1.5 times that) -- against about 155 MB of q, k, v and out in
-// bf16: the memory (0.046 ms at 3.35 TB/s). The design reads each K/V tile
-// once per block of query rows and keeps the scores and p out of device
-// memory.
+// bf16: the memory (0.046 ms at 3.35 TB/s). At SigLIP's S=729, dh=72, H=16
+// it is the products: 2.45 GFLOP a layer an image, 8.46 TFLOP at B=128
+// (8.6 ms at the bf16 peak) against 861 MB (0.26 ms). The design reads each
+// K/V tile once per block of query rows and keeps the scores and p out of
+// device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,8 +111,8 @@ struct Strides {
 template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int heads, int seq, int kv_len,
-             int causal, float scale, Strides qs, Strides ks, Strides vs, Strides os) {
+             const float* __restrict__ v, float* __restrict__ out, int heads, int q_len, int seq,
+             int kv_len, int causal, float scale, Strides qs, Strides ks, Strides vs, Strides os) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kCols = DH / 32;  // output columns per lane
   constexpr int kStrideK = DH + kKPad;
@@ -119,7 +124,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int row0 = blockIdx.y * kRows;
-  const int row_end = min(row0 + kRows, seq);
+  const int row_end = min(row0 + kRows, q_len);
   const float* q_base = q + b * qs.b + h * qs.h;
   const float* k_base = k + b * ks.b + h * ks.h;
   const float* v_base = v + b * vs.b + h * vs.h;
@@ -129,7 +134,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = idx / DH;
     const int d = idx - r * DH;
     const int i = row0 + r;
-    q_s[idx] = i < seq ? q_base[i * qs.s + d] * scale : 0.f;
+    q_s[idx] = i < q_len ? q_base[i * qs.s + d] * scale : 0.f;
   }
 
   // keys any row of this tile may attend
@@ -210,10 +215,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DH>
 __global__ void __launch_bounds__(kTcWarps * 32)
 flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int heads, int seq,
-                int kv_len, int causal, float scale, Strides qs, Strides ks, Strides vs,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int heads, int q_len,
+                int seq, int kv_len, int causal, float scale, Strides qs, Strides ks, Strides vs,
                 Strides os) {
-  constexpr int KS = DH / 16;
+  constexpr int KS = (DH + 15) / 16;  // k-steps of QK^T, the last one 8 wide at dh 72
   constexpr int kStage = 2 * kTcKeys * DH;  // elements of one stage: K, then V
   extern __shared__ __align__(16) float smem[];  // the f32 kernel's declaration
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -228,7 +233,7 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // keys any row of this tile may attend
   int n_keys = min(kv_len, seq);
-  if (causal) n_keys = min(n_keys, min(row0 + kTcRows, seq));
+  if (causal) n_keys = min(n_keys, min(row0 + kTcRows, q_len));
   const int ntiles = (n_keys + kTcKeys - 1) / kTcKeys;
   // keys [key0, key0 + kTcKeys) of K and V into a stage (rows past the last
   // key block of the tile are left as they were: no warp reads them)
@@ -243,18 +248,21 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row_w = row0 + (threadIdx.x >> 5) * 16;
-  // the warp's 16 rows of q, unscaled, as A fragments (rows past seq zero)
+  // the warp's 16 rows of q, unscaled, as A fragments (rows past q_len and
+  // columns past DH zero)
   uint32_t qf[KS][4];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = row_w + g + 8 * hr;
-    const bf16* qr = q_base + static_cast<long long>(row < seq ? row : 0) * qs.s;
+    const bf16* qr = q_base + static_cast<long long>(row < q_len ? row : 0) * qs.s;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
       for (int hc = 0; hc < 2; ++hc)
         qf[kk][hr + 2 * hc] =
-            row < seq ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + hc * 8 + 2 * t) : 0u;
+            row < q_len && kk * 16 + hc * 8 < DH
+                ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + hc * 8 + 2 * t)
+                : 0u;
   }
   // keys any row of the warp sees; its rows' running max and (thread-partial) sum
   const int nkw = causal ? min(n_keys, row_w + 16) : n_keys;
@@ -270,7 +278,7 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* v_s = k_s + kTcKeys * DH;
     const int key0 = it * kTcKeys;
     const int nbl = min(kTcBlocks, (nkw - key0 + 15) >> 4);  // the warp's key blocks here
-    if (row_w < seq && nbl > 0) {  // warp-uniform
+    if (row_w < q_len && nbl > 0) {  // warp-uniform
       // logits * scale, masked to -inf; e = 4 * n-tile + the accumulator index
       float s[kTcBlocks][8];
       float mt[2] = {m[0], m[1]};
@@ -336,14 +344,14 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the stage is consumed before the next iteration refills it
   }
 
-  // the row sums over the quad, and out = acc / max(l, 1e-30) for rows < seq
+  // the row sums over the quad, and out = acc / max(l, 1e-30) for rows < q_len
   bf16* o_base = out + b * os.b + h * os.h;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
     const int row = row_w + g + 8 * hr;
-    if (row >= seq) continue;
+    if (row >= q_len) continue;
     const float den = fmaxf(l[hr], 1e-30f);
     bf16* dst = o_base + static_cast<long long>(row) * os.s + 2 * t;
 #pragma unroll
@@ -355,59 +363,68 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int batch,
-                       int heads, int seq, int kv_len, int causal, float scale, Strides qs,
-                       Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+                       int heads, int q_len, int seq, int kv_len, int causal, float scale,
+                       Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = smem_floats(DH) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (seq + kRows - 1) / kRows);
+  const dim3 grid(batch * heads, (q_len + kRows - 1) / kRows);
   flash_kernel<DH><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), heads, seq, kv_len, causal, scale, qs, ks, vs, os);
+      static_cast<float*>(out), heads, q_len, seq, kv_len, causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int batch,
-                      int heads, int seq, int kv_len, int causal, float scale, Strides qs,
-                      Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+                      int heads, int q_len, int seq, int kv_len, int causal, float scale,
+                      Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = smem_bytes_tc(DH);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel_tc<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (seq + kTcRows - 1) / kTcRows);
+  const dim3 grid(batch * heads, (q_len + kTcRows - 1) / kTcRows);
   flash_kernel_tc<DH><<<grid, kTcWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), heads, seq, kv_len, causal, scale, qs, ks, vs, os);
+      static_cast<bf16*>(out), heads, q_len, seq, kv_len, causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 element strides, (b, h, s) for q, k, v and out in that order.
-// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// one; every stride even and k, v 16-byte aligned, rows too); the codes of
-// team_tpu_torch/ops/flash_attention.py. Returns the cudaError_t of the
-// launch (0 on success).
+// dtype: 0 = float32 (the CUDA-core kernel, head widths 32 and 64), 1 =
+// bfloat16 (the tensor-core one, 32, 64 and 72; every stride even and k, v
+// 16-byte aligned, rows too); the codes of team_tpu_torch/ops/flash_attention.py.
+// q_len: the query rows (seq, or fewer where not causal); seq: the keys.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int team_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                         const long long* strides, int dtype, int batch,
-                                        int heads, int seq, int dh, int kv_len, int causal,
-                                        float scale, void* stream) {
+                                        int heads, int q_len, int seq, int dh, int kv_len,
+                                        int causal, float scale, void* stream) {
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_len < 1 || q_len > seq || (causal && q_len != seq)) return cudaErrorInvalidValue;
   if (dtype == 0 && dh == 32)
-    return launch_f32<32>(q, k, v, out, batch, heads, seq, kv_len, causal, scale, qs, ks, vs, os, s);
+    return launch_f32<32>(q, k, v, out, batch, heads, q_len, seq, kv_len, causal, scale, qs, ks,
+                          vs, os, s);
   if (dtype == 0 && dh == 64)
-    return launch_f32<64>(q, k, v, out, batch, heads, seq, kv_len, causal, scale, qs, ks, vs, os, s);
+    return launch_f32<64>(q, k, v, out, batch, heads, q_len, seq, kv_len, causal, scale, qs, ks,
+                          vs, os, s);
   if (dtype == 1 && dh == 32)
-    return launch_tc<32>(q, k, v, out, batch, heads, seq, kv_len, causal, scale, qs, ks, vs, os, s);
+    return launch_tc<32>(q, k, v, out, batch, heads, q_len, seq, kv_len, causal, scale, qs, ks,
+                         vs, os, s);
   if (dtype == 1 && dh == 64)
-    return launch_tc<64>(q, k, v, out, batch, heads, seq, kv_len, causal, scale, qs, ks, vs, os, s);
+    return launch_tc<64>(q, k, v, out, batch, heads, q_len, seq, kv_len, causal, scale, qs, ks,
+                         vs, os, s);
+  if (dtype == 1 && dh == 72)
+    return launch_tc<72>(q, k, v, out, batch, heads, q_len, seq, kv_len, causal, scale, qs, ks,
+                         vs, os, s);
   return cudaErrorInvalidValue;
 }

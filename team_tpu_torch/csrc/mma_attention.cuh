@@ -3,10 +3,13 @@
 // (#1, #2, #3), flash_attention.cu (#14), mha_packed_q.cu (#5, #6) and, for
 // its PV, mha_packed_q3i.cu (#7, #10, #11, #29).
 //   - swz: the XOR swizzle of 16-byte chunks that keeps ldmatrix free of bank
-//     conflicts without padding;
+//     conflicts without padding (rows of an odd number of chunks, as at head
+//     width 72, need none);
 //   - stage_rows_tc: one head's K or V rows into shared memory by cp.async;
 //   - qk_block / pv_block: the QK^T and PV products of one 16-key block of
-//     K/V in shared memory, through ldmatrix and mma.sync m16n8k16 bf16;
+//     K/V in shared memory, through ldmatrix and mma.sync m16n8k16 bf16; a
+//     head width of 16 k + 8 (72) ends in a k-step whose upper half is zero
+//     and a single n8 tile;
 //   - WarpAttention: one warp's attention over 16 query rows against a
 //     head's whole K and V, with the TPU packed kernels' roundings
 //     (q = round(q * dh^-0.5), f32 logits, f32 row max and sum, p = round(e / l)
@@ -32,8 +35,10 @@ __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 
 // element offset of 8-element chunk c of row r in a [rows, 8 * cpr] bf16 tile
 // with no padding: the chunks are XOR-swizzled so that the 8 rows one
-// ldmatrix phase reads fall on distinct banks (cpr a multiple of 8, or 4)
+// ldmatrix phase reads fall on distinct banks (cpr a multiple of 8, or 4);
+// an odd cpr puts 8 consecutive rows on distinct banks as they stand
 __device__ __forceinline__ int swz(int r, int c, int cpr) {
+  if (cpr & 1) return (r * cpr + c) * 8;
   return (r * cpr + ((cpr & 7) == 0 ? c ^ (r & 7) : c ^ ((r >> 1) & 3))) * 8;
 }
 
@@ -58,9 +63,11 @@ __device__ __forceinline__ void stage_rows_tc(const bf16* src, long long ld, int
 }
 
 // c[n] += q . k over key block kb (keys 16 kb + 8 n + 0..7) of K staged by
-// stage_rows_tc; qf: the 16 query rows as A fragments, KS = DH / 16 k-steps
+// stage_rows_tc; qf: the 16 query rows as A fragments, one a 16-wide k-step,
+// the last one's columns past DH zero (DH = 16 k + 8: a k-step of 8)
 template <int DH>
-__device__ __forceinline__ void qk_block(float (&c)[2][4], const uint32_t (&qf)[DH / 16][4],
+__device__ __forceinline__ void qk_block(float (&c)[2][4],
+                                         const uint32_t (&qf)[(DH + 15) / 16][4],
                                          const bf16* k_s, int kb, int lane) {
 #pragma unroll
   for (int ks = 0; ks < DH / 16; ++ks) {
@@ -70,6 +77,15 @@ __device__ __forceinline__ void qk_block(float (&c)[2][4], const uint32_t (&qf)[
     const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
     mma_bf16(c[0], qf[ks], b0);
     mma_bf16(c[1], qf[ks], b1);
+  }
+  if constexpr (DH % 16 == 8) {
+    // the last 8 columns of keys 0..7 and 8..15: the B fragments' upper k
+    // half is zero, as is the A fragments'
+    uint32_t r[2];
+    ldsm_x2(r, k_s + swz(kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7), DH / 8 - 1, DH / 8));
+    const uint32_t b0[2] = {r[0], 0u}, b1[2] = {r[1], 0u};
+    mma_bf16(c[0], qf[DH / 16], b0);
+    mma_bf16(c[1], qf[DH / 16], b1);
   }
 }
 
@@ -90,6 +106,13 @@ __device__ __forceinline__ void pv_block(float (&acc)[DH / 8][4], const uint32_t
       mma_bf16(acc[2 * np], a[i], b0);
       mma_bf16(acc[2 * np + 1], a[i], b1);
     }
+  }
+  if constexpr (DH % 16 == 8) {
+    // the last n8 tile: the 16 keys of its 8 columns
+    uint32_t r[2];
+    ldsm_x2_trans(r, v_s + swz(kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7), DH / 8 - 1, DH / 8));
+#pragma unroll
+    for (int i = 0; i < NA; ++i) mma_bf16(acc[DH / 8 - 1], a[i], r);
   }
 }
 

@@ -17,7 +17,8 @@ import numpy as np
 from PIL import Image
 
 from team_tpu_torch.data.manager import TeamDataset
-from team_tpu_torch.data.transforms import clip_transform, flip_transform, vit_train_transform
+from team_tpu_torch.data.transforms import (CLIP_MEAN, CLIP_STD, clip_transform, flip_transform,
+                                            vit_train_transform)
 
 
 def _load_image(item) -> Image.Image:
@@ -31,10 +32,12 @@ def _load_image(item) -> Image.Image:
 def _np_patch_pixels(imgs_u8: np.ndarray, patch_size: int) -> np.ndarray:
     """``[B, H, W, 3] u8`` -> ``[B, g*g, 3*ps*ps] u8`` in the torch-conv
     element order — numpy mirror of :func:`team_tpu_torch.backbone.clip.patch_pixels`
-    for the PIL fallback of patch-major loading."""
+    for the PIL fallback of patch-major loading, and for sizes the patch does
+    not divide (384 at patch 14): the pixels past the last whole patch are
+    dropped, as the stride-``ps`` convolution drops them."""
     b, h, w, _ = imgs_u8.shape
     g, ps = h // patch_size, patch_size
-    x = imgs_u8.reshape(b, g, ps, g, ps, 3).transpose(0, 1, 3, 5, 2, 4)
+    x = imgs_u8[:, :g * ps, :g * ps].reshape(b, g, ps, g, ps, 3).transpose(0, 1, 3, 5, 2, 4)
     return np.ascontiguousarray(x.reshape(b, g * g, 3 * ps * ps))
 
 
@@ -52,7 +55,8 @@ class ArrayLoader:
                  augment_ops=None, pad_last: bool = False,
                  indices: Optional[np.ndarray] = None,
                  device_normalize: bool = False,
-                 patch_major: bool = False, patch_size: int = 16):
+                 patch_major: bool = False, patch_size: int = 16,
+                 pixel_mean=CLIP_MEAN, pixel_std=CLIP_STD):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -65,6 +69,11 @@ class ArrayLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.augment_ops = augment_ops  # optional op names from team_tpu_torch.data.augment
+        # the tower's pixel statistics, for the batches normalized on the host
+        self.pixel_mean = np.asarray(pixel_mean, dtype=np.float32)
+        self.pixel_std = np.asarray(pixel_std, dtype=np.float32)
+        clip_stats = (np.array_equal(self.pixel_mean, CLIP_MEAN)
+                      and np.array_equal(self.pixel_std, CLIP_STD))
         # pad_last repeats leading samples so every batch has a fixed shape (one
         # jit compile); batches then carry a "valid" count for the consumer.
         self.pad_last = pad_last
@@ -89,6 +98,8 @@ class ArrayLoader:
             and (dataset.mode in ("test", "flip")
                  or (dataset.mode == "train" and dataset.deterministic_train))
         )
+        # the native float path normalizes with CLIP's statistics
+        self._native = self._native and (self._device_normalize or clip_stats)
         # patch_major: uint8 batches ship in the ViT patch-pixel layout
         # [B, grid^2, 3*ps^2] so the device does ZERO spatial reorder — the
         # [H, W, 3] minor-dim-3 layout is lane-hostile on TPU (docs/BENCH.md
@@ -115,11 +126,12 @@ class ArrayLoader:
             from team_tpu_torch.data.augment import random_augment
 
             img = random_augment(img, rng, ops=self.augment_ops)
+        stats = dict(mean=self.pixel_mean, std=self.pixel_std)
         if mode == "flip":
-            return flip_transform(img, self.image_size)
+            return flip_transform(img, self.image_size, **stats)
         if mode == "train" and not self.dataset.deterministic_train:
-            return vit_train_transform(img, self.image_size, rng=rng, normalize=True)
-        return clip_transform(img, self.image_size)
+            return vit_train_transform(img, self.image_size, rng=rng, normalize=True, **stats)
+        return clip_transform(img, self.image_size, **stats)
 
     def _make_batch(self, idxs: np.ndarray, pool, rng) -> Dict[str, np.ndarray]:
         valid = len(idxs)
@@ -142,10 +154,15 @@ class ArrayLoader:
 
             flips = (np.ones(len(idxs), np.uint8) if self.dataset.mode == "flip"
                      else np.zeros(len(idxs), np.uint8))
-            if self._patch_major:
+            if self._patch_major and self.image_size % self.patch_size == 0:
                 imgs, ok = native_io.load_batch_u8_patches(
                     [str(p) for p in items], self.image_size, self.patch_size,
                     hflip=flips, n_threads=self.num_threads)
+            elif self._patch_major:
+                # the native packer takes whole patches only: pack on the host
+                imgs, ok = native_io.load_batch_u8([str(p) for p in items], self.image_size,
+                                                   hflip=flips, n_threads=self.num_threads)
+                imgs = _np_patch_pixels(imgs, self.patch_size)
             else:
                 loader_fn = native_io.load_batch_u8 if self._device_normalize else native_io.load_batch
                 imgs, ok = loader_fn([str(p) for p in items], self.image_size,
@@ -184,9 +201,7 @@ class ArrayLoader:
                     and item.shape[:2] == (self.image_size, self.image_size)):
                 # array already at target size: the PIL same-size bicubic resize
                 # is the identity, so normalize directly (single-core host win)
-                from team_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
-
-                return (item.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+                return (item.astype(np.float32) / 255.0 - self.pixel_mean) / self.pixel_std
             return self._transform(_load_image(item), r)
 
         imgs = list(pool.map(work, zip(items, rngs)))

@@ -41,19 +41,22 @@ def center_crop(img: Image.Image, size: int) -> Image.Image:
     return img.crop((left, top, left + size, top + size))
 
 
-def clip_transform(img: Image.Image, image_size: int = 224, normalize: bool = True) -> np.ndarray:
-    """Deterministic CLIP preprocess (reference ``utils/data.py:94-102``)."""
+def clip_transform(img: Image.Image, image_size: int = 224, normalize: bool = True,
+                   mean=CLIP_MEAN, std=CLIP_STD) -> np.ndarray:
+    """Deterministic CLIP preprocess (reference ``utils/data.py:94-102``);
+    ``mean``/``std``: the tower's pixel statistics (CLIP's by default)."""
     img = img.convert("RGB").resize((image_size, image_size), Image.BICUBIC)
     img = center_crop(img, image_size)
     x = _to_float(img)
-    return _normalize(x) if normalize else x
+    return _normalize(x, mean, std) if normalize else x
 
 
-def flip_transform(img: Image.Image, image_size: int = 224) -> np.ndarray:
+def flip_transform(img: Image.Image, image_size: int = 224, mean=CLIP_MEAN,
+                   std=CLIP_STD) -> np.ndarray:
     """Test pipeline + forced horizontal flip (reference ``data_manager.py:64-71``)."""
     img = img.convert("RGB").resize((image_size, image_size), Image.BICUBIC)
     img = center_crop(img, image_size).transpose(Image.FLIP_LEFT_RIGHT)
-    return _normalize(_to_float(img))
+    return _normalize(_to_float(img), mean, std)
 
 
 def random_resized_crop(
@@ -90,7 +93,7 @@ def random_resized_crop(
 
 def vit_train_transform(img: Image.Image, image_size: int = 224,
                         rng: Optional[np.random.Generator] = None,
-                        normalize: bool = False) -> np.ndarray:
+                        normalize: bool = False, mean=CLIP_MEAN, std=CLIP_STD) -> np.ndarray:
     """RandomResizedCrop + HFlip train pipeline (reference ``utils/data.py:70-82``;
     no Normalize there, hence ``normalize=False`` default)."""
     rng = rng or np.random.default_rng()
@@ -99,7 +102,7 @@ def vit_train_transform(img: Image.Image, image_size: int = 224,
     if rng.uniform() < 0.5:
         img = img.transpose(Image.FLIP_LEFT_RIGHT)
     x = _to_float(img)
-    return _normalize(x) if normalize else x
+    return _normalize(x, mean, std) if normalize else x
 
 
 def get_transform(mode: str, deterministic_train: bool = True) -> Callable[..., np.ndarray]:

@@ -5,6 +5,12 @@ towers and the tokenizer, and exposes ``encode_image`` (float, uint8 and
 patch-major uint8 routes) and ``encode_texts`` with a text-feature cache
 keyed by the prompt string (exact, since the towers are frozen).
 
+``convnet_type="siglip_so400m14_384"`` builds SigLIP So400m/14's image tower
+at 384 px instead (:meth:`CLIPConfig.siglip_so400m14_384`; features 1152
+wide, bf16 on the ``auto``, ``pallas`` or ``xla`` attention routes). Its
+text tower waits for its SentencePiece vocabulary, so ``encode_texts``
+raises there, and so does every learner step that encodes prompts.
+
 With ``encoder_quant="int8_static"`` the image tower is the static-W8A8
 int8 tower (:mod:`team_tpu_torch.backbone.quant`) on the route that
 ``int8_gemm_impl`` names (default ``static3d_qi``): the first batch
@@ -49,15 +55,25 @@ from team_tpu_torch.parallel.layout import resolve_device
 from team_tpu_torch.utils import phase_timer
 from team_tpu_torch.utils.phase_timer import phase
 
-_KNOWN_TYPES = ("clip", "clip_laion2b", "openai_clip")
+SIGLIP = "siglip_so400m14_384"
+_KNOWN_TYPES = ("clip", "clip_laion2b", "openai_clip", SIGLIP)
+SIGLIP_ROUTES = ("auto", "pallas", "xla")  # the attention routes that take head width 72
 GATE_MIN_COSINE = 0.999
+NO_TEXT_TOWER = ("SigLIP's text tower needs its 32,000-piece SentencePiece vocabulary, which "
+                 "is not in the repository; this backbone encodes images only")
 
 
 def clip_config_for(cfg: Config) -> CLIPConfig:
-    if cfg.convnet_type.lower() not in _KNOWN_TYPES and "clip" not in cfg.convnet_type.lower():
+    """The towers ``convnet_type`` names: SigLIP So400m/14-384 for
+    ``siglip_so400m14_384``, ViT-B/16 for the CLIP names; ``tiny_backbone``
+    gives the CLIP test tower whatever the type."""
+    kind = cfg.convnet_type.lower()
+    if kind not in _KNOWN_TYPES and "clip" not in kind:
         raise NotImplementedError(f"Unknown type {cfg.convnet_type}")
     if cfg.get("tiny_backbone", False):
         return CLIPConfig.tiny()
+    if kind == SIGLIP:
+        return CLIPConfig.siglip_so400m14_384()
     return CLIPConfig.vit_b16()
 
 
@@ -82,6 +98,8 @@ class BackboneRuntime:
             quant.check_route(self.int8_impl)
         self.cfg = cfg
         self.clip_cfg = clip_config_for(cfg)
+        if not self.clip_cfg.text_tower:
+            self._check_image_only(cfg, pretrained)
         self.device = resolve_device(cfg.device)
         if params is None and pretrained:
             logging.info("loading CLIP checkpoint from %s", ckpt)
@@ -106,6 +124,19 @@ class BackboneRuntime:
         self._qvision: Optional[Dict[str, Any]] = None
         self._qvision_pending: Optional[Dict[str, Any]] = None
         self.gate_cosine: Optional[float] = None  # min held-out cosine of the last gate
+
+    def _check_image_only(self, cfg: Config, pretrained: bool) -> None:
+        """What SigLIP's image tower takes here: bf16 (no int8 tier), the
+        attention routes with a head-width-72 kernel or the plain one, and
+        random weights (there is no importer of its checkpoints)."""
+        if self.encoder_quant != "bf16":
+            raise NotImplementedError(f"{cfg.convnet_type}: encoder_quant must be 'bf16'")
+        if cfg.attention_impl not in SIGLIP_ROUTES:
+            raise NotImplementedError(f"{cfg.convnet_type}: attention_impl must be one of "
+                                      f"{SIGLIP_ROUTES}, got {cfg.attention_impl!r}")
+        if pretrained:
+            raise NotImplementedError(f"{cfg.convnet_type}: TEAM_CLIP_CHECKPOINT names an "
+                                      "open_clip checkpoint; SigLIP's has no importer")
 
     def to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -134,7 +165,8 @@ class BackboneRuntime:
             if self._is_patch_major(images):
                 return encode_image_patches_u8(self.params, images, self.clip_cfg, **kw)
             if images.dtype == torch.uint8:
-                images = preprocess_batch(images, self.clip_cfg.vision.image_size)
+                v = self.clip_cfg.vision
+                images = preprocess_batch(images, v.image_size, mean=v.pixel_mean, std=v.pixel_std)
             return encode_image(self.params, images, self.clip_cfg, **kw)
 
     # -- int8 static tier ------------------------------------------------
@@ -224,12 +256,17 @@ class BackboneRuntime:
     # -- text ------------------------------------------------------------
     @torch.no_grad()
     def encode_text_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        if not self.clip_cfg.text_tower:
+            raise NotImplementedError(NO_TEXT_TOWER)
         return encode_text(self.params, tokens, self.clip_cfg,
                            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
 
     def encode_texts(self, texts: Sequence[str], cache: bool = True) -> torch.Tensor:
         """Encode strings -> ``[N, embed_dim]`` on the device. Batches are
-        padded to ``TEXT_BUCKET`` rows, the batch shape of team_tpu."""
+        padded to ``TEXT_BUCKET`` rows, the batch shape of team_tpu. Raises on
+        a backbone without a text tower (SigLIP's)."""
+        if not self.clip_cfg.text_tower:
+            raise NotImplementedError(NO_TEXT_TOWER)
         missing = [t for t in texts if t not in self._text_cache] if cache else list(texts)
         missing = list(dict.fromkeys(missing))  # de-dup, keep order
         feats_by_text = {}

@@ -120,6 +120,8 @@ class BaseLearner:
             device_normalize=bool(self.cfg.get("device_preprocess", True)),
             patch_major=bool(self.cfg.get("patch_major_io", False)),
             patch_size=self.backbone.clip_cfg.vision.patch_size,
+            pixel_mean=self.backbone.clip_cfg.vision.pixel_mean,
+            pixel_std=self.backbone.clip_cfg.vision.pixel_std,
         )
 
     # ------------------------------------------------------------------

@@ -79,7 +79,7 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)  # the kernel's compiled head widths
+PACKED_HEAD_DIMS = (32, 64, 128)  # the packed kernel's compiled head widths
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on sm_90
 _SOURCE = "mha_packed.cu"
 
@@ -203,8 +203,8 @@ def _mha_packed_call(qkv: torch.Tensor, heads: int, causal: bool,
     b, s, d3 = qkv.shape
     d = d3 // 3
     dh = d // heads
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    if dh not in PACKED_HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {PACKED_HEAD_DIMS})")
     lib = _library()
     code = _DTYPE_CODES[qkv.dtype]
     smem = lib.team_mha_packed_smem_bytes(code, s, dh, 0)
@@ -397,8 +397,8 @@ def _launch_short(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``extra``: the entry's arguments after the scale; ``v2``: the entry's
     code for ``team_mha_packed_smem_bytes``)."""
     b, h, s, dh = q.shape
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    if dh not in PACKED_HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {PACKED_HEAD_DIMS})")
     lib = _library()
     code = _DTYPE_CODES[q.dtype]
     smem = lib.team_mha_packed_smem_bytes(code, s, dh, v2)
@@ -1251,8 +1251,8 @@ def fused_mha_packed_tp(qkv: torch.Tensor, heads: int, *, causal: bool = False,
         raise ValueError("qkv must be contiguous")
     hm, dm = heads // nm, d3 // 3 // nm
     dh = dm // hm
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"head width {dh} not compiled (supported: {_HEAD_DIMS})")
+    if dh not in PACKED_HEAD_DIMS:
+        raise ValueError(f"head width {dh} not compiled (supported: {PACKED_HEAD_DIMS})")
     lib = _library()
     code = _DTYPE_CODES[qkv.dtype]
     smem = lib.team_mha_packed_smem_bytes(code, s, dh, 0)

@@ -2,7 +2,8 @@
 
 Counterpart of ``team_tpu/ops/preprocess.py``:
 - ``preprocess_batch``: /255, a bicubic resize when the input is not at the
-  target size, the optional flip, the CLIP mean/std. The resize is
+  target size, the optional flip, the tower's mean/std (CLIP's by default;
+  SigLIP's 0.5/0.5). The resize is
   ``jax.image.resize(..., "bicubic")``'s: Keys cubic (a = -0.5) with
   antialiasing, as two separable float32 contractions with the weight
   matrices that ``jax/_src/image/scale.py:compute_weight_mat`` builds.
@@ -84,10 +85,11 @@ def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def preprocess_batch(images_u8: torch.Tensor, image_size: int = 224,
-                     flip: bool = False) -> torch.Tensor:
+                     flip: bool = False, mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
     """``[B, H, W, 3] uint8`` -> normalized ``[B, S, S, 3] float32``:
     /255, a bicubic resize to ``S x S`` when the input is another size,
-    optional horizontal flip, CLIP mean/std."""
+    optional horizontal flip, the per-channel ``mean``/``std`` (CLIP's by
+    default). The tower's patch GEMM drops what its patches do not cover."""
     _, h, w, _ = images_u8.shape
     dev = images_u8.device
     if (h, w) != (image_size, image_size):
@@ -95,28 +97,30 @@ def preprocess_batch(images_u8: torch.Tensor, image_size: int = 224,
         x = resize_bicubic(images_u8.float() / 255.0, image_size, image_size)
         if flip:
             x = x.flip(2)
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
-        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
-        return (x - mean) / std
+        mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
+        std_t = torch.tensor(std, dtype=torch.float32, device=dev)
+        return (x - mean_t) / std_t
     # at the target size, the arithmetic XLA compiles preprocess_batch to, so
     # that the two agree bit for bit: divisions by constants become products
     # with float32 reciprocals, and u8 * (1/255) - mean is one fused
     # multiply-add (exact in float64, then rounded once to float32)
     inv255 = torch.tensor(1.0, dtype=torch.float32) / 255.0
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32)
-    inv_std = 1.0 / torch.tensor(CLIP_STD, dtype=torch.float32)
+    mean = torch.tensor(mean, dtype=torch.float32)
+    inv_std = 1.0 / torch.tensor(std, dtype=torch.float32)
     x = (images_u8.double() * inv255.double().to(dev) - mean.double().to(dev)).float()
     x = x * inv_std.to(dev)
     return x.flip(2) if flip else x
 
 
-def patch_norm_consts(patch_size: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def patch_norm_consts(patch_size: int, device=None, mean=CLIP_MEAN,
+                      std=CLIP_STD) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-column ``(scale, bias)`` of length ``3*ps*ps`` with
-    ``u8 * scale + bias == (u8/255 - CLIP_MEAN)/CLIP_STD`` in the patch-pixel
-    column order (channel-major) of ``team_tpu_torch.backbone.clip.patch_pixels``."""
+    ``u8 * scale + bias == (u8/255 - mean)/std`` (CLIP's by default) in the
+    patch-pixel column order (channel-major) of
+    ``team_tpu_torch.backbone.clip.patch_pixels``."""
     ps2 = patch_size * patch_size
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device).repeat_interleave(ps2)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device).repeat_interleave(ps2)
+    mean = torch.tensor(mean, dtype=torch.float32, device=device).repeat_interleave(ps2)
+    std = torch.tensor(std, dtype=torch.float32, device=device).repeat_interleave(ps2)
     return 1.0 / (255.0 * std), -mean / std
 
 

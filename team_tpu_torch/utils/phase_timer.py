@@ -43,9 +43,10 @@ GATE = "runtime.gate"                   # the int8 tier's held-out gate, commit 
 EMBED = "tower.embed"                   # input normalize, patch GEMM, CLS and positions, ln_pre
 ATTN_BLOCK = "tower.attn_block"         # LN1, qkv GEMM, attention, out GEMM, residual
 MLP_BLOCK = "tower.mlp_block"           # LN2, fc GEMM, GELU, proj GEMM, residual
-HEAD = "tower.head"                     # ln_post and the projection
+HEAD = "tower.head"                     # ln_post and the projection, or SigLIP's attention pool
 KERNELS_BUILD = "kernels.build"         # the nvcc jobs of one build
 KERNELS_BUILT = "kernels.built"         # counter: sources compiled
+FLASH_CALLS = "attention.flash_calls"   # counter: calls of the flash kernel's entry
 
 CALLS_KEPT = 64  # durations kept a name, the first ones: memory stays bounded
 

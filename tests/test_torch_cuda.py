@@ -1881,7 +1881,8 @@ HMMA_SOURCES = {
     # f32: 3 head widths x 3 switch sets; #4's bf16 yardstick: 3 head widths x
     # 2 switch sets
     "mha_packed.cu": ("mha_packed_kernel_tc", 7, "mha_packed_kernel", 15),
-    "flash_attention.cu": ("flash_kernel_tc", 2, "flash_kernel", 2),  # dh 32 and 64
+    # bf16: dh 32, 64 and SigLIP's 72; f32: dh 32 and 64
+    "flash_attention.cu": ("flash_kernel_tc", 3, "flash_kernel", 2),
 }
 
 

@@ -163,3 +163,59 @@ def test_encode_image_opens_the_stage_spans(timer, tmp_path, quant):
     assert [e["name"] for e in _annotations(prof, tmp_path, set(ENCODE_SPANS))] == order
     spans = timer.report()["spans"]
     assert {name: s["parents"] for name, s in spans.items()} == parents
+
+
+def _siglip_27_blocks():
+    """SigLIP So400m/14's tower of 27 blocks at a tiny width (2 heads of 72,
+    patch 14 at 46 px: 9 tokens)."""
+    import dataclasses
+
+    from team_tpu_torch.backbone.clip import CLIPConfig
+
+    full = CLIPConfig.siglip_so400m14_384()
+    v = dataclasses.replace(full.vision, image_size=46, width=144, heads=2, embed_dim=144,
+                            mlp_width=538)
+    return dataclasses.replace(full, vision=v, embed_dim=144)
+
+
+@pytest.mark.parametrize("convnet", ["siglip_so400m14_384", "clip"])
+def test_flash_calls_count_the_blocks_and_the_head_of_siglip(timer, tmp_path, monkeypatch,
+                                                             convnet):
+    """``attention.flash_calls``: 27 blocks and the attention-pool head a
+    SigLIP batch, none on ViT-B/16 (its blocks take the packed kernel); the
+    head's operations, ``ln_post`` and the pool, run inside ``tower.head``."""
+    from team_tpu_torch.learners import backbone_runtime as br
+
+    if convnet == br.SIGLIP:
+        monkeypatch.setattr(br, "clip_config_for", lambda c: _siglip_27_blocks())
+    cfg = Config(convnet_type=convnet, device=["cpu"], compute_dtype="bfloat16",
+                 extras={} if convnet == br.SIGLIP else {"tiny_backbone": True})
+    runtime = BackboneRuntime(cfg, seed=0)
+    v = runtime.clip_cfg.vision
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (2, v.grid ** 2, 3 * v.patch_size ** 2),
+                                           dtype=np.uint8))
+    timer.enable(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            runtime.encode_image(images)
+    calls = timer.report()["counters"].get(pt.FLASH_CALLS, 0)
+    assert calls == (2 * 28 if convnet == br.SIGLIP else 0)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"] in ENCODE_SPANS), key=lambda e: e["ts"])
+    encode, last_mlp = spans[-1 - (2 + 2 * v.layers)], None
+    for e in spans:
+        if e["name"] == pt.MLP_BLOCK and e["ts"] < encode["ts"] + encode["dur"]:
+            last_mlp = e
+    head = [e for e in spans if e["name"] == pt.HEAD][-1]
+    assert [e["name"] for e in spans].count(pt.ATTN_BLOCK) == 2 * v.layers
+    # every operation after the last block's MLP half, in the last encode, lies in the head
+    later = [e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"
+             and last_mlp["ts"] + last_mlp["dur"] <= e["ts"] < encode["ts"] + encode["dur"]]
+    assert later and all(head["ts"] <= e["ts"] and e["ts"] + e["dur"] <= head["ts"] + head["dur"]
+                         for e in later)
+    if convnet == br.SIGLIP:
+        assert any(e["name"] in ("aten::softmax", "aten::exp", "aten::_softmax") for e in later)

@@ -81,7 +81,13 @@ Phases, one line or more each:
      S=77, H=8, causal; #3 the image tower only), f32 and bf16, against
      autograd of their plain references (the gradients of sum(tanh(out)·w)
      within 1e-4 of their max in f32, 2e-2 in bf16), each kernel launched
-     once a forward; and #12 refusing an input that requires grad
+     once a forward; and #12 refusing an input that requires grad; the bf16
+     towers' elementwise kernels (csrc/tower_bf16.cu) against the
+     compositions they replace at ViT-B/16's, SigLIP's (B=128) and the text
+     tower's (32 prompts) sites: bias_act at the qkv bias and the fc bias
+     with the tower's GELU and residual_ln's x' bit for bit, the layer norms
+     (residual_ln's, layer_norm's, also on the CLS rows x[:, 0] and the
+     attention-pool head's 128 rows) one bf16 step on under 0.1 %
   4. kernels, plain versions (plain, kernel, kernel, plain) and
      scaled_dot_product_attention as the library yardstick (for the fused
      kernels a composition of PyTorch calls; for the int8 GEMMs torch._int_mm
@@ -96,7 +102,10 @@ Phases, one line or more each:
      tower's epilogue kernels against the compositions they replace; #27
      against torch._int_mm and torch.matmul (bf16 out), #28 with none (its
      rate is the wgmma ceiling, printed as a share of the dense peak), #30
-     against the torch composition; the
+     against the torch composition; the bf16 towers' elementwise kernels
+     (bias_act with the GELU, residual_ln with the layer norm, layer_norm) at
+     ViT-B/16's and SigLIP's B=128 sites against their compositions and
+     their HBM bounds (each byte in and out once); the
      fused kernels' TFLOP/s and share of their bound beside their times; the
      tensor-core attention kernels (#1-#4, #14) against the CUDA-core
      kernels' ms of PERF.md, SDPA (the factor) and the bound (its share);
@@ -153,6 +162,11 @@ Phases, one line or more each:
      the GEMM probes at their own shapes, each with the counts zeroed before
      it: team_tpu_torch.scripts.int8_probe must launch #27, int8_mxu_ceiling
      #28, r5_megakernel_probe both entries of #30;
+     SigLIP So400m/14-384 (bf16, auto) through BackboneRuntime: one B=128
+     encode with 28 flash calls and, as ViT-B/16's bf16 B=128 encode, the
+     bf16 elementwise kernels' launches of TOWER_BF16_LAUNCHES (ViT-B/16's
+     features also against the same tower with the kernels switched off,
+     cosine >= TOWER_COS);
      Grad-CAM at full ViT-B/16 width (random init, B=4, f32) on auto (#1),
      mha_short (#3), attn_block (#13) and pallas (#14) against the plain
      route, the [0, 1] maps within 1e-3 and the route's kernel launched once
@@ -219,7 +233,8 @@ MAIN_SHAPES = {  # (batch, seq, heads, causal) of the two towers at their batch 
 }
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}  # as in tests/test_torch_mha_packed.py
 SOURCES = ("mha_packed.cu", "attn_block.cu", "mha_packed_q3i.cu", "flash_attention.cu",
-           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu", "gemm_probe.cu")
+           "mha_packed_q.cu", "int8_quant.cu", "int8_gemm.cu", "preprocess.cu", "gemm_probe.cu",
+           "tower_bf16.cu")
 # flash attention: (batch, heads, seq, causal, kv_len, head width); vision
 # and text are the towers' shapes on the main path, S=577 a shape the auto
 # route sends to it, siglip SigLIP So400m/14-384's blocks at the learners'
@@ -1137,6 +1152,23 @@ def compare_int8_io(ms, im, dev) -> dict:
 # plus five, no multiple of any tile
 EPILOGUE_SITES = [("qkv", 128 * 197, 2304), ("fc", 128 * 197, 3072), ("out", 128 * 197, 768),
                   ("cls", 128, 768), ("ragged", RAGGED_M + 5, 2304)]
+# the bf16 towers' elementwise sites (csrc/tower_bf16.cu): rows at the towers'
+# batches, width, MLP width, layer-norm eps, the fc site's GELU
+TOWER_BF16_SITES = {"vitb16": (128 * 197, 768, 3072, 1e-5, "none"),
+                    "siglip": (128 * 729, 1152, 4304, 1e-6, "tanh"),
+                    "text": (32 * 77, 512, 2048, 1e-5, "none")}
+# bias_act, residual_ln and layer_norm launches of one B=128 bf16 encode: a
+# bias a GEMM (SigLIP's head: q, k/v, out, fc), a residual a half (and the
+# head's MLP), layer norms ln_pre or ln_post, the first LN1 and the head's
+TOWER_BF16_LAUNCHES = {"vitb16": (24, 24, 3), "siglip": (58, 55, 3)}
+LN_MAX_FRAC = 0.001  # the layer norms: one bf16 step on under 0.1 % of their outputs,
+# a step of outputs under LN_FLOOR counted at LN_FLOOR's (beta cancels there)
+LN_FLOOR = 2.0 ** -10
+# the towers through these kernels against the composition's: the layer norms'
+# one-step differences compound over the blocks to 1 - cosine of 3.2e-5 -
+# 3.5e-5 on ViT-B/16, as far as the composition lies from itself with its layer
+# norm's sums in another order (3.3e-5 - 3.7e-5; three seeds, NVIDIA H100 80GB HBM3)
+TOWER_COS = 0.9999
 
 
 def compare_static_epilogues(im, dev) -> dict:
@@ -1184,6 +1216,131 @@ def compare_static_epilogues(im, dev) -> dict:
                 f"ln_quant_folded ({site}, {'two' if two_pass else 'one'} pass) M={m} D=768",
                 out, ref, max_frac=EPILOGUE_MAX_FRAC))
     return worst
+
+
+def tower_inputs(rows, d, dev, seed=0):
+    """A bf16 residual stream with a spread per row, a GEMM output, a bf16
+    bias and a layer norm's float32 affine."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((rows, d), generator=g, device=dev)
+         * (torch.rand((rows, 1), generator=g, device=dev) * 3 + 0.5)).to(torch.bfloat16)
+    y = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn(d, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    return (x, y, b, torch.rand(d, generator=g, device=dev) + 0.5,
+            torch.rand(d, generator=g, device=dev) * 0.4 - 0.2)
+
+
+def _bf16_disagreement(name: str, out, ref, max_frac: float) -> float:
+    """The share of bf16 outputs that differ from the plain version's: none
+    where ``max_frac`` is 0; else at most one bf16 step of the output's
+    magnitude, floored at LN_FLOOR, on under ``max_frac`` of the outputs."""
+    import torch
+
+    differ = out.view(torch.int16) != ref.view(torch.int16)
+    frac = differ.float().mean().item()
+    w = ref.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=LN_FLOOR))) - 7)
+    worst = ((out.float() - w).abs() / step).max().item()
+    limits = "bit-equal required" if max_frac == 0 else f"limits 1, {100 * max_frac:g} %"
+    print(f"  {name}: {int(differ.sum().item())} of {ref.numel()} bf16 outputs differ, by at "
+          f"most {worst:g} step ({limits})")
+    if out.shape != ref.shape or out.dtype != ref.dtype or (
+            frac > 0 if max_frac == 0 else (worst > 1 or frac >= max_frac)):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return frac
+
+
+def compare_tower_bf16(tb, dev) -> dict:
+    """The bf16 towers' elementwise kernels against the compositions they
+    replace, at ViT-B/16's, SigLIP's and the text tower's sites: bias_act at
+    the qkv bias and the fc bias with the tower's GELU, residual_ln with and
+    without its layer norm, layer_norm, all bit for bit but the layer norms
+    (one bf16 step on under LN_MAX_FRAC); layer_norm also on ViT-B/16's CLS
+    rows x[:, 0] (rows 197 * 768 apart) and the attention-pool head's 128 rows."""
+    import torch
+
+    worst = {"bias_act": 0.0, "residual_ln": 0.0, "layer_norm": 0.0}
+    for tower, (m, d, f, eps, gelu) in TOWER_BF16_SITES.items():
+        for n, act in ((3 * d, None), (f, gelu)):
+            _, y, _, _, _ = tower_inputs(m, n, dev, seed=n)
+            b = tower_inputs(1, n, dev, seed=n + 1)[2]
+            ref = tb.bias_act_reference(y, b, act)
+            out = tb.bias_act(y, b, act)
+            torch_sync()
+            _bf16_disagreement(f"bias_act ({tower}, gelu {act}) M={m} N={n}", out, ref, 0)
+        x, y, b, gamma, beta = tower_inputs(m, d, dev, seed=d)
+        ref, ref_h = tb.residual_ln_reference(x, y.clone(), b, gamma, beta, eps)
+        out, h = tb.residual_ln(x, y.clone(), b, gamma, beta, eps)
+        plain_out, _ = tb.residual_ln(x, y, b)
+        torch_sync()
+        _bf16_disagreement(f"residual_ln ({tower}) x' M={m} D={d}", out, ref, 0)
+        _bf16_disagreement(f"residual_ln ({tower}, no LN) x' M={m} D={d}", plain_out, ref, 0)
+        worst["residual_ln"] = max(worst["residual_ln"], _bf16_disagreement(
+            f"residual_ln ({tower}) LN eps {eps:g} M={m} D={d}", h, ref_h, LN_MAX_FRAC))
+        cases = [(tower, x, eps)]
+        if tower == "vitb16":
+            cases.append(("vitb16 CLS rows", x.reshape(128, 197, d)[:, 0], eps))
+        if tower == "siglip":
+            cases.append(("siglip pool head", x[:128], eps))
+        for label, xs, e in cases:
+            out = tb.layer_norm(xs, gamma, beta, e)
+            ref = tb.layer_norm_reference(xs, gamma, beta, e)
+            torch_sync()
+            worst["layer_norm"] = max(worst["layer_norm"], _bf16_disagreement(
+                f"layer_norm ({label}) {tuple(xs.shape)}", out, ref, LN_MAX_FRAC))
+    return worst
+
+
+def time_tower_bf16(tb, dev) -> dict:
+    """The bf16 towers' elementwise kernels at ViT-B/16's and SigLIP's B=128
+    sites against their compositions and their bounds: every byte in and out
+    once at 3.35 TB/s (bias_act 2 * M * N * 2 bytes; residual_ln with its
+    layer norm x and y in, x' and h out; layer_norm M * D in and out).
+    layer_norm is also timed against the library's one call, ``F.layer_norm``,
+    as a yardstick of speed: on CUDA it refuses a float32 affine with a bf16
+    input (the towers' form), so it runs with gamma and beta rounded to bf16,
+    a coarser function that cannot stand in for the kernel. No single PyTorch
+    call computes a bias with the GELU or a residual with the next layer
+    norm."""
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    times = {}
+    for tower in ("vitb16", "siglip"):
+        m, d, f, eps, gelu = TOWER_BF16_SITES[tower]
+        x, y, b, gamma, beta = tower_inputs(m, d, dev, seed=7)
+        _, yf, _, _, _ = tower_inputs(m, f, dev, seed=8)
+        bf = tower_inputs(1, f, dev, seed=9)[2]
+        vec = 2 * d * 4 + d * 2
+        pairs = {
+            f"bias_act {tower} fc": (partial(tb.bias_act, yf, bf, gelu),
+                                     partial(tb.bias_act_reference, yf, bf, gelu), None,
+                                     bound(2 * yf.numel() * 2 + f * 2, {})),
+            f"residual_ln {tower}": (partial(tb.residual_ln, x, y, b, gamma, beta, eps),
+                                     partial(tb.residual_ln_reference, x, y, b, gamma, beta, eps),
+                                     None, bound(4 * x.numel() * 2 + vec, {})),
+            f"layer_norm {tower}": (partial(tb.layer_norm, x, gamma, beta, eps),
+                                    partial(tb.layer_norm_reference, x, gamma, beta, eps),
+                                    partial(F.layer_norm, x, (d,), gamma.to(x.dtype),
+                                            beta.to(x.dtype), eps),
+                                    bound(2 * x.numel() * 2 + 2 * d * 4, {})),
+        }
+        for name, (kernel, plain, library, bnd) in pairs.items():
+            p1, k1 = _time_ms(plain), _time_ms(kernel)
+            lib = [_time_ms(library), _time_ms(library)] if library else []
+            k2, p2 = _time_ms(kernel), _time_ms(plain)
+            lib_ms = sum(lib) / 2 if lib else None
+            times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+                           **bnd}
+            lib_txt = f", library {lib[0]:.4f}/{lib[1]:.4f} ms" if lib else ""
+            print(f"  {name} (M={m}): kernel {k1:.4f}/{k2:.4f} ms, composition {p1:.4f}/{p2:.4f} "
+                  f"ms{lib_txt}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                  f"{100 * bnd['bound_ms'] / ((k1 + k2) / 2):.1f} % of it")
+        del x, y, yf
+    return times
 
 
 def packed_q_inputs(b, s, heads, dev, seed=0, dh=64):
@@ -1578,13 +1735,63 @@ FUSED_RUNS = (("proof", "bfloat16", "attn_block", {"batch_size": FLAGSHIP_BATCH,
 SIGLIP_FLASH_CALLS = 28  # a SigLIP encode: its 27 blocks and the attention-pool query
 
 
-def run_siglip_path(fa, dev) -> dict:
+def _check_tower_bf16_launches(tb, tower: str) -> tuple:
+    """The bf16 tower kernels' launches, set to 0 just before one B=128
+    encode, against its ``TOWER_BF16_LAUNCHES``."""
+    got = (tb.bias_act.launches, tb.residual_ln.launches, tb.layer_norm.launches)
+    print(f"  {tower} bf16 encode: bias_act, residual_ln, layer_norm launched {got} times "
+          f"(want {TOWER_BF16_LAUNCHES[tower]})")
+    if got != TOWER_BF16_LAUNCHES[tower]:
+        raise AssertionError(f"{tower}: the bf16 tower kernels launched {got} times, not "
+                             f"{TOWER_BF16_LAUNCHES[tower]}")
+    return got
+
+
+def run_vitb16_bf16_path(tb) -> dict:
+    """ViT-B/16 in bf16 through the learners' entry (``BackboneRuntime``,
+    ``attention_impl`` auto): one B=128 encode of 224 px uint8 images must
+    launch ``TOWER_BF16_LAUNCHES["vitb16"]`` of the elementwise kernels (the
+    counters set to 0 just before it); its
+    features are held to the same tower with the kernels switched off
+    (``clip._tower_kernels``), the composition, at cosine >= TOWER_COS."""
+    import numpy as np
+    import torch
+
+    from team_tpu_torch.backbone import clip
+    from team_tpu_torch.learners.backbone_runtime import BackboneRuntime
+
+    params = clip.init_clip_params(torch.Generator().manual_seed(0), clip.CLIPConfig())
+    rt = BackboneRuntime(smoke_config("simplecil", "bfloat16", ""), params=params)
+    u8 = np.random.default_rng(1).integers(0, 256, (EVAL_B, 224, 224, 3), dtype=np.uint8)
+    batch = rt.to_device(u8)
+    rt.encode_image(batch)
+    torch.cuda.synchronize()
+    tb.reset_launch_counts()
+    feats = rt.encode_image(batch)
+    torch.cuda.synchronize()
+    launches = _check_tower_bf16_launches(tb, "vitb16")
+    kernels = clip._tower_kernels
+    clip._tower_kernels = lambda x, shard=None: False
+    try:
+        plain = rt.encode_image(batch)
+    finally:
+        clip._tower_kernels = kernels
+    cos = torch.nn.functional.cosine_similarity(feats.double(), plain.double(), dim=-1).min().item()
+    print(f"  vitb16 bf16 encode: min cosine to the composition's tower {cos:.7f} (limit "
+          f"{TOWER_COS})")
+    if cos < TOWER_COS:
+        raise AssertionError(f"vitb16 bf16: the tower kernels' features at cosine {cos}")
+    return {"launches": launches, "cos_composition_min": cos}
+
+
+def run_siglip_path(fa, tb, dev) -> dict:
     """SigLIP So400m/14-384 through the learners' entry: ``BackboneRuntime``
     with ``convnet_type`` siglip_so400m14_384, bf16, ``attention_impl`` auto.
     One B=128 encode of 384 px uint8 images, with the counters set to 0 just
     before it, must count 28 flash calls (``attention.flash_calls``) and add
     28 to ``flash_attention.launches``: no block and not the head fell back
-    to the plain route. Its features are held to the same tower on the plain
+    to the plain route; and launch ``TOWER_BF16_LAUNCHES["siglip"]`` of the
+    elementwise kernels. Its features are held to the same tower on the plain
     route (``xla``) as the bf16 towers in phase 6."""
     import numpy as np
     import torch
@@ -1606,6 +1813,7 @@ def run_siglip_path(fa, dev) -> dict:
     rt.encode_image(batch)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    tb.reset_launch_counts()
     start_span_report()
     t0 = time.perf_counter()
     feats = rt.encode_image(batch)
@@ -1614,6 +1822,7 @@ def run_siglip_path(fa, dev) -> dict:
     calls = phase_timer.report()["counters"].get(phase_timer.FLASH_CALLS)
     launches = fa.flash_attention.launches
     print_span_report()
+    tower_launches = _check_tower_bf16_launches(tb, "siglip")
     plain = runtimes["xla"].encode_image(batch)
     torch.cuda.synchronize()
     cos = torch.nn.functional.cosine_similarity(feats, plain, dim=-1).min().item()
@@ -1629,7 +1838,7 @@ def run_siglip_path(fa, dev) -> dict:
         raise AssertionError(f"SigLIP features: shape {tuple(feats.shape)}, {feats.dtype}, "
                              f"min cosine to the plain route {cos}")
     return {"flash_calls": calls, "launches": launches, "wall_ms": 1e3 * wall,
-            "cos_plain_min": cos}
+            "cos_plain_min": cos, "tower_bf16_launches": tower_launches}
 
 
 def run_fused_paths(ms, fa, log_dir: str) -> dict:
@@ -4123,6 +4332,7 @@ def main() -> int:
         from team_tpu_torch.ops import int8_matmul as im
         from team_tpu_torch.ops import mha_short as ms
         from team_tpu_torch.ops import preprocess as pp
+        from team_tpu_torch.ops import tower_bf16 as tb
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
@@ -4143,6 +4353,7 @@ def main() -> int:
     im.build()
     pp.build()
     gp.build()
+    tb.build()
     print(f"  {', '.join(SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
     for source in SOURCES:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
@@ -4173,6 +4384,7 @@ def main() -> int:
     backward_err = compare_backward(ms, fa, dev)
     probe_inputs = _probe_inputs(dev)
     gemm_probe_err = compare_gemm_probes(gp, probe_inputs)
+    tower_err = compare_tower_bf16(tb, dev)
 
     print("phase 4: timing (CUDA events over 20 calls queued behind a device spin, after 3 "
           "warm-up; plain, kernel, kernel, plain)")
@@ -4186,6 +4398,7 @@ def main() -> int:
     times.update(time_probe_kernels(ms, pp, dev))
     times.update(time_gemm_probes(gp, probe_inputs))
     del probe_inputs
+    times.update(time_tower_bf16(tb, dev))
     report_redesign(times, flash_times)
     report_gemm_redesign(times)
     report_int8_attention_redesign(times)
@@ -4200,7 +4413,8 @@ def main() -> int:
         proof = run_proof_path(ms, fa, log_dir)
         proof.update(time_first_optimizer())
         fused = run_fused_paths(ms, fa, log_dir)
-        siglip = run_siglip_path(fa, dev)
+        siglip = run_siglip_path(fa, tb, dev)
+        vitb16_bf16 = run_vitb16_bf16_path(tb)
         print("  Grad-CAM through the kernels' backwards, checkpoint/resume, the full protocol")
         gradcam = check_gradcam(ms, fa, dev)
         resume = run_resume(log_dir)
@@ -4234,6 +4448,12 @@ def main() -> int:
     probe_common = {"route": "cuda", "source": "team_tpu_torch/csrc/gemm_probe.cu"}
     q_common = {"route": "cuda", "source": "team_tpu_torch/csrc/mha_packed_q.cu"}
     quant_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_quant.cu"}
+    tower_common = {"route": "cuda", "source": "team_tpu_torch/csrc/tower_bf16.cu",
+                    "replaces": "none: the composition of backbone/clip.py (team_tpu leaves it "
+                                "to XLA's fusions)",
+                    "launches_per_b128_encode": {"vitb16": vitb16_bf16["launches"],
+                                                 "siglip": siglip["tower_bf16_launches"]},
+                    "features_cos_composition_min": vitb16_bf16["cos_composition_min"]}
     gemm_common = {"route": "cuda", "source": "team_tpu_torch/csrc/int8_gemm.cu",
                    "library": "torch._int_mm alone (the int8 product only)",
                    "composition": "the xla tier's torch composition of the same step"}
@@ -4512,6 +4732,16 @@ def main() -> int:
         "kernel": "mlp_mega_kernel_wg (wgmma + TMA, hq resident in shared memory, 2-CTA "
                   "clusters multicasting the weights)",
         "probe_ms_per_pair": gemm_probes["r5_megakernel_probe"],
+    }, {
+        "name": "bias_act", **tower_common, "bit_equal": True,
+        **timing(times["bias_act vitb16 fc"]), "siglip": timing(times["bias_act siglip fc"]),
+    }, {
+        "name": "residual_ln", **tower_common, "ln_differing_share": tower_err["residual_ln"],
+        **timing(times["residual_ln vitb16"]), "siglip": timing(times["residual_ln siglip"]),
+    }, {
+        "name": "layer_norm", **tower_common, "differing_share": tower_err["layer_norm"],
+        "library": "F.layer_norm with gamma and beta rounded to bf16 (speed only)",
+        **timing(times["layer_norm vitb16"]), "siglip": timing(times["layer_norm siglip"]),
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

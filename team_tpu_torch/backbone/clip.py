@@ -31,10 +31,18 @@ team_tpu's tower under ``shard_clip_params``' layout (column-parallel qkv
 and fc, row-parallel out and proj, the head-split attention kernel
 :func:`~team_tpu_torch.ops.mha_short.fused_mha_packed_tp`); with none it is
 the packed route, as in team_tpu.
+
+A bf16 block on a CUDA tensor that needs no gradient runs its layer norms,
+biases, GELU and residual adds through the kernels of
+:mod:`team_tpu_torch.ops.tower_bf16` (:func:`_tower_kernels` says where),
+each residual carrying the next layer norm (:func:`_residual_ln`);
+everywhere else, and for ``clip._layer_norm`` itself, the plain composition
+runs as before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Tuple
@@ -42,6 +50,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from team_tpu_torch.ops import tower_bf16
+from team_tpu_torch.ops._grad import wants_grad
 from team_tpu_torch.ops.attention import multi_head_attention
 from team_tpu_torch.ops.flash_attention import flash_attention, xla_attention
 from team_tpu_torch.ops.mha_short import (
@@ -300,8 +310,35 @@ def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype) + b.to(x.dtype)
+def _tower_kernels(x: torch.Tensor, shard=None) -> bool:
+    """Whether the bf16 elementwise kernels (:mod:`~team_tpu_torch.ops.tower_bf16`)
+    take a tower stage over ``x``: a bfloat16 CUDA tensor that needs no
+    gradient (the kernels have no backward; Grad-CAM differentiates through
+    the composition), off the tensor-parallel route (``shard``: its all-reduce
+    sits between the product and the bias). Elsewhere (the CPU, float32) the
+    composition runs. A width the kernels do not take raises there, in the
+    wrappers: it never falls back."""
+    return shard is None and x.is_cuda and x.dtype == torch.bfloat16 and not wants_grad(x)
+
+
+def _norm(ln: Params, x: torch.Tensor, eps: float, kernels: bool) -> torch.Tensor:
+    """The layer norm ``ln`` of x: :func:`tower_bf16.layer_norm` with
+    ``kernels``, else :func:`_layer_norm`."""
+    if kernels:
+        return tower_bf16.layer_norm(x, ln["scale"], ln["bias"], eps)
+    return _layer_norm(ln, x, eps)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, gelu=None,
+            kernels: bool = False) -> torch.Tensor:
+    """``x @ w + b`` in x's dtype, then ``F.gelu(approximate=gelu)`` where
+    ``gelu`` is not None; with ``kernels`` the bias and GELU in one pass over
+    the product (:func:`tower_bf16.bias_act`, the same bits)."""
+    y = x @ w.to(x.dtype)
+    if kernels:
+        return tower_bf16.bias_act(y, b, gelu)
+    y = y + b.to(x.dtype)
+    return y if gelu is None else F.gelu(y, approximate=gelu)
 
 
 def attention_core(qkv: torch.Tensor, heads: int, *, causal: bool, kv_len,
@@ -386,43 +423,68 @@ def _residual(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return x + h @ w.to(x.dtype) + b.to(x.dtype)
 
 
+def _residual_ln(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, ln, eps: float,
+                 kernels: bool):
+    """:func:`_residual` -> ``(x', LN(x'))``: with ``kernels`` one pass over
+    the product adds the residual and bias and computes the layer norm ``ln``
+    (None: none) of the result (:func:`tower_bf16.residual_ln`); without,
+    ``(x', None)`` and the next stage normalizes x' itself."""
+    if not kernels:
+        return _residual(x, h, w, b), None
+    affine = () if ln is None else (ln["scale"], ln["bias"])
+    return tower_bf16.residual_ln(x, h @ w.to(x.dtype), b, *affine, eps=eps)
+
+
 def _attention_residual(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_len,
-                        impl: str, shard, eps: float = 1e-5) -> torch.Tensor:
-    """A block's attention half, LN1 to the residual. ``attn_block`` runs it
-    in :func:`fused_attn_block`, ``mha_packed_proj`` the attention,
-    out-projection and residual in :func:`fused_mha_packed_proj` after a
-    ``torch.matmul`` qkv GEMM; ``shard`` (the model rank and count of
-    :func:`tp_split`, or None): :func:`_tp_attention_residual`. ``eps``: LN1's
-    (the plain GEMM routes'; the fused and split ones are CLIP's, 1e-5)."""
+                        impl: str, shard, eps: float = 1e-5, h=None):
+    """A block's attention half, LN1 to the residual -> ``(x, LN2(x) or
+    None)``. ``attn_block`` runs it in :func:`fused_attn_block`,
+    ``mha_packed_proj`` the attention, out-projection and residual in
+    :func:`fused_mha_packed_proj` after a ``torch.matmul`` qkv GEMM; ``shard``
+    (the model rank and count of :func:`tp_split`, or None):
+    :func:`_tp_attention_residual`. ``eps``: the layer norms' (the plain GEMM
+    routes'; the fused and split ones are CLIP's, 1e-5). ``h``: LN1(x) where
+    the previous half computed it. LN2 comes back where the kernels ran the
+    residual (:func:`_residual_ln`), else None."""
     a = p["attn"]
     if shard is not None:
         return _tp_attention_residual(p, x, heads, causal=causal, kv_len=kv_len, rank=shard[0],
-                                      nm=shard[1])
+                                      nm=shard[1]), None
     if impl == "attn_block":
         return fused_attn_block(x, p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv_w"], a["qkv_b"],
-                                a["out_w"], a["out_b"], heads, causal=causal)
-    qkv = _linear(_layer_norm(p["ln_1"], x, eps), a["qkv_w"], a["qkv_b"])
+                                a["out_w"], a["out_b"], heads, causal=causal), None
+    kernels = _tower_kernels(x)
+    if h is None:
+        h = _norm(p["ln_1"], x, eps, kernels)
+    qkv = _linear(h, a["qkv_w"], a["qkv_b"], kernels=kernels)
     if impl == "mha_packed_proj":
-        return fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal)
+        return fused_mha_packed_proj(qkv, a["out_w"], a["out_b"], x, heads, causal=causal), None
     o = attention_core(qkv, heads, causal=causal, kv_len=kv_len, impl=impl)
-    return _residual(x, o, a["out_w"], a["out_b"])
+    return _residual_ln(x, o, a["out_w"], a["out_b"], p["ln_2"], eps, kernels)
 
 
 def _mlp_residual(p: Params, x: torch.Tensor, shard, *, eps: float = 1e-5, gelu: str = "none",
-                  ln: str = "ln_2") -> torch.Tensor:
-    """A block's MLP half, LN2 (``p[ln]``, ``eps``) to the residual, the GELU
+                  ln: str = "ln_2", h=None, ln_next=None):
+    """A block's MLP half, LN2 (``p[ln]``, ``eps``; ``h`` where the attention
+    half computed it) to the residual -> ``(x, LN_next(x) or None)``, the GELU
     ``F.gelu``'s ``approximate=gelu``, ``torch.matmul`` on every route as
-    team_tpu leaves it to XLA; under ``shard`` (CLIP's tower only) the fc
-    columns and proj rows of the rank, summed over the ranks, then the bias."""
+    team_tpu leaves it to XLA; where the kernels run the residual it carries
+    the layer norm ``ln_next`` (the next block's LN1; None: none). Under
+    ``shard`` (CLIP's tower only) the fc columns and proj rows of the rank,
+    summed over the ranks, then the bias."""
     m = p["mlp"]
-    h = _layer_norm(p[ln], x, eps)
     if shard is None:
-        h = F.gelu(_linear(h, m["fc_w"], m["fc_b"]), approximate=gelu)
-        return _residual(x, h, m["proj_w"], m["proj_b"])
+        kernels = _tower_kernels(x)
+        if h is None:
+            h = _norm(p[ln], x, eps, kernels)
+        h = _linear(h, m["fc_w"], m["fc_b"], gelu=gelu, kernels=kernels)
+        return _residual_ln(x, h, m["proj_w"], m["proj_b"], ln_next, eps, kernels)
+    h = _layer_norm(p[ln], x, eps)
     rank, nm = shard
     f = m["fc_b"].shape[-1]
     h = _linear(h, _rank_block(m["fc_w"], 1, f, rank, nm), _rank_block(m["fc_b"], 0, f, rank, nm))
-    return _row_parallel(x, F.gelu(h, approximate="none"), m["proj_w"], m["proj_b"], rank, nm)
+    return _row_parallel(x, F.gelu(h, approximate="none"), m["proj_w"], m["proj_b"], rank,
+                         nm), None
 
 
 def _shard(impl: str, heads: int, width: int):
@@ -435,9 +497,28 @@ def _block_forward(p: Params, x: torch.Tensor, heads: int, *, causal: bool, kv_l
                    impl: str) -> torch.Tensor:
     """One transformer block (``team_tpu/backbone/clip.py:_block_forward``):
     :func:`_attention_residual`, then :func:`_mlp_residual`."""
+    return _tower_blocks([p], x, heads, causal=causal, kv_len=kv_len, impl=impl)
+
+
+def _tower_blocks(blocks, x: torch.Tensor, heads: int, *, causal: bool, kv_len, impl: str,
+                  eps: float = 1e-5, gelu: str = "none",
+                  span=contextlib.nullcontext) -> torch.Tensor:
+    """The blocks over x, each half inside ``span(name)`` (the tower's spans,
+    or none). Where the kernels run the residuals, each carries the next layer
+    norm to the next half: its block's LN2, the next block's LN1 (but before
+    ``attn_block``, whose kernel normalizes itself, and after the last block,
+    whose output the tower's head takes)."""
     shard = _shard(impl, heads, x.shape[-1])
-    x = _attention_residual(p, x, heads, causal=causal, kv_len=kv_len, impl=impl, shard=shard)
-    return _mlp_residual(p, x, shard)
+    h = None
+    for i, blk in enumerate(blocks):
+        with span(phase_timer.ATTN_BLOCK):
+            x, h = _attention_residual(blk, x, heads, causal=causal, kv_len=kv_len, impl=impl,
+                                       shard=shard, eps=eps, h=h)
+        last = i + 1 == len(blocks)
+        ln_next = None if last or impl == "attn_block" else blocks[i + 1]["ln_1"]
+        with span(phase_timer.MLP_BLOCK):
+            x, h = _mlp_residual(blk, x, shard, eps=eps, gelu=gelu, h=h, ln_next=ln_next)
+    return x
 
 
 def patch_pixels(images: torch.Tensor, cfg: CLIPConfig, *,
@@ -472,7 +553,7 @@ def _embed_tokens(p: Params, patch_tokens: torch.Tensor, v: VisionConfig,
         cls = p["cls"].to(compute_dtype).expand(patch_tokens.shape[0], 1, v.width)
         x = torch.cat([cls, x], dim=1)
     x = x + p["pos"].to(compute_dtype)
-    return _layer_norm(p["ln_pre"], x, v.ln_eps) if v.ln_pre else x
+    return _norm(p["ln_pre"], x, v.ln_eps, _tower_kernels(x)) if v.ln_pre else x
 
 
 def _attention_pool(p: Params, x: torch.Tensor, v: VisionConfig, *, attn_impl: str) -> torch.Tensor:
@@ -487,16 +568,17 @@ def _attention_pool(p: Params, x: torch.Tensor, v: VisionConfig, *, attn_impl: s
     a = p["attn"]
     b, _, d = x.shape
     h, dh = v.heads, v.head_dim
-    q = _linear(p["probe"].to(x.dtype)[None], a["q_w"], a["q_b"])
-    kv = _linear(x, a["kv_w"], a["kv_b"])
+    kernels = _tower_kernels(x)
+    q = _linear(p["probe"].to(x.dtype)[None], a["q_w"], a["q_b"], kernels=kernels)
+    kv = _linear(x, a["kv_w"], a["kv_b"], kernels=kernels)
 
     def split_heads(t):
         return t.reshape(t.shape[0], -1, h, dh).permute(0, 2, 1, 3)
 
     attend = xla_attention if attn_impl == "xla" else flash_attention
     o = attend(split_heads(q).expand(b, h, 1, dh), *map(split_heads, kv.split(d, dim=-1)))
-    o = _linear(o.reshape(b, d), a["out_w"], a["out_b"])
-    return _mlp_residual(p, o, None, eps=v.ln_eps, gelu=v.gelu, ln="ln")
+    o = _linear(o.reshape(b, d), a["out_w"], a["out_b"], kernels=kernels)
+    return _mlp_residual(p, o, None, eps=v.ln_eps, gelu=v.gelu, ln="ln")[0]
 
 
 def _vision_tower(p: Params, patch_tokens, v: VisionConfig, *, compute_dtype,
@@ -508,18 +590,14 @@ def _vision_tower(p: Params, patch_tokens, v: VisionConfig, *, compute_dtype,
     intermediates are freed before the blocks run."""
     with phase(phase_timer.EMBED):
         x = _embed_tokens(p, patch_tokens(), v, compute_dtype)
-    shard = _shard(attn_impl, v.heads, v.width)
-    for blk in p["blocks"]:
-        with phase(phase_timer.ATTN_BLOCK):
-            x = _attention_residual(blk, x, v.heads, causal=False, kv_len=v.seq_len,
-                                    impl=attn_impl, shard=shard, eps=v.ln_eps)
-        with phase(phase_timer.MLP_BLOCK):
-            x = _mlp_residual(blk, x, shard, eps=v.ln_eps, gelu=v.gelu)
+    x = _tower_blocks(p["blocks"], x, v.heads, causal=False, kv_len=v.seq_len, impl=attn_impl,
+                      eps=v.ln_eps, gelu=v.gelu, span=phase)
     with phase(phase_timer.HEAD):
+        kernels = _tower_kernels(x, _shard(attn_impl, v.heads, v.width))
         if v.pool == "map":
-            x = _layer_norm(p["ln_post"], x, v.ln_eps)
+            x = _norm(p["ln_post"], x, v.ln_eps, kernels)
             return _attention_pool(p["head"], x, v, attn_impl=attn_impl).float()
-        x = _layer_norm(p["ln_post"], x[:, 0], v.ln_eps)
+        x = _norm(p["ln_post"], x[:, 0], v.ln_eps, kernels)
         return (x @ p["proj"].to(compute_dtype)).float()
 
 
@@ -567,9 +645,9 @@ def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig, *,
     tokens = tokens.long()
     x = p["token_embedding"][tokens].to(compute_dtype)
     x = x + p["pos"].to(compute_dtype)
-    for blk in p["blocks"]:
-        x = _block_forward(blk, x, t.heads, causal=True, kv_len=t.context_length, impl=attn_impl)
-    x = _layer_norm(p["ln_final"], x)
+    x = _tower_blocks(p["blocks"], x, t.heads, causal=True, kv_len=t.context_length,
+                      impl=attn_impl)
+    x = _norm(p["ln_final"], x, 1e-5, _tower_kernels(x, _shard(attn_impl, t.heads, t.width)))
     eot = tokens.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]
     return (x @ p["proj"].to(compute_dtype)).float()

@@ -53,9 +53,11 @@
 // their vectors in registers and walks rows a fixed stride apart, four rows'
 // streaming loads in flight, one full wave of blocks; the layer norm gives
 // a warp two rows at a time, takes their statistics through the row_stats of
-// #22-#25 and keeps the folded affine in shared memory. At M = 25,216 the qkv
+// #22-#25 (rows_common.cuh) and keeps the folded affine in shared memory. At M = 25,216 the qkv
 // and fc epilogues move 290 and 387 MB (0.087 and 0.116 ms at 3.35 TB/s), out
 // and proj 155 MB.
+
+#include "rows_common.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,35 +72,9 @@ constexpr int kMaxChunks = 4;  // 16-byte words a lane holds: D <= 4 * 32 * 8
 constexpr int kThreads = 256;  // threads per block of the quantize
 constexpr float kInv127 = 1.0f / 127.0f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ uint32_t quant_byte(float y) {
   const float r = fminf(fmaxf(rintf(y), -127.f), 127.f);
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(r)));
-}
-
-// eight bf16 from one 16-byte word
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// eight float32 from two 16-byte words
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
 // quantize eight values and store them as one 8-byte word
@@ -107,72 +83,6 @@ __device__ __forceinline__ void store8(int8_t* p, const float (&y)[8]) {
   w.x = quant_byte(y[0]) | quant_byte(y[1]) << 8 | quant_byte(y[2]) << 16 | quant_byte(y[3]) << 24;
   w.y = quant_byte(y[4]) | quant_byte(y[5]) << 8 | quant_byte(y[6]) << 16 | quant_byte(y[7]) << 24;
   *reinterpret_cast<uint2*>(p) = w;
-}
-
-// How a layer norm takes its rows' statistics, the mean and 1/sqrt(var + 1e-5):
-enum LnStats {
-  kStatsExact = 0,    // #22-#25: two passes, 1/sqrt as an IEEE square root and division
-  kStatsTwoPass = 1,  // _ln_quant3's two passes, rsqrtf
-  kStatsOnePass = 2,  // _ln_quant3's one pass, var = max(E[x^2] - E[x]^2, 0), rsqrtf
-};
-
-// ROWS rows of one warp, `d` apart (those at or past `valid` skipped), CH
-// words of eight a lane: their values (v), means and 1/sqrt(var + 1e-5), both
-// sums in f32 over the warp, each product and sum rounded on its own
-template <int ROWS, int CH, int STATS>
-__device__ __forceinline__ void row_stats(const __nv_bfloat16* x, int d, int valid, int lane,
-                                          float (&v)[ROWS][CH][8], float (&mean)[ROWS],
-                                          float (&rstd)[ROWS]) {
-  const float n = static_cast<float>(d);
-  float sum[ROWS], sq[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    sum[r] = 0.f;
-    sq[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int col = (c * 32 + lane) * 8;
-      if (r < valid && col < d) load8(x + static_cast<size_t>(r) * d + col, v[r][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      if (r < valid && (c * 32 + lane) * 8 < d) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          sum[r] = __fadd_rn(sum[r], v[r][c][i]);
-          if (STATS == kStatsOnePass) sq[r] = __fadd_rn(sq[r], __fmul_rn(v[r][c][i], v[r][c][i]));
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) mean[r] = __fdiv_rn(warp_sum(sum[r]), n);
-  if (STATS != kStatsOnePass) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        if (r < valid && (c * 32 + lane) * 8 < d) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float t = __fsub_rn(v[r][c][i], mean[r]);
-            sq[r] = __fadd_rn(sq[r], __fmul_rn(t, t));
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float s2 = __fdiv_rn(warp_sum(sq[r]), n);
-    const float var =
-        STATS == kStatsOnePass ? fmaxf(__fsub_rn(s2, __fmul_rn(mean[r], mean[r])), 0.f) : s2;
-    rstd[r] = STATS == kStatsExact ? __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-5f)))
-                                   : rsqrtf(__fadd_rn(var, 1e-5f));
-  }
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -184,8 +94,8 @@ ln_quant_static_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
   const int row = blockIdx.x * kWarps + warp;
   if (row >= rows) return;  // the ragged edge
   float v[1][kMaxChunks][8], mean[1], rstd[1];
-  row_stats<1, kMaxChunks, kStatsExact>(x + static_cast<size_t>(row) * d, d, 1, lane, v, mean,
-                                        rstd);
+  load_rows<1, kMaxChunks>(x + static_cast<size_t>(row) * d, d, d, 1, lane, v);
+  row_stats<1, kMaxChunks, kStatsExact>(v, d, 1, lane, 1e-5f, mean, rstd);
 
   int8_t* qr = q + static_cast<size_t>(row) * d;
 #pragma unroll
@@ -215,8 +125,8 @@ ln_quant_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g
   const int row = blockIdx.x * kWarps + warp;
   if (row >= rows) return;  // the ragged edge
   float v[1][kMaxChunks][8], mean[1], rstd[1];
-  row_stats<1, kMaxChunks, kStatsExact>(x + static_cast<size_t>(row) * d, d, 1, lane, v, mean,
-                                        rstd);
+  load_rows<1, kMaxChunks>(x + static_cast<size_t>(row) * d, d, d, 1, lane, v);
+  row_stats<1, kMaxChunks, kStatsExact>(v, d, 1, lane, 1e-5f, mean, rstd);
 
   float amax = 0.f;  // y replaces x in v
 #pragma unroll
@@ -272,16 +182,6 @@ row_quant_static_kernel(const __nv_bfloat16* __restrict__ x, const float* __rest
 constexpr int kEpiThreads = 256;
 constexpr int kEpiRows = 4;  // rows whose loads a thread has in flight
 enum Activation { kActNone = 0, kActGeluTanh = 1, kActSigmoid = 2 };
-
-// PyTorch's tanh GELU (F.gelu(approximate="tanh") on CUDA) in its order and
-// its float constants; nvcc contracts it as it does PyTorch's kernel
-__device__ __forceinline__ float gelu_tanh(float x) {
-  constexpr float kBeta = static_cast<float>(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
-  constexpr float kKappa = 0.044715f;
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
 
 // x * torch.sigmoid(1.702 * x), each product its own rounding
 __device__ __forceinline__ float gelu_sigmoid(float x) {
@@ -421,8 +321,8 @@ ln_quant_folded_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
   for (int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kLnRows; row0 < rows;
        row0 += warps * kLnRows) {
     float v[kLnRows][CH][8], mean[kLnRows], rstd[kLnRows];
-    row_stats<kLnRows, CH, STATS>(x + static_cast<size_t>(row0) * d, d, rows - row0, lane, v,
-                                  mean, rstd);
+    load_rows<kLnRows, CH>(x + static_cast<size_t>(row0) * d, d, d, rows - row0, lane, v);
+    row_stats<kLnRows, CH, STATS>(v, d, rows - row0, lane, 1e-5f, mean, rstd);
 #pragma unroll
     for (int r = 0; r < kLnRows; ++r) {
       if (row0 + r >= rows) break;
@@ -448,44 +348,11 @@ ln_quant_folded_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
 
 bool shape_ok(int rows, int d) { return rows >= 0 && d > 0 && d % 8 == 0; }
 
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
-  return count[dev] > 0 ? count[dev] : 132;
-}
-
-// The blocks of `threads` threads that one SM holds of `kernel` (one kernel
-// instantiation: its registers and shared memory), asked once.
-template <auto kernel>
-int resident_blocks(int threads) {
-  static int blocks = 0;
-  if (blocks == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
-    if (blocks < 1) blocks = 1;
-  }
-  return blocks;
-}
-
-// The epilogues' grid: one full wave of `per_sm` blocks on every SM, each
-// thread walking at least one row; returns the row step, sets the blocks.
-int epi_grid(int rows, int groups, int per_sm, unsigned& blocks) {
-  const long long target = static_cast<long long>(sm_count()) * per_sm * kEpiThreads;
-  long long step = target / groups;
-  if (step < 1) step = 1;
-  if (step > rows) step = rows;
-  blocks = static_cast<unsigned>((step * groups + kEpiThreads - 1) / kEpiThreads);
-  return static_cast<int>(step);
-}
-
 template <int ACT>
 void launch_requant(cudaStream_t stream, const int32_t* acc, const float* s, const float* b,
                     const float* a, int8_t* q, int rows, int n) {
   unsigned blocks;
-  const int step = epi_grid(rows, n / 8, resident_blocks<requant_static_kernel<ACT>>(kEpiThreads),
-                            blocks);
+  const int step = flat_grid<requant_static_kernel<ACT>>(rows, n / 8, kEpiThreads, blocks);
   requant_static_kernel<ACT><<<blocks, kEpiThreads, 0, stream>>>(acc, s, b, a, q, rows, n / 8,
                                                                  step);
 }
@@ -494,8 +361,7 @@ template <bool RESIDUAL>
 void launch_residual(cudaStream_t stream, const int32_t* acc, const float* s, const float* b,
                      const __nv_bfloat16* x, long long ldx, __nv_bfloat16* out, int rows, int n) {
   unsigned blocks;
-  const int step = epi_grid(rows, n / 8,
-                            resident_blocks<residual_static_kernel<RESIDUAL>>(kEpiThreads), blocks);
+  const int step = flat_grid<residual_static_kernel<RESIDUAL>>(rows, n / 8, kEpiThreads, blocks);
   residual_static_kernel<RESIDUAL><<<blocks, kEpiThreads, 0, stream>>>(acc, s, b, x, ldx, out,
                                                                        rows, n / 8, step);
 }
@@ -503,10 +369,8 @@ void launch_residual(cudaStream_t stream, const int32_t* acc, const float* s, co
 template <int CH, int STATS>
 void launch_ln_quant_folded(cudaStream_t stream, const __nv_bfloat16* x, const float* g,
                             const float* b, const float* a, int8_t* q, int rows, int d) {
-  const long long want = (rows + kWarps * kLnRows - 1) / (kWarps * kLnRows);
-  const long long wave = static_cast<long long>(sm_count()) *
-                         resident_blocks<ln_quant_folded_kernel<CH, STATS>>(kWarps * 32);
-  const unsigned blocks = static_cast<unsigned>(want < wave ? want : wave);
+  const unsigned blocks = wave_blocks<ln_quant_folded_kernel<CH, STATS>>(
+      (rows + kWarps * kLnRows - 1) / (kWarps * kLnRows), kWarps * 32);
   ln_quant_folded_kernel<CH, STATS><<<blocks, kWarps * 32, 0, stream>>>(x, g, b, a, q, rows, d);
 }
 

@@ -2056,3 +2056,257 @@ def test_wgmma_kernels_issue_gmma_and_mma_sync_kernels_none(cuda_device, source)
         plain = [len(lines) for fn, lines in found.items()
                  if name in fn and not any(wg_name in fn for wg_name in wgmma)]
         assert len(plain) == count and max(plain) == 0, (name, plain)
+
+
+# -- the bf16 towers' elementwise kernels (ops/tower_bf16.py) --
+
+from team_tpu_torch.ops import tower_bf16 as ttb  # noqa: E402
+
+# (rows, width, eps, gelu of the fc site): ViT-B/16 and SigLIP So400m/14-384
+# at B=128, the text tower at 32 prompts
+TOWER_SITES = {
+    "vitb16": (128 * 197, 768, 1e-5, "none"),
+    "siglip": (128 * 729, 1152, 1e-6, "tanh"),
+    "text": (32 * 77, 512, 1e-5, "none"),
+}
+# (rows, N, gelu): each tower's qkv and fc GEMM outputs, SigLIP's pooling k/v
+BIAS_SITES = [
+    pytest.param(128 * 197, 2304, None, id="vitb16-qkv"),
+    pytest.param(128 * 197, 3072, "none", id="vitb16-fc"),
+    pytest.param(128 * 729, 3456, None, id="siglip-qkv"),
+    pytest.param(128 * 729, 4304, "tanh", id="siglip-fc"),
+    pytest.param(128 * 729, 2304, None, id="siglip-pool-kv"),
+    pytest.param(128, 4304, "tanh", id="siglip-pool-fc"),
+    pytest.param(32 * 77, 1536, None, id="text-qkv"),
+    pytest.param(32 * 77, 2048, "none", id="text-fc"),
+    pytest.param(37, 64, "tanh", id="ragged"),
+]
+
+
+def tower_inputs(rows, d, device, seed=0):
+    """A residual stream of a few units, a GEMM output, a bf16 bias, a layer
+    norm's float32 affine."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((rows, d), generator=g, device=device)
+         * (torch.rand((rows, 1), generator=g, device=device) * 3 + 0.5)).to(torch.bfloat16)
+    y = torch.randn((rows, d), generator=g, device=device).to(torch.bfloat16)
+    b = (torch.randn(d, generator=g, device=device) * 0.1).to(torch.bfloat16)
+    gamma = torch.rand(d, generator=g, device=device) + 0.5
+    beta = torch.rand(d, generator=g, device=device) * 0.4 - 0.2
+    return x, y, b, gamma, beta
+
+
+# the layer norms' outputs under this magnitude count at its bf16 step: there
+# beta cancels gamma * (x - mean) * rstd, and the float32 sums' own rounding
+# (about 2^-24 of the terms, 1e-7 to 1e-6 at these inputs) is several bf16
+# steps of the tiny result, whatever the order of the sums
+LN_FLOOR = 2.0 ** -10
+
+
+def assert_rarely_one_bf16_step(got, want, share: float = 1e-3) -> float:
+    """At most one bf16 step of the output's magnitude (floored at
+    ``LN_FLOOR``), on under ``share`` of the outputs; returns the share."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=LN_FLOOR))) - 7)
+    diff = (g - w).abs()
+    assert (diff <= step).all(), (diff / step).max().item()
+    moved = (diff > 0).float().mean().item()
+    assert moved < share, moved
+    apart = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs() > 1
+    largest = w.abs()[apart].max().item() if apart.any() else 0.0
+    print(f"  {int(apart.sum())} outputs more than one bit pattern apart, |ref| up to "
+          f"{largest:.3e}")
+    return moved
+
+
+@pytest.mark.parametrize("rows,n,gelu", BIAS_SITES)
+@pytest.mark.parametrize("act", ["site", "bias"])
+def test_bias_act_kernel_is_the_composition_bit_for_bit(cuda_device, rows, n, gelu, act):
+    """The site's own activation, and the bias alone at each site."""
+    gelu = gelu if act == "site" else None
+    _, y, b, _, _ = tower_inputs(rows, n, cuda_device, seed=n)
+    want = ttb.bias_act_reference(y, b, gelu)
+    launches = ttb.bias_act.launches
+    got = ttb.bias_act(y, b, gelu)
+    torch.cuda.synchronize()
+    assert ttb.bias_act.launches == launches + 1
+    assert got.data_ptr() == y.data_ptr() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tower", list(TOWER_SITES))
+@pytest.mark.parametrize("with_ln", [True, False], ids=["ln", "residual"])
+def test_residual_ln_kernel_matches_the_composition(cuda_device, tower, with_ln):
+    """x' bit for bit; the layer norm at most one bf16 step on under 0.1 %."""
+    rows, d, eps, _ = TOWER_SITES[tower]
+    x, y, b, gamma, beta = tower_inputs(rows, d, cuda_device, seed=d)
+    affine = (gamma, beta) if with_ln else ()
+    want, want_h = ttb.residual_ln_reference(x, y, b, *affine, eps=eps)
+    launches = ttb.residual_ln.launches
+    got, h = ttb.residual_ln(x, y, b, *affine, eps=eps)
+    torch.cuda.synchronize()
+    assert ttb.residual_ln.launches == launches + 1
+    assert got.data_ptr() == y.data_ptr() and torch.equal(got, want)
+    if with_ln:
+        print(f"residual_ln {tower} {rows}x{d}: "
+              f"{assert_rarely_one_bf16_step(h, want_h):.2e} of LN's outputs one step off")
+    else:
+        assert h is None
+
+
+@pytest.mark.parametrize("site", ["vitb16", "siglip", "text", "cls-rows", "pool-rows", "ragged"])
+def test_layer_norm_kernel_matches_the_composition(cuda_device, site):
+    """Each tower's rows, ViT-B/16's CLS rows ``x[:, 0]`` (rows 197·768
+    apart, no copy) and the attention-pool head's 128 rows: at most one bf16
+    step on under 0.1 %."""
+    if site in TOWER_SITES:
+        rows, d, eps, _ = TOWER_SITES[site]
+        x, _, _, gamma, beta = tower_inputs(rows, d, cuda_device, seed=rows)
+    elif site == "cls-rows":
+        x, _, _, gamma, beta = tower_inputs(128 * 197, 768, cuda_device, seed=3)
+        x, eps = x.reshape(128, 197, 768)[:, 0], 1e-5
+    elif site == "pool-rows":
+        x, _, _, gamma, beta = tower_inputs(128, 1152, cuda_device, seed=4)
+        eps = 1e-6
+    else:
+        x, _, _, gamma, beta = tower_inputs(37, 2048, cuda_device, seed=5)
+        eps = 1e-5
+    launches = ttb.layer_norm.launches
+    got = ttb.layer_norm(x, gamma, beta, eps)
+    torch.cuda.synchronize()
+    assert ttb.layer_norm.launches == launches + 1
+    share = assert_rarely_one_bf16_step(got, ttb.layer_norm_reference(x, gamma, beta, eps))
+    print(f"layer_norm {site} {tuple(x.shape)}: {share:.2e} of the outputs one step off")
+
+
+def test_tower_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    x, y, b, gamma, beta = tower_inputs(8, 64, cuda_device)
+    assert ttb._library().team_tower_bf16_max_width() == ttb.MAX_WIDTH
+    with pytest.raises(TypeError, match="bfloat16"):
+        ttb.bias_act(y.float(), b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ttb.layer_norm(x.float(), gamma, beta)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        ttb.residual_ln(x[:, :60], y[:, :60], b[:60])
+    with pytest.raises(ValueError, match="lies on"):
+        ttb.residual_ln(x, y, b, gamma.cpu(), beta)
+    with pytest.raises(ValueError, match="wider"):
+        ttb.layer_norm(torch.zeros((2, 2056), dtype=torch.bfloat16, device=cuda_device),
+                       torch.ones(2056, device=cuda_device), torch.zeros(2056, device=cuda_device))
+    with pytest.raises(RuntimeError, match="forward only"):
+        ttb.bias_act(y.clone().requires_grad_(True), b)
+
+
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_a_bf16_tower_the_kernels_do_not_take_raises(cuda_device, tower):
+    """A bf16 tower on the card takes the kernels at every width, so one they
+    do not take (60, no multiple of 8) raises in their wrappers rather than
+    running the composition."""
+    v = tclip.VisionConfig(image_size=32, patch_size=16, width=60, layers=1, heads=2,
+                           embed_dim=32)
+    t = tclip.TextConfig(context_length=77, vocab_size=49408, width=60, layers=1, heads=2,
+                         embed_dim=32)
+    cfg = tclip.CLIPConfig(vision=v, text=t, embed_dim=32)
+    params = tclip.cast_frozen_params(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg),
+                                      torch.bfloat16, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    with torch.no_grad(), pytest.raises(ValueError, match="divisible by 8"):
+        if tower == "image":
+            patches = torch.randn((2, v.grid ** 2, v.width), generator=g, device=cuda_device)
+            tclip.encode_from_patches(params, patches.to(torch.bfloat16), cfg,
+                                      compute_dtype=torch.bfloat16)
+        else:
+            tokens = torch.randint(1, 49000, (2, 77), generator=g, device=cuda_device)
+            tclip.encode_text(params, tokens, cfg, compute_dtype=torch.bfloat16)
+
+
+def _vitb16_bf16(device):
+    cfg = tclip.CLIPConfig()
+    params = tclip.cast_frozen_params(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg),
+                                      torch.bfloat16, device)
+    return cfg, params
+
+
+def _tower_counts():
+    return (ttb.bias_act.launches, ttb.residual_ln.launches, ttb.layer_norm.launches)
+
+
+def _other_order_ln(p, x, eps=1e-5):
+    """``clip._layer_norm`` with its mean summed in another order (a sum
+    over N) and the variance in two passes: as right as the composition's."""
+    x32 = x.float()
+    mean = x32.sum(dim=-1, keepdim=True) / x.shape[-1]
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return (((x32 - mean) * torch.rsqrt(var + eps)) * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _gap(a, b):
+    return 1 - torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1).min().item()
+
+
+def _counted(fn):
+    before = _tower_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(a - b for a, b in zip(_tower_counts(), before))
+
+
+def test_vitb16_bf16_encode_launches_the_tower_kernels(cuda_device, monkeypatch):
+    """One B=128 encode: a bias_act a GEMM bias (12 qkv, 12 fc with the GELU),
+    a residual_ln a half (LN2, the next LN1; the last block's alone) and three
+    layer norms (ln_pre, the first LN1, ln_post on the CLS rows); the text
+    tower at 32 prompts (24, 24, 2). Their features lie no further (1 −
+    cosine) from the composition's towers (the kernels switched off) than
+    twice as far as the composition lies from itself with its layer norm's
+    sums in another order (``_other_order_ln``): the layer norms' one-step
+    differences compound over the blocks (1e-5 floors the yardstick)."""
+    cfg, params = _vitb16_bf16(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    u8 = torch.randint(0, 256, (128, 196, 768), generator=g, device=cuda_device,
+                       dtype=torch.uint8)
+    tokens = torch.randint(1, 49000, (32, 77), generator=g, device=cuda_device)
+    towers = {
+        "image": (lambda: tclip.encode_image_patches_u8(params, u8, cfg,
+                                                        compute_dtype=torch.bfloat16), (24, 24, 3)),
+        "text": (lambda: tclip.encode_text(params, tokens, cfg, compute_dtype=torch.bfloat16),
+                 (24, 24, 2)),
+    }
+    with torch.no_grad():
+        got = {}
+        for name, (fn, want) in towers.items():
+            got[name], counts = _counted(fn)
+            assert counts == want, (name, counts)
+        monkeypatch.setattr(tclip, "_tower_kernels", lambda x, shard=None: False)
+        plain = {name: _counted(fn) for name, (fn, _) in towers.items()}
+        monkeypatch.setattr(tclip, "_layer_norm", _other_order_ln)
+        other = {name: fn() for name, (fn, _) in towers.items()}
+    for name in towers:
+        assert plain[name][1] == (0, 0, 0)
+        gap, floor = _gap(got[name], plain[name][0]), _gap(plain[name][0], other[name])
+        print(f"{name} tower: 1 - cosine to the composition {gap:.3e}, the composition's to "
+              f"itself with another order of sums {floor:.3e}")
+        assert gap <= 2 * max(floor, 1e-5), (name, gap, floor)
+
+
+def test_a_gradient_and_gradcam_launch_no_tower_kernel(cuda_device):
+    """A bf16 tower whose tokens need a gradient runs the composition (and
+    differentiates through #1), as Grad-CAM does in float32."""
+    from team_tpu_torch.analysis.gradcam import grad_cam
+
+    cfg = tclip.CLIPConfig.tiny()
+    params = tclip.cast_frozen_params(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg),
+                                      torch.bfloat16, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    tokens = torch.randn((4, cfg.vision.grid ** 2, cfg.vision.width), generator=g,
+                         device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    before = _tower_counts()
+    out = tclip.encode_from_patches(params, tokens, cfg, compute_dtype=torch.bfloat16)
+    out.float().sum().backward()
+    images = torch.randn((4, 32, 32, 3), generator=g, device=cuda_device)
+    f32 = tclip.cast_frozen_params(tclip.init_clip_params(torch.Generator().manual_seed(0), cfg),
+                                   torch.float32, cuda_device)
+    target = torch.ones(cfg.embed_dim, device=cuda_device)
+    cam = grad_cam(f32, images, target, cfg, attn_impl="auto")
+    torch.cuda.synchronize()
+    assert tokens.grad is not None and torch.isfinite(cam).all()
+    assert _tower_counts() == before

@@ -117,3 +117,19 @@ def test_the_quantize_and_epilogue_kernels_are_elementwise_work(kernel):
     assert families, "no GEMM or attention family found"
     for name, patterns in families.items():
         assert not [p for p in patterns if p in kernel], (kernel, name)
+
+
+@pytest.mark.parametrize("kernel", sorted(_global_functions("tower_bf16.cu")))
+def test_the_bf16_tower_kernels_are_elementwise_work(kernel):
+    """No kernel of ``tower_bf16.cu`` (bias and GELU, residual and layer norm,
+    layer norm) carries a pattern of a GEMM or attention family: the
+    benchmark books their time to ``tower.elementwise_ms``."""
+    families = _family_patterns()
+    assert families, "no GEMM or attention family found"
+    for name, patterns in families.items():
+        assert not [p for p in patterns if p in kernel], (kernel, name)
+
+
+def test_the_bf16_tower_source_has_its_three_kernels():
+    assert _global_functions("tower_bf16.cu") == {"bias_act_kernel", "residual_ln_kernel",
+                                                   "layer_norm_kernel"}

@@ -149,3 +149,47 @@ def test_siglip_tower_matches_the_reference_at_full_width(cuda_device):
     gap = float(driver.worst_gap("feat_cos_gap_max", feats, ref))
     print(f"SigLIP tower, 2 images: largest 1 - cosine {gap:.3e}")
     assert gap <= cfg["check"]["limit"]
+
+
+def test_siglip_b128_encode_launches_the_tower_kernels(cuda_device, monkeypatch):
+    """One B=128 encode of the 27-block tower through ``BackboneRuntime``:
+    ``bias_act`` 58 times (27 qkv, 27 fc with the tanh GELU; the head's q,
+    k/v, out-projection and fc), ``residual_ln`` 55 (two a block, the
+    head's MLP residual), ``layer_norm`` 3 (the first LN1, ``ln_post``, the
+    head's), the flash kernel 28; the features of the composition's tower
+    (the kernels switched off) at cosine >= 0.9999: the layer norms'
+    one-step differences compound over the blocks to 1 − cosine of about
+    1e-5, as far as the composition lies from itself with its layer norm's
+    sums in another order (7.7e-6 - 8.0e-6 on three seeds, NVIDIA H100 80GB
+    HBM3)."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from teambench.drivers import encode_siglip as driver
+    from team_tpu_torch.backbone import clip
+    from team_tpu_torch.ops import tower_bf16 as ttb
+
+    cfg = _siglip_cfg()
+    shape = driver.SiglipShape.from_config(cfg)
+    params = driver.siglip_params(cfg, 13, cuda_device)
+    images = driver.image_pool({"pool_batches": 1, "batch": 128,
+                                "images": {"grid": 4, "noise": 24}}, shape, 13, cuda_device)[0]
+    runtime = driver.program_runtime(cfg["runtime"], params, cuda_device)
+    counters = (ttb.bias_act, ttb.residual_ln, ttb.layer_norm)
+
+    def encode():
+        before = [c.launches for c in counters]
+        flash = flash_attention.launches
+        out = runtime.encode_image(images)
+        torch.cuda.synchronize()
+        return out, tuple(c.launches - n for c, n in zip(counters, before)), \
+            flash_attention.launches - flash
+
+    feats, counts, flash = encode()
+    assert counts == (58, 55, 3) and flash == 28, (counts, flash)
+    monkeypatch.setattr(clip, "_tower_kernels", lambda x, shard=None: False)
+    want, counts, flash = encode()
+    assert counts == (0, 0, 0) and flash == 28
+    cos = torch.nn.functional.cosine_similarity(feats.double(), want.double(), dim=-1).min().item()
+    print(f"SigLIP B=128, tower kernels against the composition: min cosine {cos:.7f}")
+    assert cos >= 0.9999, cos

@@ -42,12 +42,11 @@
 // streamed through shared memory 64 bytes at a time, two stages deep, by
 // cp.async, and each warp multiplies its share with
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32. It runs gemm_kernel (blockscale
-// at other bk; the _mma entries, the yardsticks of the card tests) and
-// gelu_quant_kernel (other bn). B is the "col" operand: the weight stored
-// [N, K] row-major, which is the layout the port's quantize_weight gives (a
-// column-major [K, N]). Each wgmma kernel takes its arithmetic from
-// csrc/int8_epilogue.cuh and folds in its mma.sync kernel's order, on exact
-// int32 sums: the two agree bit for bit.
+// at other bk) and gelu_quant_kernel (other bn). B is the "col" operand: the
+// weight stored [N, K] row-major, which is the layout the port's
+// quantize_weight gives (a column-major [K, N]). Each wgmma kernel takes its
+// arithmetic from csrc/int8_epilogue.cuh and folds in the mma.sync kernels'
+// order, on exact int32 sums.
 //
 // gelu_quant needs the whole bn-column block of a row before it can scale it
 // (bn = 512 at the ViT-B/16 fc shape); the [M, N] f32 activation never
@@ -91,7 +90,7 @@ namespace {
 
 constexpr int kMaxBlockN = 1024;  // widest gelu_quant column block
 
-enum Epilogue { kDequant = 0, kDequantGelu = 1, kBlockScale = 2 };
+enum Epilogue { kDequant = 0, kDequantGelu = 1 };
 
 struct Params {
   const int8_t* a;     // [M, K] row-major
@@ -108,15 +107,15 @@ struct Params {
 
 using wg::store2;
 
-// int8_linear (EPI kDequant, kDequantGelu) and int8_linear_blockscale (kBlockScale)
-template <int EPI, typename Out>
+// int8_linear_blockscale at bk that is no multiple of 128
+template <typename Out>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const Params p) {
   using T = Tile<64, 2>;
   __shared__ __align__(16) Stages<64> st;
   const int row0 = blockIdx.x * 64, col0 = blockIdx.y * kBN;
   int acc[T::MI][T::NI][4] = {};
   float facc[T::MI][T::NI][4] = {};
-  mainloop<64, 2, EPI == kBlockScale>(st, p, row0, col0, p.n, acc, facc);
+  mainloop<64, 2, true>(st, p, row0, col0, p.n, acc, facc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -128,21 +127,14 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Params p) {
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + wrow + mi * 16 + g + 8 * h;
       if (row >= p.m) continue;
-      const float xs = EPI == kBlockScale ? 0.f : p.xs[row];
 #pragma unroll
       for (int ni = 0; ni < T::NI; ++ni) {
         const int col = col0 + wcol + ni * 8 + 2 * t;  // N is a multiple of 8: col + 1 < N too
         if (col >= p.n) continue;
         float y[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (EPI == kBlockScale) {
-            y[e] = __fadd_rn(__fmul_rn(facc[mi][ni][2 * h + e], p.ws[col + e]), p.bias[col + e]);
-          } else {
-            y[e] = dequant(acc[mi][ni][2 * h + e], xs, p.ws[col + e], p.bias[col + e]);
-            if (EPI == kDequantGelu) y[e] = gelu_tanh(y[e]);
-          }
-        }
+        for (int e = 0; e < 2; ++e)
+          y[e] = __fadd_rn(__fmul_rn(facc[mi][ni][2 * h + e], p.ws[col + e]), p.bias[col + e]);
         store2(out + static_cast<size_t>(row) * p.n + col, y[0], y[1]);
       }
     }
@@ -317,8 +309,7 @@ __device__ __forceinline__ void column_pair(const Params& p, int col, float2& w,
 // int8_linear on the wgmma mainloop (csrc/wgmma_gemm.cuh): 128 x 256 tiles,
 // each consumer warpgroup 64 whole rows (m64n256, 128 accumulators a
 // thread), four stages of 48 KB, persistent CTAs, column tiles fastest. The dequant (and GELU) is
-// dequant() and gelu_tanh() of csrc/int8_epilogue.cuh, as in gemm_kernel,
-// on exact int32 sums: the two kernels agree bit for bit.
+// dequant() and gelu_tanh() of csrc/int8_epilogue.cuh, on exact int32 sums.
 template <typename C, int EPI, typename Out>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     gemm_kernel_wg(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
@@ -438,10 +429,10 @@ bool blockscale_ok(int m, int n, int k, int bk) {
   return shape_ok(m, n, k) && bk > 0 && bk % 32 == 0 && k % bk == 0;
 }
 
-template <int EPI, typename Out>
+template <typename Out>
 int launch_gemm(const Params& p, void* stream) {
   const dim3 grid((p.m + 63) / 64, (p.n + kBN - 1) / kBN);
-  gemm_kernel<EPI, Out><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  gemm_kernel<Out><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
@@ -507,23 +498,6 @@ extern "C" int team_int8_linear(const void* a, const void* b, const void* xs, co
                  : launch_wg<Linear>(gemm_kernel_wg<Linear, kDequant, __nv_bfloat16>, p, stream);
 }
 
-// team_int8_linear on the mma.sync kernel (gemm_kernel): the kernel that
-// gemm_kernel_wg replaced, kept callable so that the two can be held against
-// each other bit for bit.
-extern "C" int team_int8_linear_mma(const void* a, const void* b, const void* xs, const void* ws,
-                                    const void* bias, void* out, int m, int n, int k, int gelu,
-                                    int out_f32, void* stream) {
-  if (!shape_ok(m, n, k)) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
-  if (gelu) {
-    return out_f32 ? launch_gemm<kDequantGelu, float>(p, stream)
-                   : launch_gemm<kDequantGelu, __nv_bfloat16>(p, stream);
-  }
-  return out_f32 ? launch_gemm<kDequant, float>(p, stream)
-                 : launch_gemm<kDequant, __nv_bfloat16>(p, stream);
-}
-
 // As team_int8_linear, with xs float32 [k / bk, m]: one scale per row and
 // block of bk columns of K (bk a multiple of 32 that divides k); no GELU.
 // bk a multiple of 128 (a K block is whole 128-byte stages: the vision
@@ -542,22 +516,7 @@ extern "C" int team_int8_linear_blockscale(const void* a, const void* b, const v
                    : launch_wg<BlockScale>(blockscale_kernel_wg<BlockScale, __nv_bfloat16>, p,
                                            stream);
   }
-  return out_f32 ? launch_gemm<kBlockScale, float>(p, stream)
-                 : launch_gemm<kBlockScale, __nv_bfloat16>(p, stream);
-}
-
-// team_int8_linear_blockscale on the mma.sync kernel at every bk: the
-// kernel that blockscale_kernel_wg replaced, kept callable so that the two
-// can be held against each other bit for bit.
-extern "C" int team_int8_linear_blockscale_mma(const void* a, const void* b, const void* xs,
-                                               const void* ws, const void* bias, void* out, int m,
-                                               int n, int k, int bk, int out_f32, void* stream) {
-  if (!blockscale_ok(m, n, k, bk)) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  Params p = make_params(a, b, xs, ws, bias, out, m, n, k);
-  p.bk = bk;
-  return out_f32 ? launch_gemm<kBlockScale, float>(p, stream)
-                 : launch_gemm<kBlockScale, __nv_bfloat16>(p, stream);
+  return out_f32 ? launch_gemm<float>(p, stream) : launch_gemm<__nv_bfloat16>(p, stream);
 }
 
 // a, b, xs, ws, bias as team_int8_linear; q int8 [m, n]; scales float32
@@ -576,20 +535,5 @@ extern "C" int team_int8_linear_gelu_quant(const void* a, const void* b, const v
   // blocks keep the mma.sync kernel
   if (bn == 512) return launch_wg<GeluQuant512>(gelu_quant_kernel_wg<GeluQuant512>, p, stream);
   if (bn == 256) return launch_wg<GeluQuant256>(gelu_quant_kernel_wg<GeluQuant256>, p, stream);
-  return launch_gelu_quant_mma(p, stream);
-}
-
-// team_int8_linear_gelu_quant on the mma.sync kernel at every bn: the kernel
-// the wgmma one replaced at bn 256 and 512, kept callable so that the two can
-// be held against each other bit for bit.
-extern "C" int team_int8_linear_gelu_quant_mma(const void* a, const void* b, const void* xs,
-                                               const void* ws, const void* bias, void* q,
-                                               void* scales, int m, int n, int k, int bn,
-                                               void* stream) {
-  if (!shape_ok(m, n, k) || bn <= 0 || bn > kMaxBlockN || n % bn != 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  Params p = make_params(a, b, xs, ws, bias, q, m, n, k);
-  p.scales = static_cast<float*>(scales);
-  p.bn = bn;
   return launch_gelu_quant_mma(p, stream);
 }

@@ -78,9 +78,7 @@
 // registers that let an SM hold two blocks. Shared memory is about 4 *
 // pad16(S) * dh + 128 * (dh + 8) bytes (S=197, dh=64: 62 KB), so S reaches
 // 1,760 / 864 / 416 at dh 32 / 64 / 128, past the CUDA-core kernel's reach.
-// That kernel (mha_packed_kernel with DEFER and BF16_EXP) keeps float32, and
-// runs bfloat16 behind fused_mha_short_v2_cuda_core, the yardstick of the
-// card tests.
+// That kernel (mha_packed_kernel with DEFER and BF16_EXP) keeps float32.
 //
 // What bounds it on an H100: about 4*S^2*dh flops per (sample, head) -- 15
 // GFLOP per vision layer at B=128, S=197, H=12, dh=64 -- against 155 MB of
@@ -578,20 +576,16 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 // #4's launch (non-causal, the v2 switches): bfloat16 takes
 // mha_v2_kernel_tc; float32 (team_tpu runs it at precision "highest", which
-// the tensor cores' TF32 would not meet), and bfloat16 with cuda_core set
-// (the yardstick), the CUDA-core kernel
+// the tensor cores' TF32 would not meet) the CUDA-core kernel
 template <bool BF16_EXP>
-cudaError_t launch_v2_entry(int dtype, int cuda_core, const void* q, const void* k, const void* v,
-                            void* out, Strides in, Strides os, int batch, int seq, int heads,
-                            int dh, int kv_len, float scale, void* stream) {
+cudaError_t launch_v2_entry(int dtype, const void* q, const void* k, const void* v, void* out,
+                            Strides in, Strides os, int batch, int seq, int heads, int dh,
+                            int kv_len, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_cuda_core_dh<float, true, BF16_EXP>(dh, q, k, v, out, in, os, batch, seq, heads,
                                                       kv_len, 0, scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (cuda_core)
-    return launch_cuda_core_dh<bf16, true, BF16_EXP>(dh, q, k, v, out, in, os, batch, seq, heads,
-                                                     kv_len, 0, scale, s);
   return launch_v2_dh<BF16_EXP>(dh, q, k, v, out, in, os, batch, seq, heads, kv_len, scale, s);
 }
 
@@ -600,12 +594,11 @@ size_t element_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (the codes of team_tpu_torch/ops/mha_short.py);
-// v2: 0 for the entries of #1, #2 and #3, 1 for team_mha_short_v2_fwd, 2 for
-// it with cuda_core set. The bytes of the kernel the entry takes.
+// v2: 0 for the entries of #1, #2 and #3, 1 for team_mha_short_v2_fwd. The
+// bytes of the kernel the entry takes.
 extern "C" size_t team_mha_packed_smem_bytes(int dtype, int seq, int dh, int v2) {
   if (dtype == 0) return smem_bytes<float>(seq, dh);
-  if (v2 == 1) return smem_bytes_v2(seq, dh);
-  return v2 ? smem_bytes<bf16>(seq, dh) : smem_bytes_tc(seq, dh);
+  return v2 ? smem_bytes_v2(seq, dh) : smem_bytes_tc(seq, dh);
 }
 
 // Packed [B, S, 3*D] -> [B, S, D]. Returns the cudaError_t of the launch (0 on success).
@@ -635,19 +628,17 @@ extern "C" int team_mha_short_fwd(const void* q, const void* k, const void* v, v
 // output, with the softmax normalisation deferred to the [S, Dh] output and,
 // with bf16_exp = 1, the exponential taken in bfloat16. The TPU kernel's
 // q_pad only aligns its query rows: padded rows are sliced off and padded
-// keys masked, so it changes nothing here and is not passed. cuda_core = 1
-// runs bfloat16 on the CUDA-core kernel at every S (the kernel that
-// mha_v2_kernel_tc replaced, the yardstick of the card tests).
+// keys masked, so it changes nothing here and is not passed.
 extern "C" int team_mha_short_v2_fwd(const void* q, const void* k, const void* v, void* out,
                                      int dtype, int batch, int heads, int seq, int dh,
                                      long long sb, long long sh, long long sr, int kv_len,
-                                     float scale, int bf16_exp, int cuda_core, void* stream) {
+                                     float scale, int bf16_exp, void* stream) {
   const Strides os = {static_cast<long long>(heads) * seq * dh, static_cast<long long>(seq) * dh, dh};
   if (bf16_exp)
-    return launch_v2_entry<true>(dtype, cuda_core, q, k, v, out, {sb, sh, sr}, os, batch, seq,
-                                 heads, dh, kv_len, scale, stream);
-  return launch_v2_entry<false>(dtype, cuda_core, q, k, v, out, {sb, sh, sr}, os, batch, seq,
-                                heads, dh, kv_len, scale, stream);
+    return launch_v2_entry<true>(dtype, q, k, v, out, {sb, sh, sr}, os, batch, seq, heads, dh,
+                                 kv_len, scale, stream);
+  return launch_v2_entry<false>(dtype, q, k, v, out, {sb, sh, sr}, os, batch, seq, heads, dh,
+                                kv_len, scale, stream);
 }
 
 // The packed layout's heads split over nm tensor-parallel ranks: rank r of nm

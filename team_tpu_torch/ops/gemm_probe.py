@@ -30,7 +30,7 @@ column-major ``[K, N]`` weight is that transpose as a view (``column_major``
 lays one out), any other layout is copied at each call. The probes lay their
 weights out once, before anything is timed.
 
-Tolerances against the plain versions (held by the tests and ``chip_smoke.py``):
+Tolerances against the plain versions (held by the card tests):
 - ``probe_mm`` int8 and ``mxu_ceiling`` int8: bit for bit (int32 sums are
   exact; the ceiling's output is f32 of the exact int32 sum);
 - ``probe_mm`` bf16: :func:`probe_mm_bf16_limit`; ``mxu_ceiling`` bf16:

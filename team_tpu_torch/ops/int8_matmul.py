@@ -26,8 +26,7 @@ Counterparts of ``team_tpu/ops/int8_matmul.py``:
   ``csrc/int8_gemm.cu`` on the tensor cores: ``wgmma`` fed by TMA
   (``csrc/wgmma_gemm.cuh``) for ``int8_linear`` at every shape, for
   ``blockscale`` where ``bk`` is a multiple of 128 and for the GELU form at
-  ``bn`` 256 and 512; ``mma.sync`` s8 for the other shapes and for the
-  ``*_mma`` entries, the yardsticks that no path calls;
+  ``bn`` 256 and 512; ``mma.sync`` s8 for the other shapes;
   ``quantized_linear`` quantizes rows and calls ``int8_linear``.
 
 The CUDA sources are compiled with ``nvcc`` on first use and bound with
@@ -607,14 +606,11 @@ def _gemm_library() -> ctypes.CDLL:
 
     lib = load_library(_GEMM_SOURCE)
     ptrs, i = ctypes.c_void_p, ctypes.c_int
-    linear = (lib.team_int8_linear, lib.team_int8_linear_mma, lib.team_int8_linear_blockscale,
-              lib.team_int8_linear_blockscale_mma)
-    gelu_quant = (lib.team_int8_linear_gelu_quant, lib.team_int8_linear_gelu_quant_mma)
-    for fn in linear:
+    for fn in (lib.team_int8_linear, lib.team_int8_linear_blockscale):
         fn.argtypes = [ptrs] * 6 + [i] * 5 + [ptrs]
-    for fn in gelu_quant:
-        fn.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
-    for fn in (*linear, *gelu_quant, lib.team_int8_gemm_max_block_n):
+    lib.team_int8_linear_gelu_quant.argtypes = [ptrs] * 7 + [i] * 4 + [ptrs]
+    for fn in (lib.team_int8_linear, lib.team_int8_linear_blockscale,
+               lib.team_int8_linear_gelu_quant, lib.team_int8_gemm_max_block_n):
         fn.restype = ctypes.c_int
     return lib
 
@@ -662,9 +658,9 @@ def _out_f32(name: str, out_dtype: torch.dtype) -> int:
     return int(out_dtype == torch.float32)
 
 
-def _linear_kernel(name: str, entry: str, x_q, wt_q, x_scale, w_scale, bias, activation,
+def _linear_kernel(name: str, x_q, wt_q, x_scale, w_scale, bias, activation,
                    out_dtype) -> torch.Tensor:
-    """Launch K1 (C entry ``entry``) on ``wt_q [N, K]``: a ``[K, N]`` weight's
+    """Launch K1 (C entry ``team_int8_linear``) on ``wt_q [N, K]``: a ``[K, N]`` weight's
     transpose, which is a view of :func:`quantize_weight`'s column-major
     layout (any other layout is copied by :func:`_gemm_operands`)."""
     if activation not in (None, "gelu"):
@@ -675,7 +671,7 @@ def _linear_kernel(name: str, entry: str, x_q, wt_q, x_scale, w_scale, bias, act
     n = wt_q.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = getattr(_gemm_library(), entry)(
+        err = _gemm_library().team_int8_linear(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n, k, int(activation == "gelu"), f32,
             torch.cuda.current_stream().cuda_stream)
@@ -689,8 +685,7 @@ def _linear_entry(fn, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype) 
     if x_q.device.type == "cpu":
         return int8_linear_reference(x_q, wt_q.t(), x_scale, w_scale, bias,
                                      activation=activation, out_dtype=out_dtype)
-    out = _linear_kernel(fn.__name__, "team_int8_linear", x_q, wt_q, x_scale, w_scale, bias,
-                         activation, out_dtype)
+    out = _linear_kernel(fn.__name__, x_q, wt_q, x_scale, w_scale, bias, activation, out_dtype)
     fn.launches += 1
     return out
 
@@ -705,22 +700,6 @@ def int8_linear(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     ``wgmma`` kernel at every shape. Each kernel launch adds one to
     ``int8_linear.launches``."""
     return _linear_entry(int8_linear, x_q, w_q.t(), x_scale, w_scale, bias, activation, out_dtype)
-
-
-def int8_linear_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                    w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                    activation: Optional[str] = None,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """:func:`int8_linear` on the ``mma.sync`` kernel: the kernel that the
-    ``wgmma`` one replaced, callable so that the two can be held against each
-    other bit for bit (the card tests, ``chip_smoke.py``). No path of the
-    port calls it, and it counts no launch. On a CPU tensor: the plain
-    version."""
-    if x_q.device.type == "cpu":
-        return int8_linear_reference(x_q, w_q, x_scale, w_scale, bias, activation=activation,
-                                     out_dtype=out_dtype)
-    return _linear_kernel("int8_linear_mma", "team_int8_linear_mma", x_q, w_q.t(), x_scale,
-                          w_scale, bias, activation, out_dtype)
 
 
 def int8_linear_nk(x_q: torch.Tensor, wt_q: torch.Tensor, x_scale: torch.Tensor,
@@ -767,7 +746,7 @@ def int8_linear_dma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                          out_dtype)
 
 
-def _gelu_quant_kernel(name: str, entry: str, x_q, w_q, x_scale, w_scale, bias,
+def _gelu_quant_kernel(name: str, x_q, w_q, x_scale, w_scale, bias,
                        block_n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     x_q, wt_q, xs, ws, b = _gemm_operands(name, x_q, w_q.t(), x_scale, w_scale, bias, 1)
     m, k = x_q.shape
@@ -780,7 +759,7 @@ def _gelu_quant_kernel(name: str, entry: str, x_q, w_q, x_scale, w_scale, bias,
     q = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
     scales = torch.empty((n // bn, m), dtype=torch.float32, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = getattr(lib, entry)(
+        err = lib.team_int8_linear_gelu_quant(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             q.data_ptr(), scales.data_ptr(), m, n, k, bn, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
@@ -796,32 +775,17 @@ def int8_linear_gelu_quant(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.
     (``int8_matmul.py:506``): ``(q int8 [M, N], scales float32 [N/bn, M])``,
     the input of :func:`int8_linear_blockscale`. The f32 activation stays on
     chip. On the card ``bn`` 256 and 512 run the ``wgmma`` kernel, any other
-    the ``mma.sync`` one (:func:`int8_linear_gelu_quant_mma`); the C entry
-    chooses by ``bn``. Each kernel launch adds one to
+    the ``mma.sync`` one; the C entry chooses by ``bn``. Each kernel launch
+    adds one to
     ``int8_linear_gelu_quant.launches``."""
     if x_q.device.type == "cpu":
         return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
-    out = _gelu_quant_kernel("int8_linear_gelu_quant", "team_int8_linear_gelu_quant", x_q, w_q,
-                             x_scale, w_scale, bias, block_n)
+    out = _gelu_quant_kernel("int8_linear_gelu_quant", x_q, w_q, x_scale, w_scale, bias, block_n)
     int8_linear_gelu_quant.launches += 1
     return out
 
 
-def int8_linear_gelu_quant_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                               w_scale: torch.Tensor, bias: torch.Tensor, *,
-                               block_n: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`int8_linear_gelu_quant` on the ``mma.sync`` kernel at every
-    ``bn``: the kernel that the ``wgmma`` one replaced at ``bn`` 256 and 512,
-    callable so that the two can be held against each other bit for bit (the
-    card tests, ``chip_smoke.py``). No path of the port calls it, and it
-    counts no launch. On a CPU tensor: the plain version."""
-    if x_q.device.type == "cpu":
-        return int8_linear_gelu_quant_reference(x_q, w_q, x_scale, w_scale, bias, block_n=block_n)
-    return _gelu_quant_kernel("int8_linear_gelu_quant_mma", "team_int8_linear_gelu_quant_mma",
-                              x_q, w_q, x_scale, w_scale, bias, block_n)
-
-
-def _blockscale_kernel(name: str, entry: str, x_q, w_q, x_scales, w_scale, bias,
+def _blockscale_kernel(name: str, x_q, w_q, x_scales, w_scale, bias,
                        out_dtype) -> torch.Tensor:
     f32 = _out_f32(name, out_dtype)
     n_kb = x_scales.shape[0]
@@ -833,7 +797,7 @@ def _blockscale_kernel(name: str, entry: str, x_q, w_q, x_scales, w_scale, bias,
                          "multiples of 32")
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     with torch.cuda.device(x_q.device):
-        err = getattr(_gemm_library(), entry)(
+        err = _gemm_library().team_int8_linear_blockscale(
             x_q.data_ptr(), wt_q.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n, k, k // n_kb, f32, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
@@ -849,30 +813,16 @@ def int8_linear_blockscale(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch
     K/n_kb`` columns (the producer's ``bn``); each block's int32 sum is
     dequantized with its row scale into an f32 accumulator, in block order.
     On the card ``bk`` a multiple of 128 runs the ``wgmma`` kernel, any other
-    the ``mma.sync`` one (:func:`int8_linear_blockscale_mma`); the C entry
-    chooses by ``bk``. Each kernel launch adds one to
+    the ``mma.sync`` one; the C entry chooses by ``bk``. Each kernel launch
+    adds one to
     ``int8_linear_blockscale.launches``."""
     if x_q.device.type == "cpu":
         return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
                                                 out_dtype=out_dtype)
-    out = _blockscale_kernel("int8_linear_blockscale", "team_int8_linear_blockscale", x_q, w_q,
-                             x_scales, w_scale, bias, out_dtype)
+    out = _blockscale_kernel("int8_linear_blockscale", x_q, w_q, x_scales, w_scale, bias,
+                             out_dtype)
     int8_linear_blockscale.launches += 1
     return out
-
-
-def int8_linear_blockscale_mma(x_q: torch.Tensor, w_q: torch.Tensor, x_scales: torch.Tensor,
-                               w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """:func:`int8_linear_blockscale` on the ``mma.sync`` kernel at every
-    ``bk``: the yardstick of the ``wgmma`` kernel, as
-    :func:`int8_linear_mma`. No path of the port calls it, and it counts no
-    launch. On a CPU tensor: the plain version."""
-    if x_q.device.type == "cpu":
-        return int8_linear_blockscale_reference(x_q, w_q, x_scales, w_scale, bias,
-                                                out_dtype=out_dtype)
-    return _blockscale_kernel("int8_linear_blockscale_mma", "team_int8_linear_blockscale_mma",
-                              x_q, w_q, x_scales, w_scale, bias, out_dtype)
 
 
 def quantized_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

@@ -15,8 +15,7 @@ Counterparts of ``team_tpu/ops/mha_short.py``:
   exponential; in bfloat16 a kernel of the same source that sums each logit
   on the CUDA cores in head-dimension order (its plain version pins p to
   such sums) and runs PV on the tensor cores, in float32 the CUDA-core
-  kernel with those two switches (``fused_mha_short_v2_cuda_core`` runs
-  bfloat16 there too: the yardstick).
+  kernel with those two switches.
 - ``fused_mha_packed_proj`` and ``fused_attn_block`` (TPU kernels
   ``_mha_packed_proj_kernel`` and ``_attn_block_kernel``): packed attention
   with the out-projection GEMM, its bias and the residual fused in, and the
@@ -139,16 +138,16 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.team_mha_short_fwd.restype = ctypes.c_int
-    # team_mha_short_fwd's arguments, then bf16_exp and cuda_core before the stream
+    # team_mha_short_fwd's arguments, then bf16_exp before the stream
     lib.team_mha_short_v2_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.team_mha_short_v2_fwd.restype = ctypes.c_int
     # qkv, out; dtype, batch, seq, heads_local, dh, rank, nm, kv_len, causal; scale; stream
     lib.team_mha_packed_tp_fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                                            + [ctypes.c_float, ctypes.c_void_p])
     lib.team_mha_packed_tp_fwd.restype = ctypes.c_int
-    # dtype, seq, dh, v2 (1 for team_mha_short_v2_fwd, 2 for it with cuda_core)
+    # dtype, seq, dh, v2 (1 for team_mha_short_v2_fwd)
     lib.team_mha_packed_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.team_mha_packed_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -462,19 +461,6 @@ class _MhaShortFn(torch.autograd.Function):
 _EXP_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _short_v2(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              kv_len: Optional[int], exp_dtype: torch.dtype, cuda_core: bool) -> torch.Tensor:
-    """Check #4's inputs; its plain version on the CPU, else its kernel."""
-    if exp_dtype not in _EXP_DTYPES:
-        raise TypeError(f"exp_dtype must be float32 or bfloat16, got {exp_dtype}")
-    _check_short(name, q, k, v, kv_len)
-    if q.device.type == "cpu":
-        return mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
-    refuse_grad(f"{name} (#4)", q, k, v)
-    return _launch_short("team_mha_short_v2_fwd", q, k, v, kv_len,
-                         int(exp_dtype == torch.bfloat16), int(cuda_core), v2=1 + int(cuda_core))
-
-
 def fused_mha_short_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_len: Optional[int] = None, *, exp_dtype: torch.dtype = torch.float32,
                        q_pad: int = 16) -> torch.Tensor:
@@ -489,21 +475,16 @@ def fused_mha_short_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``fused_mha_short_v2.launches``."""
     if isinstance(q_pad, bool) or not isinstance(q_pad, int) or q_pad < 1:
         raise ValueError(f"q_pad must be a positive int, got {q_pad!r}")
-    out = _short_v2("fused_mha_short_v2", q, k, v, kv_len, exp_dtype, False)
-    if q.device.type == "cuda":
-        fused_mha_short_v2.launches += 1
+    if exp_dtype not in _EXP_DTYPES:
+        raise TypeError(f"exp_dtype must be float32 or bfloat16, got {exp_dtype}")
+    _check_short("fused_mha_short_v2", q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return mha_short_v2_reference(q, k, v, kv_len, exp_dtype)
+    refuse_grad("fused_mha_short_v2 (#4)", q, k, v)
+    out = _launch_short("team_mha_short_v2_fwd", q, k, v, kv_len,
+                        int(exp_dtype == torch.bfloat16), v2=1)
+    fused_mha_short_v2.launches += 1
     return out
-
-
-def fused_mha_short_v2_cuda_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 kv_len: Optional[int] = None, *,
-                                 exp_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """:func:`fused_mha_short_v2` on the CUDA-core kernel at every S and
-    dtype: the kernel that the bfloat16 tensor-core one replaced, callable so
-    that the two can be held against each other (the card tests,
-    ``chip_smoke.py``). No path of the port calls it, and it counts no
-    launch. On a CPU tensor: the plain version."""
-    return _short_v2("fused_mha_short_v2_cuda_core", q, k, v, kv_len, exp_dtype, True)
 
 
 def _check_proj_smem(lib: ctypes.CDLL, code: int, s: int, d: int, dh: int) -> None:

@@ -8,4 +8,5 @@ full-protocol runner.
     python -m team_tpu_torch.scripts.int8_mxu_ceiling
     python -m team_tpu_torch.scripts.r5_megakernel_probe
     python -m team_tpu_torch.scripts.full_protocol      # TEAM_MODEL, TEAM_ENCODER_QUANT, TEAM_PIN
+    python -m team_tpu_torch.scripts.kernel_times       # each kernel alone, on the card
 """

@@ -10,8 +10,8 @@ in the kernel's layout, as team_tpu's custom VJPs do). The loss is
 ``sum(tanh(out) · w)`` for a fixed w, so the cotangent depends on the
 forward. float32; tolerance 1e-4 absolute and relative, as
 tests/test_flash_backward.py holds team_tpu's backwards to its XLA
-reference. On the card ``chip_smoke.py`` phase 3 holds the kernels'
-gradients to autograd of the plain references, f32 and bf16.
+reference. On the card ``tests/test_torch_card_paths.py`` holds the
+kernels' gradients to autograd of the plain references, f32 and bf16.
 """
 
 import functools

@@ -5,9 +5,9 @@ the gradient goes through the kernels' autograd Functions (their plain
 forward on the CPU, their backward rule) against team_tpu's kernels in
 interpret mode through their custom VJPs. The [0, 1] maps agree within
 1e-4 (the towers' sums run in another order; the packed kernel scales q
-before QKᵀ, the plain route after). On the card ``chip_smoke.py`` phase 5
-holds Grad-CAM on each kernel route to the plain route at full ViT-B/16
-width."""
+before QKᵀ, the plain route after). On the card
+``tests/test_torch_card_paths.py`` holds Grad-CAM on each kernel route to
+the plain route at full ViT-B/16 width."""
 
 import functools
 

@@ -2,7 +2,7 @@
 (``csrc/mha_packed_q3i.cu``'s ``q3i_kernel_tc``, #7, #10, #11, #29;
 ``csrc/mha_packed_q.cu``'s ``mha_q_kernel_tc``, #5, #6), modelled in plain
 PyTorch on the CPU and held against the plain versions within the limits
-that the card tests and ``chip_smoke.py`` phase 3 set: at most one int8 step
+that the card tests set: at most one int8 step
 on under 1 % of the outputs (the int8 PV: ``pv_int8_limit`` steps). So the
 tolerance is known before the kernels run on a card.
 
@@ -26,6 +26,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from card_helpers import pv_int8_limit
 from team_tpu_torch.ops import mha_short as tms
 from team_tpu_torch.ops.mha_short import (INV127, LOG2E, mha_packed_q3i_plain,
                                           mha_packed_q_reference)
@@ -158,13 +159,6 @@ def _q3i_inputs(b, s, heads, dh, seed=0):
         (rng.uniform(1e-4, 3e-4, (1, heads)) * 4 / np.sqrt(dh)).astype(np.float32),
         rng.uniform(20, 60, (1, d)).astype(np.float32),
         rng.uniform(3, 6, (1, heads)).astype(np.float32))]
-
-
-def pv_int8_limit(deq, oinv) -> int:
-    """As tests/test_torch_cuda.py's: one step, plus what one p8 across a
-    rounding edge moves an output by (deq_v·o_inv steps at most)."""
-    d = oinv.numel()
-    return 1 + math.ceil((deq.reshape(-1)[2 * d:] * oinv.reshape(-1)).max().item())
 
 
 def assert_within_card_limits(got, want, limit=1):

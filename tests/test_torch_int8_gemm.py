@@ -204,18 +204,11 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     gq, gs = tim.int8_linear_gelu_quant(*args, block_n=64)
     for got, want in zip((gq, gs), tim.int8_linear_gelu_quant_reference(*args, block_n=64)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    for got, want in zip(tim.int8_linear_gelu_quant_mma(*args, block_n=64), (gq, gs)):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    for kw in ({}, {"activation": "gelu", "out_dtype": torch.float32}):
-        torch.testing.assert_close(tim.int8_linear_mma(*args, **kw),
-                                   tim.int8_linear_reference(*args, **kw), rtol=0, atol=0)
     _, w2q, _, w2s, b2 = (_t(a) for a in _gemm_inputs(8, 128, 32, seed=9))
     for kw in ({}, {"out_dtype": torch.float32}):
         want = tim.int8_linear_blockscale_reference(gq, w2q, gs, w2s, b2, **kw)
         torch.testing.assert_close(tim.int8_linear_blockscale(gq, w2q, gs, w2s, b2, **kw), want,
                                    rtol=0, atol=0)
-        torch.testing.assert_close(tim.int8_linear_blockscale_mma(gq, w2q, gs, w2s, b2, **kw),
-                                   want, rtol=0, atol=0)
     x = torch.randn(24, 64, generator=torch.Generator().manual_seed(0))
     for got, want in zip(tim.ln_quantize(x, args[4][:64], args[4][64:]),
                          tim.ln_quantize_reference(x, args[4][:64], args[4][64:])):

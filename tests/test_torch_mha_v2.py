@@ -9,12 +9,7 @@ bf16-rounded p and so an output by one step; measured 2e-3). ``q_pad`` only
 aligns the TPU's rows, so every value gives the port's one result. A bf16
 ``exp_dtype`` rounds the exponent's argument to bf16 and keeps the exp in
 f32, as XLA on the CPU computes it (the check below shows that rounding the
-exp's result to bf16 too disagrees with the kernel).
-
-The yardstick ``fused_mha_short_v2_cuda_core`` (the CUDA-core kernel that
-the bf16 tensor-core kernel replaced, kept callable on the card) computes
-the same plain version on a CPU tensor: it matches the Pallas kernel and
-the wrapper, counts no launch and rejects what the wrapper rejects."""
+exp's result to bf16 too disagrees with the kernel)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,31 +87,3 @@ def test_v2_wrapper_rejects_what_it_does_not_take():
         tms.fused_mha_short_v2(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         tms.fused_mha_short_v2(q, k[:, :, :10], v)
-
-
-@pytest.mark.parametrize("kv_len", [None, 20])
-@pytest.mark.parametrize("exp_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_v2_cuda_core_yardstick_matches_the_pallas_kernel_and_the_wrapper(dtype, exp_dtype,
-                                                                          kv_len):
-    jx, tx = _inputs(dtype, shape=(2, 3, 37, 32), seed=3)
-    want = np.asarray(jms.fused_mha_short_v2(*jx, kv_len, interpret=True,
-                                             exp_dtype=JDT[exp_dtype]).astype(jnp.float32))
-    launches = tms.fused_mha_short_v2.launches
-    got = tms.fused_mha_short_v2_cuda_core(*tx, kv_len, exp_dtype=TDT[exp_dtype])
-    assert got.dtype == TDT[dtype] and got.shape == tx[0].shape
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=ATOL[dtype])
-    assert torch.equal(got, tms.fused_mha_short_v2(*tx, kv_len, exp_dtype=TDT[exp_dtype]))
-    assert tms.fused_mha_short_v2.launches == launches  # the CPU launches nothing
-
-
-def test_v2_cuda_core_yardstick_rejects_what_the_wrapper_rejects():
-    _, (q, k, v) = _inputs("bfloat16", shape=(2, 3, 37, 32), seed=3)
-    with pytest.raises(TypeError, match="exp_dtype"):
-        tms.fused_mha_short_v2_cuda_core(q, k, v, exp_dtype=torch.float16)
-    with pytest.raises(ValueError, match="kv_len"):
-        tms.fused_mha_short_v2_cuda_core(q, k, v, 0)
-    with pytest.raises(ValueError):
-        tms.fused_mha_short_v2_cuda_core(q, k[..., :16], v)
-    with pytest.raises(TypeError):
-        tms.fused_mha_short_v2_cuda_core(q, k.float(), v)

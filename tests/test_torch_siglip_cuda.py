@@ -19,6 +19,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from card_helpers import record_launches
 from team_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from team_tpu_torch.utils import phase_timer
 
@@ -47,9 +48,11 @@ def _close(out, ref):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
 
 
-def test_head_width_72_at_siglip_shape(cuda_device):
-    """B = 2, H = 16, S = 729: the tower's blocks, and a key mask."""
-    q, k, v = _qkv(2, 16, 729, cuda_device, 0)
+@pytest.mark.parametrize("b", [2, 128])
+def test_head_width_72_at_siglip_shape(cuda_device, b):
+    """B = 2 and the learners' 128, H = 16, S = 729: the tower's blocks, and a
+    key mask."""
+    q, k, v = _qkv(b, 16, 729, cuda_device, 0)
     for kv_len in (None, 500):
         launches = flash_attention.launches
         out = flash_attention(q, k, v, kv_len)
@@ -90,12 +93,12 @@ def test_head_width_72_on_the_packed_projection(cuda_device):
     assert torch.equal(flash_attention(*views(moved)), out)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 72])
-def test_one_pooling_query_shared_by_the_batch(cuda_device, dh):
+@pytest.mark.parametrize("b,dh", [(3, 32), (3, 64), (3, 72), (128, 72)])
+def test_one_pooling_query_shared_by_the_batch(cuda_device, b, dh):
     """The attention-pool head's form: q ``[B, H, 1, dh]`` with a batch
-    stride of 0 over k and v of 729 keys."""
+    stride of 0 over k and v of 729 keys, also at the learners' B=128."""
     g = torch.Generator(device=cuda_device).manual_seed(dh)
-    b, h, s = 3, 16, 729
+    h, s = 16, 729
     q = torch.randn((1, h, 1, dh), generator=g, device=cuda_device).to(torch.bfloat16)
     q = q.expand(b, h, 1, dh)
     k, v = (torch.randn((b, h, s, dh), generator=g, device=cuda_device).to(torch.bfloat16)
@@ -151,7 +154,7 @@ def test_siglip_tower_matches_the_reference_at_full_width(cuda_device):
     assert gap <= cfg["check"]["limit"]
 
 
-def test_siglip_b128_encode_launches_the_tower_kernels(cuda_device, monkeypatch):
+def test_siglip_b128_encode_launches_the_tower_kernels(cuda_device, monkeypatch, record_property):
     """One B=128 encode of the 27-block tower through ``BackboneRuntime``:
     ``bias_act`` 58 times (27 qkv, 27 fc with the tanh GELU; the head's q,
     k/v, out-projection and fc), ``residual_ln`` 55 (two a block, the
@@ -186,6 +189,8 @@ def test_siglip_b128_encode_launches_the_tower_kernels(cuda_device, monkeypatch)
             flash_attention.launches - flash
 
     feats, counts, flash = encode()
+    record_launches(record_property, {"bias_act": counts[0], "residual_ln": counts[1],
+                                      "layer_norm": counts[2], "flash_attention": flash})
     assert counts == (58, 55, 3) and flash == 28, (counts, flash)
     monkeypatch.setattr(clip, "_tower_kernels", lambda x, shard=None: False)
     want, counts, flash = encode()
